@@ -5,22 +5,25 @@ Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
-It builds the three hand-written CUDA kernels (K1 ICP reduction, K2 TSDF
-integration, K3 raycast) from infinitam_tpu_torch/csrc/, holds each one to
-its plain PyTorch version on the card at the main path's shapes, and times
-both with CUDA events. Then it replays 30 synthetic 640×480 depth frames,
-rendered on the card, through the port's frame loop at both operating points
-of the JAX package's benchmark (5 mm and 1 cm voxels), and checks tracking
-accuracy (ATE RMSE < 1 cm, rotation RMSE < 1°), the five silent-cap counters
-(max over the replay = 0) and that every kernel was launched by the replay.
+It builds the hand-written CUDA kernels (K1 ICP reduction, K2 TSDF
+integration with and without its colour half, K3 raycast) from
+infinitam_tpu_torch/csrc/, holds each one to its plain PyTorch version on the
+card at the main path's shapes, and times both with CUDA events. Then it
+replays 30 synthetic 640×480 RGB-D frames, rendered on the card, through the
+port's frame loop in the three configurations of the JAX package's
+benchmark: 5 mm and 1 cm voxels with depth ICP, and the 1 cm point with
+colour fusion (`1cm_rgb`). Each replay is gated on tracking accuracy (ATE
+RMSE < 1 cm, rotation RMSE < 1°), the five silent-cap counters (max over the
+replay = 0), every kernel of its path launched (the colour kernel on every
+frame) and no host sync in its frame loop.
 
 Output: the card's name and power limit, the kernel build time, one line per
 kernel check, per config the accuracy, counters, launch counts, the source
 line of every host sync the frame loop issued, and a per-phase time table;
-then, only if every gate passed, a JSON line with the kernel results and,
-last, `{"ok": true, "device": {...}}`. Any failure exits non-zero without
-those two lines. Without a CUDA device, or run from a directory that is not
-a checkout of the repository, it exits 1 at once.
+the total wall time; then, only if every gate passed, a JSON line with the
+kernel results and, last, `{"ok": true, "device": {...}}`. Any failure exits
+non-zero without those two lines. Without a CUDA device, or run from a
+directory that is not a checkout of the repository, it exits 1 at once.
 
     python3 chip_smoke.py --profile
 
@@ -48,6 +51,7 @@ import torch
 IMG = (480, 640)
 N_FRAMES = 30
 N_CHECK_FRAMES = 3  # frames fused before the kernel checks
+N_CHAIN_FRAMES = 3  # frames the K2 colour check fuses by kernel and by plain version
 N_TIMED = 3  # timed replays per config
 PROFILE_FRAMES = 10  # frames in the --profile window, the last of the replay
 REPO = Path(__file__).resolve().parent
@@ -81,6 +85,16 @@ def teddy_1cm_settings(cfg):
         tracking=cfg.TrackingParams(),
         alloc_subsample=4,
     )
+
+
+def color_settings(cfg):
+    """bench.py:107-112's third configuration: 1 cm with colour fusion."""
+    return teddy_1cm_settings(cfg).replace(use_color=True)
+
+
+# kernels each replay's path must launch, by launch-counter name
+DEPTH_PATH = ("icp", "integrate", "raycast")
+RGB_PATH = ("icp", "integrate_color", "raycast")
 
 
 def card_line() -> str:
@@ -143,6 +157,9 @@ class Smoke:
         self.dev = torch.device("cuda", 0)
         self.calib = calib.default_calib(IMG[1], IMG[0])
         self.proj = torch.as_tensor(self.calib.intrinsics_d.vector, device=self.dev)
+        # as bench.py:107-112 passes them: rgb intrinsics and extrinsic of the calibration
+        self.proj_rgb = torch.as_tensor(self.calib.intrinsics_rgb.vector, device=self.dev)
+        self.rgb_to_depth = torch.as_tensor(self.calib.rgb_to_depth, device=self.dev)
         self.failures: list[str] = []
 
     def gate(self, ok: bool, what: str) -> None:
@@ -151,33 +168,40 @@ class Smoke:
             self.failures.append(what)
 
     def frames(self):
-        src = self.synth.SyntheticSource(self.calib, n_frames=N_FRAMES, img_size=IMG, device=self.dev)
-        depths = [src.get_images()[0] for _ in range(N_FRAMES)]
+        """(depth frames, rgb frames, ground-truth poses), rendered on the card."""
+        src = self.synth.SyntheticSource(self.calib, n_frames=N_FRAMES, img_size=IMG, with_rgb=True, device=self.dev)
+        frames = [src.get_images() for _ in range(N_FRAMES)]
         torch.cuda.synchronize()
-        return depths, src.gt_poses
+        return [f[0] for f in frames], [f[1] for f in frames], src.gt_poses
 
     def fresh_state(self, settings):
         return self.hp.create_engine_state(settings, IMG, device=self.dev)
 
-    def run_frames(self, settings, depths, state=None, on_phase=None):
+    def run_frames(self, settings, frames, state=None, on_phase=None):
         """The port's main path: view → process_frame_hash, frame by frame,
-        from `state` (vol, render state, tracking state) or a fresh map."""
+        from `state` (vol, render state, tracking state) or a fresh map.
+        `frames` is (depths, rgbs); the rgb frames go into the view only when
+        the settings use colour."""
         mark = on_phase or (lambda _phase: None)
         vol, rs, st = state or self.fresh_state(settings)
+        depths, rgbs = frames
         poses, diags = [], []
-        for d in depths:
+        for d, rgb in zip(depths, rgbs):
             mark("start")
-            view = self.build_view(d, settings, self.calib)
+            view = self.build_view(d, settings, self.calib, rgb=rgb if settings.use_color else None)
             mark("view")
-            vol, rs, st, diag = self.hp.process_frame_hash(vol, rs, st, view, self.proj, settings, on_phase=mark)
+            vol, rs, st, diag = self.hp.process_frame_hash(vol, rs, st, view, self.proj, settings,
+                                                           proj_rgb=self.proj_rgb, rgb_to_depth=self.rgb_to_depth,
+                                                           on_phase=mark)
             mark("other")
             poses.append(st.pose)
             diags.append(diag)
         return vol, rs, st, poses, diags
 
     # --- kernel checks ----------------------------------------------------
-    def kernel_checks(self, settings, depths):
-        vol, rs, st, _p, _d = self.run_frames(settings, depths[:N_CHECK_FRAMES])
+    def kernel_checks(self, settings, frames):
+        depths, rgbs = frames
+        vol, rs, st, _p, _d = self.run_frames(settings, (depths[:N_CHECK_FRAMES], rgbs[:N_CHECK_FRAMES]))
         depth = self.build_view(depths[N_CHECK_FRAMES], settings, self.calib).depth
         out = []
 
@@ -264,11 +288,74 @@ class Smoke:
                         plain_ms=plain_ms))
         return out
 
+    def color_kernel_check(self, settings, frames, gt):
+        """K2 with its colour half against its plain version on the 1 cm RGB
+        volume after N_CHECK_FRAMES fused frames. The next N_CHAIN_FRAMES
+        RGB-D frames are fused at their true poses into that volume's visible
+        blocks, by the kernel into one copy and by the plain version into
+        another; each copy carries its own result into the next frame, and
+        the two are compared word for word after every frame. Done with the
+        calibration's extrinsic and again with a non-identity one (rgb camera
+        2.5 cm along x, turned 1.5° about y, other intrinsics), so the RGB
+        projection is exercised."""
+        depths, rgbs = frames
+        vol, rs, _st, _p, _d = self.run_frames(settings, (depths[:N_CHECK_FRAMES], rgbs[:N_CHECK_FRAMES]))
+        chain = range(N_CHECK_FRAMES, N_CHECK_FRAMES + N_CHAIN_FRAMES)
+        views = [self.build_view(depths[i], settings, self.calib, rgb=rgbs[i]) for i in chain]
+        poses = [torch.as_tensor(gt[i], device=self.dev) for i in chain]
+        sp = settings.scene
+        _ids, ptr, bpos, valid = self.hp._visible_rows(vol, rs, settings, settings.max_fused_blocks)
+        ptrs, bpos = torch.where(valid, ptr, -1).contiguous(), bpos.contiguous()
+        fuse = (torch.ones((), dtype=torch.bool, device=self.dev), sp.voxel_size, sp.mu, sp.max_w,
+                sp.stop_integrating_at_max_w, settings.hashing.block_size)
+        other_r2d = self.se3.se3_exp(torch.tensor([0.025, 0.0, 0.0, 0.0, float(np.radians(1.5)), 0.0],
+                                                  device=self.dev))
+        other_proj = self.proj_rgb * torch.tensor([1.04, 1.03, 1.0, 1.0], device=self.dev) + torch.tensor(
+            [0.0, 0.0, 1.5, -1.0], device=self.dev)
+        entry = None
+        for label, r2d, proj_rgb in (("calibration extrinsic", self.rgb_to_depth, self.proj_rgb),
+                                     ("2.5 cm / 1.5° extrinsic", other_r2d, other_proj)):
+            k = (vol.vox.clone(), vol.vox_rgb.clone())
+            p = (vol.vox.clone(), vol.vox_rgb.clone())
+            chain_args = [(ptrs, bpos, view.depth, view.rgb, pose, self.proj,
+                           (self.se3.invert(r2d) @ pose).contiguous(), proj_rgb, *fuse)
+                          for view, pose in zip(views, poses)]
+            n_depth, n_color, nd_vox, nd_rgb, lsb = [], [], 0, 0, 0
+            for kargs in chain_args:
+                before = (p[0].clone(), p[1].clone())
+                self.k_int.integrate_rgbd(*k, *kargs)
+                self.k_int.integrate_rgbd_plain(*p, *kargs)
+                n_depth.append(int((p[0] != before[0]).sum()))
+                n_color.append(int((p[1] != before[1]).sum()))
+                nd_vox += int((k[0] != p[0]).sum())
+                nd_rgb += int((k[1] != p[1]).sum())
+                ch = [((k[1] >> s) & 0xFF) - ((p[1] >> s) & 0xFF) for s in (24, 16, 8)]
+                lsb = max(lsb, int(max(c.abs().max() for c in ch)))
+            ms = cuda_ms(lambda: self.k_int.integrate_rgbd(*k, *chain_args[0]), 20)
+            plain_ms = cuda_ms(lambda: self.k_int.integrate_rgbd_plain(*p, *chain_args[0]), 5)
+            print(f"K2 integrate + colour, {label}: {int(valid.sum())} visible blocks, {N_CHAIN_FRAMES} chained "
+                  f"frames updated {'+'.join(map(str, n_depth))} depth and {'+'.join(map(str, n_color))} = "
+                  f"{sum(n_color)} colour voxels, {nd_vox} vox and {nd_rgb} vox_rgb words differ from plain over "
+                  f"the chain (max {lsb} LSB), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (first frame)")
+            # the ±μ/4 colour band holds ~80-90 k voxels a frame at 1 cm
+            self.gate(sum(n_color) > 100000, f"K2 colour ({label}) made more than 100,000 colour-voxel updates")
+            # the plain version's op order in -fmad=false float32: every word equal
+            self.gate(nd_vox == 0 and nd_rgb == 0, f"K2 colour ({label}) bit-identical to plain")
+            if entry is None:
+                entry = dict(name="integrate_color", route="cuda", source="infinitam_tpu_torch/csrc/integrate.cu",
+                             replaces="infinitam_tpu/ops/pallas/integrate_kernel.py:256", max_abs_err=lsb / 255.0,
+                             ms=ms, plain_ms=plain_ms)
+        return entry
+
     # --- replays ------------------------------------------------------------
-    def replay(self, name, settings, depths, gt):
+    def replay(self, name, settings, frames, gt, path):
+        """Replay `frames` three ways: a correctness run (poses, counters),
+        N_TIMED timed runs (the first one counts kernel launches) and a phase
+        run under the sync debug mode. Returns the launch counts."""
+        depths = frames[0]
         torch.cuda.synchronize()
         # 1) correctness run: poses, counters
-        _v, _r, _s, poses, diags = self.run_frames(settings, depths)
+        _v, _r, _s, poses, diags = self.run_frames(settings, frames)
         poses_np = torch.stack(poses).cpu().numpy().astype(np.float64)
         ate, rot = trajectory_errors(poses_np, gt.astype(np.float64))
         counters = {
@@ -288,7 +375,7 @@ class Smoke:
             if rep == 0:
                 self.build.reset_launch_counts()
             t0 = time.perf_counter()
-            self.run_frames(settings, depths, state)
+            self.run_frames(settings, frames, state)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
             if rep == 0:
@@ -317,7 +404,7 @@ class Smoke:
             warnings.showwarning = on_warning
             torch.cuda.set_sync_debug_mode("warn")
             try:
-                self.run_frames(settings, depths, state, on_phase=mark)
+                self.run_frames(settings, frames, state, on_phase=mark)
             finally:
                 torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
@@ -346,11 +433,13 @@ class Smoke:
         self.gate(ate < 0.01, f"{name} ATE RMSE < 1 cm")
         self.gate(rot < 1.0, f"{name} rotation RMSE < 1 deg")
         self.gate(all(v == 0 for v in counters.values()), f"{name} all five counters 0")
-        self.gate(all(launches[k] > 0 for k in self.build.KERNELS), f"{name} every kernel launched")
+        self.gate(all(launches[k] > 0 for k in path), f"{name} every kernel of its path launched: {', '.join(path)}")
+        if "integrate_color" in path:
+            self.gate(launches["integrate_color"] == len(depths), f"{name} colour kernel launched on every frame")
         self.gate(n_syncs == 0, f"{name} frame loop issued no host sync")
         return launches
 
-    def profile(self, name, settings, depths):
+    def profile(self, name, settings, frames):
         """torch.profiler over the last PROFILE_FRAMES frames of a replay on a
         fresh map (the frames before them warm the map up, unprofiled)."""
         from torch.autograd import DeviceType
@@ -358,11 +447,12 @@ class Smoke:
         from torch.profiler import profile as torch_profile
 
         n = PROFILE_FRAMES
-        vol, rs, st, _p, _d = self.run_frames(settings, depths[:-n])
+        depths, rgbs = frames
+        vol, rs, st, _p, _d = self.run_frames(settings, (depths[:-n], rgbs[:-n]))
         torch.cuda.synchronize()
         with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            self.run_frames(settings, depths[-n:], (vol, rs, st))
+            self.run_frames(settings, (depths[-n:], rgbs[-n:]), (vol, rs, st))
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
@@ -396,6 +486,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(REPO))
 
+    t_start = time.perf_counter()
     print(card_line())
     smoke = Smoke()
     from infinitam_tpu_torch.ops.kernels import build
@@ -404,24 +495,34 @@ def main() -> int:
     build.library()
     print(f"kernel build + load: {time.perf_counter() - t0:.1f} s (nvcc {build.last_build_seconds:.1f} s)")
 
-    depths, gt = smoke.frames()
-    ref = reference_settings(smoke.cfg)
-    kernels = smoke.kernel_checks(ref, depths)
-    cm1 = teddy_1cm_settings(smoke.cfg)
-    launches = smoke.replay("5mm", ref, depths, gt)
-    smoke.replay("1cm", cm1, depths, gt)
+    depths, rgbs, gt = smoke.frames()
+    frames = (depths, rgbs)
+    configs = [  # name, settings, kernels of its path
+        ("5mm", reference_settings(smoke.cfg), DEPTH_PATH),
+        ("1cm", teddy_1cm_settings(smoke.cfg), DEPTH_PATH),
+        ("1cm_rgb", color_settings(smoke.cfg), RGB_PATH),
+    ]
+    kernels = smoke.kernel_checks(configs[0][1], frames)
+    kernels.insert(2, smoke.color_kernel_check(configs[2][1], frames, gt))
+    # launches per kernel summed over the replays' counted runs (each run's
+    # counts are reset just before it and read just after)
+    launches = dict.fromkeys(build.KERNELS, 0)
+    for name, settings, path in configs:
+        for k, n in smoke.replay(name, settings, frames, gt, path).items():
+            launches[k] += n
     if args.profile:
-        smoke.profile("5mm", ref, depths)
-        smoke.profile("1cm", cm1, depths)
+        for name, settings, _path in configs:
+            smoke.profile(name, settings, frames)
     smoke.gate(not any(m.split(".")[0] in ("jax", "jaxlib", "infinitam_tpu") for m in sys.modules),
                "no module of JAX or of the JAX package was imported")
+    print(f"chip_smoke wall time: {time.perf_counter() - t_start:.1f} s")
 
     if smoke.failures:
         print(f"chip_smoke: {len(smoke.failures)} gate(s) failed: {smoke.failures}", file=sys.stderr)
         return 1
     for k in kernels:
         k["launches"] = launches[{"icp_reduce": "icp", "integrate_depth": "integrate",
-                                  "raycast_grid": "raycast"}[k["name"]]]
+                                  "integrate_color": "integrate_color", "raycast_grid": "raycast"}[k["name"]]]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -59,6 +59,10 @@ class RGBDCalib:
     trafo_rgb_to_depth: Tuple[Tuple[float, ...], ...]
     disparity: DisparityCalib
 
+    @property
+    def rgb_to_depth(self) -> np.ndarray:
+        return np.array(self.trafo_rgb_to_depth, dtype=np.float32)
+
 
 def default_calib(width: int = 640, height: int = 480) -> RGBDCalib:
     """A pinhole calibration with a Kinect-like field of view (~62°) at any

@@ -1,11 +1,13 @@
 """End-to-end per-frame pipeline on the voxel-block-hash volume.
 
-Counterpart of infinitam_tpu/engine/hash_pipeline.py for the depth-ICP
-tracker without colour and without swapping (reference
+Counterpart of infinitam_tpu/engine/hash_pipeline.py for the depth-ICP and
+colour trackers, with or without colour fusion, without swapping (reference
 ITMMainEngine::ProcessFrame → ITMDenseMapper::ProcessFrame →
-ITMTrackingController::Prepare). Per frame: track (kernel K1) → divergence
-gate → allocate → integrate (kernel K2) → expected-depth ranges → raycast
-(kernel K3) → ICP maps → diagnostics.
+ITMTrackingController::Prepare). Per frame: track (ICP: kernel K1; colour:
+photometric LM) → divergence gate → allocate → integrate (kernel K2, with its
+colour half when `use_color`) → expected-depth ranges → raycast (kernel K3;
+in the RGB frame for the colour tracker) → the next frame's tracking maps →
+diagnostics.
 
 Every step is a fixed sequence of tensor ops and kernel launches that reads
 nothing back to the host, so frames queue on the card without a sync. Where
@@ -27,13 +29,14 @@ from infinitam_tpu_torch.config import Settings, SwappingMode, TrackerType
 from infinitam_tpu_torch.engine import hash_volume as hv
 from infinitam_tpu_torch.engine.hash_volume import HashVolume, RenderStateVH
 from infinitam_tpu_torch.engine.tracking_state import TrackingState, create_tracking_state
-from infinitam_tpu_torch.engine.trackers import TrackResult, track_depth
+from infinitam_tpu_torch.engine.trackers import TrackResult, track_color, track_depth
 from infinitam_tpu_torch.engine.view_builder import View
 from infinitam_tpu_torch.ops import hashing
 from infinitam_tpu_torch.ops import raycast as rc
 from infinitam_tpu_torch.ops.hashing import compact_by_mask, scatter_drop
 from infinitam_tpu_torch.ops.kernels import integrate as integrate_kernel
 from infinitam_tpu_torch.ops.kernels import raycast as raycast_kernel
+from infinitam_tpu_torch.ops.voxel_access import read_color_interpolated
 from infinitam_tpu_torch.utils import se3
 
 # cap on the ±mu band DDA steps (band_steps derives the exact count)
@@ -58,14 +61,13 @@ def novel_cap(settings: Settings) -> int:
 
 
 def check_supported(settings: Settings) -> None:
-    """This slice runs the depth-ICP tracker on the block-grid hash path,
-    without colour and without swapping; other settings raise. (The
-    Pallas-only settings are ignored, see config.py.) Enums are compared by
-    value, so a Settings of the JAX package passes as well."""
+    """The port runs the depth-ICP and colour trackers on the block-grid hash
+    path, with or without colour fusion, without swapping; other settings
+    raise. (The Pallas-only settings are ignored, see config.py.) Enums are
+    compared by value, so a Settings of the JAX package passes as well."""
     unported = {
-        "tracker_type": settings.tracker_type.value != TrackerType.ICP.value,
+        "tracker_type": settings.tracker_type.value not in (TrackerType.ICP.value, TrackerType.COLOR.value),
         "swapping_mode": settings.swapping_mode.value != SwappingMode.DISABLED.value,
-        "use_color": settings.use_color,
         "use_approximate_raycast": settings.use_approximate_raycast,
         "raycast_coarse_factor": settings.raycast_coarse_factor > 1,
         "use_block_grid": not settings.use_block_grid,
@@ -286,19 +288,29 @@ def integrate_into_scene(
     pose: torch.Tensor,
     proj: torch.Tensor,
     settings: Settings,
+    proj_rgb: torch.Tensor | None = None,
+    rgb_to_depth: torch.Tensor | None = None,
     enable: torch.Tensor | bool = True,
 ) -> HashVolume:
     """IntegrateIntoScene over the visible blocks (kernel K2, in place in
-    `vol.vox`). Blocks beyond `max_fused_blocks` fuse on a later frame."""
+    `vol.vox`, and in `vol.vox_rgb` when `use_color` and the view has RGB).
+    The rgb camera sees the world through M_rgb = rgb_to_depth⁻¹ · pose
+    (reference trafo_rgb_to_depth.calib_inv · M_d). Blocks beyond
+    `max_fused_blocks` fuse on a later frame."""
     sp = settings.scene
     if not torch.is_tensor(enable):
         enable = torch.full((), bool(enable), device=vol.vox.device)
     _ids, ptr, bpos, valid = _visible_rows(vol, render_state, settings, settings.max_fused_blocks)
-    integrate_kernel.integrate_depth(
-        vol.vox, torch.where(valid, ptr, -1).contiguous(), bpos.contiguous(), view.depth.contiguous(),
-        pose, proj, enable, sp.voxel_size, sp.mu, sp.max_w, sp.stop_integrating_at_max_w,
-        settings.hashing.block_size,
-    )
+    ptrs, bpos = torch.where(valid, ptr, -1).contiguous(), bpos.contiguous()
+    fuse = (sp.voxel_size, sp.mu, sp.max_w, sp.stop_integrating_at_max_w, settings.hashing.block_size)
+    if settings.use_color and view.rgb is not None and vol.vox_rgb is not None:
+        M_rgb = se3.invert(rgb_to_depth) @ pose if rgb_to_depth is not None else pose
+        integrate_kernel.integrate_rgbd(
+            vol.vox, vol.vox_rgb, ptrs, bpos, view.depth.contiguous(), view.rgb.contiguous(), pose, proj,
+            M_rgb.contiguous(), proj_rgb if proj_rgb is not None else proj, enable, *fuse,
+        )
+    else:
+        integrate_kernel.integrate_depth(vol.vox, ptrs, bpos, view.depth.contiguous(), pose, proj, enable, *fuse)
     return vol
 
 
@@ -454,18 +466,50 @@ def prepare_tracking_maps(vol, render_state, pose, proj, img_size: Tuple[int, in
     return pm, nm, torch.zeros((), dtype=torch.int32, device=pose.device)
 
 
+def create_point_cloud(vol, render_state, pose, proj_rgb, depth_to_rgb, img_size: Tuple[int, int],
+                       settings: Settings):
+    """The colour tracker's point cloud, raycast in the RGB frame (reference
+    ITMTrackingController::Prepare colour branch + CreatePointCloud):
+    (locations, colours) as [H, W, 4] maps, metres and 0..1, w = 1 where
+    the ray hit and −1 elsewhere."""
+    res = raycast_hash(vol, render_state, depth_to_rgb @ pose, proj_rgb, img_size, settings)
+    found = (res.points[..., 3] > 0)[..., None]
+    w = torch.where(found, 1.0, -1.0)
+    zero = torch.zeros_like(res.points[..., :3])
+    locations = torch.cat([torch.where(found, res.points[..., :3] * settings.scene.voxel_size, zero), w], dim=-1)
+    clr = read_color_interpolated(hv.make_hash_color_reader(vol, settings.hashing), res.points[..., :3])
+    colours = torch.cat([torch.where(found, clr, zero), w], dim=-1)
+    return locations, colours
+
+
+def _rgb_extrinsics(rgb_to_depth, device):
+    """(depth_to_rgb, rgb_to_depth), identity when no extrinsic is given."""
+    if rgb_to_depth is None:
+        eye = torch.eye(4, dtype=torch.float32, device=device)
+        return eye, eye
+    return se3.invert(rgb_to_depth), rgb_to_depth
+
+
 def _no_phase(_name: str) -> None:
     pass
 
 
 def _track_fuse_impl(vol, render_state, state: TrackingState, view: View, proj, settings: Settings,
-                     fusion_active: bool, on_phase=_no_phase):
+                     fusion_active: bool, proj_rgb=None, rgb_to_depth=None, on_phase=_no_phase):
     """Track → divergence gate → allocate → integrate. Returns (vol,
     render_state, pose, tr, n_alloc_overflow)."""
-    tr = track_depth(
-        state.pose, view.depth, proj, state.points_map, state.normals_map, state.pose_point_cloud,
-        settings.tracking,
-    )
+    if settings.tracker_type.value == TrackerType.COLOR.value:
+        d2r, r2d = _rgb_extrinsics(rgb_to_depth, proj.device)
+        # the maps hold locations and colours (reference: same buffer pair)
+        tr = track_color(
+            state.pose, view.rgb, proj_rgb if proj_rgb is not None else proj, state.points_map,
+            state.normals_map, d2r, r2d, settings.tracking, skip_points=settings.skip_points,
+        )
+    else:
+        tr = track_depth(
+            state.pose, view.depth, proj, state.points_map, state.normals_map, state.pose_point_cloud,
+            settings.tracking,
+        )
     have_maps = state.age >= 0
     # divergence policy: a frame whose tracking energy spiked keeps the last
     # good pose and is not fused
@@ -484,17 +528,26 @@ def _track_fuse_impl(vol, render_state, state: TrackingState, view: View, proj, 
     )
     on_phase("alloc")
     if fusion_active:
-        vol = integrate_into_scene(vol, render_state, view, pose, proj, settings, enable=fuse_enable)
+        vol = integrate_into_scene(vol, render_state, view, pose, proj, settings, proj_rgb=proj_rgb,
+                                   rgb_to_depth=rgb_to_depth, enable=fuse_enable)
     on_phase("integrate")
     return vol, render_state, pose, tr, n_alloc_overflow
 
 
-def _prepare_impl(vol, render_state, view: View, pose, tr: TrackResult, proj, settings: Settings):
+def _prepare_impl(vol, render_state, view: View, pose, tr: TrackResult, proj, settings: Settings,
+                  proj_rgb=None, rgb_to_depth=None):
     """Raycast the next frame's tracking maps (reference
-    ITMTrackingController::Prepare, full-raycast branch)."""
-    points_map, normals_map, n_pool = prepare_tracking_maps(
-        vol, render_state, pose, proj, tuple(view.depth.shape), settings
-    )
+    ITMTrackingController::Prepare, full-raycast branch; for the colour
+    tracker the point cloud in the RGB frame)."""
+    img_size = tuple(view.depth.shape)
+    if settings.tracker_type.value == TrackerType.COLOR.value:
+        d2r, _r2d = _rgb_extrinsics(rgb_to_depth, proj.device)
+        points_map, normals_map = create_point_cloud(
+            vol, render_state, pose, proj_rgb if proj_rgb is not None else proj, d2r, img_size, settings
+        )
+        n_pool = torch.zeros((), dtype=torch.int32, device=pose.device)
+    else:
+        points_map, normals_map, n_pool = prepare_tracking_maps(vol, render_state, pose, proj, img_size, settings)
     return TrackingState(
         pose=pose,
         points_map=points_map,
@@ -534,33 +587,41 @@ def process_frame_hash(
     proj: torch.Tensor,
     settings: Settings,
     fusion_active: bool = True,
+    proj_rgb: torch.Tensor | None = None,
+    rgb_to_depth: torch.Tensor | None = None,
     on_phase=_no_phase,
 ) -> Tuple[HashVolume, RenderStateVH, TrackingState, FrameDiagnostics]:
     """One frame on the hash volume: track → allocate + fuse → raycast.
-    `vol.vox` is updated in place; every other state tensor is new.
+    `vol.vox` (and `vol.vox_rgb`) is updated in place; every other state
+    tensor is new. With colour (`use_color` or the colour tracker) the view
+    carries RGB, `proj_rgb` holds the rgb intrinsics (default: `proj`) and
+    `rgb_to_depth` the extrinsic (default: identity).
 
     `on_phase(name)` is called as each phase has been issued ("track",
     "alloc", "integrate", "raycast"), so a caller can record a CUDA event
     there to time the phases; it must not sync."""
     check_supported(settings)
     vol, render_state, pose, tr, n_alloc_overflow = _track_fuse_impl(
-        vol, render_state, state, view, proj, settings, fusion_active, on_phase
+        vol, render_state, state, view, proj, settings, fusion_active, proj_rgb, rgb_to_depth, on_phase
     )
-    new_state, n_pool = _prepare_impl(vol, render_state, view, pose, tr, proj, settings)
+    new_state, n_pool = _prepare_impl(vol, render_state, view, pose, tr, proj, settings, proj_rgb, rgb_to_depth)
     on_phase("raycast")
     diag = _frame_diag(vol, render_state, pose, proj, tr, settings, n_alloc_overflow, n_pool)
     return vol, render_state, new_state, diag
 
 
 def process_sequence_hash(vol, render_state, state, depths: torch.Tensor, proj, settings: Settings,
-                          fusion_active: bool = True):
-    """Replay N depth frames [N, H, W] with a Python frame loop that never
-    syncs with the host. Returns (vol, render_state, state, poses [N,4,4],
-    diags with [N]-stacked fields)."""
+                          fusion_active: bool = True, rgbs: torch.Tensor | None = None,
+                          proj_rgb: torch.Tensor | None = None, rgb_to_depth: torch.Tensor | None = None):
+    """Replay N depth frames [N, H, W] (with `rgbs` [N, H, W, 3] float 0..1
+    for the colour path) with a Python frame loop that never syncs with the
+    host. Returns (vol, render_state, state, poses [N,4,4], diags with
+    [N]-stacked fields)."""
     poses, diags = [], []
-    for depth in depths:
+    for i, depth in enumerate(depths):
         vol, render_state, state, diag = process_frame_hash(
-            vol, render_state, state, View(depth=depth), proj, settings, fusion_active=fusion_active
+            vol, render_state, state, View(depth=depth, rgb=None if rgbs is None else rgbs[i]), proj, settings,
+            fusion_active=fusion_active, proj_rgb=proj_rgb, rgb_to_depth=rgb_to_depth,
         )
         poses.append(state.pose)
         diags.append(diag)
@@ -571,6 +632,7 @@ def process_sequence_hash(vol, render_state, state, depths: torch.Tensor, proj, 
 def create_engine_state(settings: Settings, img_size: Tuple[int, int], device: torch.device | str = "cpu"):
     """(HashVolume, RenderStateVH, TrackingState) for a fresh map on `device`."""
     check_supported(settings)
-    vol = hv.create_hash(settings.hashing, grid_params=settings.block_grid, device=device)
+    vol = hv.create_hash(settings.hashing, with_color=settings.use_color, grid_params=settings.block_grid,
+                         device=device)
     rs = hv.create_render_state(settings.hashing, grid_params=settings.block_grid, device=device)
     return vol, rs, create_tracking_state(img_size, device=device)

@@ -10,8 +10,8 @@ entry_ptr semantics (reference ITMHashEntry.ptr): ≥0 → block index in the
 voxel block array (VBA); −1 → allocated but swapped out; ≤−2 → empty entry.
 
 Functions return new state tensors like their JAX counterparts, with one
-exception: `vox` is updated in place by the integrate step
-(ops/kernels/integrate.py), as the Pallas kernel aliases it.
+exception: `vox` (and `vox_rgb` with colour) is updated in place by the
+integrate step (ops/kernels/integrate.py), as the Pallas kernel aliases it.
 """
 
 from __future__ import annotations
@@ -95,7 +95,8 @@ class HashVolume(NamedTuple):
     last_free_block: torch.Tensor  # int32 index of the stack top
     excess_list: torch.Tensor  # [X] int32 free excess-entry stack
     last_free_excess: torch.Tensor  # int32
-    vox_rgb: Optional[torch.Tensor] = None  # colour fusion is not ported yet: always None
+    # [B, S³] int32 packed r<<24 | g<<16 | b<<8 | wc, or None without colour
+    vox_rgb: Optional[torch.Tensor] = None
     # dense cell→entry grid over the working window, [G³] int32 packed
     # (entry_idx << 1) | swapped, −1 = no entry (see build_entry_grid)
     entry_grid: Optional[torch.Tensor] = None
@@ -121,9 +122,11 @@ def sentinel_row(params: VoxelBlockHashParams) -> int:
     return params.n_blocks - 1
 
 
-def create_hash(params: VoxelBlockHashParams, grid_params=None, device: torch.device | str = "cpu") -> HashVolume:
+def create_hash(params: VoxelBlockHashParams, with_color: bool = False, grid_params=None,
+                device: torch.device | str = "cpu") -> HashVolume:
     """Allocate + reset (reference ResetScene: free lists full, entries empty,
-    sdf = 1, w = 0). `grid_params` enables the entry/block grid caches."""
+    sdf = 1, w = 0; colour 0 with weight 0 when `with_color`). `grid_params`
+    enables the entry/block grid caches."""
     E, B, X, S3 = params.n_entries, params.n_blocks, params.n_excess, params.block_volume
     i32 = dict(dtype=torch.int32, device=device)
     eg = bg = None
@@ -140,6 +143,7 @@ def create_hash(params: VoxelBlockHashParams, grid_params=None, device: torch.de
         last_free_block=torch.full((), B - 2, **i32),
         excess_list=torch.arange(X, **i32),
         last_free_excess=torch.full((), X - 1, **i32),
+        vox_rgb=torch.zeros((B, S3), **i32) if with_color else None,
         entry_grid=eg,
         block_grid=bg,
     )
@@ -330,6 +334,24 @@ def make_grid_reader(vol: HashVolume, grid: torch.Tensor, grid_params, params: V
         row = torch.where(found, ptr, 0).long()
         sdf = vox_sdf(flat_vox[row * S3 + linear.long()])
         return torch.where(found, sdf, torch.ones_like(sdf)), found
+
+    return read
+
+
+def make_hash_color_reader(vol: HashVolume, params: VoxelBlockHashParams):
+    """`(int voxel pts [..., 3]) -> colour [..., 3]` in 0..1 through the hash
+    table; unallocated voxels (or a volume without colour) read 0."""
+    S = params.block_size
+    S3 = params.block_volume
+
+    def read(pts_int: torch.Tensor):
+        if vol.vox_rgb is None:
+            return torch.zeros(pts_int.shape[:-1] + (3,), dtype=torch.float32, device=pts_int.device)
+        block, linear = point_to_block(pts_int, S)
+        pr = probe(vol, block, params, include_swapped=False)
+        row = torch.where(pr.found, pr.entry_ptr, 0).long()
+        c = clr_from_q(rgb_clr_q(vol.vox_rgb.reshape(-1)[row * S3 + linear.long()]))
+        return torch.where(pr.found[..., None], c, torch.zeros_like(c))
 
     return read
 

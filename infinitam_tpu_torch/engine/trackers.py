@@ -1,12 +1,14 @@
-"""Hierarchical Gauss-Newton depth ICP (reference ITMDepthTracker TrackCamera).
+"""Camera trackers: hierarchical Gauss-Newton depth ICP (reference
+ITMDepthTracker TrackCamera) and the photometric colour tracker (reference
+ITMColorTracker).
 
-Counterpart of the ICP part of infinitam_tpu/engine/trackers.py. Each
-pyramid level runs a fixed `n_iter` Gauss-Newton loop; once a level has
+Counterpart of the ICP and colour parts of infinitam_tpu/engine/trackers.py.
+Each pyramid level runs a fixed number of iterations; once a level has
 converged its state is frozen by a mask, which gives the same result as the
-JAX package's early-exit loop without reading the convergence flag back to
-the host. The per-iteration residual pass and 6×6 reduction is kernel K1
-(ops/kernels/icp.py); the damped solve, pose update and accept/reject logic
-stay in PyTorch on [6, 6] / [6] / [4, 4] tensors.
+JAX package's early-exit loops without reading the convergence flag back to
+the host. ICP's per-iteration residual pass and 6×6 reduction is kernel K1
+(ops/kernels/icp.py); the damped solves, pose updates and accept/reject
+logic stay in PyTorch on [6, 6] / [6] / [4, 4] tensors.
 """
 
 from __future__ import annotations
@@ -16,9 +18,10 @@ from typing import List, NamedTuple
 import torch
 
 from infinitam_tpu_torch.config import TrackingParams
+from infinitam_tpu_torch.ops import color_tracking as ct
 from infinitam_tpu_torch.ops import icp
 from infinitam_tpu_torch.ops.kernels import icp as icp_kernel
-from infinitam_tpu_torch.ops.pyramid import build_depth_pyramid
+from infinitam_tpu_torch.ops.pyramid import build_depth_pyramid, build_rgb_pyramid, gradient_x, gradient_y
 from infinitam_tpu_torch.utils import se3
 
 
@@ -135,3 +138,70 @@ def track_depth(
         n_final = n_last
 
     return TrackResult(pose=se3.invert(se3.coerce(inv_pose)), f=f_final, num_valid=n_final)
+
+
+# colour tracker LM constants (reference ITMColorTracker.cpp minimizeLM; the
+# JAX package caps the steps per level at 50)
+COLOR_MAX_STEPS = 50
+COLOR_MIN_STEP = 5e-5
+COLOR_MIN_DECREASE = 1e-5
+COLOR_G1, COLOR_G2 = 0.75, 0.25
+
+
+def track_color(
+    pose: torch.Tensor,  # [4,4] world→depth camera (pose_d)
+    rgb: torch.Tensor,  # [H, W, 3] observed rgb, 0..1
+    proj_rgb: torch.Tensor,  # rgb intrinsics (level 0)
+    locations: torch.Tensor,  # [Hs, Ws, 4] point-cloud world positions (w = ±1)
+    colours: torch.Tensor,  # [Hs, Ws, 4] known colours (w = ±1)
+    depth_to_rgb: torch.Tensor,  # [4,4] extrinsic (rgb_to_depth⁻¹)
+    rgb_to_depth: torch.Tensor,  # [4,4] extrinsic
+    params: TrackingParams,
+    skip_points: bool = True,
+) -> TrackResult:
+    """Photometric LM tracker with trust-region λ control (reference
+    minimizeLM: γ₁ = .75 / γ₂ = .25, λ ÷2 / ×4, MIN_STEP 5e-5, MIN_DECREASE
+    1e-5), coarse→fine over an rgb pyramid against the full-resolution point
+    cloud; the pose is optimised in the RGB frame (depth_to_rgb · pose).
+    Each level runs COLOR_MAX_STEPS steps and freezes its state once done,
+    as the JAX package's while_loop stops."""
+    dev = rgb.device
+    pyr = build_rgb_pyramid(rgb, params.color_n_levels)
+    if skip_points:
+        locations, colours = locations[::2, ::2], colours[::2, ::2]
+    diag_idx = torch.eye(6, dtype=torch.bool, device=dev)
+
+    M = depth_to_rgb @ pose
+    f_last = torch.full((), 1e5, dtype=torch.float32, device=dev)
+    for lvl in range(params.color_n_levels - 1, -1, -1):
+        img = pyr[lvl]
+        gx, gy = gradient_x(img), gradient_y(img)
+        proj_l = proj_rgb * (0.5**lvl)
+        f = torch.full((), float("inf"), dtype=torch.float32, device=dev)
+        lam = torch.full((), 0.01, dtype=torch.float32, device=dev)
+        done = torch.zeros((), dtype=torch.bool, device=dev)
+        for _ in range(COLOR_MAX_STEPS):
+            gh = ct.color_g(locations, colours, img, gx, gy, proj_l, M)
+            d = torch.diagonal(gh.hessian)
+            scaled = torch.where(d.abs() >= 1e-15, d * (1.0 + lam), lam * 1e-10)
+            A = torch.where(diag_idx, torch.diag_embed(scaled), gh.hessian)
+            step = -icp.solve_psd(A, gh.nabla)
+            small = step.abs().amax() < COLOR_MIN_STEP
+
+            M2 = se3.coerce(se3.se3_exp(step) @ M)
+            f2, _n = ct.color_f(locations, colours, img, proj_l, M2)
+            pred = -(gh.nabla @ step + 0.5 * step @ gh.hessian @ step)
+            rho = (gh.f - f2) / torch.where(pred.abs() < 1e-20, torch.full_like(pred, 1e-20), pred.abs())
+            success = rho > COLOR_G2
+            lam_new = torch.where(rho > COLOR_G1, lam / 2.0, torch.where(success, lam, lam * 4.0))
+            no_decrease = ~(f2 < gh.f - gh.f.abs() * COLOR_MIN_DECREASE)
+            accept = success & ~small
+
+            M = torch.where(done, M, torch.where(accept, M2, M))
+            f = torch.where(done, f, torch.where(accept, f2, gh.f))
+            lam = torch.where(done, lam, lam_new)
+            done = done | small | (success & no_decrease)
+        f_last = f
+
+    n_last = (locations[..., 3] > 0).sum(dtype=torch.int32)
+    return TrackResult(pose=se3.coerce(rgb_to_depth @ M), f=f_last, num_valid=n_last)

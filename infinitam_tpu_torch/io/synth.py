@@ -1,6 +1,7 @@
-"""Synthetic depth sequence: analytic-SDF scene + exact sphere-traced renderer
-(counterpart of infinitam_tpu/io/synth.py). Renders on whatever device the
-source is given, so a replay on the card needs no host frames."""
+"""Synthetic RGB-D sequence: analytic-SDF scene with a procedural surface
+colour + exact sphere-traced renderer (counterpart of
+infinitam_tpu/io/synth.py). Renders on whatever device the source is given,
+so a replay on the card needs no host frames."""
 
 from __future__ import annotations
 
@@ -34,6 +35,17 @@ def scene_sdf(p: torch.Tensor) -> torch.Tensor:
     return torch.minimum(torch.minimum(d_sphere, d_box), torch.minimum(d_sphere2, d_wall))
 
 
+def scene_color(p: torch.Tensor) -> torch.Tensor:
+    """Procedural surface colour [..., 3] in 0..1: a high-contrast texture
+    along every axis, so the photometric energy constrains all six pose
+    DoF."""
+    x, y, z = p[..., 0], p[..., 1], p[..., 2]
+    r = 0.5 + 0.25 * torch.sin(x * 23.0 + z * 7.0) + 0.25 * torch.sin(y * 17.0)
+    g = 0.5 + 0.25 * torch.sin(y * 19.0 - x * 11.0) + 0.25 * torch.cos(z * 13.0)
+    b = 0.5 + 0.25 * torch.sin(z * 21.0 + y * 9.0) + 0.25 * torch.cos(x * 15.0)
+    return torch.stack([r, g, b], dim=-1).clamp(0.0, 1.0)
+
+
 def render_depth(
     pose: torch.Tensor,  # [4,4] world→camera
     proj: torch.Tensor,  # (fx, fy, cx, cy)
@@ -64,6 +76,23 @@ def render_depth(
     return torch.where(hit, t / ray_scale, torch.full_like(t, -1.0))
 
 
+def render_rgbd(pose: torch.Tensor, proj: torch.Tensor, img_size: Tuple[int, int], t_min: float = 0.2,
+                t_max: float = 4.0, n_steps: int = 96):
+    """Depth [H, W] and colour [H, W, 3] (0..1, 0 at misses) seen by one
+    camera: the colour of each depth pixel's back-projected hit point."""
+    depth = render_depth(pose, proj, img_size, t_min, t_max, n_steps)
+    H, W = img_size
+    fx, fy, cx, cy = proj[0], proj[1], proj[2], proj[3]
+    inv = se3.invert(pose)
+    xs = torch.arange(W, dtype=torch.float32, device=pose.device)[None, :].expand(H, W)
+    ys = torch.arange(H, dtype=torch.float32, device=pose.device)[:, None].expand(H, W)
+    z = torch.where(depth > 0, depth, torch.ones_like(depth))
+    p_cam = torch.stack([z * (xs - cx) / fx, z * (ys - cy) / fy, z], dim=-1)
+    p_world = torch.einsum("ij,hwj->hwi", inv[:3, :3], p_cam) + inv[:3, 3]
+    rgb = torch.where((depth > 0)[..., None], scene_color(p_world), torch.zeros_like(p_world))
+    return depth, rgb
+
+
 def make_trajectory(n_frames: int, scale: float = 1.0, step: float = 0.01) -> np.ndarray:
     """Smooth ground-truth world→camera poses [N, 4, 4] (float32): a slow arc
     with gentle rotation in all six DoF, ~1.5 cm / ~0.5° per frame."""
@@ -84,9 +113,12 @@ def make_trajectory(n_frames: int, scale: float = 1.0, step: float = 0.01) -> np
 
 class SyntheticSource:
     """Pull-style frame source (reference ImageSourceEngine contract) with
-    ground-truth poses attached; frames render on `device`."""
+    ground-truth poses attached; frames render on `device`. With `with_rgb`
+    the colour image is rendered from the depth camera (an identity
+    rgb-to-depth extrinsic and the depth intrinsics)."""
 
-    def __init__(self, calib, n_frames: int = 50, img_size=None, device: torch.device | str = "cpu"):
+    def __init__(self, calib, n_frames: int = 50, img_size=None, with_rgb: bool = False,
+                 device: torch.device | str = "cpu"):
         self.calib = calib
         intr = calib.intrinsics_d
         self.img_size = img_size or (intr.height, intr.width)
@@ -94,13 +126,18 @@ class SyntheticSource:
         self.proj = torch.as_tensor(intr.vector, device=self.device)
         self.gt_poses = make_trajectory(n_frames)
         self.n_frames = n_frames
+        self.with_rgb = with_rgb
         self._i = 0
 
     def has_more_images(self) -> bool:
         return self._i < self.n_frames
 
     def get_images(self):
-        """→ (depth [H, W] on the source's device, rgb None, gt pose [4, 4])."""
+        """→ (depth [H, W] on the source's device, rgb [H, W, 3] or None,
+        gt pose [4, 4])."""
         pose = torch.as_tensor(self.gt_poses[self._i], device=self.device)
         self._i += 1
+        if self.with_rgb:
+            depth, rgb = render_rgbd(pose, self.proj, self.img_size)
+            return depth, rgb, pose
         return render_depth(pose, self.proj, self.img_size), None, pose

@@ -110,17 +110,22 @@ def solve_delta(nabla: torch.Tensor, hessian: torch.Tensor, lam: torch.Tensor, m
     idx = {MODE_BOTH: slice(0, 6), MODE_ROTATION: slice(0, 3), MODE_TRANSLATION: slice(3, 6)}[mode]
     sub = hessian[idx, idx]
     g = nabla[idx]
-    n = sub.shape[0]
-    eye = torch.eye(n, dtype=sub.dtype, device=sub.device)
-    Amat = sub * (1.0 + lam * eye)
-    L, info = torch.linalg.cholesky_ex(Amat)
-    y = torch.linalg.solve_triangular(L, g[:, None], upper=False)
-    x = torch.linalg.solve_triangular(L.T, y, upper=True)[:, 0]
-    ok = (info == 0) & torch.isfinite(x).all()
-    x = torch.where(ok, x, torch.zeros_like(x))
+    eye = torch.eye(sub.shape[0], dtype=sub.dtype, device=sub.device)
+    x = solve_psd(sub * (1.0 + lam * eye), g)
     step = torch.zeros(6, dtype=x.dtype, device=x.device)
     step[idx] = x
     return step
+
+
+def solve_psd(A: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """x with A x = g by Cholesky, or zeros when A is not positive definite
+    or x is not finite (the JAX package's `_solve_psd` guard), with no host
+    sync; shared by the ICP and colour trackers."""
+    L, info = torch.linalg.cholesky_ex(A)
+    y = torch.linalg.solve_triangular(L, g[:, None], upper=False)
+    x = torch.linalg.solve_triangular(L.T, y, upper=True)[:, 0]
+    ok = (info == 0) & torch.isfinite(x).all()
+    return torch.where(ok, x, torch.zeros_like(x))
 
 
 def apply_delta(approx_inv_pose: torch.Tensor, step: torch.Tensor) -> torch.Tensor:

@@ -49,12 +49,15 @@ SIGNATURES = {
     # vox, ptrs, bpos, n_rows, block_size, depth, h, w, cam, enable, voxel_size, mu, max_w,
     # stop_at_max_w, stream
     "itpu_integrate_depth": (P, P, P, I, I, P, I, I, P, P, F, F, I, I, P),
+    # vox, vox_rgb, ptrs, bpos, n_rows, block_size, depth, h, w, rgb, rh, rw, cam, enable, voxel_size, mu,
+    # max_w, stop_at_max_w, stream
+    "itpu_integrate_rgbd": (P, P, P, P, I, I, P, I, I, P, I, I, P, P, F, F, I, I, P),
     # vox, grid, gx, gy, gz, ox, oy, oz, pt_start, ray_dir, len_start, len_end, n_rays,
     # step_scale, block_size, out, stream
     "itpu_raycast_grid": (P, P, I, I, I, I, I, I, P, P, P, P, I, F, I, P, P),
 }
 
-KERNELS = ("icp", "integrate", "raycast")
+KERNELS = ("icp", "integrate", "integrate_color", "raycast")
 _launches = dict.fromkeys(KERNELS, 0)
 
 # seconds the last build took in this process (0 while none ran)

@@ -1,17 +1,19 @@
-"""TSDF fusion core, depth half — running-average voxel update.
+"""TSDF fusion core — depth and colour running-average voxel updates.
 
-Counterpart of the depth half of infinitam_tpu/ops/tsdf.py (reference:
-DeviceAgnostic/ITMSceneReconstructionEngine.h:10-58,
-computeUpdatedVoxelDepthInfo). The colour half is not ported yet. This is the
-arithmetic of kernel K2's plain version (ops/kernels/integrate.py).
+Counterpart of infinitam_tpu/ops/tsdf.py (reference:
+DeviceAgnostic/ITMSceneReconstructionEngine.h:10-139,
+computeUpdatedVoxelDepthInfo, computeUpdatedVoxelColorInfo,
+ComputeUpdatedVoxelInfo<hasColor>). This is the arithmetic of kernel K2's
+plain versions (ops/kernels/integrate.py).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from infinitam_tpu_torch.ops.pixel import bilinear
 from infinitam_tpu_torch.utils import se3
 
 
@@ -67,3 +69,68 @@ def update_voxel_depth(
         eta=torch.where(valid, eta, torch.full_like(eta, -1.0)),
         updated=do_update,
     )
+
+
+def update_voxel_color(
+    old_clr: torch.Tensor,  # [..., 3] float 0..1
+    old_wc: torch.Tensor,  # int32
+    pt_world: Tuple[torch.Tensor, torch.Tensor, torch.Tensor],  # metres, component planes
+    M_rgb: torch.Tensor,  # [4,4] world→rgb camera
+    proj_rgb: torch.Tensor,  # (fx, fy, cx, cy) of the rgb camera
+    rgb: torch.Tensor,  # [H, W, 3] float 0..1
+    eta: torch.Tensor,  # update_voxel_depth's eta (−1 where no ray)
+    mu: float,
+    max_w: int,
+    depth_updated: torch.Tensor,  # bool
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Colour running average of the voxels near the surface (|η/μ| ≤ 0.25
+    and η ≤ μ, among those the depth update touched): project into the rgb
+    image, take a bilinear tap inside the 1 px margin, fold it in with
+    weight 1 (capped at max_w). Returns (clr, wc)."""
+    H, W = rgb.shape[:2]
+    fx, fy, cx, cy = proj_rgb[0], proj_rgb[1], proj_rgb[2], proj_rgb[3]
+    gate = depth_updated & ~((eta > mu) | (torch.abs(eta / mu) > 0.25))
+    pc = se3.apply_planes(M_rgb, *pt_world)
+    z = torch.where(pc[2] == 0, torch.full_like(pc[2], 1e-6), pc[2])
+    u = fx * pc[0] / z + cx
+    v = fy * pc[1] / z + cy
+    gate = gate & (u >= 1) & (u <= W - 2) & (v >= 1) & (v <= H - 2)
+    measure = bilinear(rgb, u, v)
+    new_c = (old_clr * old_wc[..., None] + measure) / (old_wc + 1)[..., None]
+    new_wc = torch.clamp(old_wc + 1, max=max_w)
+    return torch.where(gate[..., None], new_c, old_clr), torch.where(gate, new_wc, old_wc)
+
+
+def integrate_dense(
+    vol_sdf: torch.Tensor,
+    vol_w: torch.Tensor,
+    pt_world: Tuple[torch.Tensor, torch.Tensor, torch.Tensor],
+    M_d: torch.Tensor,
+    proj_d: torch.Tensor,
+    depth: torch.Tensor,
+    mu: float,
+    max_w: int,
+    stop_at_max_w: bool = False,
+    vol_clr: Optional[torch.Tensor] = None,
+    vol_wc: Optional[torch.Tensor] = None,
+    M_rgb: Optional[torch.Tensor] = None,
+    proj_rgb: Optional[torch.Tensor] = None,
+    rgb: Optional[torch.Tensor] = None,
+):
+    """One fused elementwise pass over a set of voxels: the depth update,
+    then with `vol_clr` the colour update. Voxels at max_w keep depth and
+    colour when `stop_at_max_w`. Returns (sdf, w, clr, wc), the last two
+    None without colour."""
+    upd = update_voxel_depth(vol_sdf, vol_w, pt_world, M_d, proj_d, depth, mu, max_w)
+    sdf, w = upd.sdf, upd.w_depth
+    frozen = vol_w >= max_w if stop_at_max_w else None
+    if frozen is not None:
+        sdf = torch.where(frozen, vol_sdf, sdf)
+        w = torch.where(frozen, vol_w, w)
+    if vol_clr is None:
+        return sdf, w, None, None
+    clr, wc = update_voxel_color(vol_clr, vol_wc, pt_world, M_rgb, proj_rgb, rgb, upd.eta, mu, max_w, upd.updated)
+    if frozen is not None:
+        clr = torch.where(frozen[..., None], vol_clr, clr)
+        wc = torch.where(frozen, vol_wc, wc)
+    return sdf, w, clr, wc

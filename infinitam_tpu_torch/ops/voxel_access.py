@@ -1,7 +1,8 @@
-"""SDF access combinators over a `read(int_pts) -> (sdf, found)` closure.
+"""SDF and colour access combinators over a `read(int_pts)` closure.
 
 Counterpart of infinitam_tpu/ops/voxel_access.py (reference:
-DeviceAgnostic/ITMRepresentationAccess.h:144-356, readFromSDF_float_*).
+DeviceAgnostic/ITMRepresentationAccess.h:144-356, readFromSDF_float_*,
+readFromSDF_color4u_interpolated).
 """
 
 from __future__ import annotations
@@ -42,3 +43,23 @@ def read_sdf_interpolated(read: ReadFn, pts: torch.Tensor):
     for k in f.values():
         found = found & k
     return sdf, found
+
+
+def read_color_interpolated(read_color: Callable[[torch.Tensor], torch.Tensor], pts: torch.Tensor) -> torch.Tensor:
+    """Trilinear RGB [..., 3] at float voxel coords over the 8 surrounding
+    voxels; `read_color(int_pts)` → [..., 3]."""
+    base = torch.floor(pts)
+    coeff = (pts - base)[..., None]
+    ibase = base.to(torch.int32)
+    out = torch.zeros(pts.shape[:-1] + (3,), dtype=torch.float32, device=pts.device)
+    for dx in (0, 1):
+        for dy in (0, 1):
+            for dz in (0, 1):
+                w = (
+                    (coeff[..., 0, :] if dx else 1 - coeff[..., 0, :])
+                    * (coeff[..., 1, :] if dy else 1 - coeff[..., 1, :])
+                    * (coeff[..., 2, :] if dz else 1 - coeff[..., 2, :])
+                )
+                off = torch.stack([ibase[..., 0] + dx, ibase[..., 1] + dy, ibase[..., 2] + dz], dim=-1)
+                out = out + w * read_color(off)
+    return out

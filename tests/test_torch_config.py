@@ -62,7 +62,23 @@ def test_default_calib_matches_jax(size):
 def test_supported_settings_gate_reads_either_package(cfg):
     s = cfg.tiny_test_settings()
     t_hp.check_supported(s)
+    for good in (dict(use_color=True), dict(use_color=True, tracker_type=cfg.TrackerType.COLOR)):
+        t_hp.check_supported(s.replace(**good))
     for bad in (dict(tracker_type=cfg.TrackerType.WICP), dict(swapping_mode=cfg.SwappingMode.ENABLED),
-                dict(use_color=True)):
+                dict(tracker_type=cfg.TrackerType.REN)):
         with pytest.raises(NotImplementedError):
             t_hp.check_supported(s.replace(**bad))
+
+
+def test_rgb_to_depth_matches_jax():
+    """The extrinsic as a float32 [4, 4] array, for the default and for a
+    calibration with a baseline and a rotation."""
+    c, s = np.cos(0.02), np.sin(0.02)
+    trafo = ((c, 0.0, s, 0.025), (0.0, 1.0, 0.0, 0.0), (-s, 0.0, c, 0.001), (0.0, 0.0, 0.0, 1.0))
+    for size in ((640, 480), (80, 60)):
+        t, j = t_calib.default_calib(*size), j_calib.default_calib(*size)
+        for tc, jc in ((t, j), (dataclasses.replace(t, trafo_rgb_to_depth=trafo),
+                                dataclasses.replace(j, trafo_rgb_to_depth=trafo))):
+            a, b = tc.rgb_to_depth, jc.rgb_to_depth
+            assert a.dtype == b.dtype == np.float32 and a.shape == (4, 4)
+            np.testing.assert_array_equal(a, b)

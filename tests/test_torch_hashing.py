@@ -27,6 +27,10 @@ from infinitam_tpu_torch.engine import tracking_state as t_ts
 from infinitam_tpu_torch.ops import hashing as t_hash
 
 PARAMS = VoxelBlockHashParams(n_buckets=0x400, n_excess=0x100, n_blocks=0x400, max_visible_blocks=0x200)
+
+# the tensors here are tiny: one intra-op thread per process keeps torch from
+# contending for the cores with the other test workers (tier-1 runs under xdist)
+torch.set_num_threads(1)
 GRID = BlockGridParams(dims=(16, 16, 16), origin=(-8, -8, 0))
 
 

@@ -3,8 +3,8 @@
 The port must run where no JAX is installed: every module imports torch and
 never jax, nor any module of the JAX package (config and calib are the port's
 own copies). On the CPU every kernel wrapper
-takes its plain PyTorch version, so a CPU frame must leave every launch
-counter at 0 and never build the CUDA library.
+takes its plain PyTorch version, so a CPU frame, with colour or without,
+must leave every launch counter at 0 and never build the CUDA library.
 """
 
 import os
@@ -16,13 +16,18 @@ import numpy as np
 import torch
 
 from infinitam_tpu_torch.calib import default_calib
-from infinitam_tpu_torch.config import TrackingParams, tiny_test_settings
+from infinitam_tpu_torch.config import TrackerType, TrackingParams, tiny_test_settings
 from infinitam_tpu_torch.engine import hash_pipeline as hp
+from infinitam_tpu_torch.engine import hash_volume as hv
 from infinitam_tpu_torch.engine.view_builder import build_view_from_metric_depth
 from infinitam_tpu_torch.io import synth
 from infinitam_tpu_torch.ops.kernels import build
 
 REPO = Path(__file__).resolve().parents[1]
+
+# the tensors here are tiny: one intra-op thread per process keeps torch from
+# contending for the cores with the other test workers (tier-1 runs under xdist)
+torch.set_num_threads(1)
 
 IMPORT_ALL = r"""
 import importlib, pkgutil, sys
@@ -64,5 +69,29 @@ def test_cpu_frame_uses_only_plain_versions():
     # the second frame tracked against the first one's maps: real work ran
     assert int(diag.num_valid) > 1000
     assert np.isfinite(st.pose.numpy()).all()
-    assert build.launch_counts() == {"icp": 0, "integrate": 0, "raycast": 0}
+    assert build.launch_counts() == {"icp": 0, "integrate": 0, "integrate_color": 0, "raycast": 0}
     assert build.library.cache_info().currsize == 0  # no CUDA library was built or loaded
+
+
+def test_cpu_color_frames_use_only_plain_versions():
+    """Colour fusion under the ICP tracker, then the colour tracker."""
+    img = (60, 80)
+    calib = default_calib(img[1], img[0])
+    proj = torch.as_tensor(calib.intrinsics_d.vector)
+    src = synth.SyntheticSource(calib, n_frames=2, img_size=img, with_rgb=True)
+    frames = [src.get_images() for _ in range(2)]
+    build.reset_launch_counts()
+    for tracker in (TrackerType.ICP, TrackerType.COLOR):
+        settings = tiny_test_settings().replace(
+            tracking=TrackingParams(n_levels=3, min_valid_points=50, color_n_levels=3), use_color=True,
+            tracker_type=tracker,
+        )
+        vol, rs, st = hp.create_engine_state(settings, img)
+        for depth, rgb, _gt in frames:
+            view = build_view_from_metric_depth(depth, settings, calib, rgb=rgb)
+            vol, rs, st, diag = hp.process_frame_hash(vol, rs, st, view, proj, settings, proj_rgb=proj)
+        assert int(diag.num_valid) > 500
+        assert int((hv.rgb_wc(vol.vox_rgb) > 0).sum()) > 1000
+        assert np.isfinite(st.pose.numpy()).all()
+    assert build.launch_counts() == dict.fromkeys(build.KERNELS, 0)
+    assert build.library.cache_info().currsize == 0

@@ -35,6 +35,10 @@ from infinitam_tpu_torch.utils import se3 as t_se3
 
 IMG = (60, 80)
 
+# the tensors here are tiny: one intra-op thread per process keeps torch from
+# contending for the cores with the other test workers (tier-1 runs under xdist)
+torch.set_num_threads(1)
+
 
 def T(a):
     return torch.from_numpy(np.array(a))

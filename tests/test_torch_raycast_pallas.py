@@ -24,6 +24,10 @@ from infinitam_tpu_torch.engine import hash_volume as t_hv
 
 IMG = (64, 64)  # a multiple of the Pallas kernel's 16-px tile
 
+# the tensors here are tiny: one intra-op thread per process keeps torch from
+# contending for the cores with the other test workers (tier-1 runs under xdist)
+torch.set_num_threads(1)
+
 
 def test_plain_k3_within_pallas_kernel_bars():
     settings = Settings(  # tests/test_pallas_raycast.py's settings

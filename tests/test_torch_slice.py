@@ -22,7 +22,7 @@ import pytest
 import torch
 
 from infinitam_tpu.calib import default_calib
-from infinitam_tpu.config import TrackingParams, tiny_test_settings
+from infinitam_tpu.config import TrackerType, TrackingParams, tiny_test_settings
 from infinitam_tpu.engine import hash_pipeline as j_hp
 from infinitam_tpu.engine.view_builder import View as JView
 from infinitam_tpu.io import synth as j_synth
@@ -32,6 +32,10 @@ from infinitam_tpu_torch.engine import hash_pipeline as t_hp
 from infinitam_tpu_torch.engine.view_builder import View, build_view
 
 IMG = (60, 80)
+
+# the tensors here are tiny: one intra-op thread per process keeps torch from
+# contending for the cores with the other test workers (tier-1 runs under xdist)
+torch.set_num_threads(1)
 COUNTERS = ("n_alloc_overflow", "n_render_overflow", "n_pool_overflow", "n_too_big_blocks", "n_window_clipped")
 FIX = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures", "replay")
 
@@ -110,7 +114,7 @@ def test_process_sequence_equals_frame_loop(replay):
 def test_unported_settings_are_refused(replay):
     settings, _calib, _d, _g = replay
     with pytest.raises(NotImplementedError):
-        t_hp.create_engine_state(settings.replace(use_color=True), IMG)
+        t_hp.create_engine_state(settings.replace(tracker_type=TrackerType.REN), IMG)
 
 
 def test_pgm_fixture_replay_tracks():
