@@ -7,23 +7,36 @@ Run from the repository root, with no arguments:
 
 It builds the hand-written CUDA kernels (K1 ICP reduction, K2 TSDF
 integration with and without its colour half, K3 raycast) from
-infinitam_tpu_torch/csrc/, holds each one to its plain PyTorch version on the
-card at the main path's shapes, and times both with CUDA events. Then it
-replays 30 synthetic 640×480 RGB-D frames, rendered on the card, through the
-port's frame loop in the three configurations of the JAX package's
-benchmark: 5 mm and 1 cm voxels with depth ICP, and the 1 cm point with
-colour fusion (`1cm_rgb`). Each replay is gated on tracking accuracy (ATE
-RMSE < 1 cm, rotation RMSE < 1°), the five silent-cap counters (max over the
-replay = 0), every kernel of its path launched (the colour kernel on every
-frame) and no host sync in its frame loop.
+infinitam_tpu_torch/csrc/ and holds each one to its plain PyTorch version on
+the card at the main path's shapes: K1 at each of the five pyramid levels, K3
+on the 5 mm and on the 1 cm volume. For each kernel it prints its device
+time (the summed duration of its own kernels in a torch.profiler window of
+calls with arguments built once), the wrapper's call time (CUDA events
+around back-to-back calls, which time the host while it issues more slowly
+than the card runs), the plain version's time, and the kernel's bound: the
+larger of its bytes (each input read once, each output written once) over
+the card's memory rate and its float32 operations over the card's float32
+rate, with the share of the bound that the device time reaches. Bytes and
+operations are those this run's inputs need: the distinct pixels, grid
+cells and voxel words the kernel touches, the voxels it updates and the
+march steps its rays take, found through its plain version.
 
-Output: the card's name and power limit, the kernel build time, one line per
-kernel check, per config the accuracy, counters, launch counts, the source
-line of every host sync the frame loop issued, and a per-phase time table;
-the total wall time; then, only if every gate passed, a JSON line with the
-kernel results and, last, `{"ok": true, "device": {...}}`. Any failure exits
-non-zero without those two lines. Without a CUDA device, or run from a
-directory that is not a checkout of the repository, it exits 1 at once.
+Then it replays 30 synthetic 640×480 RGB-D frames, rendered on the card,
+through the port's frame loop in the three configurations of the JAX
+package's benchmark: 5 mm and 1 cm voxels with depth ICP, and the 1 cm point
+with colour fusion (`1cm_rgb`). Each replay is gated on tracking accuracy
+(ATE RMSE < 1 cm, rotation RMSE < 1°), the five silent-cap counters (max over
+the replay = 0), every kernel of its path launched (the colour kernel on
+every frame) and no host sync in its frame loop.
+
+Output: the card's name and power limit, the kernel build time, the kernel
+lines, per config the accuracy, counters, launch counts and launches per
+frame, the source line of every host sync the frame loop issued, and a
+per-phase time table; the total wall time; then, only if every gate passed,
+a JSON line with the kernel results and, last, `{"ok": true, "device":
+{...}}`. Any failure exits non-zero without those two lines. Without a CUDA
+device, or run from a directory that is not a checkout of the repository, it
+exits 1 at once.
 
     python3 chip_smoke.py --profile
 
@@ -56,6 +69,20 @@ N_TIMED = 3  # timed replays per config
 PROFILE_FRAMES = 10  # frames in the --profile window, the last of the replay
 REPO = Path(__file__).resolve().parent
 SYNC_MSG = "called a synchronizing CUDA operation"
+
+# Published peaks of one NVIDIA H100 SXM (NVIDIA's data sheet): HBM3 at
+# 3.35 TB/s, float32 outside the tensor cores at 67 TFLOP/s.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_PER_S = 67e12
+# float32 operations per element, counted from the kernels' sources
+ICP_OPS_PIXEL = 116  # csrc/icp.cu: back-projection, two transforms, projection, the point tap, the gate
+ICP_OPS_VALID = 121  # a valid pixel's normal tap, b, A and its 29 products and sums
+INTEGRATE_OPS_VOXEL = 37  # csrc/integrate.cu: centre, transform, projection, depth tap, η and its gate
+INTEGRATE_OPS_UPDATE = 12  # an updated voxel's running average and quantisation
+INTEGRATE_OPS_COLOR = 100  # a colour voxel's transform, projection, bilinear tap and colour average
+RAYCAST_OPS_RAY = 80  # csrc/raycast.cu: the ray from the pixel and its two depth bounds
+RAYCAST_OPS_STEP = 40  # one march step
+RAYCAST_OPS_HIT = 95  # a hit's secant step and two trilinear refinements
 
 
 def reference_settings(cfg):
@@ -95,6 +122,9 @@ def color_settings(cfg):
 # kernels each replay's path must launch, by launch-counter name
 DEPTH_PATH = ("icp", "integrate", "raycast")
 RGB_PATH = ("icp", "integrate_color", "raycast")
+# the JSON name of each kernel → its launch counter
+COUNTER = {"icp_reduce": "icp", "integrate_depth": "integrate", "integrate_color": "integrate_color",
+           "raycast_grid": "raycast"}
 
 
 def card_line() -> str:
@@ -106,7 +136,9 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of `fn` over `reps` calls after one warm-up call."""
+    """Call time: CUDA events around `reps` back-to-back calls of `fn` after
+    one warm-up call, per call. While the host issues a call's work more
+    slowly than the card runs it, this times the host."""
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -118,18 +150,82 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps: int):
+    """(device ms, repo kernels, other device ops) per call of `fn`, from a
+    torch.profiler window of `reps` calls after one warm-up call: the mean
+    duration of the repo's own kernels (named itpu_*) times the kernels a
+    call launches, and the device operations of any other kind a call ran.
+    The profiler may lose an event at the window's edge, so the kernel count
+    is rounded and the time is a mean over the kernels it saw. The device ms
+    is None when the profiler saw none of the repo's kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    on_device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    ours = [e for e in on_device if "itpu_" in e.name]
+    per_call = round(len(ours) / reps)
+    others = (len(on_device) - len(ours)) / reps
+    if not ours:
+        return None, per_call, others
+    us = sum(e.time_range.end - e.time_range.start for e in ours)
+    return us / 1000 / len(ours) * per_call, per_call, others
+
+
+def bound(n_bytes: float, n_ops: float) -> dict:
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the float32 operations over the float32 rate."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S * 1e3, n_ops / PEAK_F32_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bound_bytes=int(n_bytes), bound_ops=int(n_ops))
+
+
+def distinct(idx: torch.Tensor) -> int:
+    """How many distinct values `idx` holds."""
+    return int(torch.unique(idx).numel())
+
+
+def bilinear_corners(u: torch.Tensor, v: torch.Tensor, width: int) -> torch.Tensor:
+    """Flat indices of the 4 pixels a bilinear tap at (u, v) reads; (u, v)
+    lie inside the 1 px margin, so no corner is clamped."""
+    x0, y0 = torch.floor(u).long(), torch.floor(v).long()
+    return torch.cat([(y0 + dy) * width + x0 + dx for dy in (0, 1) for dx in (0, 1)])
+
+
+def fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
+def timing_line(dev, per_call, others, b, call, plain) -> str:
+    share = "n/a" if dev is None else f"{100 * b['bound_ms'] / dev:.1f}%"
+    return (f"device {fmt_ms(dev)} ({per_call} kernel(s) and {others:g} other device op(s) per call), bound "
+            f"{b['bound_ms'] * 1000:.2f} µs ({b['bound_bytes'] / 1e6:.2f} MB, {b['bound_ops'] / 1e6:.1f} Mop, "
+            f"{b['bound_by']}), {share} of the bound, call {call:.4f} ms, plain {plain:.4f} ms")
+
+
+def frame_errors(poses: np.ndarray, gt: np.ndarray):
+    """Per frame, the camera centre's distance from the truth in metres and
+    the rotation's angle from it in degrees (two arrays)."""
+    t_err, r_err = [], []
+    for p, g in zip(poses, gt):
+        t_err.append(np.linalg.norm(np.linalg.inv(p)[:3, 3] - np.linalg.inv(g)[:3, 3]))
+        dR = p[:3, :3] @ g[:3, :3].T
+        r_err.append(np.degrees(np.arccos(np.clip((np.trace(dR) - 1.0) / 2.0, -1.0, 1.0))))
+    return np.array(t_err), np.array(r_err)
+
+
 def trajectory_errors(poses: np.ndarray, gt: np.ndarray):
     """(ATE RMSE in metres, rotation RMSE in degrees) over frames 1..N-1, as
     the JAX package's bench.py:140-152 computes them (frame 0 is not
     tracked)."""
-    errs, rerrs = [], []
-    for i in range(1, len(poses)):
-        c_est = np.linalg.inv(poses[i])[:3, 3]
-        c_gt = np.linalg.inv(gt[i])[:3, 3]
-        errs.append(np.sum((c_est - c_gt) ** 2))
-        dR = poses[i][:3, :3] @ gt[i][:3, :3].T
-        rerrs.append(np.arccos(np.clip((np.trace(dR) - 1.0) / 2.0, -1.0, 1.0)) ** 2)
-    return float(np.sqrt(np.mean(errs))), float(np.degrees(np.sqrt(np.mean(rerrs))))
+    t_err, r_err = frame_errors(poses, gt)
+    return float(np.sqrt(np.mean(t_err[1:] ** 2))), float(np.sqrt(np.mean(r_err[1:] ** 2)))
 
 
 def repo_stack(frames) -> str:
@@ -142,16 +238,33 @@ def repo_stack(frames) -> str:
     return " < ".join(sites[:6])
 
 
+def gh_errors(a, b):
+    """(largest relative difference of H, ∇ and f, largest absolute
+    difference of the normalised system H/N, ∇/N, f) between two GHResults."""
+    def rel(x, y):
+        return float((x - y).abs().max() / y.abs().max().clamp(min=1e-30))
+
+    def system(g):
+        n = g.num_valid.clamp(min=1).to(torch.float32)
+        return torch.cat([g.hessian.reshape(-1) / n, g.nabla / n, g.f.reshape(1)])
+    return (max(rel(a.hessian, b.hessian), rel(a.nabla, b.nabla), rel(a.f, b.f)),
+            float((system(a) - system(b)).abs().max()))
+
+
 class Smoke:
     def __init__(self):
         from infinitam_tpu_torch import calib, config
         from infinitam_tpu_torch.engine import hash_pipeline, trackers
         from infinitam_tpu_torch.engine.view_builder import build_view_from_metric_depth
         from infinitam_tpu_torch.io import synth
+        from infinitam_tpu_torch.ops import icp as icp_ops
+        from infinitam_tpu_torch.ops import pyramid
+        from infinitam_tpu_torch.ops import raycast as raycast_ops
         from infinitam_tpu_torch.ops.kernels import build, icp, integrate, raycast
         from infinitam_tpu_torch.utils import se3
 
         self.cfg, self.hp, self.trackers, self.synth, self.se3 = config, hash_pipeline, trackers, synth, se3
+        self.pyramid, self.icp_ops, self.raycast_ops = pyramid, icp_ops, raycast_ops
         self.build, self.k_icp, self.k_int, self.k_ray = build, icp, integrate, raycast
         self.build_view = build_view_from_metric_depth
         self.dev = torch.device("cuda", 0)
@@ -198,39 +311,180 @@ class Smoke:
             diags.append(diag)
         return vol, rs, st, poses, diags
 
-    # --- kernel checks ----------------------------------------------------
-    def kernel_checks(self, settings, frames):
+    def fused(self, settings, frames):
+        """State after N_CHECK_FRAMES fused frames and the next frame's view."""
         depths, rgbs = frames
         vol, rs, st, _p, _d = self.run_frames(settings, (depths[:N_CHECK_FRAMES], rgbs[:N_CHECK_FRAMES]))
-        depth = self.build_view(depths[N_CHECK_FRAMES], settings, self.calib).depth
-        out = []
+        view = self.build_view(depths[N_CHECK_FRAMES], settings, self.calib, rgb=rgbs[N_CHECK_FRAMES])
+        return vol, rs, st, view
 
-        # K1 at the finest level, pose = last tracked pose (the GN start)
+    # --- what each kernel must move on its inputs -------------------------
+    # The bound counts the distinct words a kernel reads and writes on this
+    # run's inputs, found through its plain version's gates: 4 bytes a word,
+    # not rounded to 32-byte sectors, so the bound is a least time.
+    def icp_bytes(self, depth, view_proj, points_map, normals_map, scene_proj, inv_pose, scene_pose,
+                  dist_thresh) -> int:
+        """K1: every depth pixel; the distinct points-map pixels that the
+        in-frame pixels' bilinear taps read and the distinct normals-map
+        pixels of the pixels that pass the point gates (ops/icp.py
+        compute_residuals); both intrinsics, both poses' rows 0-2 and the
+        44-word result."""
+        h, w = depth.shape
+        hs, ws = points_map.shape[:2]
+        vfx, vfy, vcx, vcy = view_proj
+        sfx, sfy, scx, scy = scene_proj
+        xs = torch.arange(w, dtype=torch.float32, device=self.dev)[None, :].expand(h, w)
+        ys = torch.arange(h, dtype=torch.float32, device=self.dev)[:, None].expand(h, w)
+        front = depth > 1e-8
+        d = torch.where(front, depth, torch.ones_like(depth))
+        p = self.se3.apply_planes(inv_pose, d * (xs - vcx) / vfx, d * (ys - vcy) / vfy, d)
+        qx, qy, qz = self.se3.apply_planes(scene_pose, *p)
+        front = front & (qz > 0)
+        zs = torch.where(front, qz, torch.ones_like(qz))
+        u, v = sfx * qx / zs + scx, sfy * qy / zs + scy
+        inside = front & (u >= 0) & (u <= ws - 2) & (v >= 0) & (v <= hs - 2)
+        passed = self.icp_ops.compute_residuals(depth, view_proj, points_map, normals_map, scene_proj, inv_pose,
+                                                scene_pose, dist_thresh)[2]
+        n_taps = distinct(bilinear_corners(u[inside], v[inside], ws)) + distinct(
+            bilinear_corners(u[passed], v[passed], ws))
+        return h * w * 4 + 16 * n_taps + 2 * 16 + 2 * 48 + 44 * 4
+
+    def integrate_traffic(self, settings, vox, ptrs, bpos, depth, pose, color=None):
+        """(bytes, float32 operations) of K2 on these inputs, from the gates
+        of its plain version (ops/tsdf.py): every row pointer, the block
+        coordinates of the rows with a block, the distinct depth pixels the
+        in-frame voxels tap, each voxel that passes the η gate read and,
+        unless frozen at max_w, updated and written. With `color` (rgb,
+        M_rgb, proj_rgb), K2c adds the distinct rgb pixels of the colour
+        voxels' bilinear taps and each colour voxel's vox_rgb word read and
+        written."""
+        sp, S = settings.scene, settings.hashing.block_size
+        valid, rows, pt = self.k_int._gather_rows(vox, ptrs, bpos, sp.voxel_size, S)
+        live = valid[:, None].expand(-1, S**3)
+        h, w = depth.shape
+        fx, fy, cx, cy = self.proj
+        px, py, pz = self.se3.apply_planes(pose, *pt)
+        front = live & (pz > 0)
+        zs = torch.where(front, pz, torch.ones_like(pz))
+        u, v = fx * px / zs + cx, fy * py / zs + cy
+        inside = front & (u >= 1) & (u <= w - 2) & (v >= 1) & (v <= h - 2)
+        pix = (v + 0.5).to(torch.int32).clamp(0, h - 1) * w + (u + 0.5).to(torch.int32).clamp(0, w - 1)
+        dm = depth.reshape(-1)[pix.long()]
+        eta = dm - pz
+        upd = inside & (dm > 0) & (eta >= -sp.mu)
+        written = upd
+        if sp.stop_integrating_at_max_w:
+            written = upd & (self.hp.hv.vox_w(vox[rows]) < sp.max_w)
+        n_written = int(written.sum())
+        n_bytes = (ptrs.numel() * 4 + int(valid.sum()) * 12 + 64 + 1 + distinct(pix[inside]) * 4
+                   + 4 * (int(upd.sum()) + n_written))
+        n_ops = int(live.sum()) * INTEGRATE_OPS_VOXEL + n_written * INTEGRATE_OPS_UPDATE
+        if color is not None:
+            rgb, M_rgb, proj_rgb = color
+            rh, rw = rgb.shape[:2]
+            rfx, rfy, rcx, rcy = proj_rgb
+            band = written & (eta <= sp.mu) & ((eta / sp.mu).abs() <= 0.25)
+            qx, qy, qz = self.se3.apply_planes(M_rgb, *pt)
+            zr = torch.where(qz == 0, torch.full_like(qz, 1e-6), qz)
+            ur, vr = rfx * qx / zr + rcx, rfy * qy / zr + rcy
+            col = band & (ur >= 1) & (ur <= rw - 2) & (vr >= 1) & (vr <= rh - 2)
+            n_col = int(col.sum())
+            n_bytes += 64 + distinct(bilinear_corners(ur[col], vr[col], rw)) * 12 + 8 * n_col
+            n_ops += n_col * INTEGRATE_OPS_COLOR
+        return n_bytes, n_ops
+
+    def raycast_traffic(self, settings, vol, grid, inv_M, zmin, zmax):
+        """(bytes, float32 operations, march steps) of K3 on these inputs.
+        The plain march runs through a reader that logs each read's grid
+        cell and voxel word; the kernel makes the march reads of the rays
+        still active (a ray is active in its first `steps` reads) and the 16
+        refinement reads of the hits. Bytes: zmin, zmax, the points out, the
+        distinct grid cells and voxel words read, inv_M's rows 0-2, proj."""
+        sp, gp, hp = settings.scene, settings.block_grid, settings.hashing
+        hv = self.hp.hv
+        read = hv.make_grid_reader(vol, grid, gp, hp)
+        flat_grid = grid.reshape(-1)
+        dims = torch.tensor(gp.dims, device=self.dev)
+        origin = torch.tensor(gp.origin, device=self.dev)
+        log = []
+
+        def logged_read(pts):
+            block, lin = hv.point_to_block(pts, hp.block_size)
+            g = block - origin
+            inb = ((g >= 0) & (g < dims)).all(dim=-1)
+            cell = torch.where(inb, (g[..., 0] * gp.dims[1] + g[..., 1]) * gp.dims[2] + g[..., 2], -1)
+            ptr = torch.where(inb, flat_grid[cell.clamp(min=0).long()], -1)
+            log.append((cell, torch.where(ptr >= 0, ptr * hp.block_volume + lin, -1)))
+            return read(pts)
+
+        res = self.raycast_ops.generic_raycast(logged_read, inv_M, self.proj, IMG, 1.0 / sp.voxel_size, sp.mu, zmin,
+                                               zmax, block_size=hp.block_size)
+        hit = res.points[..., 3] > 0
+        n_march = len(log) - 16
+        cells = torch.zeros(flat_grid.numel(), dtype=torch.bool, device=self.dev)
+        words = torch.zeros(vol.vox.numel(), dtype=torch.bool, device=self.dev)
+        for i, (cell, word) in enumerate(log):
+            keep = res.steps > i if i < n_march else hit
+            c, wd = cell[keep], word[keep]
+            cells[c[c >= 0].long()] = True
+            words[wd[wd >= 0].long()] = True
+        n_rays, n_steps = IMG[0] * IMG[1], int(res.steps.sum())
+        n_bytes = n_rays * (4 + 4 + 16) + 4 * (int(cells.sum()) + int(words.sum())) + 48 + 16
+        n_ops = n_rays * RAYCAST_OPS_RAY + n_steps * RAYCAST_OPS_STEP + int(hit.sum()) * RAYCAST_OPS_HIT
+        return n_bytes, n_ops, n_steps
+
+    # --- kernel checks ----------------------------------------------------
+    def k1_check(self, settings, st, depth):
+        """K1 at each pyramid level's view depth against the full-resolution
+        maps, from the last tracked pose (a Gauss-Newton start), as
+        trackers.track_depth calls it; then two launches on the same input,
+        which must agree bit for bit."""
         tp = settings.tracking
-        args = (depth, self.proj, st.points_map, st.normals_map, self.proj, self.se3.invert(st.pose),
-                st.pose_point_cloud, self.trackers.level_dist_thresh(tp)[0], tp.min_valid_points)
-        gk, gp = self.k_icp.icp_gh(*args), self.k_icp.icp_gh_plain(*args)
-        nk, np_ = int(gk.num_valid), int(gp.num_valid)
-        sys_k = torch.cat([gk.hessian.reshape(-1) / nk, gk.nabla / nk, gk.f.reshape(1)])
-        sys_p = torch.cat([gp.hessian.reshape(-1) / np_, gp.nabla / np_, gp.f.reshape(1)])
-        err = float((sys_k - sys_p).abs().max())
-        rel = float(max(
-            ((gk.hessian - gp.hessian).abs().max() / gp.hessian.abs().max()).item(),
-            ((gk.nabla - gp.nabla).abs().max() / gp.nabla.abs().max()).item(),
-            (abs(gk.f - gp.f) / gp.f).item(),
-        ))
-        ms = cuda_ms(lambda: self.k_icp.icp_gh(*args), 50)
-        plain_ms = cuda_ms(lambda: self.k_icp.icp_gh_plain(*args), 10)
-        print(f"K1 icp: valid {nk} vs plain {np_}, H/∇/f max rel err {rel:.3e}, max abs err of "
-              f"(H/N, ∇/N, f) {err:.3e}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-        self.gate(nk == np_ and np_ > 10000, "K1 valid count equal to plain")
-        self.gate(rel < 1e-4, "K1 H, ∇, f within relative 1e-4 of plain")
-        out.append(dict(name="icp_reduce", route="cuda", source="infinitam_tpu_torch/csrc/icp.cu",
-                        replaces="infinitam_tpu/ops/pallas/icp_kernel.py:261", max_abs_err=err, ms=ms,
-                        plain_ms=plain_ms))
+        depths = self.pyramid.build_depth_pyramid(depth, tp.n_levels)
+        dists = self.trackers.level_dist_thresh(tp)
+        iters = self.trackers.level_iterations(tp)
+        inv = self.se3.invert(st.pose)
+        levels = []
+        for lvl in range(tp.n_levels):
+            d = depths[lvl]
+            args = (d, self.trackers.scale_proj(self.proj, lvl), st.points_map, st.normals_map, self.proj, inv,
+                    st.pose_point_cloud, dists[lvl], tp.min_valid_points)
+            gk, gp = self.k_icp.icp_gh(*args), self.k_icp.icp_gh_plain(*args)
+            nk, np_ = int(gk.num_valid), int(gp.num_valid)
+            rel, err = gh_errors(gk, gp)
+            h, w = d.shape
+            b = bound(self.icp_bytes(*args[:8]), h * w * ICP_OPS_PIXEL + np_ * ICP_OPS_VALID)
+            dev, per_call, others = device_ms(lambda: self.k_icp.icp_gh(*args), 100)
+            call = cuda_ms(lambda: self.k_icp.icp_gh(*args), 50)
+            plain = cuda_ms(lambda: self.k_icp.icp_gh_plain(*args), 10)
+            print(f"K1 icp level {lvl} ({w}×{h} px, {iters[lvl]} launches a frame): valid {nk} vs plain {np_}, "
+                  f"H/∇/f max rel err {rel:.3e}, max abs err of (H/N, ∇/N, f) {err:.3e}; "
+                  + timing_line(dev, per_call, others, b, call, plain))
+            self.gate(nk == np_ and (lvl > 0 or np_ > 10000), f"K1 level {lvl} valid count equal to plain")
+            self.gate(rel < 1e-4, f"K1 level {lvl} H, ∇, f within relative 1e-4 of plain")
+            self.gate(per_call == 1 and others == 0,
+                      f"K1 level {lvl}: one device kernel per call, no other device op")
+            levels.append(dict(args=args, err=err, ms=dev, call_ms=call, plain_ms=plain, iters=iters[lvl], **b))
+        frame_ms = (None if any(l["ms"] is None for l in levels)
+                    else sum(l["iters"] * l["ms"] for l in levels))
+        frame_bound = sum(l["iters"] * l["bound_ms"] for l in levels)
+        print(f"K1 over a frame ({sum(iters)} launches): device {fmt_ms(frame_ms)}, bound "
+              f"{frame_bound * 1000:.2f} µs, call {sum(l['iters'] * l['call_ms'] for l in levels):.4f} ms")
+        a, b2 = self.k_icp.icp_gh(*levels[0]["args"]), self.k_icp.icp_gh(*levels[0]["args"])
+        same = all(torch.equal(x, y) for x, y in zip(a, b2))
+        self.gate(same, "K1 two launches on the same input bitwise equal")
+        top = levels[0]
+        return dict(name="icp_reduce", route="cuda", source="infinitam_tpu_torch/csrc/icp.cu",
+                    replaces="infinitam_tpu/ops/pallas/icp_kernel.py:261", max_abs_err=max(l["err"] for l in levels),
+                    ms=top["ms"], call_ms=top["call_ms"], plain_ms=top["plain_ms"], library_ms=None,
+                    **{k: top[k] for k in ("bound_ms", "bound_by", "bound_bytes", "bound_ops")},
+                    frame_ms=frame_ms, frame_bound_ms=frame_bound,
+                    level_ms=[l["ms"] for l in levels], level_bound_ms=[l["bound_ms"] for l in levels])
 
-        # K2 on the visible blocks of the next frame, from identical voxels
+    def k2_check(self, settings, vol, rs, st, view):
+        """K2 on the visible blocks of the next frame, from identical voxels."""
         sp = settings.scene
+        depth = view.depth
         _ids, ptr, bpos, valid = self.hp._visible_rows(vol, rs, settings, settings.max_fused_blocks)
         ptrs = torch.where(valid, ptr, -1).contiguous()
         bpos = bpos.contiguous()
@@ -244,51 +498,60 @@ class Smoke:
         changed = int((vp != vox0).sum())
         ndiff = int((vk != vp).sum())
         lsb = int(((vk >> 16) - (vp >> 16)).abs().max())
-        err = lsb / 32767.0
         n_rows = int(valid.sum())
-        ms = cuda_ms(lambda: self.k_int.integrate_depth(vk, *kargs), 20)
-        plain_ms = cuda_ms(lambda: self.k_int.integrate_depth_plain(vp, *kargs), 5)
+        b = bound(*self.integrate_traffic(settings, vk, ptrs, bpos, depth, st.pose))
+        dev, per_call, others = device_ms(lambda: self.k_int.integrate_depth(vk, *kargs), 50)
+        call = cuda_ms(lambda: self.k_int.integrate_depth(vk, *kargs), 20)
+        plain = cuda_ms(lambda: self.k_int.integrate_depth_plain(vp, *kargs), 5)
         print(f"K2 integrate: {n_rows} visible blocks, {changed} voxels updated, {ndiff} differ from plain "
-              f"(max {lsb} LSB), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+              f"(max {lsb} LSB); " + timing_line(dev, per_call, others, b, call, plain))
         self.gate(n_rows >= 1000 and changed > 100000, "K2 fused thousands of blocks")
         # built with -fmad=false and the plain version's float64 camera
         # transform, so every voxel must match
         self.gate(ndiff == 0, "K2 bit-identical to plain")
-        out.append(dict(name="integrate_depth", route="cuda", source="infinitam_tpu_torch/csrc/integrate.cu",
-                        replaces="infinitam_tpu/ops/pallas/integrate_kernel.py:256", max_abs_err=err, ms=ms,
-                        plain_ms=plain_ms))
+        return dict(name="integrate_depth", route="cuda", source="infinitam_tpu_torch/csrc/integrate.cu",
+                    replaces="infinitam_tpu/ops/pallas/integrate_kernel.py:256", max_abs_err=lsb / 32767.0, ms=dev,
+                    call_ms=call, plain_ms=plain, library_ms=None, **b)
 
-        # K3 from the last pose over the fused volume
+    def k3_check(self, label, settings, vol, rs, st):
+        """K3 from the last pose over the fused volume, against the plain
+        lock-step march on the same ranges."""
+        sp = settings.scene
         zmin, zmax, _ = self.hp.expected_depth_ranges(vol, rs, st.pose, self.proj, IMG, settings)
         grid = self.hp.hv.get_block_grid(vol, settings.block_grid)
         rargs = (vol, grid, settings.block_grid, settings.hashing, self.se3.invert(st.pose), self.proj, IMG,
                  1.0 / sp.voxel_size, sp.mu, zmin, zmax)
         pk = self.k_ray.raycast_grid(*rargs).points
         pp = self.k_ray.raycast_grid_plain(*rargs).points
+        n_bytes, n_ops, n_steps = self.raycast_traffic(settings, vol, grid, rargs[4], zmin, zmax)
         fk, fp = pk[..., 3] > 0, pp[..., 3] > 0
         n_mismatch = int((fk != fp).sum())
         both = fk & fp
         d = (pk[..., :3] - pp[..., :3]).norm(dim=-1)[both]
         med, p95 = float(d.median()), float(torch.quantile(d, 0.95))
         err = float((pk[..., :3] - pp[..., :3]).abs()[both].max())
-        ms = cuda_ms(lambda: self.k_ray.raycast_grid(*rargs), 20)
-        plain_ms = cuda_ms(lambda: self.k_ray.raycast_grid_plain(*rargs), 2)
-        print(f"K3 raycast: {int(fp.sum())} plain hits, {n_mismatch} hit/miss mismatches, offset max {err:.3e} "
-              f"voxels, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        n_hits = int(fp.sum())
+        n_rows = int(self.hp._visible_rows(vol, rs, settings, 0)[3].sum())
+        b = bound(n_bytes, n_ops)
+        dev, per_call, others = device_ms(lambda: self.k_ray.raycast_grid(*rargs), 50)
+        call = cuda_ms(lambda: self.k_ray.raycast_grid(*rargs), 20)
+        plain = cuda_ms(lambda: self.k_ray.raycast_grid_plain(*rargs), 2)
+        print(f"K3 raycast, {label}: {n_hits} plain hits, {n_mismatch} hit/miss mismatches, offset max {err:.3e} "
+              f"voxels, {n_rows} visible blocks, {n_steps} march steps; "
+              + timing_line(dev, per_call, others, b, call, plain))
         # for reading only: the bars the JAX package holds its Pallas raycast to
         print(f"  (Pallas-vs-XLA bars, not gated: agreement {1 - n_mismatch / fp.numel():.6f} > 0.93, "
               f"median offset {med:.3e} < 0.5, p95 {p95:.3e} < 2 voxels)")
-        self.gate(int(both.sum()) > 100000, "K3 hits most of the frame")
+        self.gate(int(both.sum()) > 100000, f"K3 {label} hits most of the frame")
         # same march and refinement as the plain version in the same float32
         # ops: hits must agree ray for ray and points to a few 1e-6 voxel
         # (below one float32 ulp beyond 32 voxels, so there they are equal)
-        self.gate(n_mismatch == 0 and err <= 4e-6, "K3 hit mask equal to plain, points within 4e-6 voxel")
-        out.append(dict(name="raycast_grid", route="cuda", source="infinitam_tpu_torch/csrc/raycast.cu",
-                        replaces="infinitam_tpu/ops/pallas/raycast_kernel.py:500", max_abs_err=err, ms=ms,
-                        plain_ms=plain_ms))
-        return out
+        self.gate(n_mismatch == 0 and err <= 4e-6, f"K3 {label} hit mask equal to plain, points within 4e-6 voxel")
+        return dict(name="raycast_grid", route="cuda", source="infinitam_tpu_torch/csrc/raycast.cu",
+                    replaces="infinitam_tpu/ops/pallas/raycast_kernel.py:500", max_abs_err=err, ms=dev, call_ms=call,
+                    plain_ms=plain, library_ms=None, **b)
 
-    def color_kernel_check(self, settings, frames, gt):
+    def color_kernel_check(self, settings, vol, rs, frames, gt):
         """K2 with its colour half against its plain version on the 1 cm RGB
         volume after N_CHECK_FRAMES fused frames. The next N_CHAIN_FRAMES
         RGB-D frames are fused at their true poses into that volume's visible
@@ -299,7 +562,6 @@ class Smoke:
         2.5 cm along x, turned 1.5° about y, other intrinsics), so the RGB
         projection is exercised."""
         depths, rgbs = frames
-        vol, rs, _st, _p, _d = self.run_frames(settings, (depths[:N_CHECK_FRAMES], rgbs[:N_CHECK_FRAMES]))
         chain = range(N_CHECK_FRAMES, N_CHECK_FRAMES + N_CHAIN_FRAMES)
         views = [self.build_view(depths[i], settings, self.calib, rgb=rgbs[i]) for i in chain]
         poses = [torch.as_tensor(gt[i], device=self.dev) for i in chain]
@@ -312,6 +574,7 @@ class Smoke:
                                                   device=self.dev))
         other_proj = self.proj_rgb * torch.tensor([1.04, 1.03, 1.0, 1.0], device=self.dev) + torch.tensor(
             [0.0, 0.0, 1.5, -1.0], device=self.dev)
+        n_rows = int(valid.sum())
         entry = None
         for label, r2d, proj_rgb in (("calibration extrinsic", self.rgb_to_depth, self.proj_rgb),
                                      ("2.5 cm / 1.5° extrinsic", other_r2d, other_proj)):
@@ -331,20 +594,26 @@ class Smoke:
                 nd_rgb += int((k[1] != p[1]).sum())
                 ch = [((k[1] >> s) & 0xFF) - ((p[1] >> s) & 0xFF) for s in (24, 16, 8)]
                 lsb = max(lsb, int(max(c.abs().max() for c in ch)))
-            ms = cuda_ms(lambda: self.k_int.integrate_rgbd(*k, *chain_args[0]), 20)
-            plain_ms = cuda_ms(lambda: self.k_int.integrate_rgbd_plain(*p, *chain_args[0]), 5)
-            print(f"K2 integrate + colour, {label}: {int(valid.sum())} visible blocks, {N_CHAIN_FRAMES} chained "
+            print(f"K2 integrate + colour, {label}: {n_rows} visible blocks, {N_CHAIN_FRAMES} chained "
                   f"frames updated {'+'.join(map(str, n_depth))} depth and {'+'.join(map(str, n_color))} = "
                   f"{sum(n_color)} colour voxels, {nd_vox} vox and {nd_rgb} vox_rgb words differ from plain over "
-                  f"the chain (max {lsb} LSB), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (first frame)")
+                  f"the chain (max {lsb} LSB)")
             # the ±μ/4 colour band holds ~80-90 k voxels a frame at 1 cm
             self.gate(sum(n_color) > 100000, f"K2 colour ({label}) made more than 100,000 colour-voxel updates")
             # the plain version's op order in -fmad=false float32: every word equal
             self.gate(nd_vox == 0 and nd_rgb == 0, f"K2 colour ({label}) bit-identical to plain")
             if entry is None:
+                # timed on the first frame of the chain, over the chain's result
+                _p, _b, depth, rgb, pose, _proj, M_rgb, rgb_proj = chain_args[0][:8]
+                b = bound(*self.integrate_traffic(settings, k[0], ptrs, bpos, depth, pose,
+                                                  color=(rgb, M_rgb, rgb_proj)))
+                dev, per_call, others = device_ms(lambda: self.k_int.integrate_rgbd(*k, *chain_args[0]), 50)
+                call = cuda_ms(lambda: self.k_int.integrate_rgbd(*k, *chain_args[0]), 20)
+                plain = cuda_ms(lambda: self.k_int.integrate_rgbd_plain(*p, *chain_args[0]), 5)
+                print("  K2c (first frame of the chain): " + timing_line(dev, per_call, others, b, call, plain))
                 entry = dict(name="integrate_color", route="cuda", source="infinitam_tpu_torch/csrc/integrate.cu",
                              replaces="infinitam_tpu/ops/pallas/integrate_kernel.py:256", max_abs_err=lsb / 255.0,
-                             ms=ms, plain_ms=plain_ms)
+                             ms=dev, call_ms=call, plain_ms=plain, library_ms=None, **b)
         return entry
 
     # --- replays ------------------------------------------------------------
@@ -423,7 +692,8 @@ class Smoke:
               + ", ".join(f"{t * 1000 / len(depths):.2f}" for t in times)
               + f"), ATE RMSE {ate * 1000:.3f} mm, rotation RMSE {rot:.4f} deg, n_visible(last) {n_vis}")
         print(f"  counters (max over frames): {json.dumps(counters)}")
-        print(f"  kernel launches in the timed replay: {json.dumps(launches)}")
+        print(f"  kernel launches in the timed replay: {json.dumps(launches)}; per frame: "
+              + json.dumps({k: v / len(depths) for k, v in launches.items()}))
         print(f"  host syncs flagged in the phase run: {n_syncs}")
         for site in sorted(set(syncs)):
             print(f"    {syncs.count(site)}× at {site}")
@@ -502,13 +772,24 @@ def main() -> int:
         ("1cm", teddy_1cm_settings(smoke.cfg), DEPTH_PATH),
         ("1cm_rgb", color_settings(smoke.cfg), RGB_PATH),
     ]
-    kernels = smoke.kernel_checks(configs[0][1], frames)
-    kernels.insert(2, smoke.color_kernel_check(configs[2][1], frames, gt))
+    s5, s1 = configs[0][1], configs[2][1]
+    vol, rs, st, view = smoke.fused(s5, frames)
+    kernels = [smoke.k1_check(s5, st, view.depth), smoke.k2_check(s5, vol, rs, st, view)]
+    kernels.append(smoke.k3_check("5 mm", s5, vol, rs, st))
+    del vol, rs, st, view
+    vol, rs, st, _view = smoke.fused(s1, frames)
+    smoke.k3_check("1 cm", s1, vol, rs, st)
+    kernels.insert(2, smoke.color_kernel_check(s1, vol, rs, frames, gt))
+    del vol, rs, st
     # launches per kernel summed over the replays' counted runs (each run's
-    # counts are reset just before it and read just after)
+    # counts are reset just before it and read just after), and per frame of
+    # each replay
     launches = dict.fromkeys(build.KERNELS, 0)
+    per_frame = {}
     for name, settings, path in configs:
-        for k, n in smoke.replay(name, settings, frames, gt, path).items():
+        counts = smoke.replay(name, settings, frames, gt, path)
+        per_frame[name] = {k: n / N_FRAMES for k, n in counts.items()}
+        for k, n in counts.items():
             launches[k] += n
     if args.profile:
         for name, settings, _path in configs:
@@ -521,8 +802,9 @@ def main() -> int:
         print(f"chip_smoke: {len(smoke.failures)} gate(s) failed: {smoke.failures}", file=sys.stderr)
         return 1
     for k in kernels:
-        k["launches"] = launches[{"icp_reduce": "icp", "integrate_depth": "integrate",
-                                  "integrate_color": "integrate_color", "raycast_grid": "raycast"}[k["name"]]]
+        k["bound_share"] = None if k["ms"] is None else k["bound_ms"] / k["ms"]
+        k["launches"] = launches[COUNTER[k["name"]]]
+        k["launches_per_frame"] = {name: pf[COUNTER[k["name"]]] for name, pf in per_frame.items()}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -31,9 +31,10 @@ def to_numpy(state) -> dict:
     return out
 
 
-def from_numpy(cls: Type[T], arrays: dict, device: torch.device | str = "cpu") -> T:
+def from_numpy(cls: Type[T], arrays: dict, device: torch.device | str = "cuda") -> T:
     """The port's state `cls` (e.g. hash_volume.HashVolume) from
-    `to_numpy` output, copied onto `device`."""
+    `to_numpy` output, copied onto `device` (the card unless the caller
+    passes device="cpu")."""
     missing = set(cls._fields) - set(arrays)
     if missing:
         raise KeyError(f"{cls.__name__}: missing fields {sorted(missing)}")

@@ -3,28 +3,43 @@
 // Replaces: the Pallas kernel infinitam_tpu/ops/pallas/icp_kernel.py
 // (`residuals_tiles` → `_icp_kernel`), whose 6×6 reduction ran outside the
 // kernel (ops/icp.py::reduce_gh). This kernel computes
-// ops/icp.py::compute_residuals for each view pixel and reduces, in the same
-// launch, the 21 upper-triangle terms of H = ΣAAᵀ, the 6 terms of ∇ = ΣbA,
-// Σb² and the valid count.
+// ops/icp.py::compute_residuals for each view pixel, reduces the 21
+// upper-triangle terms of H = ΣAAᵀ, the 6 terms of ∇ = ΣbA, Σb² and the valid
+// count, and writes what icp.gh_from_sums returns: H [6×6], ∇ [6], the energy
+// f = √|Σb²|/N when N > min_valid (else the 1e5 sentinel) and N as int32.
 //
-// What bounds it on the H100: the bilinear taps of the [H, W, 4] float32
-// point and normal maps (4 corners × 2 maps × 16 B per pixel, gathered where
-// the pixel projects) and, at the coarse pyramid levels, launch latency —
-// the whole frame is ≤ 300 k pixels, a few MB of traffic.
+// What bounds it on the H100: bytes and launch latency. A call reads the
+// view depth (1.2 MB at level 0) and taps the [H, W, 4] float32 point and
+// normal maps (9.8 MB, both in L2); ~240 flops a pixel are far below the
+// card's rate. At the coarse pyramid levels (19,200 / 4,800 / 1,200 pixels)
+// a launch is mostly its own latency, and the tracker makes 30 calls a frame.
 //
-// What the simple design does about it: one thread per view pixel reads the
-// maps directly (float4 loads, the scattered reads stay in L2, which holds
-// both 640×480 maps); the per-pixel 29 terms never touch device memory —
-// warp shuffles, then a shared-memory sum per CTA into a [n_blocks, 29]
-// partial buffer, then a second one-CTA pass sums the partials in a fixed
-// order in double. No float atomics, so a run is reproducible. The TPU
-// kernel's one-hot MXU taps, bf16 plane splits and window-miss
+// What the design does about it:
+// - One launch per Gauss-Newton iteration. Every CTA writes its 29 partial
+//   sums; the last CTA to finish (a ticket from atomicAdd on a counter, after
+//   __threadfence) sums the partials in fixed blockIdx order in double,
+//   writes the result and resets the counter to 0 for the next launch. The
+//   wrapper keeps one counter per device and stream: launches on one stream
+//   run one after another, so no two running launches share a counter. No
+//   float atomics: a run is bit-reproducible.
+// - A grid sized to the card: at most 2 CTAs per SM (the wrapper passes
+//   the count), each thread summing its pixels of a fixed grid-stride order
+//   in registers before one warp-shuffle and CTA reduction, so the last CTA
+//   sums at most a few hundred partials. At the coarse levels the grid is
+//   ceil(pixels / 256) CTAs. At 112 registers a thread (ptxas) two CTAs of
+//   256 fit an SM, so the capped grid is resident at once; 512-thread CTAs
+//   forced to 64 registers spilled and ran slower.
+// - The intrinsics and the poses' rows 0-2 are read in the kernel from the
+//   caller's tensors, so the wrapper issues no device op besides the launch.
+// The maps are read with float4 loads; the scattered taps stay in L2. The
+// TPU kernel's one-hot MXU taps, bf16 plane splits and window-miss
 // invalidation are not carried over.
 
 #include "common.cuh"
 
 #define ICP_THREADS 256
-#define ICP_N_SUMS 29
+#define ICP_WARPS (ICP_THREADS / 32)
+#define ICP_N_SUMS 29  // 21 upper-triangle H terms, 6 ∇ terms, Σb², count
 
 __device__ __forceinline__ float4 itpu_tap(const float4* img, int hs, int ws, int ix, int iy) {
     ix = min(max(ix, 0), ws - 1);
@@ -51,58 +66,78 @@ __device__ __forceinline__ bool itpu_bilinear_holes(const float4* img, int hs, i
     return a.w >= 0.0f && b.w >= 0.0f && c.w >= 0.0f && d.w >= 0.0f;
 }
 
-// cam: view (fx, fy, cx, cy), scene (fx, fy, cx, cy), approx_inv_pose rows
-// 0-2 (12), scene_pose rows 0-2 (12)
+struct ItpuIcpCam {
+    float vfx, vfy, vcx, vcy;  // view intrinsics at this level
+    float sfx, sfy, scx, scy;  // scene (map) intrinsics
+    float inv_pose[12];  // approx_inv_pose rows 0-2
+    float scene_pose[12];  // scene_pose rows 0-2
+};
+
+// adds pixel i's 29 terms to s when the pixel is valid
+__device__ __forceinline__ void itpu_icp_pixel(int i, const float* __restrict__ depth, int w, const float4* pts,
+                                               const float4* nrm, int hs, int ws, const ItpuIcpCam& cam,
+                                               float dist_thresh, float (&s)[ICP_N_SUMS]) {
+    const int y = i / w, x = i - y * w;
+    const float dep = depth[i];
+    bool valid = dep > 1e-8f;
+    const float d = valid ? dep : 1.0f;
+    const float pcx = d * ((float)x - cam.vcx) / cam.vfx;
+    const float pcy = d * ((float)y - cam.vcy) / cam.vfy;
+    float px, py, pz, qx, qy, qz;
+    itpu_transform(cam.inv_pose, pcx, pcy, d, px, py, pz);
+    itpu_transform(cam.scene_pose, px, py, pz, qx, qy, qz);
+    valid = valid && qz > 0.0f;
+    const float zs = valid ? qz : 1.0f;
+    const float u = cam.sfx * qx / zs + cam.scx;
+    const float v = cam.sfy * qy / zs + cam.scy;
+    valid = valid && u >= 0.0f && u <= (float)(ws - 2) && v >= 0.0f && v <= (float)(hs - 2);
+    if (!valid) return;
+    float4 tp;
+    if (!itpu_bilinear_holes(pts, hs, ws, u, v, tp)) return;
+    const float dx = tp.x - px, dy = tp.y - py, dz = tp.z - pz;
+    if (!(dx * dx + dy * dy + dz * dz <= dist_thresh)) return;
+    // the normals' own hole flag is not consulted (reference parity)
+    float4 tn;
+    itpu_bilinear_holes(nrm, hs, ws, u, v, tn);
+    const float b = tn.x * dx + tn.y * dy + tn.z * dz;
+    const float A[6] = {tn.y * pz - tn.z * py, tn.z * px - tn.x * pz, tn.x * py - tn.y * px, tn.x, tn.y, tn.z};
+    int k = 0;
+#pragma unroll
+    for (int r = 0; r < 6; ++r)
+#pragma unroll
+        for (int c = r; c < 6; ++c) s[k++] += A[r] * A[c];
+#pragma unroll
+    for (int r = 0; r < 6; ++r) s[21 + r] += b * A[r];
+    s[27] += b * b;
+    s[28] += 1.0f;
+}
+
+// partial: [gridDim.x, 29] scratch; counter: the stream's ticket counter (0
+// between launches); out: H [6×6] row-major, ∇ [6], f, N (int32 bits)
 __global__ void __launch_bounds__(ICP_THREADS)
-itpu_icp_partial_kernel(const float* __restrict__ depth, int h, int w, const float4* __restrict__ pts,
-                        const float4* __restrict__ nrm, int hs, int ws, const float* __restrict__ cam,
-                        float dist_thresh, float* __restrict__ partial) {
+itpu_icp_kernel(const float* __restrict__ depth, int h, int w, const float4* __restrict__ pts,
+                const float4* __restrict__ nrm, int hs, int ws, const float* __restrict__ view_proj,
+                const float* __restrict__ scene_proj, const float* __restrict__ inv_pose,
+                const float* __restrict__ scene_pose, float dist_thresh, int min_valid, float* partial,
+                unsigned int* counter, float* __restrict__ out) {
+    ItpuIcpCam cam;
+    cam.vfx = view_proj[0], cam.vfy = view_proj[1], cam.vcx = view_proj[2], cam.vcy = view_proj[3];
+    cam.sfx = scene_proj[0], cam.sfy = scene_proj[1], cam.scx = scene_proj[2], cam.scy = scene_proj[3];
+#pragma unroll
+    for (int k = 0; k < 12; ++k) {
+        cam.inv_pose[k] = inv_pose[k];
+        cam.scene_pose[k] = scene_pose[k];
+    }
     float s[ICP_N_SUMS];
 #pragma unroll
     for (int k = 0; k < ICP_N_SUMS; ++k) s[k] = 0.0f;
+    const int n = h * w;
+    for (int i = blockIdx.x * ICP_THREADS + threadIdx.x; i < n; i += gridDim.x * ICP_THREADS)
+        itpu_icp_pixel(i, depth, w, pts, nrm, hs, ws, cam, dist_thresh, s);
 
-    const int i = blockIdx.x * ICP_THREADS + threadIdx.x;
-    if (i < h * w) {
-        const int y = i / w, x = i - y * w;
-        const float dep = depth[i];
-        bool valid = dep > 1e-8f;
-        const float d = valid ? dep : 1.0f;
-        const float pcx = d * ((float)x - cam[2]) / cam[0];
-        const float pcy = d * ((float)y - cam[3]) / cam[1];
-        float px, py, pz, qx, qy, qz;
-        itpu_transform(cam + 8, pcx, pcy, d, px, py, pz);
-        itpu_transform(cam + 20, px, py, pz, qx, qy, qz);
-        valid = valid && qz > 0.0f;
-        const float zs = valid ? qz : 1.0f;
-        const float u = cam[4] * qx / zs + cam[6];
-        const float v = cam[5] * qy / zs + cam[7];
-        valid = valid && u >= 0.0f && u <= (float)(ws - 2) && v >= 0.0f && v <= (float)(hs - 2);
-        const float uc = fminf(fmaxf(u, 0.0f), (float)(ws - 2));
-        const float vc = fminf(fmaxf(v, 0.0f), (float)(hs - 2));
-        float4 tp;
-        valid = itpu_bilinear_holes(pts, hs, ws, uc, vc, tp) && valid;
-        const float dx = tp.x - px, dy = tp.y - py, dz = tp.z - pz;
-        valid = valid && (dx * dx + dy * dy + dz * dz <= dist_thresh);
-        if (valid) {
-            // the normals' own hole flag is not consulted (reference parity)
-            float4 tn;
-            itpu_bilinear_holes(nrm, hs, ws, uc, vc, tn);
-            const float b = tn.x * dx + tn.y * dy + tn.z * dz;
-            const float A[6] = {tn.y * pz - tn.z * py, tn.z * px - tn.x * pz, tn.x * py - tn.y * px,
-                                tn.x, tn.y, tn.z};
-            int k = 0;
-#pragma unroll
-            for (int r = 0; r < 6; ++r)
-#pragma unroll
-                for (int c = r; c < 6; ++c) s[k++] = A[r] * A[c];
-#pragma unroll
-            for (int r = 0; r < 6; ++r) s[21 + r] = b * A[r];
-            s[27] = b * b;
-            s[28] = 1.0f;
-        }
-    }
-
-    __shared__ float sh[ICP_THREADS / 32][ICP_N_SUMS];
+    // this CTA's sums: warp shuffles, then one thread per sum over the warps
+    __shared__ float sh[ICP_WARPS][ICP_N_SUMS];
+    __shared__ bool is_last;
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
     for (int k = 0; k < ICP_N_SUMS; ++k) {
@@ -114,45 +149,51 @@ itpu_icp_partial_kernel(const float* __restrict__ depth, int h, int w, const flo
     __syncthreads();
     if (threadIdx.x < ICP_N_SUMS) {
         float t = 0.0f;
-        for (int wi = 0; wi < ICP_THREADS / 32; ++wi) t += sh[wi][threadIdx.x];
+        for (int wi = 0; wi < ICP_WARPS; ++wi) t += sh[wi][threadIdx.x];
         partial[blockIdx.x * ICP_N_SUMS + threadIdx.x] = t;
+        __threadfence();  // the partial is visible device-wide before the ticket
     }
-}
+    __syncthreads();
+    if (threadIdx.x == 0) is_last = atomicAdd(counter, 1u) == gridDim.x - 1;
+    __syncthreads();
+    if (!is_last) return;
 
-// One CTA, one warp per sum: lanes stride over the partials, then a shuffle
-// tree, all in double and in a fixed order. out: H [6×6] row-major, ∇ [6],
-// Σb², count.
-__global__ void itpu_icp_final_kernel(const float* __restrict__ partial, int n_blocks, float* __restrict__ out) {
-    const int k = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    if (k >= ICP_N_SUMS) return;
-    double t = 0.0;
-    for (int b = lane; b < n_blocks; b += 32) t += (double)partial[b * ICP_N_SUMS + k];
+    // the last CTA: each warp sums its share of the 29 terms over the
+    // partials in double, lanes striding over blockIdx, then a fixed tree
+    __shared__ double tot[ICP_N_SUMS];
+    for (int k = warp; k < ICP_N_SUMS; k += ICP_WARPS) {
+        double t = 0.0;
+        for (int b = lane; b < gridDim.x; b += 32) t += (double)__ldcg(partial + b * ICP_N_SUMS + k);
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) t += __shfl_down_sync(0xffffffffu, t, off);
-    if (lane != 0) return;
-    const float v = (float)t;
+        for (int off = 16; off > 0; off >>= 1) t += __shfl_down_sync(0xffffffffu, t, off);
+        if (lane == 0) tot[k] = t;
+    }
+    __syncthreads();
+    const int k = threadIdx.x;
     if (k < 21) {
-        int idx = 0;
-        for (int r = 0; r < 6; ++r)
-            for (int c = r; c < 6; ++c, ++idx)
-                if (idx == k) {
-                    out[r * 6 + c] = v;
-                    out[c * 6 + r] = v;
-                }
-    } else {
-        out[36 + (k - 21)] = v;
+        int r = 0, base = 0;  // upper-triangle index k → (r, c)
+        while (k >= base + 6 - r) base += 6 - r++;
+        const int c = r + (k - base);
+        out[r * 6 + c] = out[c * 6 + r] = (float)tot[k];
+    } else if (k < 27) {
+        out[36 + (k - 21)] = (float)tot[k];
+    } else if (k == 27) {
+        // gh_from_sums: f = √|Σb²| / N when N > min_valid, else 1e5
+        const int n_valid = (int)tot[28];
+        const float sum_f = (float)tot[27];
+        out[42] = n_valid > min_valid ? sqrtf(fabsf(sum_f)) / (float)max(n_valid, 1) : 1e5f;
+        reinterpret_cast<int*>(out)[43] = n_valid;
+        *counter = 0u;  // ready for the next launch
     }
 }
 
-ITPU_EXPORT int itpu_icp_reduce(const void* depth, int h, int w, const void* pts, const void* nrm, int hs,
-                                int ws, const void* cam, float dist_thresh, void* partial, int n_blocks,
-                                void* out, void* stream) {
-    cudaStream_t st = (cudaStream_t)stream;
-    if (n_blocks > 0) {
-        itpu_icp_partial_kernel<<<n_blocks, ICP_THREADS, 0, st>>>(
-            (const float*)depth, h, w, (const float4*)pts, (const float4*)nrm, hs, ws, (const float*)cam,
-            dist_thresh, (float*)partial);
-    }
-    itpu_icp_final_kernel<<<1, 32 * ICP_N_SUMS, 0, st>>>((const float*)partial, n_blocks, (float*)out);
+ITPU_EXPORT int itpu_icp_gh(const void* depth, int h, int w, const void* pts, const void* nrm, int hs, int ws,
+                            const void* view_proj, const void* scene_proj, const void* inv_pose,
+                            const void* scene_pose, float dist_thresh, int min_valid, int n_ctas, void* partial,
+                            void* counter, void* out, void* stream) {
+    itpu_icp_kernel<<<n_ctas, ICP_THREADS, 0, (cudaStream_t)stream>>>(
+        (const float*)depth, h, w, (const float4*)pts, (const float4*)nrm, hs, ws, (const float*)view_proj,
+        (const float*)scene_proj, (const float*)inv_pose, (const float*)scene_pose, dist_thresh, min_valid,
+        (float*)partial, (unsigned int*)counter, (float*)out);
     return (int)cudaGetLastError();
 }

@@ -629,8 +629,10 @@ def process_sequence_hash(vol, render_state, state, depths: torch.Tensor, proj, 
     return vol, render_state, state, torch.stack(poses), stacked
 
 
-def create_engine_state(settings: Settings, img_size: Tuple[int, int], device: torch.device | str = "cpu"):
-    """(HashVolume, RenderStateVH, TrackingState) for a fresh map on `device`."""
+def create_engine_state(settings: Settings, img_size: Tuple[int, int], device: torch.device | str = "cuda"):
+    """(HashVolume, RenderStateVH, TrackingState) for a fresh map on `device`:
+    the card unless the caller passes device="cpu" (no fallback: without a
+    card the default raises)."""
     check_supported(settings)
     vol = hv.create_hash(settings.hashing, with_color=settings.use_color, grid_params=settings.block_grid,
                          device=device)

@@ -123,7 +123,7 @@ def sentinel_row(params: VoxelBlockHashParams) -> int:
 
 
 def create_hash(params: VoxelBlockHashParams, with_color: bool = False, grid_params=None,
-                device: torch.device | str = "cpu") -> HashVolume:
+                device: torch.device | str = "cuda") -> HashVolume:
     """Allocate + reset (reference ResetScene: free lists full, entries empty,
     sdf = 1, w = 0; colour 0 with weight 0 when `with_color`). `grid_params`
     enables the entry/block grid caches."""
@@ -149,7 +149,7 @@ def create_hash(params: VoxelBlockHashParams, with_color: bool = False, grid_par
     )
 
 
-def create_render_state(params: VoxelBlockHashParams, grid_params=None, device: torch.device | str = "cpu") -> RenderStateVH:
+def create_render_state(params: VoxelBlockHashParams, grid_params=None, device: torch.device | str = "cuda") -> RenderStateVH:
     i32 = dict(dtype=torch.int32, device=device)
     ce = ee = ep = None
     if grid_params is not None:

@@ -18,7 +18,7 @@ class TrackingState(NamedTuple):
     num_valid: torch.Tensor  # int32 last tracker inlier count
 
 
-def create_tracking_state(img_size: tuple[int, int], device: torch.device | str = "cpu") -> TrackingState:
+def create_tracking_state(img_size: tuple[int, int], device: torch.device | str = "cuda") -> TrackingState:
     H, W = img_size
     empty = torch.cat(
         [torch.zeros((H, W, 3), dtype=torch.float32, device=device),

@@ -113,12 +113,13 @@ def make_trajectory(n_frames: int, scale: float = 1.0, step: float = 0.01) -> np
 
 class SyntheticSource:
     """Pull-style frame source (reference ImageSourceEngine contract) with
-    ground-truth poses attached; frames render on `device`. With `with_rgb`
+    ground-truth poses attached; frames render on `device` (the card unless
+    the caller passes device="cpu"). With `with_rgb`
     the colour image is rendered from the depth camera (an identity
     rgb-to-depth extrinsic and the depth intrinsics)."""
 
     def __init__(self, calib, n_frames: int = 50, img_size=None, with_rgb: bool = False,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cuda"):
         self.calib = calib
         intr = calib.intrinsics_d
         self.img_size = img_size or (intr.height, intr.width)

@@ -44,17 +44,18 @@ F = ctypes.c_float
 
 # argtypes of every C entry point (all return int: cudaGetLastError())
 SIGNATURES = {
-    # depth, h, w, points, normals, hs, ws, cam, dist_thresh, partial, n_blocks, out, stream
-    "itpu_icp_reduce": (P, I, I, P, P, I, I, P, F, P, I, P, P),
+    # depth, h, w, points, normals, hs, ws, view_proj, scene_proj, inv_pose, scene_pose, dist_thresh,
+    # min_valid, n_ctas, partial, counter, out, stream
+    "itpu_icp_gh": (P, I, I, P, P, I, I, P, P, P, P, F, I, I, P, P, P, P),
     # vox, ptrs, bpos, n_rows, block_size, depth, h, w, cam, enable, voxel_size, mu, max_w,
     # stop_at_max_w, stream
     "itpu_integrate_depth": (P, P, P, I, I, P, I, I, P, P, F, F, I, I, P),
     # vox, vox_rgb, ptrs, bpos, n_rows, block_size, depth, h, w, rgb, rh, rw, cam, enable, voxel_size, mu,
     # max_w, stop_at_max_w, stream
     "itpu_integrate_rgbd": (P, P, P, P, I, I, P, I, I, P, I, I, P, P, F, F, I, I, P),
-    # vox, grid, gx, gy, gz, ox, oy, oz, pt_start, ray_dir, len_start, len_end, n_rays,
-    # step_scale, block_size, out, stream
-    "itpu_raycast_grid": (P, P, I, I, I, I, I, I, P, P, P, P, I, F, I, P, P),
+    # vox, grid, gx, gy, gz, ox, oy, oz, block_shift, inv_M, proj, inv_voxel, zmin, zmax, h, w,
+    # step_scale, out, stream
+    "itpu_raycast": (P, P, I, I, I, I, I, I, I, P, P, F, P, P, I, I, F, P, P),
 }
 
 KERNELS = ("icp", "integrate", "integrate_color", "raycast")

@@ -2,24 +2,27 @@
 
 Replaces the Pallas kernel infinitam_tpu/ops/pallas/icp_kernel.py
 (`residuals_tiles`, whose 6×6 reduction ran outside the kernel). The CUDA
-kernel (csrc/icp.cu) computes `ops/icp.py::compute_residuals` per view pixel
-and reduces H = ΣAAᵀ, ∇ = ΣbA, Σb² and the valid count in two fixed-order
-passes, so a run is reproducible. Its plain twin is `compute_residuals` +
-`reduce_gh`.
+kernel (csrc/icp.cu) computes `ops/icp.py::compute_residuals` per view pixel,
+reduces H = ΣAAᵀ, ∇ = ΣbA, Σb² and the valid count, and applies
+`icp.gh_from_sums` in one launch: its last CTA sums the CTAs' partials in a
+fixed order in double, so a run is reproducible. Its plain twin is
+`compute_residuals` + `reduce_gh`.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from infinitam_tpu_torch.ops import icp
 from infinitam_tpu_torch.ops.kernels import build
 
-THREADS = 256  # pixels per CTA of the partial pass (csrc/icp.cu ICP_THREADS)
+THREADS = 256  # threads per CTA (csrc/icp.cu ICP_THREADS)
+CTAS_PER_SM = 2  # the grid's cap: a few hundred partials for the last CTA to sum
 N_SUMS = 29  # 21 upper-triangle H terms, 6 ∇ terms, Σb², count
-N_OUT = 44  # H [6×6] row-major, ∇ [6], Σb², count
+N_OUT = 44  # H [6×6] row-major, ∇ [6], f, N (int32 bits)
 
 
 def icp_gh_plain(depth, view_proj, points_map, normals_map, scene_proj, approx_inv_pose, scene_pose,
@@ -31,41 +34,61 @@ def icp_gh_plain(depth, view_proj, points_map, normals_map, scene_proj, approx_i
     return icp.reduce_gh(b, A, valid, min_valid)
 
 
-def icp_sums_cuda(depth, view_proj, points_map, normals_map, scene_proj, approx_inv_pose, scene_pose,
-                  dist_thresh: float) -> torch.Tensor:
-    """Launch K1 → [44] float32: H row-major, ∇, Σb², count."""
+def gh_from_buffer(out: torch.Tensor) -> icp.GHResult:
+    """The GHResult the kernel writes into `out` [44]: views, no copies."""
+    return icp.GHResult(f=out[42], nabla=out[36:42], hessian=out[:36].view(6, 6),
+                        num_valid=out[43:].view(torch.int32)[0])
+
+
+@functools.cache
+def _counter(index: int, stream: int) -> torch.Tensor:
+    """The ticket counter for the kernel's last-CTA sum, one per device and
+    stream: launches on one stream run one after another, so no two share a
+    counter. Zeroed once here, and every launch leaves it at 0. torch hands
+    out streams from a fixed pool per device, so the cache stays small."""
+    return torch.zeros((1,), dtype=torch.int32, device=torch.device("cuda", index))
+
+
+@functools.cache
+def _max_ctas(index: int) -> int:
+    return CTAS_PER_SM * torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def icp_gh_cuda(depth, view_proj, points_map, normals_map, scene_proj, approx_inv_pose, scene_pose,
+                dist_thresh: float, min_valid: int) -> icp.GHResult:
+    """Launch K1: one kernel, and no other device op."""
     dev = depth.device
     h, w = depth.shape
     hs, ws = points_map.shape[:2]
     if points_map.shape != (hs, ws, 4) or normals_map.shape != (hs, ws, 4):
         raise ValueError("icp: maps must be [H, W, 4]")
-    for t in (depth, points_map, normals_map, view_proj, scene_proj, approx_inv_pose, scene_pose):
+    if view_proj.shape != (4,) or scene_proj.shape != (4,):
+        raise ValueError("icp: intrinsics must be (fx, fy, cx, cy)")
+    if approx_inv_pose.shape != (4, 4) or scene_pose.shape != (4, 4):
+        raise ValueError("icp: poses must be [4, 4]")
+    tensors = (depth, points_map, normals_map, view_proj, scene_proj, approx_inv_pose, scene_pose)
+    for t in tensors:
         build.require_dtype("icp", t, torch.float32)
-    cam = torch.cat([
-        view_proj.reshape(4), scene_proj.reshape(4),
-        approx_inv_pose[:3].reshape(12), scene_pose[:3].reshape(12),
-    ]).contiguous()
-    build.require_cuda("icp", depth, points_map, normals_map, cam, device=dev)
-    n_blocks = (h * w + THREADS - 1) // THREADS
-    partial = torch.empty((max(n_blocks, 1), N_SUMS), dtype=torch.float32, device=dev)
+    build.require_cuda("icp", *tensors, device=dev)
+    n_ctas = max(1, min((h * w + THREADS - 1) // THREADS, _max_ctas(dev.index)))
+    partial = torch.empty((n_ctas, N_SUMS), dtype=torch.float32, device=dev)
     out = torch.empty((N_OUT,), dtype=torch.float32, device=dev)
-    err = build.library().itpu_icp_reduce(
+    stream = build.stream_ptr()
+    err = build.library().itpu_icp_gh(
         depth.data_ptr(), h, w, points_map.data_ptr(), normals_map.data_ptr(), hs, ws,
-        cam.data_ptr(), ctypes.c_float(dist_thresh), partial.data_ptr(), n_blocks,
-        out.data_ptr(), build.stream_ptr(),
+        view_proj.data_ptr(), scene_proj.data_ptr(), approx_inv_pose.data_ptr(), scene_pose.data_ptr(),
+        ctypes.c_float(dist_thresh), int(min_valid), n_ctas, partial.data_ptr(), _counter(dev.index, stream).data_ptr(),
+        out.data_ptr(), stream,
     )
-    build.check("itpu_icp_reduce", err)
+    build.check("itpu_icp_gh", err)
     build.count_launch("icp")
-    return out
+    return gh_from_buffer(out)
 
 
 def icp_gh(depth, view_proj, points_map, normals_map, scene_proj, approx_inv_pose, scene_pose,
            dist_thresh: float, min_valid: int) -> icp.GHResult:
     """GHResult of one Gauss-Newton iteration: the plain version for CPU
     tensors, kernel K1 for CUDA tensors."""
-    if depth.device.type == "cpu":
-        return icp_gh_plain(depth, view_proj, points_map, normals_map, scene_proj, approx_inv_pose,
-                            scene_pose, dist_thresh, min_valid)
-    out = icp_sums_cuda(depth, view_proj, points_map, normals_map, scene_proj, approx_inv_pose,
-                        scene_pose, dist_thresh)
-    return icp.gh_from_sums(out[:36].reshape(6, 6), out[36:42], out[42], out[43], min_valid)
+    fn = icp_gh_plain if depth.device.type == "cpu" else icp_gh_cuda
+    return fn(depth, view_proj, points_map, normals_map, scene_proj, approx_inv_pose, scene_pose, dist_thresh,
+              min_valid)

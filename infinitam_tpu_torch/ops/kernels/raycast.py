@@ -2,7 +2,8 @@
 
 Replaces the Pallas kernel infinitam_tpu/ops/pallas/raycast_kernel.py
 (`raycast_tiles`). The CUDA kernel (csrc/raycast.cu) runs one thread per
-pixel and reproduces the JAX package's XLA oracle
+pixel on 16×8 pixel tiles, builds the pixel's ray itself (`pixel_rays`' ops
+in its order) and reproduces the JAX package's XLA oracle
 (`ops/raycast.py::raycast_rays` over `make_grid_reader`): full int16 sdf,
 uninterpolated march with the DDA empty-space step, bounded only by each
 ray's own `len_end`, then the secant + two trilinear refinement steps. Its
@@ -30,12 +31,12 @@ def raycast_grid_plain(vol, grid, grid_params, params, inv_M, proj, img_size, on
 
 def raycast_grid_cuda(vol, grid, grid_params, params, inv_M, proj, img_size, one_over_voxel_size: float,
                       mu: float, zmin, zmax) -> rc.RaycastResult:
-    """Launch K3 over rays built by `pixel_rays` → points [H, W, 4]."""
+    """Launch K3 → points [H, W, 4]; the kernel builds each pixel's ray."""
     dev = vol.vox.device
     H, W = img_size
-    pt_start, ray_dir, len_start, len_end = rc.pixel_rays(inv_M, proj, img_size, one_over_voxel_size, zmin, zmax)
-    pt_start, ray_dir = pt_start.contiguous(), ray_dir.contiguous()
-    len_start, len_end = len_start.contiguous(), len_end.contiguous()
+    S = params.block_size
+    if S & (S - 1):
+        raise ValueError("raycast: block_size must be a power of two")
     gx, gy, gz = grid_params.dims
     ox, oy, oz = grid_params.origin
     grid = grid.reshape(-1)
@@ -43,16 +44,20 @@ def raycast_grid_cuda(vol, grid, grid_params, params, inv_M, proj, img_size, one
         raise ValueError("raycast: block grid does not match grid_params.dims")
     if vol.vox.dim() != 2 or vol.vox.shape[1] != params.block_volume:
         raise ValueError("raycast: vox must be [B, S³]")
+    if inv_M.shape != (4, 4) or proj.shape != (4,) or zmin.shape != (H, W) or zmax.shape != (H, W):
+        raise ValueError("raycast: inv_M must be [4, 4], proj (fx, fy, cx, cy), zmin and zmax [H, W]")
     build.require_dtype("raycast", vol.vox, torch.int32)
     build.require_dtype("raycast", grid, torch.int32)
-    build.require_cuda("raycast", vol.vox, grid, pt_start, ray_dir, len_start, len_end, device=dev)
+    for t in (inv_M, proj, zmin, zmax):
+        build.require_dtype("raycast", t, torch.float32)
+    build.require_cuda("raycast", vol.vox, grid, inv_M, proj, zmin, zmax, device=dev)
     out = torch.empty((H, W, 4), dtype=torch.float32, device=dev)
-    err = build.library().itpu_raycast_grid(
-        vol.vox.data_ptr(), grid.data_ptr(), gx, gy, gz, ox, oy, oz,
-        pt_start.data_ptr(), ray_dir.data_ptr(), len_start.data_ptr(), len_end.data_ptr(), H * W,
-        ctypes.c_float(mu * one_over_voxel_size), params.block_size, out.data_ptr(), build.stream_ptr(),
+    err = build.library().itpu_raycast(
+        vol.vox.data_ptr(), grid.data_ptr(), gx, gy, gz, ox, oy, oz, S.bit_length() - 1,
+        inv_M.data_ptr(), proj.data_ptr(), ctypes.c_float(one_over_voxel_size), zmin.data_ptr(), zmax.data_ptr(),
+        H, W, ctypes.c_float(mu * one_over_voxel_size), out.data_ptr(), build.stream_ptr(),
     )
-    build.check("itpu_raycast_grid", err)
+    build.check("itpu_raycast", err)
     build.count_launch("raycast")
     return rc.RaycastResult(points=out)
 

@@ -2,16 +2,17 @@
 
 Counterpart of infinitam_tpu/ops/raycast.py (reference:
 DeviceAgnostic/ITMVisualisationEngine.h:92-409 castRay, computeNormalAndAngle,
-processPixelICP). `raycast_rays` / `generic_raycast` are the plain version of
-kernel K3 (ops/kernels/raycast.py): the kernel marches one ray per thread;
-this version marches the whole ray bundle in lock step and stops when no ray
-is active, which reads a flag back to the host once per step. It is the CPU
-path and the card's reference, never the main path on the card.
+processPixelICP). `pixel_rays` + `raycast_rays` (`generic_raycast`) are the
+plain version of kernel K3 (ops/kernels/raycast.py): the kernel builds and
+marches one ray per thread; this version marches the whole ray bundle in
+lock step and stops when no ray is active, which reads a flag back to the
+host once per step. It is the CPU path and the card's reference, never the
+main path on the card.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -23,6 +24,9 @@ class RaycastResult(NamedTuple):
     # [H, W, 4]: xyz = hit position in voxel units (world grid frame),
     # w = 1 found / 0 miss
     points: torch.Tensor
+    # [H, W] int32: each ray's march steps (voxel reads before the
+    # refinement); the plain march counts them, kernel K3 does not
+    steps: Optional[torch.Tensor] = None
 
 
 def pixel_rays(
@@ -48,14 +52,27 @@ def pixel_rays(
         return torch.stack([c * one_over_voxel_size for c in pw], dim=-1)
 
     def length(z):
-        a, b = dx * z, dy * z
-        return torch.sqrt(a * a + b * b + z * z) * one_over_voxel_size
+        return norm3(dx * z, dy * z, z) * one_over_voxel_size
 
     pt_start = to_world_voxels(zmin)
     pt_end = to_world_voxels(zmax)
     ray_dir = pt_end - pt_start
-    ray_dir = ray_dir / torch.linalg.vector_norm(ray_dir, dim=-1, keepdim=True).clamp(min=1e-12)
-    return pt_start, ray_dir, length(zmin), length(zmax)
+    norm = norm3(*ray_dir.unbind(-1)).clamp(min=1e-12)
+    return pt_start, ray_dir / norm[..., None], length(zmin), length(zmax)
+
+
+def norm3(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """√(x² + y² + z²) of float32 planes, rounded as the JAX package's
+    `jnp.linalg.norm` rounds it on the CPU: the FMA chain
+    fma(z, z, fma(y, y, x·x)), then a correctly rounded square root. Each
+    fused step and the root run in float64 and round back to float32 (torch's
+    float32 `sqrt` on the CPU is not correctly rounded); kernel K3 computes
+    the same with `__fmaf_rn` and `sqrtf`, so both round alike."""
+
+    def fma(a, b, c):
+        return (a.double() * b.double() + c.double()).float()
+
+    return torch.sqrt(fma(z, z, fma(y, y, x * x)).double()).float()
 
 
 def raycast_rays(
@@ -66,21 +83,24 @@ def raycast_rays(
     len_end: torch.Tensor,  # [...]
     step_scale: float,  # mu / voxel_size
     block_size: int = 8,
-) -> torch.Tensor:
-    """Sphere tracing along ray bundles → [..., 4] (position in voxel units,
-    w = hit flag), the JAX oracle's march: step max(sdf·step_scale, 1) in
-    allocated space, a DDA step to the current block's exit (clamped to
-    [0.5, block]) through empty space, stop at the first sdf ≤ 0 or past
-    len_end; then one secant step and two trilinear refinement steps."""
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sphere tracing along ray bundles → ([..., 4] position in voxel units
+    and w = hit flag, [...] int32 march steps of each ray), the JAX oracle's
+    march: step max(sdf·step_scale, 1) in allocated space, a DDA step to the
+    current block's exit (clamped to [0.5, block]) through empty space, stop
+    at the first sdf ≤ 0 or past len_end; then one secant step and two
+    trilinear refinement steps."""
     shape = len_start.shape
     pt = pt_start
     total = len_start
     sdf = torch.ones(shape, dtype=torch.float32, device=pt.device)
     active = torch.ones(shape, dtype=torch.bool, device=pt.device)
+    steps = torch.zeros(shape, dtype=torch.int32, device=pt.device)
     tiny = ray_dir.abs() < 1e-9
     safe_dir = torch.where(tiny, torch.full_like(ray_dir, 1e-9), ray_dir)
     up = (ray_dir > 0).to(torch.float32)
     while bool(active.any()):
+        steps += active
         s, found = read_sdf_uninterpolated(read, pt)
         hit = found & (s <= 0.0)
         nxt_bound = (torch.floor(pt / block_size) + up) * block_size
@@ -100,9 +120,10 @@ def raycast_rays(
     p = p + (r1 * step_scale)[..., None] * ray_dir
     r2, _ = read_sdf_interpolated(read, p)
     p = p + (r2 * step_scale)[..., None] * ray_dir
-    return torch.cat(
+    points = torch.cat(
         [torch.where(found_surface[..., None], p, pt), found_surface.to(torch.float32)[..., None]], dim=-1
     )
+    return points, steps
 
 
 def generic_raycast(
@@ -118,9 +139,8 @@ def generic_raycast(
 ) -> RaycastResult:
     """Full-image raycast (reference genericRaycast_device)."""
     pt_start, ray_dir, len_start, len_end = pixel_rays(inv_M, proj, img_size, one_over_voxel_size, zmin, zmax)
-    return RaycastResult(
-        points=raycast_rays(read, pt_start, ray_dir, len_start, len_end, mu * one_over_voxel_size, block_size)
-    )
+    points, steps = raycast_rays(read, pt_start, ray_dir, len_start, len_end, mu * one_over_voxel_size, block_size)
+    return RaycastResult(points=points, steps=steps)
 
 
 def _normals_planes(px, py, pz, found, voxel_size: float, light_source, use_smoothing: bool = True):

@@ -57,8 +57,8 @@ def run_both(settings, n_prior, enable=True, only_update_visible=False):
         depth, _r, _g = src.get_images()
         vol, rs, st, _d = j_hp.process_frame_hash(vol, rs, st, JView(depth=depth), proj, settings)
     depth, _r, gt = src.get_images()
-    vt = convert.from_numpy(t_hv.HashVolume, convert.to_numpy(vol))
-    rt = convert.from_numpy(t_hv.RenderStateVH, convert.to_numpy(rs))
+    vt = convert.from_numpy(t_hv.HashVolume, convert.to_numpy(vol), device="cpu")
+    rt = convert.from_numpy(t_hv.RenderStateVH, convert.to_numpy(rs), device="cpu")
     out_j = j_hp.allocate_scene_from_depth(vol, rs, depth, gt, proj, settings, only_update_visible, jnp.asarray(enable))
     out_t = t_hp.allocate_scene_from_depth(vt, rt, T(depth), T(gt), T(np.asarray(proj)), settings,
                                            only_update_visible, torch.tensor(enable))

@@ -178,7 +178,7 @@ def test_build_view_refuses_unported_filters():
 
 def test_tracking_state_matches_jax():
     s_j = j_ts.create_tracking_state((6, 8))
-    s_t = t_ts.create_tracking_state((6, 8))
+    s_t = t_ts.create_tracking_state((6, 8), device="cpu")
     assert s_t._fields == s_j._fields
     for name in s_j._fields:
         a, b = getattr(s_t, name).numpy(), np.asarray(getattr(s_j, name))
@@ -189,7 +189,7 @@ def test_tracking_state_matches_jax():
 def test_synthetic_renderer_matches_jax():
     calib = default_calib(40, 30)
     src_j = j_synth.SyntheticSource(calib, n_frames=3, img_size=(30, 40))
-    src_t = t_synth.SyntheticSource(calib, n_frames=3, img_size=(30, 40))
+    src_t = t_synth.SyntheticSource(calib, n_frames=3, img_size=(30, 40), device="cpu")
     # trajectories: the same float32 twists through each package's se3_exp
     np.testing.assert_allclose(src_t.gt_poses, src_j.gt_poses, atol=1e-6)
     for _ in range(3):

@@ -110,7 +110,7 @@ def replay():
     src = j_synth.SyntheticSource(CALIB, n_frames=N_FRAMES, img_size=IMG, with_rgb=True)
     frames = [src.get_images() for _ in range(N_FRAMES)]
     v_j, r_j, s_j = j_hp.create_engine_state(SETTINGS, IMG)
-    v_t, r_t, s_t = t_hp.create_engine_state(SETTINGS, IMG)
+    v_t, r_t, s_t = t_hp.create_engine_state(SETTINGS, IMG, device="cpu")
     out = []
     for depth, rgb, _gt in frames:
         v_j, r_j, s_j, d_j = j_hp.process_frame_hash(v_j, r_j, s_j, JView(depth=depth, rgb=rgb), jnp.asarray(PROJ),
@@ -195,8 +195,8 @@ def test_plain_k2_color_matches_jax(replay, case, oracle):
     else:
         ref = j_hp.integrate_into_scene_pallas(vol, rs, jview, st.pose, jnp.asarray(PROJ), settings, interpret=True,
                                                **jargs)
-    vt = convert.from_numpy(t_hv.HashVolume, convert.to_numpy(vol))
-    rt = convert.from_numpy(t_hv.RenderStateVH, convert.to_numpy(rs))
+    vt = convert.from_numpy(t_hv.HashVolume, convert.to_numpy(vol), device="cpu")
+    rt = convert.from_numpy(t_hv.RenderStateVH, convert.to_numpy(rs), device="cpu")
     out_t = t_hp.integrate_into_scene(vt, rt, View(depth=T(depth), rgb=T(rgb)), T(st.pose), T(PROJ), settings,
                                       proj_rgb=T(proj_rgb), rgb_to_depth=None if r2d is None else T(r2d),
                                       enable=torch.tensor(enable))
@@ -227,8 +227,8 @@ def test_k2_color_wrapper_takes_plain_version_on_cpu(replay):
     (vol, rs, st), _port, _dj, _dt = out[1]
     depth, rgb, _gt = frames[2]
     sp = SETTINGS.scene
-    vt = convert.from_numpy(t_hv.HashVolume, convert.to_numpy(vol))
-    rt = convert.from_numpy(t_hv.RenderStateVH, convert.to_numpy(rs))
+    vt = convert.from_numpy(t_hv.HashVolume, convert.to_numpy(vol), device="cpu")
+    rt = convert.from_numpy(t_hv.RenderStateVH, convert.to_numpy(rs), device="cpu")
     _ids, ptr, bpos, valid = t_hp._visible_rows(vt, rt, SETTINGS, SETTINGS.max_fused_blocks)
     M_rgb = torch.linalg.inv(T(extrinsic())) @ T(st.pose)
     args = (torch.where(valid, ptr, -1), bpos, T(depth), T(rgb), T(st.pose), T(PROJ), M_rgb, T(PROJ_RGB_OTHER),
@@ -275,7 +275,8 @@ def test_sequence_with_rgb_equals_frame_loop(replay):
     frames, out = replay
     depths = torch.stack([T(d) for d, _r, _g in frames[:2]])
     rgbs = torch.stack([T(r) for _d, r, _g in frames[:2]])
-    v, _r, _s, poses, diags = t_hp.process_sequence_hash(*t_hp.create_engine_state(SETTINGS, IMG), depths, T(PROJ),
+    state = t_hp.create_engine_state(SETTINGS, IMG, device="cpu")
+    v, _r, _s, poses, diags = t_hp.process_sequence_hash(*state, depths, T(PROJ),
                                                         SETTINGS, rgbs=rgbs, proj_rgb=T(PROJ))
     np.testing.assert_array_equal(poses[1].numpy(), out[1][1][2].pose.numpy())
     np.testing.assert_array_equal(v.vox_rgb.numpy(), out[1][1][0].vox_rgb.numpy())
@@ -284,15 +285,15 @@ def test_sequence_with_rgb_equals_frame_loop(replay):
 
 def test_hash_state_with_color_matches_jax_and_converts_both_ways(replay):
     v_j = j_hv.create_hash(SETTINGS.hashing, with_color=True, grid_params=SETTINGS.block_grid)
-    v_t = t_hv.create_hash(SETTINGS.hashing, with_color=True, grid_params=SETTINGS.block_grid)
+    v_t = t_hv.create_hash(SETTINGS.hashing, with_color=True, grid_params=SETTINGS.block_grid, device="cpu")
     for name in v_j._fields:
         a, b = getattr(v_t, name), getattr(v_j, name)
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
-    assert t_hv.create_hash(SETTINGS.hashing).vox_rgb is None
+    assert t_hv.create_hash(SETTINGS.hashing, device="cpu").vox_rgb is None
     # a fused JAX volume with colour → the port → numpy, unchanged
     _frames, out = replay
     vol = out[-1][0][0]
-    back = convert.to_numpy(convert.from_numpy(t_hv.HashVolume, convert.to_numpy(vol)))
+    back = convert.to_numpy(convert.from_numpy(t_hv.HashVolume, convert.to_numpy(vol), device="cpu"))
     for name in vol._fields:
         a, b = back[name], getattr(vol, name)
         assert (a is None) == (b is None), name
@@ -305,7 +306,7 @@ def test_hash_state_with_color_matches_jax_and_converts_both_ways(replay):
 def test_rgbd_renderer_matches_jax():
     calib = default_calib(40, 30)
     src_j = j_synth.SyntheticSource(calib, n_frames=2, img_size=(30, 40), with_rgb=True)
-    src_t = t_synth.SyntheticSource(calib, n_frames=2, img_size=(30, 40), with_rgb=True)
+    src_t = t_synth.SyntheticSource(calib, n_frames=2, img_size=(30, 40), with_rgb=True, device="cpu")
     for _ in range(2):
         d_j, c_j, _g = src_j.get_images()
         d_t, c_t, _g2 = src_t.get_images()

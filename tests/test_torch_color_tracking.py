@@ -77,7 +77,7 @@ def replay():
     src = j_synth.SyntheticSource(CALIB, n_frames=N_FRAMES, img_size=IMG, with_rgb=True)
     frames = [src.get_images() for _ in range(N_FRAMES)]
     v_j, r_j, s_j = j_hp.create_engine_state(SETTINGS, IMG)
-    v_t, r_t, s_t = t_hp.create_engine_state(SETTINGS, IMG)
+    v_t, r_t, s_t = t_hp.create_engine_state(SETTINGS, IMG, device="cpu")
     out = []
     for depth, rgb, _gt in frames:
         v_j, r_j, s_j, d_j = j_hp.process_frame_hash(v_j, r_j, s_j, JView(depth=depth, rgb=rgb), jnp.asarray(PROJ),
@@ -170,7 +170,7 @@ def test_color_reads_match_jax(replay):
     volume and points."""
     _frames, out = replay
     (v_j, _r, s_j, _d), _port = out[1]
-    v_t = convert.from_numpy(t_hv.HashVolume, convert.to_numpy(v_j))
+    v_t = convert.from_numpy(t_hv.HashVolume, convert.to_numpy(v_j), device="cpu")
     rng = np.random.default_rng(4)
     # voxel coordinates around the surface the last raycast hit
     surf = np.asarray(s_j.points_map)
@@ -197,8 +197,8 @@ def test_create_point_cloud_matches_jax(replay):
     _frames, out = replay
     (v_j, r_j, s_j, _d), _port = out[2]
     d2r = np.linalg.inv(np.asarray(CALIB.rgb_to_depth)).astype(np.float32)
-    v_t = convert.from_numpy(t_hv.HashVolume, convert.to_numpy(v_j))
-    r_t = convert.from_numpy(t_hv.RenderStateVH, convert.to_numpy(r_j))
+    v_t = convert.from_numpy(t_hv.HashVolume, convert.to_numpy(v_j), device="cpu")
+    r_t = convert.from_numpy(t_hv.RenderStateVH, convert.to_numpy(r_j), device="cpu")
     l_t, c_t = t_hp.create_point_cloud(v_t, r_t, T(s_j.pose), T(PROJ), T(d2r), IMG, SETTINGS)
     l_j, c_j, l_t, c_t = np.asarray(s_j.points_map), np.asarray(s_j.normals_map), l_t.numpy(), c_t.numpy()
     hit = l_j[..., 3] > 0
@@ -214,7 +214,7 @@ def test_create_point_cloud_matches_jax(replay):
 
 
 def _fuse(frames):
-    vol, rs, st = t_hp.create_engine_state(SETTINGS, IMG)
+    vol, rs, st = t_hp.create_engine_state(SETTINGS, IMG, device="cpu")
     for depth, rgb in frames:
         vol, rs, st, _d = t_hp.process_frame_hash(vol, rs, st, View(depth=depth, rgb=rgb), T(PROJ), SETTINGS,
                                                   proj_rgb=T(PROJ))

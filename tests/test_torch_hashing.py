@@ -129,8 +129,10 @@ def test_packing_helpers_match_jax():
 
 def test_created_state_matches_jax():
     pairs = (
-        (j_hv.create_hash(PARAMS, grid_params=GRID), t_hv.create_hash(PARAMS, grid_params=GRID)),
-        (j_hv.create_render_state(PARAMS, grid_params=GRID), t_hv.create_render_state(PARAMS, grid_params=GRID)),
+        (j_hv.create_hash(PARAMS, grid_params=GRID),
+         t_hv.create_hash(PARAMS, grid_params=GRID, device="cpu")),
+        (j_hv.create_render_state(PARAMS, grid_params=GRID),
+         t_hv.create_render_state(PARAMS, grid_params=GRID, device="cpu")),
     )
     for s_j, s_t in pairs:
         d_j, d_t = convert.to_numpy(s_j), convert.to_numpy(s_t)
@@ -158,7 +160,7 @@ def test_insert_blocks_matches_jax_as_sets():
     valid[::7] = False
     vt = np.zeros(PARAMS.n_entries, np.int32)
     v_j = j_hv.create_hash(PARAMS, grid_params=GRID)
-    v_t = t_hv.create_hash(PARAMS, grid_params=GRID)
+    v_t = t_hv.create_hash(PARAMS, grid_params=GRID, device="cpu")
     for _ in range(3):  # contended buckets insert over several rounds
         v_j, _vt, _w = j_hv.insert_blocks(v_j, jnp.asarray(vt), jnp.asarray(blocks), jnp.asarray(valid), PARAMS, GRID)
         v_t, _vt2, _w2 = t_hv.insert_blocks(v_t, T(vt), T(blocks), T(valid), PARAMS, GRID)
@@ -192,7 +194,7 @@ def jax_volume():
 def test_grids_reader_and_visibility_match_jax(jax_volume):
     settings, vol_j, _rs, st, proj, img = jax_volume
     gp, params = settings.block_grid, settings.hashing
-    vol_t = convert.from_numpy(t_hv.HashVolume, convert.to_numpy(vol_j))
+    vol_t = convert.from_numpy(t_hv.HashVolume, convert.to_numpy(vol_j), device="cpu")
     np.testing.assert_array_equal(t_hv.build_entry_grid(vol_t, gp).numpy(), np.asarray(j_hv.build_entry_grid(vol_j, gp)))
     np.testing.assert_array_equal(
         t_hv.build_block_grid(vol_t, gp).numpy(), np.asarray(j_hv.build_block_grid(vol_j, gp, params))
@@ -228,7 +230,7 @@ def test_state_conversion_round_trip(jax_volume):
     _settings, vol, rs, st, _proj, _img = jax_volume
     for state, cls in ((vol, t_hv.HashVolume), (rs, t_hv.RenderStateVH), (st, t_ts.TrackingState)):
         d = convert.to_numpy(state)
-        back = convert.to_numpy(convert.from_numpy(cls, d))
+        back = convert.to_numpy(convert.from_numpy(cls, d, device="cpu"))
         assert back.keys() == d.keys()
         for k, a in d.items():
             if a is None:
@@ -238,4 +240,4 @@ def test_state_conversion_round_trip(jax_volume):
             np.testing.assert_array_equal(back[k], a, err_msg=k)
             assert isinstance(getattr(state, k), jax.Array)
     with pytest.raises(KeyError):
-        convert.from_numpy(t_hv.HashVolume, {"vox": np.zeros((1, 1), np.int32)})
+        convert.from_numpy(t_hv.HashVolume, {"vox": np.zeros((1, 1), np.int32)}, device="cpu")

@@ -19,6 +19,7 @@ from infinitam_tpu.ops.pallas import icp_kernel as j_ik
 from infinitam_tpu.utils import se3 as j_se3
 from infinitam_tpu_torch.engine import trackers as t_tr
 from infinitam_tpu_torch.ops import icp as t_icp
+from infinitam_tpu_torch.ops import pyramid as t_pyr
 from infinitam_tpu_torch.ops.kernels import build
 from infinitam_tpu_torch.ops.kernels import icp as k_icp
 
@@ -159,7 +160,41 @@ def test_k1_wrapper_takes_plain_version_on_cpu():
         np.testing.assert_array_equal(x.numpy(), y.numpy())
     assert build.launch_counts()["icp"] == 0
     with pytest.raises(ValueError):  # the kernel path refuses CPU tensors
-        k_icp.icp_sums_cuda(*args[:-1])
+        k_icp.icp_gh_cuda(*args)
+
+
+@pytest.mark.parametrize("level", range(3))
+def test_k1_wrapper_plain_path_equals_residuals_and_reduction(level):
+    """On CPU tensors the K1 wrapper is compute_residuals + reduce_gh, bit
+    for bit, at each pyramid level's view depth against the full-resolution
+    maps, as trackers.track_depth calls it."""
+    depth, proj, pts, nrm = make_scene(seed=13)
+    d = t_pyr.build_depth_pyramid(T(depth), 3)[level]
+    vproj = t_tr.scale_proj(T(proj), level)
+    inv_pose = T(np.asarray(j_se3.se3_exp(jnp.asarray(STEP))))
+    b, A, valid, _p = t_icp.compute_residuals(d, vproj, T(pts), T(nrm), T(proj), inv_pose, torch.eye(4), 0.04)
+    want = t_icp.reduce_gh(b, A, valid, 20)
+    got = k_icp.icp_gh(d, vproj, T(pts), T(nrm), T(proj), inv_pose, torch.eye(4), 0.04, 20)
+    assert int(want.num_valid) > 20
+    for x, y in zip(got, want):
+        assert x.dtype == y.dtype and torch.equal(x, y)
+
+
+def test_k1_result_buffer_layout():
+    """gh_from_buffer reads what csrc/icp.cu writes — H row-major in words
+    0-35, ∇ in 36-41, f in 42, N as int32 bits in 43 — as views of the one
+    buffer, so the wrapper issues no device op of its own."""
+    rng = np.random.default_rng(2)
+    J = rng.standard_normal((6, 6)).astype(np.float32)
+    H, g = T(J @ J.T), T(rng.standard_normal(6).astype(np.float32))
+    out = torch.empty(k_icp.N_OUT)
+    out[:36], out[36:42], out[42] = H.reshape(-1), g, 12.5
+    out[43:].view(torch.int32)[0] = 123456
+    r = k_icp.gh_from_buffer(out)
+    assert torch.equal(r.hessian, H) and torch.equal(r.nabla, g) and float(r.f) == 12.5
+    assert r.f.shape == () and r.num_valid.shape == () and r.num_valid.dtype == torch.int32
+    assert int(r.num_valid) == 123456
+    assert all(t.untyped_storage().data_ptr() == out.untyped_storage().data_ptr() for t in r)
 
 
 def spd(seed):

@@ -4,15 +4,18 @@ The port must run where no JAX is installed: every module imports torch and
 never jax, nor any module of the JAX package (config and calib are the port's
 own copies). On the CPU every kernel wrapper
 takes its plain PyTorch version, so a CPU frame, with colour or without,
-must leave every launch counter at 0 and never build the CUDA library.
+must leave every launch counter at 0 and never build the CUDA library. The
+entry points that place state on a device default to the card.
 """
 
+import inspect
 import os
 import subprocess
 import sys
 from pathlib import Path
 
 import numpy as np
+import pytest
 import torch
 
 from infinitam_tpu_torch.calib import default_calib
@@ -59,8 +62,8 @@ def test_cpu_frame_uses_only_plain_versions():
     settings = tiny_test_settings().replace(tracking=TrackingParams(n_levels=3, min_valid_points=50))
     calib = default_calib(img[1], img[0])
     proj = torch.as_tensor(calib.intrinsics_d.vector)
-    src = synth.SyntheticSource(calib, n_frames=2, img_size=img)
-    vol, rs, st = hp.create_engine_state(settings, img)
+    src = synth.SyntheticSource(calib, n_frames=2, img_size=img, device="cpu")
+    vol, rs, st = hp.create_engine_state(settings, img, device="cpu")
     build.reset_launch_counts()
     for _ in range(2):
         depth, _rgb, _gt = src.get_images()
@@ -78,7 +81,7 @@ def test_cpu_color_frames_use_only_plain_versions():
     img = (60, 80)
     calib = default_calib(img[1], img[0])
     proj = torch.as_tensor(calib.intrinsics_d.vector)
-    src = synth.SyntheticSource(calib, n_frames=2, img_size=img, with_rgb=True)
+    src = synth.SyntheticSource(calib, n_frames=2, img_size=img, with_rgb=True, device="cpu")
     frames = [src.get_images() for _ in range(2)]
     build.reset_launch_counts()
     for tracker in (TrackerType.ICP, TrackerType.COLOR):
@@ -86,7 +89,7 @@ def test_cpu_color_frames_use_only_plain_versions():
             tracking=TrackingParams(n_levels=3, min_valid_points=50, color_n_levels=3), use_color=True,
             tracker_type=tracker,
         )
-        vol, rs, st = hp.create_engine_state(settings, img)
+        vol, rs, st = hp.create_engine_state(settings, img, device="cpu")
         for depth, rgb, _gt in frames:
             view = build_view_from_metric_depth(depth, settings, calib, rgb=rgb)
             vol, rs, st, diag = hp.process_frame_hash(vol, rs, st, view, proj, settings, proj_rgb=proj)
@@ -95,3 +98,38 @@ def test_cpu_color_frames_use_only_plain_versions():
         assert np.isfinite(st.pose.numpy()).all()
     assert build.launch_counts() == dict.fromkeys(build.KERNELS, 0)
     assert build.library.cache_info().currsize == 0
+
+
+def _default_device_calls():
+    """Each entry point of the port that places state or frames on a device,
+    called without a device."""
+    from infinitam_tpu_torch import convert
+    from infinitam_tpu_torch.engine import tracking_state
+
+    settings = tiny_test_settings()
+    cpu_state = tracking_state.create_tracking_state((6, 8), device="cpu")
+    return {
+        "create_engine_state": (hp.create_engine_state, lambda: hp.create_engine_state(settings, (6, 8))),
+        "create_hash": (hv.create_hash, lambda: hv.create_hash(settings.hashing)),
+        "create_render_state": (hv.create_render_state, lambda: hv.create_render_state(settings.hashing)),
+        "create_tracking_state": (tracking_state.create_tracking_state,
+                                  lambda: tracking_state.create_tracking_state((6, 8))),
+        "SyntheticSource": (synth.SyntheticSource.__init__,
+                            lambda: synth.SyntheticSource(default_calib(8, 6), n_frames=1, img_size=(6, 8))),
+        "from_numpy": (convert.from_numpy,
+                       lambda: convert.from_numpy(tracking_state.TrackingState, convert.to_numpy(cpu_state))),
+    }
+
+
+@pytest.mark.parametrize("entry", ["create_engine_state", "create_hash", "create_render_state",
+                                   "create_tracking_state", "SyntheticSource", "from_numpy"])
+def test_entry_points_default_to_the_card(entry):
+    """The port runs on the card unless the caller passes device="cpu": the
+    default is "cuda", and without a card a call that names no device raises
+    instead of falling back to the CPU."""
+    fn, call = _default_device_calls()[entry]
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default runs there")
+    with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+        call()

@@ -68,8 +68,8 @@ def scene():
 
 
 def port_state(vol, rs):
-    return (convert.from_numpy(t_hv.HashVolume, convert.to_numpy(vol)),
-            convert.from_numpy(t_hv.RenderStateVH, convert.to_numpy(rs)))
+    return (convert.from_numpy(t_hv.HashVolume, convert.to_numpy(vol), device="cpu"),
+            convert.from_numpy(t_hv.RenderStateVH, convert.to_numpy(rs), device="cpu"))
 
 
 def port_integrate(settings, depth, proj, vol, rs, pose, enable=True):

@@ -1,6 +1,7 @@
-"""Card-only tests: each hand-written CUDA kernel (K2 with and without its
-colour half) against its plain PyTorch version on an NVIDIA GPU, at a small
-size, and the launch counts of the depth and colour frame loops.
+"""Card-only tests: each hand-written CUDA kernel (K1 at the five pyramid
+levels' shapes and twice on one input, K2 with and without its colour half,
+K3 at two voxel sizes) against its plain PyTorch version on an NVIDIA GPU,
+at a small size, and the launch counts of the depth and colour frame loops.
 
 They carry the `cuda` marker and skip where no card is present. On a machine
 with a card (JAX need not be installed there), run them with:
@@ -15,11 +16,12 @@ import pytest
 import torch
 
 from infinitam_tpu_torch.calib import default_calib
-from infinitam_tpu_torch.config import TrackingParams, tiny_test_settings
+from infinitam_tpu_torch.config import SceneParams, TrackingParams, VoxelBlockHashParams, tiny_test_settings
 from infinitam_tpu_torch.engine import hash_pipeline as hp
 from infinitam_tpu_torch.engine import trackers
 from infinitam_tpu_torch.engine.view_builder import View
 from infinitam_tpu_torch.io import synth
+from infinitam_tpu_torch.ops import pyramid
 from infinitam_tpu_torch.ops.kernels import build, icp, integrate, raycast
 from infinitam_tpu_torch.utils import se3
 
@@ -35,10 +37,18 @@ def device():
     return torch.device("cuda", 0)
 
 
-@pytest.fixture(scope="module")
-def fused(device):
-    """Port state after 3 synthetic frames fused on the card, and frame 4."""
-    settings = tiny_test_settings().replace(tracking=TrackingParams(n_levels=3, min_valid_points=50))
+SETTINGS = tiny_test_settings().replace(tracking=TrackingParams(n_levels=3, min_valid_points=50))
+# 1 cm voxels: twice the tiny settings' resolution, with room for the blocks
+SETTINGS_1CM = SETTINGS.replace(
+    scene=SceneParams(voxel_size=0.01, mu=0.04),
+    hashing=VoxelBlockHashParams(n_buckets=0x4000, n_excess=0x800, n_blocks=0x2000, n_transfer_blocks=0x100,
+                                 n_global_blocks=0x4000, max_visible_blocks=0x2000),
+)
+
+
+def fuse_frames(settings, device):
+    """Port state after 3 synthetic frames fused on the card, frame 4's depth
+    and the launch counts of those 3 frames."""
     calib = default_calib(IMG[1], IMG[0])
     proj = torch.as_tensor(calib.intrinsics_d.vector, device=device)
     src = synth.SyntheticSource(calib, n_frames=4, img_size=IMG, device=device)
@@ -50,23 +60,82 @@ def fused(device):
     return settings, proj, vol, rs, st, src.get_images()[0], build.launch_counts()
 
 
+@pytest.fixture(scope="module")
+def fused(device):
+    return fuse_frames(SETTINGS, device)
+
+
+@pytest.fixture(scope="module")
+def fused_1cm(device):
+    return fuse_frames(SETTINGS_1CM, device)
+
+
 def test_main_path_launched_every_kernel(fused):
     *_rest, counts = fused
     levels = TrackingParams(n_levels=3).iterations_per_level[:3]
     assert counts == {"icp": 3 * sum(levels), "integrate": 3, "integrate_color": 0, "raycast": 3}
 
 
-def test_k1_matches_plain(fused):
+def k1_args(fused, level=0):
+    """K1's arguments at pyramid `level` of a 5-level pyramid of frame 4,
+    against the full-resolution maps, as trackers.track_depth passes them."""
     settings, proj, _vol, _rs, st, depth, _c = fused
-    tp = settings.tracking
-    args = (depth, proj, st.points_map, st.normals_map, proj, se3.invert(st.pose), st.pose_point_cloud,
-            trackers.level_dist_thresh(tp)[0], tp.min_valid_points)
+    tp = TrackingParams(min_valid_points=settings.tracking.min_valid_points)
+    d = pyramid.build_depth_pyramid(depth, tp.n_levels)[level]
+    return (d, trackers.scale_proj(proj, level), st.points_map, st.normals_map, proj, se3.invert(st.pose),
+            st.pose_point_cloud, trackers.level_dist_thresh(tp)[level], tp.min_valid_points)
+
+
+def test_k1_matches_plain(fused):
+    args = k1_args(fused)
     k, p = icp.icp_gh(*args), icp.icp_gh_plain(*args)
     assert int(k.num_valid) == int(p.num_valid) > 5000
     # the same per-pixel terms summed in another order
     torch.testing.assert_close(k.hessian, p.hessian, rtol=1e-4, atol=1e-4 * float(p.hessian.abs().max()))
     torch.testing.assert_close(k.nabla, p.nabla, rtol=1e-4, atol=1e-4 * float(p.nabla.abs().max()))
     torch.testing.assert_close(k.f, p.f, rtol=1e-4, atol=0)
+
+
+@pytest.mark.parametrize("level", range(5))
+def test_k1_matches_plain_at_every_level(fused, level):
+    args = k1_args(fused, level)
+    build.reset_launch_counts()
+    k = icp.icp_gh(*args)
+    assert build.launch_counts()["icp"] == 1
+    p = icp.icp_gh_plain(*args)
+    assert k.num_valid.dtype == torch.int32 and int(k.num_valid) == int(p.num_valid) > 0
+    torch.testing.assert_close(k.hessian, p.hessian, rtol=1e-4, atol=1e-4 * float(p.hessian.abs().max()))
+    torch.testing.assert_close(k.nabla, p.nabla, rtol=1e-4, atol=1e-4 * float(p.nabla.abs().max()))
+    torch.testing.assert_close(k.f, p.f, rtol=1e-4, atol=0)
+    assert torch.equal(k.hessian, k.hessian.T)
+
+
+def test_k1_is_bit_reproducible(fused):
+    """The last CTA sums the partials in a fixed order: two launches on one
+    input agree bit for bit, and the ticket counter is back at 0."""
+    args = k1_args(fused)
+    a, b = icp.icp_gh(*args), icp.icp_gh(*args)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    assert int(icp._counter(args[0].device.index, build.stream_ptr())) == 0
+
+
+def test_k1_on_two_streams(fused):
+    """Each stream has its own ticket counter: launches on two streams that
+    run at once give each stream the single-stream result."""
+    args = k1_args(fused)
+    ref = icp.icp_gh(*args)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    main_out, side_out = [], []
+    for _ in range(20):
+        main_out.append(icp.icp_gh(*args))
+        with torch.cuda.stream(side):
+            side_out.append(icp.icp_gh(*args))
+    torch.cuda.synchronize()
+    for got in main_out + side_out:
+        for x, y in zip(got, ref):
+            assert torch.equal(x, y)
 
 
 def test_k2_matches_plain_bit_for_bit(fused, device):
@@ -135,8 +204,11 @@ def test_k2_color_matches_plain_bit_for_bit(fused_rgb, device, extrinsic):
     assert torch.equal(off[0], vol.vox) and torch.equal(off[1], vol.vox_rgb)
 
 
-def test_k3_matches_plain(fused):
-    settings, proj, vol, rs, st, _depth, _c = fused
+@pytest.mark.parametrize("volume", ["fused", "fused_1cm"])
+def test_k3_matches_plain(volume, request):
+    """The kernel builds its rays itself; they round as pixel_rays, so the
+    march and its points equal the plain version's, at 2 cm and at 1 cm."""
+    settings, proj, vol, rs, st, _depth, _c = request.getfixturevalue(volume)
     sp = settings.scene
     zmin, zmax, _n = hp.expected_depth_ranges(vol, rs, st.pose, proj, IMG, settings)
     args = (vol, hp.hv.get_block_grid(vol, settings.block_grid), settings.block_grid, settings.hashing,
@@ -150,9 +222,11 @@ def test_k3_matches_plain(fused):
 def test_wrappers_check_their_inputs(fused, device):
     settings, proj, vol, rs, st, depth, _c = fused
     with pytest.raises(ValueError):
-        icp.icp_sums_cuda(depth.double(), proj, st.points_map, st.normals_map, proj, st.pose, st.pose, 0.01)
+        icp.icp_gh_cuda(depth.double(), proj, st.points_map, st.normals_map, proj, st.pose, st.pose, 0.01, 50)
     with pytest.raises(ValueError):
-        icp.icp_sums_cuda(depth, proj, st.points_map.transpose(0, 1), st.normals_map, proj, st.pose, st.pose, 0.01)
+        icp.icp_gh_cuda(depth, proj, st.points_map.transpose(0, 1), st.normals_map, proj, st.pose, st.pose, 0.01, 50)
+    with pytest.raises(ValueError):  # the kernel reads the pose rows from memory: contiguous only
+        icp.icp_gh_cuda(depth, proj, st.points_map, st.normals_map, proj, st.pose.T, st.pose, 0.01, 50)
     ptrs = torch.full((4,), -1, dtype=torch.int32, device=device)
     with pytest.raises(ValueError):
         integrate.integrate_depth_cuda(vol.vox, ptrs, torch.zeros((4, 2), dtype=torch.int32, device=device), depth,

@@ -3,9 +3,10 @@ ops/kernels/raycast.py) and the range / map steps of hash_pipeline held to
 the JAX package's XLA oracle on the CPU, on identical volumes.
 
 The plain K3 repeats the oracle's march step for step: every ray takes the
-same steps and reads the same voxels. Its ray directions come from
-`pixel_rays`, whose normalisation (a norm, a division) may round an ulp
-apart from XLA's, which moves a hit by far less than 1e-3 voxel; a ray
+same steps and reads the same voxels. Its rays come from `pixel_rays`,
+which rounds as the JAX package's `pixel_rays` run op by op, bit for bit;
+inside a jit XLA fuses the normalisation with the rays' end points and may
+round an ulp apart, which moves a hit by far less than 1e-3 voxel; a ray
 grazing a surface at the march's step can still flip, hence the ≥ 99.9%
 hit/miss agreement.
 """
@@ -57,8 +58,8 @@ def scene():
         depth, _r, _g = src.get_images()
         vol, rs, st, _d = j_hp.process_frame_hash(vol, rs, st, JView(depth=depth), proj, settings)
     pose = np.asarray(j_se3.se3_exp(jnp.array([0.01, -0.005, 0.02, 0.01, 0.02, -0.01], jnp.float32)) @ st.pose)
-    vt = convert.from_numpy(t_hv.HashVolume, convert.to_numpy(vol))
-    rt = convert.from_numpy(t_hv.RenderStateVH, convert.to_numpy(rs))
+    vt = convert.from_numpy(t_hv.HashVolume, convert.to_numpy(vol), device="cpu")
+    rt = convert.from_numpy(t_hv.RenderStateVH, convert.to_numpy(rs), device="cpu")
     return settings, np.asarray(proj), pose, vol, rs, vt, rt
 
 
@@ -84,6 +85,41 @@ def test_pixel_rays_match_jax(scene):
     out_t = t_rc.pixel_rays(T(inv), T(proj), IMG, 50.0, T(zmin), T(zmax))
     for a, b in zip(out_t, out_j):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6, atol=1e-5)
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_pixel_rays_norm_matches_jax(seed):
+    """pixel_rays' norms (`norm3`, the FMA chain kernel K3 also computes)
+    round as the JAX package's `jnp.linalg.norm`: on random camera poses and
+    depth ranges, some of them empty (zmin = zmax: a zero ray, which both
+    normalise through the 1e-12 floor), the start points, unit directions
+    and both lengths equal the JAX package's bit for bit."""
+    rng = np.random.default_rng(seed)
+    w = rng.uniform(-0.5, 0.5, 6).astype(np.float32)
+    inv = np.asarray(j_se3.se3_exp(jnp.asarray(w)))
+    proj = np.array([70.0, 72.0, 39.5, 29.5], np.float32)
+    zmin = rng.uniform(0.2, 4.0, IMG).astype(np.float32)
+    zmax = np.where(rng.random(IMG) < 0.1, zmin, zmin + rng.uniform(0.0, 2.0, IMG)).astype(np.float32)
+    for inv_voxel in (50.0, 200.0):
+        out_j = j_rc.pixel_rays(jnp.asarray(inv), jnp.asarray(proj), IMG, inv_voxel, jnp.asarray(zmin),
+                                jnp.asarray(zmax))
+        out_t = t_rc.pixel_rays(T(inv), T(proj), IMG, inv_voxel, T(zmin), T(zmax))
+        for a, b in zip(out_t, out_j):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+        norm = np.linalg.norm(out_t[1].numpy(), axis=-1)
+        np.testing.assert_allclose(norm[zmax > zmin], 1.0, atol=1e-6)
+        assert (norm[zmax == zmin] == 0).all()
+
+
+def test_norm3_matches_jnp_norm():
+    """`norm3` on 200,000 random float32 vectors of lengths 1e-3..1e3 equals
+    `jnp.linalg.norm` bit for bit (a plain float32 sum of squares, or torch's
+    float32 sqrt on the CPU, differ from it on about 1% of them)."""
+    rng = np.random.default_rng(0)
+    v = (rng.standard_normal((200_000, 3)) * 10.0 ** rng.uniform(-3, 3, (200_000, 1))).astype(np.float32)
+    want = np.asarray(jnp.linalg.norm(jnp.asarray(v), axis=-1))
+    got = t_rc.norm3(*T(v).unbind(-1))
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_interpolated_reads_match_jax(scene):

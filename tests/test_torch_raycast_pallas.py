@@ -47,8 +47,8 @@ def test_plain_k3_within_pallas_kernel_bars():
         vol, rs, st, _d = j_hp.process_frame_hash(vol, rs, st, JView(depth=depth), proj, settings)
 
     kern, _ovf = j_hp.raycast_hash_pallas(vol, rs, jnp.eye(4), proj, IMG, settings, interpret=True)
-    vt = convert.from_numpy(t_hv.HashVolume, convert.to_numpy(vol))
-    rt = convert.from_numpy(t_hv.RenderStateVH, convert.to_numpy(rs))
+    vt = convert.from_numpy(t_hv.HashVolume, convert.to_numpy(vol), device="cpu")
+    rt = convert.from_numpy(t_hv.RenderStateVH, convert.to_numpy(rs), device="cpu")
     ours = t_hp.raycast_hash(vt, rt, torch.eye(4), torch.from_numpy(np.asarray(proj)), IMG, settings).points.numpy()
 
     f_k = np.asarray(kern.points[..., 3]) > 0

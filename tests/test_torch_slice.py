@@ -75,7 +75,7 @@ def test_five_frame_replay_matches_jax(replay):
     settings, calib, depths, gts = replay
     proj = calib.intrinsics_d.vector
     v_j, r_j, s_j = j_hp.create_engine_state(settings, IMG)
-    v_t, r_t, s_t = t_hp.create_engine_state(settings, IMG)
+    v_t, r_t, s_t = t_hp.create_engine_state(settings, IMG, device="cpu")
     for i, depth in enumerate(depths):
         v_j, r_j, s_j, d_j = j_hp.process_frame_hash(v_j, r_j, s_j, JView(depth=jnp.asarray(depth)),
                                                      jnp.asarray(proj), settings)
@@ -100,8 +100,9 @@ def test_process_sequence_equals_frame_loop(replay):
     proj = torch.from_numpy(calib.intrinsics_d.vector)
     # two frames: the second one tracks against the first one's maps
     seq = torch.from_numpy(np.stack(depths[:2]))
-    _v, _r, st, poses, diags = t_hp.process_sequence_hash(*t_hp.create_engine_state(settings, IMG), seq, proj, settings)
-    v, r, s = t_hp.create_engine_state(settings, IMG)
+    state = t_hp.create_engine_state(settings, IMG, device="cpu")
+    _v, _r, st, poses, diags = t_hp.process_sequence_hash(*state, seq, proj, settings)
+    v, r, s = t_hp.create_engine_state(settings, IMG, device="cpu")
     for i in range(2):
         v, r, s, d = t_hp.process_frame_hash(v, r, s, View(depth=seq[i]), proj, settings)
         np.testing.assert_array_equal(poses[i].numpy(), s.pose.numpy())
@@ -114,7 +115,7 @@ def test_process_sequence_equals_frame_loop(replay):
 def test_unported_settings_are_refused(replay):
     settings, _calib, _d, _g = replay
     with pytest.raises(NotImplementedError):
-        t_hp.create_engine_state(settings.replace(tracker_type=TrackerType.REN), IMG)
+        t_hp.create_engine_state(settings.replace(tracker_type=TrackerType.REN), IMG, device="cpu")
 
 
 def test_pgm_fixture_replay_tracks():
@@ -123,7 +124,7 @@ def test_pgm_fixture_replay_tracks():
     img = (src.calib.intrinsics_d.height, src.calib.intrinsics_d.width)
     settings = tiny_test_settings()
     proj = torch.from_numpy(src.calib.intrinsics_d.vector)
-    vol, rs, st = t_hp.create_engine_state(settings, img)
+    vol, rs, st = t_hp.create_engine_state(settings, img, device="cpu")
     n = 0
     while src.has_more_images():
         raw, _rgb = src.get_images()
