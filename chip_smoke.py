@@ -8,10 +8,12 @@ Run from the repository root, with no arguments:
 It builds the hand-written CUDA kernels (K1 ICP reduction, K2 TSDF
 integration with and without its colour half, K3 raycast) from
 infinitam_tpu_torch/csrc/ and holds each one to its plain PyTorch version on
-the card at the main path's shapes: K1 at each of the five pyramid levels, K3
-on the 5 mm and on the 1 cm volume. For each kernel it prints its device
-time (the summed duration of its own kernels in a torch.profiler window of
-calls with arguments built once), the wrapper's call time (CUDA events
+the card at the main path's shapes: K1 at each of the five pyramid levels, K2
+and K3 on the 5 mm and on the 1 cm volume, K2's colour half over three
+chained frames. For each kernel it prints its device time (the summed
+duration of its own kernels in a torch.profiler window of calls with
+arguments built once; for K2 and K2c also cold, with a 128 MB buffer written
+before each call to empty the L2), the wrapper's call time (CUDA events
 around back-to-back calls, which time the host while it issues more slowly
 than the card runs), the plain version's time, and the kernel's bound: the
 larger of its bytes (each input read once, each output written once) over
@@ -150,14 +152,27 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int):
+class L2Flush:
+    """A 128 MB scratch buffer, 2.5× the H100's 50 MB L2: writing it before
+    a call leaves none of the call's inputs in the cache (a cold call)."""
+
+    def __init__(self, device):
+        self.buf = torch.empty(32 * 2**20, dtype=torch.int32, device=device)
+
+    def __call__(self):
+        self.buf.fill_(1)
+
+
+def device_ms(fn, reps: int, flush: L2Flush | None = None):
     """(device ms, repo kernels, other device ops) per call of `fn`, from a
     torch.profiler window of `reps` calls after one warm-up call: the mean
     duration of the repo's own kernels (named itpu_*) times the kernels a
     call launches, and the device operations of any other kind a call ran.
-    The profiler may lose an event at the window's edge, so the kernel count
-    is rounded and the time is a mean over the kernels it saw. The device ms
-    is None when the profiler saw none of the repo's kernels."""
+    With `flush`, the L2 is flushed before each call (a cold time); the
+    flush is not counted among the call's device ops. The profiler may lose
+    an event at the window's edge, so the kernel count is rounded and the
+    time is a mean over the kernels it saw. The device ms is None when the
+    profiler saw none of the repo's kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -166,12 +181,14 @@ def device_ms(fn, reps: int):
     torch.cuda.synchronize()
     with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
+            if flush is not None:
+                flush()
             fn()
         torch.cuda.synchronize()
     on_device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     ours = [e for e in on_device if "itpu_" in e.name]
     per_call = round(len(ours) / reps)
-    others = (len(on_device) - len(ours)) / reps
+    others = (len(on_device) - len(ours)) / reps - (flush is not None)
     if not ours:
         return None, per_call, others
     us = sum(e.time_range.end - e.time_range.start for e in ours)
@@ -273,6 +290,7 @@ class Smoke:
         # as bench.py:107-112 passes them: rgb intrinsics and extrinsic of the calibration
         self.proj_rgb = torch.as_tensor(self.calib.intrinsics_rgb.vector, device=self.dev)
         self.rgb_to_depth = torch.as_tensor(self.calib.rgb_to_depth, device=self.dev)
+        self.flush = L2Flush(self.dev)
         self.failures: list[str] = []
 
     def gate(self, ok: bool, what: str) -> None:
@@ -349,16 +367,19 @@ class Smoke:
             bilinear_corners(u[passed], v[passed], ws))
         return h * w * 4 + 16 * n_taps + 2 * 16 + 2 * 48 + 44 * 4
 
-    def integrate_traffic(self, settings, vox, ptrs, bpos, depth, pose, color=None):
+    def integrate_traffic(self, settings, vox, ids, entry_ptr, entry_pos, depth, pose, color=None):
         """(bytes, float32 operations) of K2 on these inputs, from the gates
-        of its plain version (ops/tsdf.py): every row pointer, the block
-        coordinates of the rows with a block, the distinct depth pixels the
-        in-frame voxels tap, each voxel that passes the η gate read and,
+        of its plain version (ops/tsdf.py): the fused rows of the visible
+        list, the entry_ptr word of each row with an id and the three
+        entry_pos words of each row with a block, the distinct depth pixels
+        the in-frame voxels tap, each voxel that passes the η gate read and,
         unless frozen at max_w, updated and written. With `color` (rgb,
         M_rgb, proj_rgb), K2c adds the distinct rgb pixels of the colour
         voxels' bilinear taps and each colour voxel's vox_rgb word read and
         written."""
         sp, S = settings.scene, settings.hashing.block_size
+        n_rows = self.k_int.n_rows(ids, settings.max_fused_blocks)
+        ptrs, bpos = self.k_int.lookup_rows(ids, entry_ptr, entry_pos, settings.max_fused_blocks)
         valid, rows, pt = self.k_int._gather_rows(vox, ptrs, bpos, sp.voxel_size, S)
         live = valid[:, None].expand(-1, S**3)
         h, w = depth.shape
@@ -376,8 +397,8 @@ class Smoke:
         if sp.stop_integrating_at_max_w:
             written = upd & (self.hp.hv.vox_w(vox[rows]) < sp.max_w)
         n_written = int(written.sum())
-        n_bytes = (ptrs.numel() * 4 + int(valid.sum()) * 12 + 64 + 1 + distinct(pix[inside]) * 4
-                   + 4 * (int(upd.sum()) + n_written))
+        n_list = n_rows + int((ids[:n_rows] >= 0).sum()) + 3 * int(valid.sum())  # ids, entry_ptr, entry_pos words
+        n_bytes = (4 * n_list + 64 + 1 + distinct(pix[inside]) * 4 + 4 * (int(upd.sum()) + n_written))
         n_ops = int(live.sum()) * INTEGRATE_OPS_VOXEL + n_written * INTEGRATE_OPS_UPDATE
         if color is not None:
             rgb, M_rgb, proj_rgb = color
@@ -481,16 +502,15 @@ class Smoke:
                     frame_ms=frame_ms, frame_bound_ms=frame_bound,
                     level_ms=[l["ms"] for l in levels], level_bound_ms=[l["bound_ms"] for l in levels])
 
-    def k2_check(self, settings, vol, rs, st, view):
-        """K2 on the visible blocks of the next frame, from identical voxels."""
+    def k2_check(self, label, settings, vol, rs, st, view):
+        """K2 on the visible list of the next frame, from identical voxels,
+        with the arguments integrate_into_scene passes; timed warm and cold
+        (the L2 flushed before each call)."""
         sp = settings.scene
         depth = view.depth
-        _ids, ptr, bpos, valid = self.hp._visible_rows(vol, rs, settings, settings.max_fused_blocks)
-        ptrs = torch.where(valid, ptr, -1).contiguous()
-        bpos = bpos.contiguous()
         enable = torch.ones((), dtype=torch.bool, device=self.dev)
-        kargs = (ptrs, bpos, depth, st.pose, self.proj, enable, sp.voxel_size, sp.mu, sp.max_w,
-                 sp.stop_integrating_at_max_w, settings.hashing.block_size)
+        kargs = (rs.visible_ids, vol.entry_ptr, vol.entry_pos, depth, st.pose, self.proj, enable, sp.voxel_size,
+                 sp.mu, sp.max_w, sp.stop_integrating_at_max_w, settings.hashing.block_size, settings.max_fused_blocks)
         vox0 = vol.vox.clone()
         vk, vp = vox0.clone(), vox0.clone()
         self.k_int.integrate_depth(vk, *kargs)
@@ -498,20 +518,26 @@ class Smoke:
         changed = int((vp != vox0).sum())
         ndiff = int((vk != vp).sum())
         lsb = int(((vk >> 16) - (vp >> 16)).abs().max())
-        n_rows = int(valid.sum())
-        b = bound(*self.integrate_traffic(settings, vk, ptrs, bpos, depth, st.pose))
+        n_list = self.k_int.n_rows(rs.visible_ids, settings.max_fused_blocks)
+        n_rows = int((self.k_int.lookup_rows(*kargs[:3], settings.max_fused_blocks)[0] >= 0).sum())
+        b = bound(*self.integrate_traffic(settings, vox0, *kargs[:5]))
         dev, per_call, others = device_ms(lambda: self.k_int.integrate_depth(vk, *kargs), 50)
+        cold, cold_per_call, cold_others = device_ms(lambda: self.k_int.integrate_depth(vk, *kargs), 50, self.flush)
         call = cuda_ms(lambda: self.k_int.integrate_depth(vk, *kargs), 20)
         plain = cuda_ms(lambda: self.k_int.integrate_depth_plain(vp, *kargs), 5)
-        print(f"K2 integrate: {n_rows} visible blocks, {changed} voxels updated, {ndiff} differ from plain "
-              f"(max {lsb} LSB); " + timing_line(dev, per_call, others, b, call, plain))
-        self.gate(n_rows >= 1000 and changed > 100000, "K2 fused thousands of blocks")
+        print(f"K2 integrate, {label}: {n_rows} visible blocks in a list of {n_list} rows, {changed} voxels updated, "
+              f"{ndiff} differ from plain (max {lsb} LSB); " + timing_line(dev, per_call, others, b, call, plain))
+        print(f"  K2 {label} cold (L2 flushed before each call): device {fmt_ms(cold)}, "
+              + ("n/a" if cold is None else f"{100 * b['bound_ms'] / cold:.1f}%") + " of the bound")
+        self.gate(n_rows >= 1000 and changed > 100000, f"K2 {label} fused thousands of blocks")
         # built with -fmad=false and the plain version's float64 camera
         # transform, so every voxel must match
-        self.gate(ndiff == 0, "K2 bit-identical to plain")
+        self.gate(ndiff == 0, f"K2 {label} bit-identical to plain")
+        self.gate(per_call == 1 and others == 0 and cold_per_call == 1 and cold_others == 0,
+                  f"K2 {label}: one device kernel per call, no other device op")
         return dict(name="integrate_depth", route="cuda", source="infinitam_tpu_torch/csrc/integrate.cu",
                     replaces="infinitam_tpu/ops/pallas/integrate_kernel.py:256", max_abs_err=lsb / 32767.0, ms=dev,
-                    call_ms=call, plain_ms=plain, library_ms=None, **b)
+                    cold_ms=cold, call_ms=call, plain_ms=plain, library_ms=None, **b)
 
     def k3_check(self, label, settings, vol, rs, st):
         """K3 from the last pose over the fused volume, against the plain
@@ -531,7 +557,7 @@ class Smoke:
         med, p95 = float(d.median()), float(torch.quantile(d, 0.95))
         err = float((pk[..., :3] - pp[..., :3]).abs()[both].max())
         n_hits = int(fp.sum())
-        n_rows = int(self.hp._visible_rows(vol, rs, settings, 0)[3].sum())
+        n_rows = int(self.hp._visible_rows(vol, rs, 0)[3].sum())
         b = bound(n_bytes, n_ops)
         dev, per_call, others = device_ms(lambda: self.k_ray.raycast_grid(*rargs), 50)
         call = cuda_ms(lambda: self.k_ray.raycast_grid(*rargs), 20)
@@ -566,21 +592,20 @@ class Smoke:
         views = [self.build_view(depths[i], settings, self.calib, rgb=rgbs[i]) for i in chain]
         poses = [torch.as_tensor(gt[i], device=self.dev) for i in chain]
         sp = settings.scene
-        _ids, ptr, bpos, valid = self.hp._visible_rows(vol, rs, settings, settings.max_fused_blocks)
-        ptrs, bpos = torch.where(valid, ptr, -1).contiguous(), bpos.contiguous()
+        rows = (rs.visible_ids, vol.entry_ptr, vol.entry_pos)
         fuse = (torch.ones((), dtype=torch.bool, device=self.dev), sp.voxel_size, sp.mu, sp.max_w,
-                sp.stop_integrating_at_max_w, settings.hashing.block_size)
+                sp.stop_integrating_at_max_w, settings.hashing.block_size, settings.max_fused_blocks)
         other_r2d = self.se3.se3_exp(torch.tensor([0.025, 0.0, 0.0, 0.0, float(np.radians(1.5)), 0.0],
                                                   device=self.dev))
         other_proj = self.proj_rgb * torch.tensor([1.04, 1.03, 1.0, 1.0], device=self.dev) + torch.tensor(
             [0.0, 0.0, 1.5, -1.0], device=self.dev)
-        n_rows = int(valid.sum())
+        n_rows = int((self.k_int.lookup_rows(*rows, settings.max_fused_blocks)[0] >= 0).sum())
         entry = None
         for label, r2d, proj_rgb in (("calibration extrinsic", self.rgb_to_depth, self.proj_rgb),
                                      ("2.5 cm / 1.5° extrinsic", other_r2d, other_proj)):
             k = (vol.vox.clone(), vol.vox_rgb.clone())
             p = (vol.vox.clone(), vol.vox_rgb.clone())
-            chain_args = [(ptrs, bpos, view.depth, view.rgb, pose, self.proj,
+            chain_args = [(*rows, view.depth, view.rgb, pose, self.proj,
                            (self.se3.invert(r2d) @ pose).contiguous(), proj_rgb, *fuse)
                           for view, pose in zip(views, poses)]
             n_depth, n_color, nd_vox, nd_rgb, lsb = [], [], 0, 0, 0
@@ -604,16 +629,21 @@ class Smoke:
             self.gate(nd_vox == 0 and nd_rgb == 0, f"K2 colour ({label}) bit-identical to plain")
             if entry is None:
                 # timed on the first frame of the chain, over the chain's result
-                _p, _b, depth, rgb, pose, _proj, M_rgb, rgb_proj = chain_args[0][:8]
-                b = bound(*self.integrate_traffic(settings, k[0], ptrs, bpos, depth, pose,
-                                                  color=(rgb, M_rgb, rgb_proj)))
+                depth, rgb, pose, _proj, M_rgb, rgb_proj = chain_args[0][3:9]
+                b = bound(*self.integrate_traffic(settings, k[0], *rows, depth, pose, color=(rgb, M_rgb, rgb_proj)))
                 dev, per_call, others = device_ms(lambda: self.k_int.integrate_rgbd(*k, *chain_args[0]), 50)
+                cold, cold_per_call, cold_others = device_ms(
+                    lambda: self.k_int.integrate_rgbd(*k, *chain_args[0]), 50, self.flush)
                 call = cuda_ms(lambda: self.k_int.integrate_rgbd(*k, *chain_args[0]), 20)
                 plain = cuda_ms(lambda: self.k_int.integrate_rgbd_plain(*p, *chain_args[0]), 5)
                 print("  K2c (first frame of the chain): " + timing_line(dev, per_call, others, b, call, plain))
+                print(f"  K2c cold (L2 flushed before each call): device {fmt_ms(cold)}, "
+                      + ("n/a" if cold is None else f"{100 * b['bound_ms'] / cold:.1f}%") + " of the bound")
+                self.gate(per_call == 1 and others == 0 and cold_per_call == 1 and cold_others == 0,
+                          "K2c: one device kernel per call, no other device op")
                 entry = dict(name="integrate_color", route="cuda", source="infinitam_tpu_torch/csrc/integrate.cu",
                              replaces="infinitam_tpu/ops/pallas/integrate_kernel.py:256", max_abs_err=lsb / 255.0,
-                             ms=dev, call_ms=call, plain_ms=plain, library_ms=None, **b)
+                             ms=dev, cold_ms=cold, call_ms=call, plain_ms=plain, library_ms=None, **b)
         return entry
 
     # --- replays ------------------------------------------------------------
@@ -764,6 +794,13 @@ def main() -> int:
     t0 = time.perf_counter()
     build.library()
     print(f"kernel build + load: {time.perf_counter() - t0:.1f} s (nvcc {build.last_build_seconds:.1f} s)")
+    for source, report in build.ptxas_report.items():  # registers, stack and spills of each kernel
+        kernel = None
+        for line in report.splitlines():
+            if "Compiling entry function" in line or "Function properties for" in line:
+                kernel = line.split("'")[1] if "'" in line else line.rsplit(" ", 1)[-1]
+            elif kernel and ("Used" in line or "spill" in line):
+                print(f"  ptxas, {source} {kernel}: {line.split(':', 1)[-1].strip()}")
 
     depths, rgbs, gt = smoke.frames()
     frames = (depths, rgbs)
@@ -772,11 +809,14 @@ def main() -> int:
         ("1cm", teddy_1cm_settings(smoke.cfg), DEPTH_PATH),
         ("1cm_rgb", color_settings(smoke.cfg), RGB_PATH),
     ]
-    s5, s1 = configs[0][1], configs[2][1]
+    s5, s1d, s1 = (c[1] for c in configs)
     vol, rs, st, view = smoke.fused(s5, frames)
-    kernels = [smoke.k1_check(s5, st, view.depth), smoke.k2_check(s5, vol, rs, st, view)]
+    k2 = smoke.k2_check("5 mm", s5, vol, rs, st, view)
+    kernels = [smoke.k1_check(s5, st, view.depth), k2]
     kernels.append(smoke.k3_check("5 mm", s5, vol, rs, st))
     del vol, rs, st, view
+    k2_1cm = smoke.k2_check("1 cm", s1d, *smoke.fused(s1d, frames))
+    k2.update({f"{k}_1cm": k2_1cm[k] for k in ("ms", "cold_ms", "call_ms", "plain_ms", "bound_ms", "bound_by")})
     vol, rs, st, _view = smoke.fused(s1, frames)
     smoke.k3_check("1 cm", s1, vol, rs, st)
     kernels.insert(2, smoke.color_kernel_check(s1, vol, rs, frames, gt))

@@ -271,14 +271,12 @@ def allocate_scene_from_depth(
     return vol, new_rs, n_alloc_overflow
 
 
-def _visible_rows(vol: HashVolume, render_state: RenderStateVH, settings: Settings, cap: int):
-    """(ids, entry_ptr, block coords, valid) of the first `cap` visible rows."""
+def _visible_rows(vol: HashVolume, render_state: RenderStateVH, cap: int):
+    """(ids, VBA rows with −1 for a skipped row, block coords, valid) of the
+    first `cap` visible rows (0: all of them), looked up as K2 does."""
     ids = render_state.visible_ids
-    if cap and cap < ids.shape[0]:
-        ids = ids[:cap]
-    ids_c = ids.clamp(0, settings.hashing.n_entries - 1).long()
-    ptr = vol.entry_ptr[ids_c]
-    return ids, ptr, vol.entry_pos[ids_c], (ids >= 0) & (ptr >= 0)
+    ptrs, bpos = integrate_kernel.lookup_rows(ids, vol.entry_ptr, vol.entry_pos, cap)
+    return ids[: ptrs.shape[0]], ptrs, bpos, ptrs >= 0
 
 
 def integrate_into_scene(
@@ -295,22 +293,23 @@ def integrate_into_scene(
     """IntegrateIntoScene over the visible blocks (kernel K2, in place in
     `vol.vox`, and in `vol.vox_rgb` when `use_color` and the view has RGB).
     The rgb camera sees the world through M_rgb = rgb_to_depth⁻¹ · pose
-    (reference trafo_rgb_to_depth.calib_inv · M_d). Blocks beyond
+    (reference trafo_rgb_to_depth.calib_inv · M_d). The kernel reads the
+    visible list and the hash entries itself; blocks beyond
     `max_fused_blocks` fuse on a later frame."""
     sp = settings.scene
     if not torch.is_tensor(enable):
         enable = torch.full((), bool(enable), device=vol.vox.device)
-    _ids, ptr, bpos, valid = _visible_rows(vol, render_state, settings, settings.max_fused_blocks)
-    ptrs, bpos = torch.where(valid, ptr, -1).contiguous(), bpos.contiguous()
-    fuse = (sp.voxel_size, sp.mu, sp.max_w, sp.stop_integrating_at_max_w, settings.hashing.block_size)
+    rows = (render_state.visible_ids, vol.entry_ptr, vol.entry_pos)
+    fuse = (sp.voxel_size, sp.mu, sp.max_w, sp.stop_integrating_at_max_w, settings.hashing.block_size,
+            settings.max_fused_blocks)
     if settings.use_color and view.rgb is not None and vol.vox_rgb is not None:
         M_rgb = se3.invert(rgb_to_depth) @ pose if rgb_to_depth is not None else pose
         integrate_kernel.integrate_rgbd(
-            vol.vox, vol.vox_rgb, ptrs, bpos, view.depth.contiguous(), view.rgb.contiguous(), pose, proj,
+            vol.vox, vol.vox_rgb, *rows, view.depth.contiguous(), view.rgb.contiguous(), pose, proj,
             M_rgb.contiguous(), proj_rgb if proj_rgb is not None else proj, enable, *fuse,
         )
     else:
-        integrate_kernel.integrate_depth(vol.vox, ptrs, bpos, view.depth.contiguous(), pose, proj, enable, *fuse)
+        integrate_kernel.integrate_depth(vol.vox, *rows, view.depth.contiguous(), pose, proj, enable, *fuse)
     return vol
 
 
@@ -339,7 +338,7 @@ def count_too_big_blocks(vol, render_state, pose, proj, settings: Settings) -> t
     """Visible blocks whose projected bbox reaches the MAX_T×MAX_T raster tile
     of expected_depth_ranges (their range widens to the frustum)."""
     sub = settings.minmax_subsample
-    _ids, _ptr, bpos, valid = _visible_rows(vol, render_state, settings, settings.max_render_blocks)
+    _ids, _ptr, bpos, valid = _visible_rows(vol, render_state, settings.max_render_blocks)
     U, V, Z = _project_block_corners(
         bpos.to(torch.float32), pose, proj, settings.hashing.block_size * settings.scene.voxel_size
     )
@@ -360,7 +359,7 @@ def expected_depth_ranges(vol, render_state, pose, proj, img_size: Tuple[int, in
     sub = settings.minmax_subsample
     Hs, Ws = (H + sub - 1) // sub, (W + sub - 1) // sub
     dev = pose.device
-    ids, _ptr, bpos, valid = _visible_rows(vol, render_state, settings, settings.max_render_blocks)
+    ids, _ptr, bpos, valid = _visible_rows(vol, render_state, settings.max_render_blocks)
     nV = ids.shape[0]
 
     U, V, Z = _project_block_corners(

@@ -1,6 +1,7 @@
 """Build and load the hand-written CUDA kernels (csrc/*.cu).
 
-One `nvcc` call compiles every source into one shared library with a plain C
+One `nvcc` per source, all started together, compiles the sources to
+objects, and one more links them into a shared library with a plain C
 interface, loaded with ctypes. The library lands in `build/kernels/` at the
 repository root (listed in .gitignore), named by a hash of the sources and
 flags, so an edited source rebuilds and an unchanged one loads at once.
@@ -31,11 +32,12 @@ HEADERS = ("common.cuh",)
 
 # -fmad=false: no multiply-add contraction, so each kernel rounds like its
 # plain PyTorch version (separate elementwise ops); K2's packed int16 sdf is
-# then bit-identical to the plain scatter.
+# then bit-identical to the plain scatter. -Xptxas -v reports each kernel's
+# registers, shared memory and spills (kept in `ptxas_report`).
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 P = ctypes.c_void_p
@@ -47,12 +49,14 @@ SIGNATURES = {
     # depth, h, w, points, normals, hs, ws, view_proj, scene_proj, inv_pose, scene_pose, dist_thresh,
     # min_valid, n_ctas, partial, counter, out, stream
     "itpu_icp_gh": (P, I, I, P, P, I, I, P, P, P, P, F, I, I, P, P, P, P),
-    # vox, ptrs, bpos, n_rows, block_size, depth, h, w, cam, enable, voxel_size, mu, max_w,
-    # stop_at_max_w, stream
-    "itpu_integrate_depth": (P, P, P, I, I, P, I, I, P, P, F, F, I, I, P),
-    # vox, vox_rgb, ptrs, bpos, n_rows, block_size, depth, h, w, rgb, rh, rw, cam, enable, voxel_size, mu,
-    # max_w, stop_at_max_w, stream
-    "itpu_integrate_rgbd": (P, P, P, P, I, I, P, I, I, P, I, I, P, P, F, F, I, I, P),
+    # vox, ids, n_rows, entry_ptr, entry_pos, n_entries, block_size, depth, h, w, pose, proj, enable,
+    # voxel_size, mu, max_w, stop_at_max_w, n_ctas, stream
+    "itpu_integrate_depth": (P, P, I, P, P, I, I, P, I, I, P, P, P, F, F, I, I, I, P),
+    # vox, vox_rgb, ids, n_rows, entry_ptr, entry_pos, n_entries, block_size, depth, h, w, rgb, rh, rw, pose,
+    # proj, M_rgb, proj_rgb, enable, voxel_size, mu, max_w, stop_at_max_w, n_ctas, stream
+    "itpu_integrate_rgbd": (P, P, P, I, P, P, I, I, P, I, I, P, I, I, P, P, P, P, P, F, F, I, I, I, P),
+    # a, b, out, n, stream: K2's division steps on n pairs (a card test holds them to IEEE division)
+    "itpu_div_step_check": (P, P, P, I, P),
     # vox, grid, gx, gy, gz, ox, oy, oz, block_shift, inv_M, proj, inv_voxel, zmin, zmax, h, w,
     # step_scale, out, stream
     "itpu_raycast": (P, P, I, I, I, I, I, I, I, P, P, F, P, P, I, I, F, P, P),
@@ -61,8 +65,10 @@ SIGNATURES = {
 KERNELS = ("icp", "integrate", "integrate_color", "raycast")
 _launches = dict.fromkeys(KERNELS, 0)
 
-# seconds the last build took in this process (0 while none ran)
+# seconds the last build took in this process (0 while none ran), and what
+# ptxas reported per source in it
 last_build_seconds = 0.0
+ptxas_report: dict = {}
 
 
 def count_launch(kernel: str) -> None:
@@ -96,6 +102,18 @@ def _library_path() -> Path:
     return BUILD_DIR / f"libitpu_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run(cmds: list) -> list:
+    """Run the commands at once; (command, stdout + stderr) of each, in order.
+    Raises when one fails."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    outs = [(cmd, p.communicate()[0], p.returncode) for cmd, p in procs]
+    for cmd, out, rc in outs:
+        if rc != 0:
+            raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{out}")
+    return [(cmd, out) for cmd, out, _rc in outs]
+
+
 def build() -> Path:
     """Compile the sources unless a library of the same hash exists."""
     global last_build_seconds
@@ -104,13 +122,16 @@ def build() -> Path:
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC_DIR / s) for s in SOURCES)]
+    nvcc = nvcc_path()
+    objs = [tmp.with_name(f"{tmp.name}.{s}.o") for s in SOURCES]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n{res.stdout}\n{res.stderr}")
+    compiled = _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC_DIR / s)] for s, o in zip(SOURCES, objs)])
+    _run([[nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *map(str, objs)]])
+    for o in objs:
+        o.unlink()
     os.replace(tmp, lib)
     last_build_seconds = time.perf_counter() - t0
+    ptxas_report.update({s: out for s, (_cmd, out) in zip(SOURCES, compiled)})
     return lib
 
 

@@ -229,10 +229,9 @@ def test_k2_color_wrapper_takes_plain_version_on_cpu(replay):
     sp = SETTINGS.scene
     vt = convert.from_numpy(t_hv.HashVolume, convert.to_numpy(vol), device="cpu")
     rt = convert.from_numpy(t_hv.RenderStateVH, convert.to_numpy(rs), device="cpu")
-    _ids, ptr, bpos, valid = t_hp._visible_rows(vt, rt, SETTINGS, SETTINGS.max_fused_blocks)
     M_rgb = torch.linalg.inv(T(extrinsic())) @ T(st.pose)
-    args = (torch.where(valid, ptr, -1), bpos, T(depth), T(rgb), T(st.pose), T(PROJ), M_rgb, T(PROJ_RGB_OTHER),
-            torch.tensor(True), sp.voxel_size, sp.mu, sp.max_w, False)
+    args = (rt.visible_ids, vt.entry_ptr, vt.entry_pos, T(depth), T(rgb), T(st.pose), T(PROJ), M_rgb,
+            T(PROJ_RGB_OTHER), torch.tensor(True), sp.voxel_size, sp.mu, sp.max_w, False, 8, SETTINGS.max_fused_blocks)
     a = (vt.vox.clone(), vt.vox_rgb.clone())
     b = (vt.vox.clone(), vt.vox_rgb.clone())
     build.reset_launch_counts()
@@ -244,9 +243,45 @@ def test_k2_color_wrapper_takes_plain_version_on_cpu(replay):
     assert build.launch_counts() == dict.fromkeys(build.KERNELS, 0)
     with pytest.raises(ValueError):  # the kernel path refuses CPU tensors
         k_int.integrate_rgbd_cuda(*a, *args)
+    with pytest.raises(ValueError, match="8³ blocks only"):  # and blocks other than 8³
+        k_int.integrate_rgbd_cuda(*a, *args[:14], 4)
     # the sentinel row takes the skipped rows and is left as it was
     sent = t_hv.sentinel_row(SETTINGS.hashing)
     np.testing.assert_array_equal(b[1][sent].numpy(), vt.vox_rgb[sent].numpy())
+
+
+@pytest.mark.parametrize("case", ["interleaved", "capped"])
+def test_plain_k2_color_visible_list_matches_xla_oracle(replay, case):
+    """K2 with colour on edited visible lists, against the JAX package's XLA
+    integrate_into_scene on the same state, with the 2.5 cm / 1.5° extrinsic:
+    (interleaved) −1 rows between and after the live rows and an id whose
+    entry has no block, the whole list fused (max_fused_blocks 0); (capped)
+    max_fused_blocks at half the live rows (JAX package:
+    hash_pipeline.py:722-723)."""
+    frames, out = replay
+    (vol, rs, st), _port, _dj, _dt = out[1]
+    depth, rgb, _gt = frames[2]
+    ids = np.asarray(rs.visible_ids)
+    ptr = np.asarray(vol.entry_ptr)
+    live = ids[(ids >= 0) & (ptr[np.clip(ids, 0, None)] >= 0)]
+    if case == "interleaved":
+        edited = np.full_like(ids, -1)
+        edited[: 2 * len(live) : 2] = live
+        edited[len(live) | 1] = np.flatnonzero(ptr < 0)[0]
+        assert 2 * len(live) + 2 < len(ids)
+        settings, rs = SETTINGS.replace(max_fused_blocks=0), rs._replace(visible_ids=jnp.asarray(edited))
+    else:
+        settings = SETTINGS.replace(max_fused_blocks=len(live) // 2)
+    ref = j_hp.integrate_into_scene(vol, rs, JView(depth=depth, rgb=rgb), st.pose, jnp.asarray(PROJ), settings,
+                                    proj_rgb=jnp.asarray(PROJ_RGB_OTHER), rgb_to_depth=jnp.asarray(extrinsic()))
+    vt = convert.from_numpy(t_hv.HashVolume, convert.to_numpy(vol), device="cpu")
+    rt = convert.from_numpy(t_hv.RenderStateVH, convert.to_numpy(rs), device="cpu")
+    out_t = t_hp.integrate_into_scene(vt, rt, View(depth=T(depth), rgb=T(rgb)), T(st.pose), T(PROJ), settings,
+                                      proj_rgb=T(PROJ_RGB_OTHER), rgb_to_depth=T(extrinsic()))
+    np.testing.assert_array_equal(out_t.vox.numpy(), np.asarray(ref.vox))
+    np.testing.assert_array_equal(out_t.vox_rgb.numpy(), np.asarray(ref.vox_rgb))
+    n_updated = int((np.asarray(ref.vox_rgb) != np.asarray(vol.vox_rgb)).sum())
+    assert n_updated > (10000 if case == "interleaved" else 3000)  # not a vacuous pass
 
 
 def test_five_frame_color_replay_matches_jax(replay):

@@ -135,9 +135,8 @@ def test_k2_wrapper_takes_plain_version_on_cpu(scene):
     settings, depth, proj, vol, rs, st = scene
     sp = settings.scene
     vt, rt = port_state(vol, rs)
-    _ids, ptr, bpos, valid = t_hp._visible_rows(vt, rt, settings, settings.max_fused_blocks)
-    args = (torch.where(valid, ptr, -1), bpos, T(depth), T(st.pose), T(proj), torch.tensor(True), sp.voxel_size,
-            sp.mu, sp.max_w, False)
+    args = (rt.visible_ids, vt.entry_ptr, vt.entry_pos, T(depth), T(st.pose), T(proj), torch.tensor(True),
+            sp.voxel_size, sp.mu, sp.max_w, False, 8, settings.max_fused_blocks)
     a, b = vt.vox.clone(), vt.vox.clone()
     build.reset_launch_counts()
     k_int.integrate_depth(a, *args)
@@ -149,3 +148,58 @@ def test_k2_wrapper_takes_plain_version_on_cpu(scene):
     # the sentinel row takes the skipped rows and is left as it was
     sent = t_hv.sentinel_row(settings.hashing)
     np.testing.assert_array_equal(b[sent].numpy(), vt.vox[sent].numpy())
+
+
+def test_k2_cuda_wrapper_refuses_cpu_tensors_and_other_block_sizes(scene):
+    """The CUDA kernel is written for 8³ blocks, as the Pallas kernel is: its
+    wrapper raises on any other block size (no fallback), and on CPU
+    tensors, before it builds anything."""
+    settings, depth, proj, vol, rs, st = scene
+    sp = settings.scene
+    vt, rt = port_state(vol, rs)
+    args = (vt.vox, rt.visible_ids, vt.entry_ptr, vt.entry_pos, T(depth), T(st.pose), T(proj), torch.tensor(True),
+            sp.voxel_size, sp.mu, sp.max_w, False)
+    with pytest.raises(ValueError, match="8³ blocks only"):
+        k_int.integrate_depth_cuda(*args, 4)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        k_int.integrate_depth_cuda(*args, 8)
+    assert build.launch_counts()["integrate"] == 0
+
+
+def edited_list(vol, ids: np.ndarray) -> np.ndarray:
+    """The live rows of `ids` with a −1 row after each, one id whose entry
+    has no block (entry_ptr < 0) among them, and −1 rows to the end: the
+    same length, the same live blocks."""
+    ptr = np.asarray(vol.entry_ptr)
+    live = ids[(ids >= 0) & (ptr[np.clip(ids, 0, None)] >= 0)]
+    out = np.full_like(ids, -1)
+    out[: 2 * len(live) : 2] = live
+    out[len(live) | 1] = np.flatnonzero(ptr < 0)[0]
+    assert 2 * len(live) + 2 < len(ids) and len(live) > 50
+    return out
+
+
+@pytest.mark.parametrize("case", ["interleaved", "capped"])
+def test_plain_k2_visible_list_matches_xla_oracle(scene, case):
+    """(interleaved) a list with −1 rows between and after the live ones and
+    an id without a block, fused whole (max_fused_blocks 0); (capped)
+    max_fused_blocks below the live count, so that the blocks past the cap
+    stay unfused (JAX package: hash_pipeline.py:722-723). Both equal the
+    JAX package's XLA integrate_into_scene on the same state."""
+    settings, depth, proj, vol, rs, st = scene
+    ids = np.asarray(rs.visible_ids)
+    n_live = int((ids >= 0).sum())
+    if case == "interleaved":
+        settings = settings.replace(max_fused_blocks=0)
+        rs = rs._replace(visible_ids=jnp.asarray(edited_list(vol, ids)))
+    else:
+        settings = settings.replace(max_fused_blocks=n_live // 2)
+    ref = np.asarray(j_hp.integrate_into_scene(vol, rs, JView(depth=depth), st.pose, proj, settings).vox)
+    out = port_integrate(settings, depth, proj, vol, rs, st.pose)
+    assert (out != ref).sum() == 0
+    full = port_integrate(make_settings(), depth, proj, vol, rs._replace(visible_ids=jnp.asarray(ids)), st.pose)
+    changed = (ref != np.asarray(vol.vox)).sum()
+    if case == "interleaved":  # the same blocks as the original list
+        np.testing.assert_array_equal(out, full)
+    else:  # the cap left blocks unfused
+        assert 1000 < changed < (full != np.asarray(vol.vox)).sum()

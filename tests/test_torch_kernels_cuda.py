@@ -1,7 +1,8 @@
 """Card-only tests: each hand-written CUDA kernel (K1 at the five pyramid
 levels' shapes and twice on one input, K2 with and without its colour half,
-K3 at two voxel sizes) against its plain PyTorch version on an NVIDIA GPU,
-at a small size, and the launch counts of the depth and colour frame loops.
+also on edited visible lists and on a one-CTA grid, K3 at two voxel sizes)
+against its plain PyTorch version on an NVIDIA GPU, at a small size, and the
+launch counts of the depth and colour frame loops.
 
 They carry the `cuda` marker and skip where no card is present. On a machine
 with a card (JAX need not be installed there), run them with:
@@ -138,20 +139,101 @@ def test_k1_on_two_streams(fused):
             assert torch.equal(x, y)
 
 
-def test_k2_matches_plain_bit_for_bit(fused, device):
+def k2_args(fused, device, ids=None, max_rows=None):
+    """K2's arguments after `vox` on the fused state's visible list (or on
+    `ids`), as integrate_into_scene passes them."""
     settings, proj, vol, rs, st, depth, _c = fused
     sp = settings.scene
-    _ids, ptr, bpos, valid = hp._visible_rows(vol, rs, settings, settings.max_fused_blocks)
-    args = (torch.where(valid, ptr, -1).contiguous(), bpos.contiguous(), depth, st.pose, proj,
-            torch.ones((), dtype=torch.bool, device=device), sp.voxel_size, sp.mu, sp.max_w, False)
+    return (rs.visible_ids if ids is None else ids, vol.entry_ptr, vol.entry_pos, depth, st.pose, proj,
+            torch.ones((), dtype=torch.bool, device=device), sp.voxel_size, sp.mu, sp.max_w, False, 8,
+            settings.max_fused_blocks if max_rows is None else max_rows)
+
+
+def test_k2_matches_plain_bit_for_bit(fused, device):
+    _settings, _proj, vol, _rs, _st, _depth, _c = fused
+    args = k2_args(fused, device)
     vk, vp = vol.vox.clone(), vol.vox.clone()
+    build.reset_launch_counts()
     integrate.integrate_depth(vk, *args)
+    assert build.launch_counts()["integrate"] == 1
     integrate.integrate_depth_plain(vp, *args)
     assert int((vp != vol.vox).sum()) > 10000
     assert int((vk != vp).sum()) == 0
+    again = vol.vox.clone()
+    integrate.integrate_depth(again, *args)
+    assert torch.equal(again, vk)  # two launches on one input agree
     off = vol.vox.clone()
-    integrate.integrate_depth(off, *args[:5], torch.zeros((), dtype=torch.bool, device=device), *args[6:])
+    integrate.integrate_depth(off, *args[:6], torch.zeros((), dtype=torch.bool, device=device), *args[7:])
     assert torch.equal(off, vol.vox)  # the divergence gate, read on the card
+
+
+def test_k2_division_steps_match_ieee_division(device):
+    """K2 divides in straight-line code (csrc/integrate.cu rcp_step and
+    div_step) where both operands lie in [2^-60, 2^60] and falls back to `/`
+    elsewhere. There its quotient must be the IEEE quotient bit for bit
+    (numpy's, on the CPU): on operands spread over that whole range, on
+    K2's own kinds (η/μ, a merged sdf over a weight + 1, pixel coordinates
+    over a depth), and at the range's ends."""
+    rng = np.random.default_rng(7)
+    n = 1 << 21
+
+    def spread(k):
+        x = rng.uniform(1.0, 2.0, k) * np.exp2(rng.integers(-60, 60, k)) * rng.choice([-1.0, 1.0], k)
+        return x.astype(np.float32)
+
+    ends = np.float32([2.0**-60, 2.0**60, -(2.0**-60), 1.0, 1.5, 3.0])
+    a = np.concatenate([spread(n), rng.uniform(-0.02, 0.5, n), rng.uniform(-1.0, 1.0, n),
+                        rng.uniform(-600.0, 600.0, n), np.repeat(ends, len(ends))]).astype(np.float32)
+    b = np.concatenate([spread(n), np.full(n, 0.02), rng.integers(1, 257, n), rng.uniform(0.1, 4.0, n),
+                        np.tile(ends, len(ends))]).astype(np.float32)
+    out = torch.empty(a.size, dtype=torch.float32, device=device)
+    at, bt = torch.from_numpy(a).to(device), torch.from_numpy(b).to(device)
+    assert build.library().itpu_div_step_check(at.data_ptr(), bt.data_ptr(), out.data_ptr(), a.size,
+                                               build.stream_ptr()) == 0
+    got = out.cpu().numpy()
+    in_range = (np.abs(a) >= 2.0**-60) & (np.abs(a) <= 2.0**60) & (np.abs(b) >= 2.0**-60) & (np.abs(b) <= 2.0**60)
+    assert in_range.mean() > 0.99
+    np.testing.assert_array_equal(got[in_range].view(np.int32), (a[in_range] / b[in_range]).view(np.int32))
+    assert np.isnan(got[~in_range]).all()
+
+
+def edited_lists(ids, entry_ptr) -> dict:
+    """name → (visible list, max_rows) made from the fused list `ids`: every
+    way a list can hold its live rows that the kernel's row loop must get
+    right."""
+    V = ids.numel()
+    ptr = entry_ptr[ids.clamp(min=0).long()]
+    live = ids[(ids >= 0) & (ptr >= 0)]
+    n = live.numel()
+    assert 256 < n and 2 * n + 2 < V
+    empty = torch.full_like(ids, -1)
+    single, at_end, inter = empty.clone(), empty.clone(), empty.clone()
+    single[5] = live[n // 2]
+    at_end[V - n:] = live
+    inter[: 2 * n : 2] = live
+    inter[n | 1] = int(torch.nonzero(entry_ptr < 0)[0])  # an entry without a block
+    return {"all_empty": (empty, 0), "single": (single, 0), "at_end": (at_end, 0), "interleaved": (inter, 0),
+            # a cap that ends inside a warp's 32 rows
+            "cap_mid_chunk": (ids, n // 2 + 3), "whole_list": (ids, 0)}
+
+
+LIST_CASES = ("all_empty", "single", "at_end", "interleaved", "cap_mid_chunk", "whole_list")
+
+
+@pytest.mark.parametrize("n_ctas", [0, 1])
+@pytest.mark.parametrize("case", LIST_CASES)
+def test_k2_visible_lists_match_plain(fused, device, case, n_ctas):
+    """K2 on edited visible lists, bit for bit against its plain twin, on the
+    full persistent grid and on one CTA, whose 8 warps take 256 rows a pass:
+    there the fused list's 552 live rows make the loop go round."""
+    _settings, _proj, vol, rs, _st, _depth, _c = fused
+    ids, max_rows = edited_lists(rs.visible_ids, vol.entry_ptr)[case]
+    args = k2_args(fused, device, ids.contiguous(), max_rows)
+    vk, vp = vol.vox.clone(), vol.vox.clone()
+    integrate.integrate_depth_cuda(vk, *args, n_ctas=n_ctas)
+    integrate.integrate_depth_plain(vp, *args)
+    assert int((vk != vp).sum()) == 0
+    assert (int((vp != vol.vox).sum()) == 0) == (case == "all_empty")
 
 
 @pytest.fixture(scope="module")
@@ -179,29 +261,59 @@ def test_color_path_launches_the_color_kernel(fused_rgb):
     assert counts == {"icp": 3 * sum(levels), "integrate": 0, "integrate_color": 3, "raycast": 3}
 
 
-@pytest.mark.parametrize("extrinsic", [False, True])
-def test_k2_color_matches_plain_bit_for_bit(fused_rgb, device, extrinsic):
+def k2c_args(fused_rgb, device, extrinsic=False, ids=None, max_rows=None):
+    """K2c's arguments after `vox, vox_rgb`, as integrate_into_scene passes
+    them; with `extrinsic` the rgb camera sits 2.5 cm along x, turned 1.5°
+    about y, with other intrinsics."""
     settings, proj, vol, rs, st, depth, rgb, _c = fused_rgb
     sp = settings.scene
     M_rgb, proj_rgb = st.pose, proj
-    if extrinsic:  # rgb camera 2.5 cm along x, turned 1.5° about y, other intrinsics
+    if extrinsic:
         r2d = se3.se3_exp(torch.tensor([0.025, 0.0, 0.0, 0.0, 0.026, 0.0], device=device))
         M_rgb = se3.invert(r2d) @ st.pose
         proj_rgb = proj * torch.tensor([1.04, 1.03, 1.0, 1.0], device=device)
-    _ids, ptr, bpos, valid = hp._visible_rows(vol, rs, settings, settings.max_fused_blocks)
-    args = (torch.where(valid, ptr, -1).contiguous(), bpos.contiguous(), depth, rgb, st.pose, proj,
+    return (rs.visible_ids if ids is None else ids, vol.entry_ptr, vol.entry_pos, depth, rgb, st.pose, proj,
             M_rgb.contiguous(), proj_rgb, torch.ones((), dtype=torch.bool, device=device), sp.voxel_size, sp.mu,
-            sp.max_w, False)
+            sp.max_w, False, 8, settings.max_fused_blocks if max_rows is None else max_rows)
+
+
+@pytest.mark.parametrize("extrinsic", [False, True])
+def test_k2_color_matches_plain_bit_for_bit(fused_rgb, device, extrinsic):
+    _settings, _proj, vol, _rs, _st, _depth, _rgb, _c = fused_rgb
+    args = k2c_args(fused_rgb, device, extrinsic)
     k = (vol.vox.clone(), vol.vox_rgb.clone())
     p = (vol.vox.clone(), vol.vox_rgb.clone())
+    build.reset_launch_counts()
     integrate.integrate_rgbd(*k, *args)
+    assert build.launch_counts()["integrate_color"] == 1
     integrate.integrate_rgbd_plain(*p, *args)
     assert int((p[1] != vol.vox_rgb).sum()) > 10000
     assert int((k[0] != p[0]).sum()) == 0
     assert int((k[1] != p[1]).sum()) == 0
+    again = (vol.vox.clone(), vol.vox_rgb.clone())
+    integrate.integrate_rgbd(*again, *args)
+    assert torch.equal(again[0], k[0]) and torch.equal(again[1], k[1])  # two launches on one input agree
     off = (vol.vox.clone(), vol.vox_rgb.clone())
-    integrate.integrate_rgbd(*off, *args[:8], torch.zeros((), dtype=torch.bool, device=device), *args[9:])
+    integrate.integrate_rgbd(*off, *args[:9], torch.zeros((), dtype=torch.bool, device=device), *args[10:])
     assert torch.equal(off[0], vol.vox) and torch.equal(off[1], vol.vox_rgb)
+
+
+@pytest.mark.parametrize("n_ctas", [0, 1])
+@pytest.mark.parametrize("case", LIST_CASES)
+def test_k2_color_visible_lists_match_plain(fused_rgb, device, case, n_ctas):
+    """K2c on the edited visible lists of test_k2_visible_lists_match_plain,
+    with the 2.5 cm / 1.5° extrinsic, bit for bit against its plain twin."""
+    _settings, _proj, vol, rs, _st, _depth, _rgb, _c = fused_rgb
+    ids, max_rows = edited_lists(rs.visible_ids, vol.entry_ptr)[case]
+    args = k2c_args(fused_rgb, device, True, ids.contiguous(), max_rows)
+    k = (vol.vox.clone(), vol.vox_rgb.clone())
+    p = (vol.vox.clone(), vol.vox_rgb.clone())
+    integrate.integrate_rgbd_cuda(*k, *args, n_ctas=n_ctas)
+    integrate.integrate_rgbd_plain(*p, *args)
+    assert int((k[0] != p[0]).sum()) == 0 and int((k[1] != p[1]).sum()) == 0
+    assert (int((p[0] != vol.vox).sum()) == 0) == (case == "all_empty")
+    if case not in ("all_empty", "single"):
+        assert int((p[1] != vol.vox_rgb).sum()) > 1000
 
 
 @pytest.mark.parametrize("volume", ["fused", "fused_1cm"])
@@ -227,19 +339,20 @@ def test_wrappers_check_their_inputs(fused, device):
         icp.icp_gh_cuda(depth, proj, st.points_map.transpose(0, 1), st.normals_map, proj, st.pose, st.pose, 0.01, 50)
     with pytest.raises(ValueError):  # the kernel reads the pose rows from memory: contiguous only
         icp.icp_gh_cuda(depth, proj, st.points_map, st.normals_map, proj, st.pose.T, st.pose, 0.01, 50)
-    ptrs = torch.full((4,), -1, dtype=torch.int32, device=device)
-    with pytest.raises(ValueError):
-        integrate.integrate_depth_cuda(vol.vox, ptrs, torch.zeros((4, 2), dtype=torch.int32, device=device), depth,
-                                       st.pose, proj, torch.ones((), dtype=torch.bool, device=device), 0.02, 0.08,
-                                       100, False)
-    vox_rgb = torch.zeros_like(vol.vox)
-    bpos = torch.zeros((4, 3), dtype=torch.int32, device=device)
-    rgb = torch.zeros(depth.shape + (3,), device=device)
     one = torch.ones((), dtype=torch.bool, device=device)
+    rows = (rs.visible_ids, vol.entry_ptr, vol.entry_pos)
+    for bad in (dict(entry_pos=vol.entry_pos[:, :2]), dict(visible_ids=rs.visible_ids.long()),
+                dict(pose=st.pose.T), dict(block_size=4)):
+        a = dict(visible_ids=rs.visible_ids, entry_pos=vol.entry_pos, pose=st.pose, block_size=8) | bad
+        with pytest.raises(ValueError):
+            integrate.integrate_depth_cuda(vol.vox, a["visible_ids"], vol.entry_ptr, a["entry_pos"], depth, a["pose"],
+                                           proj, one, 0.02, 0.08, 100, False, a["block_size"])
+    vox_rgb = torch.zeros_like(vol.vox)
+    rgb = torch.zeros(depth.shape + (3,), device=device)
     for bad in (dict(rgb=rgb[..., :2]), dict(rgb=rgb.double()), dict(vox_rgb=vox_rgb[:-1]),
                 dict(rgb=rgb.cpu())):
         a = dict(vox_rgb=vox_rgb, rgb=rgb) | bad
         with pytest.raises(ValueError):
-            integrate.integrate_rgbd_cuda(vol.vox, a["vox_rgb"], ptrs, bpos, depth, a["rgb"], st.pose, proj, st.pose,
+            integrate.integrate_rgbd_cuda(vol.vox, a["vox_rgb"], *rows, depth, a["rgb"], st.pose, proj, st.pose,
                                           proj, one, 0.02, 0.08, 100, False)
     assert np.isfinite(st.pose.cpu().numpy()).all()
