@@ -5,12 +5,14 @@ Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
-It builds the hand-written CUDA kernels (K1 ICP reduction, K2 TSDF
-integration with and without its colour half, K3 raycast) from
-infinitam_tpu_torch/csrc/ and holds each one to its plain PyTorch version on
-the card at the main path's shapes: K1 at each of the five pyramid levels, K2
-and K3 on the 5 mm and on the 1 cm volume, K2's colour half over three
-chained frames. For each kernel it prints its device time (the summed
+It builds the hand-written CUDA kernels (K1 ICP reduction, unweighted and
+with per-pixel weights, K2 TSDF integration with and without its colour
+half, K3 raycast) from infinitam_tpu_torch/csrc/ and holds each one to its
+plain PyTorch version on the card at the main path's shapes: K1 at each of
+the five pyramid levels, unweighted and weighted by the ω pyramid of a
+bilateral-filtered frame's σ_z, K2 and K3 on the 5 mm and on the 1 cm
+volume, K2's colour half over three chained frames. For each kernel it
+prints its device time (the summed
 duration of its own kernels in a torch.profiler window of calls with
 arguments built once; for K2 and K2c also cold, with a 128 MB buffer written
 before each call to empty the L2), the wrapper's call time (CUDA events
@@ -26,10 +28,20 @@ march steps its rays take, found through its plain version.
 Then it replays 30 synthetic 640×480 RGB-D frames, rendered on the card,
 through the port's frame loop in the three configurations of the JAX
 package's benchmark: 5 mm and 1 cm voxels with depth ICP, and the 1 cm point
-with colour fusion (`1cm_rgb`). Each replay is gated on tracking accuracy
-(ATE RMSE < 1 cm, rotation RMSE < 1°), the five silent-cap counters (max over
-the replay = 0), every kernel of its path launched (the colour kernel on
-every frame) and no host sync in its frame loop.
+with colour fusion (`1cm_rgb`); and through MainEngine.process_frame, the
+façade a user calls, at 5 mm with the weighted ICP tracker, the bilateral
+filter and the sensor-noise model (`5mm_wicp`). Each replay is gated on
+tracking accuracy (ATE RMSE < 1 cm, rotation RMSE < 1°), the five
+silent-cap counters (max over the replay = 0), every kernel of its path
+launched (the colour kernel on every frame, the weighted K1 30 times a
+frame) and no host sync in its frame loop. From the last `5mm_wicp` engine
+it renders every `get_image` type, a freeview image from behind the scene
+among them, and the colour image of a `1cm_rgb` engine, and holds the live
+raycast image to the same render of the plain raycast (≤ 1 LSB on ≥ 99.9%
+of the pixels). Last, the headless runner (`apps/cli.py`) runs in-process on
+30 synthetic frames with its raycast dumps, and the committed PGM fixture
+replays through the port's ImageFileReader, DeviceFrameFeed and MainEngine
+on the card (final pose within 1 cm / 1° of its recorded trajectory).
 
 Output: the card's name and power limit, the kernel build time, the kernel
 lines, per config the accuracy, counters, launch counts and launches per
@@ -52,9 +64,13 @@ consumers.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 import warnings
@@ -79,6 +95,7 @@ PEAK_F32_PER_S = 67e12
 # float32 operations per element, counted from the kernels' sources
 ICP_OPS_PIXEL = 116  # csrc/icp.cu: back-projection, two transforms, projection, the point tap, the gate
 ICP_OPS_VALID = 121  # a valid pixel's normal tap, b, A and its 29 products and sums
+ICP_OPS_WEIGHT = 7  # the weighted variant's ω·A and ω·b
 INTEGRATE_OPS_VOXEL = 37  # csrc/integrate.cu: centre, transform, projection, depth tap, η and its gate
 INTEGRATE_OPS_UPDATE = 12  # an updated voxel's running average and quantisation
 INTEGRATE_OPS_COLOR = 100  # a colour voxel's transform, projection, bilinear tap and colour average
@@ -121,12 +138,20 @@ def color_settings(cfg):
     return teddy_1cm_settings(cfg).replace(use_color=True)
 
 
+def wicp_settings(cfg):
+    """The reference operating point with the weighted ICP tracker and its
+    inputs: the 5× bilateral filter and the sensor-noise model."""
+    return reference_settings(cfg).replace(tracker_type=cfg.TrackerType.WICP, model_sensor_noise=True,
+                                           use_bilateral_filter=True)
+
+
 # kernels each replay's path must launch, by launch-counter name
 DEPTH_PATH = ("icp", "integrate", "raycast")
 RGB_PATH = ("icp", "integrate_color", "raycast")
+WICP_PATH = ("icp_weighted", "integrate", "raycast")
 # the JSON name of each kernel → its launch counter
-COUNTER = {"icp_reduce": "icp", "integrate_depth": "integrate", "integrate_color": "integrate_color",
-           "raycast_grid": "raycast"}
+COUNTER = {"icp_reduce": "icp", "icp_reduce_weighted": "icp_weighted", "integrate_depth": "integrate",
+           "integrate_color": "integrate_color", "raycast_grid": "raycast"}
 
 
 def card_line() -> str:
@@ -255,6 +280,21 @@ def repo_stack(frames) -> str:
     return " < ".join(sites[:6])
 
 
+def back_pose() -> np.ndarray:
+    """A camera behind the synthetic scene looking back at it: 3.2 m along
+    z, turned 180° about y (tests/test_freeview_swap.py:53-73)."""
+    R = np.array([[-1.0, 0.0, 0.0], [0.0, 1.0, 0.0], [0.0, 0.0, -1.0]])
+    M = np.eye(4, dtype=np.float32)
+    M[:3, :3] = R
+    M[:3, 3] = -R @ np.array([0.0, 0.0, 3.2])
+    return M
+
+
+def filled(img: np.ndarray) -> float:
+    """The share of an image's pixels with any non-zero channel."""
+    return float((img.reshape(img.shape[0], img.shape[1], -1) > 0).any(-1).mean())
+
+
 def gh_errors(a, b):
     """(largest relative difference of H, ∇ and f, largest absolute
     difference of the normalised system H/N, ∇/N, f) between two GHResults."""
@@ -272,8 +312,9 @@ class Smoke:
     def __init__(self):
         from infinitam_tpu_torch import calib, config
         from infinitam_tpu_torch.engine import hash_pipeline, trackers
+        from infinitam_tpu_torch.engine.main_engine import MainEngine
         from infinitam_tpu_torch.engine.view_builder import build_view_from_metric_depth
-        from infinitam_tpu_torch.io import synth
+        from infinitam_tpu_torch.io import sources, synth
         from infinitam_tpu_torch.ops import icp as icp_ops
         from infinitam_tpu_torch.ops import pyramid
         from infinitam_tpu_torch.ops import raycast as raycast_ops
@@ -284,6 +325,7 @@ class Smoke:
         self.pyramid, self.icp_ops, self.raycast_ops = pyramid, icp_ops, raycast_ops
         self.build, self.k_icp, self.k_int, self.k_ray = build, icp, integrate, raycast
         self.build_view = build_view_from_metric_depth
+        self.MainEngine, self.sources = MainEngine, sources
         self.dev = torch.device("cuda", 0)
         self.calib = calib.default_calib(IMG[1], IMG[0])
         self.proj = torch.as_tensor(self.calib.intrinsics_d.vector, device=self.dev)
@@ -328,6 +370,24 @@ class Smoke:
             poses.append(st.pose)
             diags.append(diag)
         return vol, rs, st, poses, diags
+
+    def fresh_engine(self, settings):
+        return self.MainEngine(settings, self.calib, IMG, device=self.dev)
+
+    def run_engine(self, settings, frames, engine=None, on_phase=None):
+        """The path a user calls: MainEngine.process_frame on each frame,
+        from `engine` or a fresh one. Returns (engine, poses, diagnostics),
+        device tensors all: nothing is read back in the loop."""
+        mark = on_phase or self.hp.no_phase
+        engine = engine or self.fresh_engine(settings)
+        poses, diags = [], []
+        for d, rgb in zip(*frames):
+            mark("start")
+            diag = engine.process_frame(metric_depth=d, rgb=rgb if settings.use_color else None, on_phase=mark)
+            mark("other")
+            poses.append(engine.tracking_state.pose)
+            diags.append(diag.device)
+        return engine, poses, diags
 
     def fused(self, settings, frames):
         """State after N_CHECK_FRAMES fused frames and the next frame's view."""
@@ -455,47 +515,57 @@ class Smoke:
         return n_bytes, n_ops, n_steps
 
     # --- kernel checks ----------------------------------------------------
-    def k1_check(self, settings, st, depth):
+    def k1_check(self, settings, st, depth, weights=None):
         """K1 at each pyramid level's view depth against the full-resolution
         maps, from the last tracked pose (a Gauss-Newton start), as
-        trackers.track_depth calls it; then two launches on the same input,
-        which must agree bit for bit."""
+        trackers.track_depth calls it, weighted by `weights` (the tracker's
+        ω pyramid) when given; then two launches on the same input, which
+        must agree bit for bit."""
         tp = settings.tracking
         depths = self.pyramid.build_depth_pyramid(depth, tp.n_levels)
         dists = self.trackers.level_dist_thresh(tp)
         iters = self.trackers.level_iterations(tp)
         inv = self.se3.invert(st.pose)
+        label = "K1" if weights is None else "K1 weighted"
         levels = []
         for lvl in range(tp.n_levels):
             d = depths[lvl]
+            omega = None if weights is None else weights[lvl]
             args = (d, self.trackers.scale_proj(self.proj, lvl), st.points_map, st.normals_map, self.proj, inv,
                     st.pose_point_cloud, dists[lvl], tp.min_valid_points)
-            gk, gp = self.k_icp.icp_gh(*args), self.k_icp.icp_gh_plain(*args)
+
+            def kernel(args=args, omega=omega):
+                return self.k_icp.icp_gh(*args, weights=omega)
+
+            gk, gp = kernel(), self.k_icp.icp_gh_plain(*args, weights=omega)
             nk, np_ = int(gk.num_valid), int(gp.num_valid)
             rel, err = gh_errors(gk, gp)
             h, w = d.shape
-            b = bound(self.icp_bytes(*args[:8]), h * w * ICP_OPS_PIXEL + np_ * ICP_OPS_VALID)
-            dev, per_call, others = device_ms(lambda: self.k_icp.icp_gh(*args), 100)
-            call = cuda_ms(lambda: self.k_icp.icp_gh(*args), 50)
-            plain = cuda_ms(lambda: self.k_icp.icp_gh_plain(*args), 10)
-            print(f"K1 icp level {lvl} ({w}×{h} px, {iters[lvl]} launches a frame): valid {nk} vs plain {np_}, "
+            n_bytes = self.icp_bytes(*args[:8]) + (0 if omega is None else 4 * h * w)  # + the weight map
+            n_ops = h * w * ICP_OPS_PIXEL + np_ * (ICP_OPS_VALID + (0 if omega is None else ICP_OPS_WEIGHT))
+            b = bound(n_bytes, n_ops)
+            dev, per_call, others = device_ms(kernel, 100)
+            call = cuda_ms(kernel, 50)
+            plain = cuda_ms(lambda: self.k_icp.icp_gh_plain(*args, weights=omega), 10)
+            print(f"{label} icp level {lvl} ({w}×{h} px, {iters[lvl]} launches a frame): valid {nk} vs plain {np_}, "
                   f"H/∇/f max rel err {rel:.3e}, max abs err of (H/N, ∇/N, f) {err:.3e}; "
                   + timing_line(dev, per_call, others, b, call, plain))
-            self.gate(nk == np_ and (lvl > 0 or np_ > 10000), f"K1 level {lvl} valid count equal to plain")
-            self.gate(rel < 1e-4, f"K1 level {lvl} H, ∇, f within relative 1e-4 of plain")
+            self.gate(nk == np_ and (lvl > 0 or np_ > 10000), f"{label} level {lvl} valid count equal to plain")
+            self.gate(rel < 1e-4, f"{label} level {lvl} H, ∇, f within relative 1e-4 of plain")
             self.gate(per_call == 1 and others == 0,
-                      f"K1 level {lvl}: one device kernel per call, no other device op")
-            levels.append(dict(args=args, err=err, ms=dev, call_ms=call, plain_ms=plain, iters=iters[lvl], **b))
+                      f"{label} level {lvl}: one device kernel per call, no other device op")
+            levels.append(dict(kernel=kernel, err=err, ms=dev, call_ms=call, plain_ms=plain, iters=iters[lvl], **b))
         frame_ms = (None if any(l["ms"] is None for l in levels)
                     else sum(l["iters"] * l["ms"] for l in levels))
         frame_bound = sum(l["iters"] * l["bound_ms"] for l in levels)
-        print(f"K1 over a frame ({sum(iters)} launches): device {fmt_ms(frame_ms)}, bound "
+        print(f"{label} over a frame ({sum(iters)} launches): device {fmt_ms(frame_ms)}, bound "
               f"{frame_bound * 1000:.2f} µs, call {sum(l['iters'] * l['call_ms'] for l in levels):.4f} ms")
-        a, b2 = self.k_icp.icp_gh(*levels[0]["args"]), self.k_icp.icp_gh(*levels[0]["args"])
+        a, b2 = levels[0]["kernel"](), levels[0]["kernel"]()
         same = all(torch.equal(x, y) for x, y in zip(a, b2))
-        self.gate(same, "K1 two launches on the same input bitwise equal")
+        self.gate(same, f"{label} two launches on the same input bitwise equal")
         top = levels[0]
-        return dict(name="icp_reduce", route="cuda", source="infinitam_tpu_torch/csrc/icp.cu",
+        name = "icp_reduce" if weights is None else "icp_reduce_weighted"
+        return dict(name=name, route="cuda", source="infinitam_tpu_torch/csrc/icp.cu",
                     replaces="infinitam_tpu/ops/pallas/icp_kernel.py:261", max_abs_err=max(l["err"] for l in levels),
                     ms=top["ms"], call_ms=top["call_ms"], plain_ms=top["plain_ms"], library_ms=None,
                     **{k: top[k] for k in ("bound_ms", "bound_by", "bound_bytes", "bound_ops")},
@@ -647,14 +717,19 @@ class Smoke:
         return entry
 
     # --- replays ------------------------------------------------------------
-    def replay(self, name, settings, frames, gt, path):
-        """Replay `frames` three ways: a correctness run (poses, counters),
-        N_TIMED timed runs (the first one counts kernel launches) and a phase
-        run under the sync debug mode. Returns the launch counts."""
+    def replay(self, name, settings, frames, gt, path, via_engine=False):
+        """Replay `frames` three ways, through the frame step or (with
+        `via_engine`) through MainEngine: a correctness run (poses,
+        counters), N_TIMED timed runs (the first one counts kernel launches)
+        and a phase run under the sync debug mode. Returns the launch counts
+        and the correctness run's final state (its engine with
+        `via_engine`, else its volume)."""
         depths = frames[0]
+        run = self.run_engine if via_engine else self.run_frames
+        fresh = self.fresh_engine if via_engine else self.fresh_state
         torch.cuda.synchronize()
-        # 1) correctness run: poses, counters
-        _v, _r, _s, poses, diags = self.run_frames(settings, frames)
+        # 1) correctness run: poses, counters (read after the loop)
+        final, *_rest, poses, diags = run(settings, frames)
         poses_np = torch.stack(poses).cpu().numpy().astype(np.float64)
         ate, rot = trajectory_errors(poses_np, gt.astype(np.float64))
         counters = {
@@ -669,12 +744,12 @@ class Smoke:
         #    counts cover exactly the first run
         times = []
         for rep in range(N_TIMED):
-            state = self.fresh_state(settings)
+            state = fresh(settings)
             torch.cuda.synchronize()
             if rep == 0:
                 self.build.reset_launch_counts()
             t0 = time.perf_counter()
-            self.run_frames(settings, frames, state)
+            run(settings, frames, state)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
             if rep == 0:
@@ -696,14 +771,14 @@ class Smoke:
             if SYNC_MSG in str(message):
                 syncs.append(repo_stack(traceback.extract_stack()[:-1]))
 
-        state = self.fresh_state(settings)
+        state = fresh(settings)
         torch.cuda.synchronize()
         with warnings.catch_warnings():
             warnings.simplefilter("always")
             warnings.showwarning = on_warning
             torch.cuda.set_sync_debug_mode("warn")
             try:
-                self.run_frames(settings, frames, state, on_phase=mark)
+                run(settings, frames, state, on_phase=mark)
             finally:
                 torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
@@ -736,10 +811,104 @@ class Smoke:
         self.gate(all(launches[k] > 0 for k in path), f"{name} every kernel of its path launched: {', '.join(path)}")
         if "integrate_color" in path:
             self.gate(launches["integrate_color"] == len(depths), f"{name} colour kernel launched on every frame")
+        if "icp_weighted" in path:
+            per_frame = sum(self.trackers.level_iterations(settings.tracking))
+            self.gate(launches["icp_weighted"] == per_frame * len(depths) and launches["icp"] == 0,
+                      f"{name} weighted K1 launched {per_frame} times a frame, the unweighted one never")
         self.gate(n_syncs == 0, f"{name} frame loop issued no host sync")
-        return launches
+        return launches, final
 
-    def profile(self, name, settings, frames):
+    def get_image_check(self, engine, settings, frames, rgb_settings):
+        """Every get_image type from a replay's last engine, a freeview
+        image from behind the scene among them, and the colour image of an
+        engine of `rgb_settings` after N_CHECK_FRAMES frames. Each image is
+        gated on its shape, dtype and filled share; the live raycast image
+        also on the same render of the plain raycast twin."""
+        depths, rgbs = frames
+        H, W = IMG
+        shapes = {"raycast": (H, W), "normals": (H, W, 3), "depth": (H, W, 4), "weight": (H, W, 4),
+                  "colour": (H, W, 3)}
+        cases = [("raycast", {}), ("normals", {}), ("depth", {}), ("depth", dict(view=depths[-1])),
+                 ("weight", {}), ("raycast", dict(pose=back_pose()))]
+        images = {}
+        for which, kw in cases:
+            label = which + (" of the input view" if "view" in kw else "") + (" freeview" if "pose" in kw else "")
+            t0 = time.perf_counter()
+            img = engine.get_image(which, **kw)
+            ms = (time.perf_counter() - t0) * 1000
+            images[label] = img
+            share = filled(img)
+            print(f"get_image {label}: {img.shape} {img.dtype}, {100 * share:.1f}% filled, {ms:.1f} ms (host clock)")
+            self.gate(img.shape == shapes[which] and img.dtype == np.uint8, f"get_image {label} shape and dtype")
+            self.gate(share > (0.3 if label == "raycast" else 0.05 if "freeview" not in label else 0.01),
+                      f"get_image {label} filled")
+        # the live raycast render against the plain raycast twin's
+        sp, pose = settings.scene, engine.tracking_state.pose
+        inv = self.se3.invert(pose)
+        zmin, zmax, _ = self.hp.expected_depth_ranges(engine.vol, engine.render_state, pose, self.proj, IMG,
+                                                      settings)
+        grid = self.hp.hv.get_block_grid(engine.vol, settings.block_grid)
+        res = self.k_ray.raycast_grid_plain(engine.vol, grid, settings.block_grid, settings.hashing, inv, self.proj,
+                                            IMG, 1.0 / sp.voxel_size, sp.mu, zmin, zmax)
+        ref = self.raycast_ops.render_grey(res, sp.voxel_size, inv).cpu().numpy()
+        lsb = np.abs(images["raycast"].astype(np.int32) - ref.astype(np.int32))
+        within = float((lsb <= 1).mean())
+        print(f"get_image raycast vs the plain raycast's render: {100 * within:.3f}% of pixels within 1 LSB, "
+              f"max {int(lsb.max())} LSB")
+        self.gate(within >= 0.999, "get_image raycast within 1 LSB of the plain raycast's render on ≥ 99.9%")
+        rgb_engine, _p, _d = self.run_engine(rgb_settings, (depths[:N_CHECK_FRAMES], rgbs[:N_CHECK_FRAMES]))
+        img = rgb_engine.get_image("colour")
+        print(f"get_image colour (1cm_rgb, {N_CHECK_FRAMES} frames): {img.shape} {img.dtype}, "
+              f"{100 * filled(img):.1f}% filled")
+        self.gate(img.shape == shapes["colour"] and img.dtype == np.uint8 and filled(img) > 0.3,
+                  "get_image colour shape, dtype and filled")
+
+    def cli_check(self):
+        """The headless runner in-process on the card: N_FRAMES synthetic
+        640×480 frames with a raycast dump after each."""
+        from infinitam_tpu_torch.apps import cli
+        from infinitam_tpu_torch.utils.image_io import read_image
+
+        with tempfile.TemporaryDirectory() as tmp:
+            mask = os.path.join(tmp, "r_%04i.png")
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = cli.main(["--synthetic", "--frames", str(N_FRAMES), "--out-render", mask])
+            wall = time.perf_counter() - t0
+            text = out.getvalue()
+            files = sorted(os.listdir(tmp))
+            last = read_image(os.path.join(tmp, files[-1])) if files else np.zeros((1, 1, 3), np.uint8)
+        for line in text.splitlines():
+            print(f"  cli: {line}")
+        print(f"cli --synthetic --frames {N_FRAMES} --out-render: rc {rc}, {len(files)} images, last "
+              f"{last.shape} {100 * filled(last):.1f}% filled, {wall:.1f} s wall")
+        self.gate(rc == 0 and f"processed {N_FRAMES} frames" in text, f"cli returned 0 and processed {N_FRAMES} frames")
+        self.gate(len(files) == N_FRAMES and last.shape == (*IMG, 3) and filled(last) > 0.3,
+                  f"cli wrote {N_FRAMES} renders, the last one filled")
+
+    def fixture_check(self):
+        """The committed PGM fixture (raw mm depth) through the port's
+        ImageFileReader, DeviceFrameFeed and MainEngine on the card."""
+        fix = REPO / "tests" / "fixtures" / "replay"
+        src = self.sources.DeviceFrameFeed(self.sources.ImageFileReader(
+            str(fix / "calib.txt"), "", str(fix / "depth_%04i.pgm")), device=self.dev)
+        gt = np.load(fix / "gt_poses.npy")
+        img = (src.calib.intrinsics_d.height, src.calib.intrinsics_d.width)
+        engine = self.MainEngine(self.cfg.tiny_test_settings(), src.calib, img, device=self.dev)
+        n, on_card = 0, True
+        while src.has_more_images():
+            raw = src.get_images()[0]
+            on_card &= torch.is_tensor(raw) and raw.device.type == "cuda" and not raw.is_floating_point()
+            engine.process_frame(raw_depth=raw)
+            n += 1
+        t_err, r_err = frame_errors(engine.get_pose()[None].astype(np.float64), gt[-1:].astype(np.float64))
+        print(f"PGM fixture replay ({n} frames, {img[1]}×{img[0]}): final pose {t_err[0] * 1000:.3f} mm, "
+              f"{r_err[0]:.4f} deg from the recorded trajectory")
+        self.gate(n == gt.shape[0] and on_card, "PGM fixture: every frame uploaded to the card as raw depth")
+        self.gate(t_err[0] < 0.01 and r_err[0] < 1.0, "PGM fixture final pose within 1 cm and 1 deg")
+
+    def profile(self, name, settings, frames, via_engine=False):
         """torch.profiler over the last PROFILE_FRAMES frames of a replay on a
         fresh map (the frames before them warm the map up, unprofiled)."""
         from torch.autograd import DeviceType
@@ -748,11 +917,16 @@ class Smoke:
 
         n = PROFILE_FRAMES
         depths, rgbs = frames
-        vol, rs, st, _p, _d = self.run_frames(settings, (depths[:-n], rgbs[:-n]))
+        if via_engine:
+            state, _p, _d = self.run_engine(settings, (depths[:-n], rgbs[:-n]))
+            run = self.run_engine
+        else:
+            state = self.run_frames(settings, (depths[:-n], rgbs[:-n]))[:3]
+            run = self.run_frames
         torch.cuda.synchronize()
         with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            self.run_frames(settings, (depths[-n:], rgbs[-n:]), (vol, rs, st))
+            run(settings, (depths[-n:], rgbs[-n:]), state)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
@@ -804,36 +978,47 @@ def main() -> int:
 
     depths, rgbs, gt = smoke.frames()
     frames = (depths, rgbs)
-    configs = [  # name, settings, kernels of its path
-        ("5mm", reference_settings(smoke.cfg), DEPTH_PATH),
-        ("1cm", teddy_1cm_settings(smoke.cfg), DEPTH_PATH),
-        ("1cm_rgb", color_settings(smoke.cfg), RGB_PATH),
+    configs = [  # name, settings, kernels of its path, through MainEngine
+        ("5mm", reference_settings(smoke.cfg), DEPTH_PATH, False),
+        ("1cm", teddy_1cm_settings(smoke.cfg), DEPTH_PATH, False),
+        ("1cm_rgb", color_settings(smoke.cfg), RGB_PATH, False),
+        ("5mm_wicp", wicp_settings(smoke.cfg), WICP_PATH, True),
     ]
-    s5, s1d, s1 = (c[1] for c in configs)
+    s5, s1d, s1, s5w = (c[1] for c in configs)
     vol, rs, st, view = smoke.fused(s5, frames)
     k2 = smoke.k2_check("5 mm", s5, vol, rs, st, view)
     kernels = [smoke.k1_check(s5, st, view.depth), k2]
+    # the weighted K1 on the same volume, with the weighted tracker's view of
+    # the next frame (filtered depth) and its ω pyramid
+    wview = smoke.build_view(depths[N_CHECK_FRAMES], s5w, smoke.calib)
+    omega = smoke.trackers.weight_pyramid(wview.depth_uncertainty, s5w.tracking.n_levels)
+    kernels.insert(1, smoke.k1_check(s5w, st, wview.depth, weights=omega))
     kernels.append(smoke.k3_check("5 mm", s5, vol, rs, st))
-    del vol, rs, st, view
+    del vol, rs, st, view, wview, omega
     k2_1cm = smoke.k2_check("1 cm", s1d, *smoke.fused(s1d, frames))
     k2.update({f"{k}_1cm": k2_1cm[k] for k in ("ms", "cold_ms", "call_ms", "plain_ms", "bound_ms", "bound_by")})
     vol, rs, st, _view = smoke.fused(s1, frames)
     smoke.k3_check("1 cm", s1, vol, rs, st)
-    kernels.insert(2, smoke.color_kernel_check(s1, vol, rs, frames, gt))
+    kernels.insert(3, smoke.color_kernel_check(s1, vol, rs, frames, gt))
     del vol, rs, st
     # launches per kernel summed over the replays' counted runs (each run's
     # counts are reset just before it and read just after), and per frame of
     # each replay
     launches = dict.fromkeys(build.KERNELS, 0)
     per_frame = {}
-    for name, settings, path in configs:
-        counts = smoke.replay(name, settings, frames, gt, path)
+    for name, settings, path, via_engine in configs:
+        counts, final = smoke.replay(name, settings, frames, gt, path, via_engine)
         per_frame[name] = {k: n / N_FRAMES for k, n in counts.items()}
         for k, n in counts.items():
             launches[k] += n
+        if name == "5mm_wicp":
+            smoke.get_image_check(final, settings, frames, s1)
+        del final
+    smoke.cli_check()
+    smoke.fixture_check()
     if args.profile:
-        for name, settings, _path in configs:
-            smoke.profile(name, settings, frames)
+        for name, settings, _path, via_engine in configs:
+            smoke.profile(name, settings, frames, via_engine)
     smoke.gate(not any(m.split(".")[0] in ("jax", "jaxlib", "infinitam_tpu") for m in sys.modules),
                "no module of JAX or of the JAX package was imported")
     print(f"chip_smoke wall time: {time.perf_counter() - t_start:.1f} s")

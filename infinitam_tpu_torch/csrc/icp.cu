@@ -34,6 +34,15 @@
 // The maps are read with float4 loads; the scattered taps stay in L2. The
 // TPU kernel's one-hot MXU taps, bf16 plane splits and window-miss
 // invalidation are not carried over.
+//
+// Per-pixel weights (the weighted ICP tracker): with a weight map ω [h, w]
+// at the view level's resolution, the kernel is the WITH_WEIGHTS variant of
+// the same template and reduces the JAX package's weighted sums
+// (ops/icp.py reduce_gh(weights=)), quirks included: H = Σ (ωA)(ωA)ᵀ (ω² on
+// H), ∇ = Σ b·(ωA) (ω once), Σ (ωb)² for f, and N the unweighted count. A
+// null weight pointer launches the unweighted instantiation, whose code is
+// the kernel above unchanged. The weighted call reads h·w·4 more bytes, one
+// float a pixel, coalesced like the depth.
 
 #include "common.cuh"
 
@@ -73,8 +82,11 @@ struct ItpuIcpCam {
     float scene_pose[12];  // scene_pose rows 0-2
 };
 
-// adds pixel i's 29 terms to s when the pixel is valid
-__device__ __forceinline__ void itpu_icp_pixel(int i, const float* __restrict__ depth, int w, const float4* pts,
+// adds pixel i's 29 terms to s when the pixel is valid (weighted by
+// weights[i] when WITH_WEIGHTS)
+template <bool WITH_WEIGHTS>
+__device__ __forceinline__ void itpu_icp_pixel(int i, const float* __restrict__ depth,
+                                               const float* __restrict__ weights, int w, const float4* pts,
                                                const float4* nrm, int hs, int ws, const ItpuIcpCam& cam,
                                                float dist_thresh, float (&s)[ICP_N_SUMS]) {
     const int y = i / w, x = i - y * w;
@@ -101,21 +113,41 @@ __device__ __forceinline__ void itpu_icp_pixel(int i, const float* __restrict__ 
     itpu_bilinear_holes(nrm, hs, ws, u, v, tn);
     const float b = tn.x * dx + tn.y * dy + tn.z * dz;
     const float A[6] = {tn.y * pz - tn.z * py, tn.z * px - tn.x * pz, tn.x * py - tn.y * px, tn.x, tn.y, tn.z};
-    int k = 0;
+    if constexpr (WITH_WEIGHTS) {
+        // reduce_gh(weights=): Af = A·ω, bf = b·ω, ∇ from the unweighted b
+        const float om = weights[i];
+        float wA[6];
 #pragma unroll
-    for (int r = 0; r < 6; ++r)
+        for (int r = 0; r < 6; ++r) wA[r] = A[r] * om;
+        int k = 0;
 #pragma unroll
-        for (int c = r; c < 6; ++c) s[k++] += A[r] * A[c];
+        for (int r = 0; r < 6; ++r)
 #pragma unroll
-    for (int r = 0; r < 6; ++r) s[21 + r] += b * A[r];
-    s[27] += b * b;
+            for (int c = r; c < 6; ++c) s[k++] += wA[r] * wA[c];
+#pragma unroll
+        for (int r = 0; r < 6; ++r) s[21 + r] += b * wA[r];
+        const float wb = b * om;
+        s[27] += wb * wb;
+    } else {
+        int k = 0;
+#pragma unroll
+        for (int r = 0; r < 6; ++r)
+#pragma unroll
+            for (int c = r; c < 6; ++c) s[k++] += A[r] * A[c];
+#pragma unroll
+        for (int r = 0; r < 6; ++r) s[21 + r] += b * A[r];
+        s[27] += b * b;
+    }
     s[28] += 1.0f;
 }
 
 // partial: [gridDim.x, 29] scratch; counter: the stream's ticket counter (0
-// between launches); out: H [6×6] row-major, ∇ [6], f, N (int32 bits)
+// between launches); out: H [6×6] row-major, ∇ [6], f, N (int32 bits);
+// weights: [h, w], read only by the WITH_WEIGHTS variant
+template <bool WITH_WEIGHTS>
 __global__ void __launch_bounds__(ICP_THREADS)
-itpu_icp_kernel(const float* __restrict__ depth, int h, int w, const float4* __restrict__ pts,
+itpu_icp_kernel(const float* __restrict__ depth, const float* __restrict__ weights, int h, int w,
+                const float4* __restrict__ pts,
                 const float4* __restrict__ nrm, int hs, int ws, const float* __restrict__ view_proj,
                 const float* __restrict__ scene_proj, const float* __restrict__ inv_pose,
                 const float* __restrict__ scene_pose, float dist_thresh, int min_valid, float* partial,
@@ -133,7 +165,7 @@ itpu_icp_kernel(const float* __restrict__ depth, int h, int w, const float4* __r
     for (int k = 0; k < ICP_N_SUMS; ++k) s[k] = 0.0f;
     const int n = h * w;
     for (int i = blockIdx.x * ICP_THREADS + threadIdx.x; i < n; i += gridDim.x * ICP_THREADS)
-        itpu_icp_pixel(i, depth, w, pts, nrm, hs, ws, cam, dist_thresh, s);
+        itpu_icp_pixel<WITH_WEIGHTS>(i, depth, weights, w, pts, nrm, hs, ws, cam, dist_thresh, s);
 
     // this CTA's sums: warp shuffles, then one thread per sum over the warps
     __shared__ float sh[ICP_WARPS][ICP_N_SUMS];
@@ -187,13 +219,15 @@ itpu_icp_kernel(const float* __restrict__ depth, int h, int w, const float4* __r
     }
 }
 
-ITPU_EXPORT int itpu_icp_gh(const void* depth, int h, int w, const void* pts, const void* nrm, int hs, int ws,
-                            const void* view_proj, const void* scene_proj, const void* inv_pose,
+// weights: a [h, w] float32 map, or null for the unweighted kernel
+ITPU_EXPORT int itpu_icp_gh(const void* depth, const void* weights, int h, int w, const void* pts, const void* nrm,
+                            int hs, int ws, const void* view_proj, const void* scene_proj, const void* inv_pose,
                             const void* scene_pose, float dist_thresh, int min_valid, int n_ctas, void* partial,
                             void* counter, void* out, void* stream) {
-    itpu_icp_kernel<<<n_ctas, ICP_THREADS, 0, (cudaStream_t)stream>>>(
-        (const float*)depth, h, w, (const float4*)pts, (const float4*)nrm, hs, ws, (const float*)view_proj,
-        (const float*)scene_proj, (const float*)inv_pose, (const float*)scene_pose, dist_thresh, min_valid,
-        (float*)partial, (unsigned int*)counter, (float*)out);
+    auto kernel = weights ? itpu_icp_kernel<true> : itpu_icp_kernel<false>;
+    kernel<<<n_ctas, ICP_THREADS, 0, (cudaStream_t)stream>>>(
+        (const float*)depth, (const float*)weights, h, w, (const float4*)pts, (const float4*)nrm, hs, ws,
+        (const float*)view_proj, (const float*)scene_proj, (const float*)inv_pose, (const float*)scene_pose,
+        dist_thresh, min_valid, (float*)partial, (unsigned int*)counter, (float*)out);
     return (int)cudaGetLastError();
 }

@@ -1,10 +1,11 @@
 """End-to-end per-frame pipeline on the voxel-block-hash volume.
 
-Counterpart of infinitam_tpu/engine/hash_pipeline.py for the depth-ICP and
-colour trackers, with or without colour fusion, without swapping (reference
-ITMMainEngine::ProcessFrame → ITMDenseMapper::ProcessFrame →
-ITMTrackingController::Prepare). Per frame: track (ICP: kernel K1; colour:
-photometric LM) → divergence gate → allocate → integrate (kernel K2, with its
+Counterpart of infinitam_tpu/engine/hash_pipeline.py for the depth-ICP,
+weighted-ICP, colour and external trackers, with or without colour fusion,
+without swapping (reference ITMMainEngine::ProcessFrame →
+ITMDenseMapper::ProcessFrame → ITMTrackingController::Prepare). Per frame:
+track (ICP and weighted ICP: kernel K1; colour: photometric LM; external:
+the given pose) → divergence gate → allocate → integrate (kernel K2, with its
 colour half when `use_color`) → expected-depth ranges → raycast (kernel K3;
 in the RGB frame for the colour tracker) → the next frame's tracking maps →
 diagnostics.
@@ -29,7 +30,7 @@ from infinitam_tpu_torch.config import Settings, SwappingMode, TrackerType
 from infinitam_tpu_torch.engine import hash_volume as hv
 from infinitam_tpu_torch.engine.hash_volume import HashVolume, RenderStateVH
 from infinitam_tpu_torch.engine.tracking_state import TrackingState, create_tracking_state
-from infinitam_tpu_torch.engine.trackers import TrackResult, track_color, track_depth
+from infinitam_tpu_torch.engine.trackers import TrackResult, track_color, track_depth, track_external
 from infinitam_tpu_torch.engine.view_builder import View
 from infinitam_tpu_torch.ops import hashing
 from infinitam_tpu_torch.ops import raycast as rc
@@ -60,13 +61,19 @@ def novel_cap(settings: Settings) -> int:
     return max(2 * settings.hashing.max_visible_blocks, 4096)
 
 
+PORTED_TRACKERS = (TrackerType.ICP.value, TrackerType.WICP.value, TrackerType.COLOR.value,
+                   TrackerType.EXTERNAL.value)
+
+
 def check_supported(settings: Settings) -> None:
-    """The port runs the depth-ICP and colour trackers on the block-grid hash
-    path, with or without colour fusion, without swapping; other settings
-    raise. (The Pallas-only settings are ignored, see config.py.) Enums are
-    compared by value, so a Settings of the JAX package passes as well."""
+    """The port runs the depth-ICP, weighted-ICP, colour and external
+    trackers on the block-grid hash path, with or without colour fusion,
+    without swapping; other settings raise (the Ren tracker and the
+    approximate raycast: ROADMAP Queue 1 item 12; swapping: item 13). (The
+    Pallas-only settings are ignored, see config.py.) Enums are compared by
+    value, so a Settings of the JAX package passes as well."""
     unported = {
-        "tracker_type": settings.tracker_type.value not in (TrackerType.ICP.value, TrackerType.COLOR.value),
+        "tracker_type": settings.tracker_type.value not in PORTED_TRACKERS,
         "swapping_mode": settings.swapping_mode.value != SwappingMode.DISABLED.value,
         "use_approximate_raycast": settings.use_approximate_raycast,
         "raycast_coarse_factor": settings.raycast_coarse_factor > 1,
@@ -456,6 +463,24 @@ def raycast_hash(vol, render_state, pose, proj, img_size: Tuple[int, int], setti
     )
 
 
+def find_visible_blocks(vol: HashVolume, pose: torch.Tensor, proj: torch.Tensor, img_size: Tuple[int, int],
+                        settings: Settings) -> RenderStateVH:
+    """The visible-entry list for any camera (reference
+    IITMVisualisationEngine::FindVisibleBlocks, the freeview render of
+    ITMMainEngine::GetImage): the projection check over all E entries,
+    compacted in entry order with no host sync. For rendering only: the
+    state has no claim or epoch planes and must not be fed back into
+    process_frame_hash."""
+    hp = settings.hashing
+    E = hp.n_entries
+    vis = hv.check_block_visibility(vol.entry_pos, pose, proj, img_size, settings.scene.voxel_size, hp.block_size)
+    mask = (vol.entry_ptr >= 0) & vis
+    ids, n_visible = compact_by_mask(mask, torch.arange(E, dtype=torch.int32, device=pose.device),
+                                     hp.max_visible_blocks, fill=-1)
+    return RenderStateVH(visible_type=torch.zeros((E,), dtype=torch.int32, device=pose.device), visible_ids=ids,
+                         n_visible=n_visible)
+
+
 def prepare_tracking_maps(vol, render_state, pose, proj, img_size: Tuple[int, int], settings: Settings):
     """Raycast + ICP maps for the next frame's tracker. Returns (points_map,
     normals_map, n_pool_overflow); the CUDA raycast has no block pool, so
@@ -489,15 +514,19 @@ def _rgb_extrinsics(rgb_to_depth, device):
     return se3.invert(rgb_to_depth), rgb_to_depth
 
 
-def _no_phase(_name: str) -> None:
-    pass
+def no_phase(_name: str) -> None:
+    """The default `on_phase`: records nothing."""
 
 
 def _track_fuse_impl(vol, render_state, state: TrackingState, view: View, proj, settings: Settings,
-                     fusion_active: bool, proj_rgb=None, rgb_to_depth=None, on_phase=_no_phase):
+                     fusion_active: bool, proj_rgb=None, rgb_to_depth=None, external_pose=None,
+                     on_phase=no_phase):
     """Track → divergence gate → allocate → integrate. Returns (vol,
     render_state, pose, tr, n_alloc_overflow)."""
-    if settings.tracker_type.value == TrackerType.COLOR.value:
+    tt = settings.tracker_type.value
+    if tt == TrackerType.EXTERNAL.value:
+        tr = track_external(state.pose, external_pose if external_pose is not None else state.pose)
+    elif tt == TrackerType.COLOR.value:
         d2r, r2d = _rgb_extrinsics(rgb_to_depth, proj.device)
         # the maps hold locations and colours (reference: same buffer pair)
         tr = track_color(
@@ -505,9 +534,12 @@ def _track_fuse_impl(vol, render_state, state: TrackingState, view: View, proj, 
             state.normals_map, d2r, r2d, settings.tracking, skip_points=settings.skip_points,
         )
     else:
+        # the weighted tracker takes the view's σ_z; without it (the view
+        # was built without model_sensor_noise) it runs unweighted, as the
+        # JAX package's does
         tr = track_depth(
             state.pose, view.depth, proj, state.points_map, state.normals_map, state.pose_point_cloud,
-            settings.tracking,
+            settings.tracking, weights_map=view.depth_uncertainty if tt == TrackerType.WICP.value else None,
         )
     have_maps = state.age >= 0
     # divergence policy: a frame whose tracking energy spiked keeps the last
@@ -588,20 +620,23 @@ def process_frame_hash(
     fusion_active: bool = True,
     proj_rgb: torch.Tensor | None = None,
     rgb_to_depth: torch.Tensor | None = None,
-    on_phase=_no_phase,
+    external_pose: torch.Tensor | None = None,
+    on_phase=no_phase,
 ) -> Tuple[HashVolume, RenderStateVH, TrackingState, FrameDiagnostics]:
     """One frame on the hash volume: track → allocate + fuse → raycast.
     `vol.vox` (and `vol.vox_rgb`) is updated in place; every other state
     tensor is new. With colour (`use_color` or the colour tracker) the view
     carries RGB, `proj_rgb` holds the rgb intrinsics (default: `proj`) and
-    `rgb_to_depth` the extrinsic (default: identity).
+    `rgb_to_depth` the extrinsic (default: identity). The external tracker
+    takes `external_pose` [4, 4] world→camera (default: the last pose).
 
     `on_phase(name)` is called as each phase has been issued ("track",
     "alloc", "integrate", "raycast"), so a caller can record a CUDA event
     there to time the phases; it must not sync."""
     check_supported(settings)
     vol, render_state, pose, tr, n_alloc_overflow = _track_fuse_impl(
-        vol, render_state, state, view, proj, settings, fusion_active, proj_rgb, rgb_to_depth, on_phase
+        vol, render_state, state, view, proj, settings, fusion_active, proj_rgb, rgb_to_depth, external_pose,
+        on_phase,
     )
     new_state, n_pool = _prepare_impl(vol, render_state, view, pose, tr, proj, settings, proj_rgb, rgb_to_depth)
     on_phase("raycast")

@@ -314,44 +314,85 @@ def insert_blocks(
     return new_vol, visible_type, widx
 
 
-def make_grid_reader(vol: HashVolume, grid: torch.Tensor, grid_params, params: VoxelBlockHashParams):
-    """`(int voxel pts [..., 3]) -> (sdf, found)` through the dense block
-    grid: one grid tap + one voxel tap; empty space reads sdf = 1."""
+def _grid_voxels(grid: torch.Tensor, grid_params, params: VoxelBlockHashParams):
+    """`(int voxel pts [..., 3]) -> (flat voxel index, found)` through the
+    dense block grid: one grid tap; a point outside the grid or in an
+    unallocated block is not found (its index points at row 0)."""
     S = params.block_size
     gx, gy, gz = grid_params.dims
     ox, oy, oz = grid_params.origin
     flat_grid = grid.reshape(-1)
-    flat_vox = vol.vox.reshape(-1)
-    S3 = params.block_volume
 
-    def read(pts_int: torch.Tensor):
+    def lookup(pts_int: torch.Tensor):
         block, linear = point_to_block(pts_int, S)
         g0, g1, g2 = block[..., 0] - ox, block[..., 1] - oy, block[..., 2] - oz
         inb = (g0 >= 0) & (g0 < gx) & (g1 >= 0) & (g1 < gy) & (g2 >= 0) & (g2 < gz)
         cell = (g0.clamp(0, gx - 1) * gy + g1.clamp(0, gy - 1)) * gz + g2.clamp(0, gz - 1)
         ptr = flat_grid[cell.long()]
         found = inb & (ptr >= 0)
-        row = torch.where(found, ptr, 0).long()
-        sdf = vox_sdf(flat_vox[row * S3 + linear.long()])
+        return torch.where(found, ptr, 0).long() * params.block_volume + linear.long(), found
+
+    return lookup
+
+
+def _hash_voxels(vol: HashVolume, params: VoxelBlockHashParams):
+    """`(int voxel pts [..., 3]) -> (flat voxel index, found)` through the
+    hash table (swapped-out blocks are not found)."""
+
+    def lookup(pts_int: torch.Tensor):
+        block, linear = point_to_block(pts_int, params.block_size)
+        pr = probe(vol, block, params, include_swapped=False)
+        return torch.where(pr.found, pr.entry_ptr, 0).long() * params.block_volume + linear.long(), pr.found
+
+    return lookup
+
+
+def make_grid_reader(vol: HashVolume, grid: torch.Tensor, grid_params, params: VoxelBlockHashParams):
+    """`(int voxel pts [..., 3]) -> (sdf, found)` through the dense block
+    grid: one grid tap + one voxel tap; empty space reads sdf = 1."""
+    lookup = _grid_voxels(grid, grid_params, params)
+    flat_vox = vol.vox.reshape(-1)
+
+    def read(pts_int: torch.Tensor):
+        idx, found = lookup(pts_int)
+        sdf = vox_sdf(flat_vox[idx])
         return torch.where(found, sdf, torch.ones_like(sdf)), found
 
     return read
 
 
+def _weight_reader(vol: HashVolume, lookup):
+    def read(pts_int: torch.Tensor):
+        idx, found = lookup(pts_int)
+        w = vox_w(vol.vox.reshape(-1)[idx]).to(torch.float32)
+        return torch.where(found, w, torch.zeros_like(w)), found
+
+    return read
+
+
+def make_hash_weight_reader(vol: HashVolume, params: VoxelBlockHashParams):
+    """`(int voxel pts [..., 3]) -> (w_depth, found)`: fusion weights through
+    the hash table, for the weight display (reference WeightToUchar4);
+    unallocated voxels read 0."""
+    return _weight_reader(vol, _hash_voxels(vol, params))
+
+
+def make_grid_weight_reader(vol: HashVolume, grid: torch.Tensor, grid_params, params: VoxelBlockHashParams):
+    """make_hash_weight_reader through the dense block grid."""
+    return _weight_reader(vol, _grid_voxels(grid, grid_params, params))
+
+
 def make_hash_color_reader(vol: HashVolume, params: VoxelBlockHashParams):
     """`(int voxel pts [..., 3]) -> colour [..., 3]` in 0..1 through the hash
     table; unallocated voxels (or a volume without colour) read 0."""
-    S = params.block_size
-    S3 = params.block_volume
+    lookup = _hash_voxels(vol, params)
 
     def read(pts_int: torch.Tensor):
         if vol.vox_rgb is None:
             return torch.zeros(pts_int.shape[:-1] + (3,), dtype=torch.float32, device=pts_int.device)
-        block, linear = point_to_block(pts_int, S)
-        pr = probe(vol, block, params, include_swapped=False)
-        row = torch.where(pr.found, pr.entry_ptr, 0).long()
-        c = clr_from_q(rgb_clr_q(vol.vox_rgb.reshape(-1)[row * S3 + linear.long()]))
-        return torch.where(pr.found[..., None], c, torch.zeros_like(c))
+        idx, found = lookup(pts_int)
+        c = clr_from_q(rgb_clr_q(vol.vox_rgb.reshape(-1)[idx]))
+        return torch.where(found[..., None], c, torch.zeros_like(c))
 
     return read
 

@@ -1,0 +1,194 @@
+"""MainEngine façade: the reference's top-level API over the port's frame
+step (counterpart of infinitam_tpu/engine/main_engine.py; reference
+ITMLib/Engine/ITMMainEngine.{h,cpp}: owns the scene, the tracking state and
+the render state; ProcessFrame = UpdateView → Track → Fuse → Prepare
+(ITMMainEngine.cpp:111-127); GetImage renders the live, depth, weight and
+freeview images (:134-192); the fusion and processing switches).
+
+The state lives on `device`, the card unless the caller passes "cpu".
+`process_frame` reads nothing back to the host: its diagnostics come back
+as a `LazyDiag` over device tensors. `get_image` returns numpy and so waits
+for the card, as the JAX package's does; it is not on the frame path.
+Swapping and meshing are not ported yet: swapping raises when the engine is
+made (hash_pipeline.check_supported), the mesh methods raise when called.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from infinitam_tpu_torch.calib import RGBDCalib
+from infinitam_tpu_torch.config import Settings
+from infinitam_tpu_torch.engine import hash_pipeline as hp
+from infinitam_tpu_torch.engine import hash_volume as hv
+from infinitam_tpu_torch.engine.trackers import apply_imu_rotation
+from infinitam_tpu_torch.engine.view_builder import build_view, build_view_from_metric_depth
+from infinitam_tpu_torch.io.sources import frame_tensor
+from infinitam_tpu_torch.ops import colormaps as cm
+from infinitam_tpu_torch.ops import raycast as rc
+from infinitam_tpu_torch.utils import se3
+
+MESH_NOT_PORTED = ("meshing is not ported to infinitam_tpu_torch yet (ROADMAP Queue 1 item 14: "
+                   "ops/meshing.py and engine/meshing_engine.py)")
+
+
+class LazyDiag:
+    """Mapping view over a frame's FrameDiagnostics of device tensors: a
+    value is read to the host only when it is accessed (`diag["num_valid"]`,
+    `.get`, `.as_dict()`), so the frame path itself never waits for the
+    card; `device` holds the tensors."""
+
+    def __init__(self, d: hp.FrameDiagnostics):
+        self.device = d
+
+    def _host(self, k):
+        v = getattr(self.device, k)
+        return float(v) if k == "f" else int(v)
+
+    def __getitem__(self, k):
+        return self._host(k)
+
+    def get(self, k, default=None):
+        if k not in self.device._fields:
+            return default
+        return self._host(k)
+
+    def keys(self):
+        return self.device._fields
+
+    def as_dict(self):
+        return {k: self._host(k) for k in self.device._fields}
+
+
+class MainEngine:
+    """Stateful façade over the functional frame step: host-side switches
+    and counters, device-side state."""
+
+    def __init__(self, settings: Settings, calib: RGBDCalib, img_size: Tuple[int, int],
+                 device: torch.device | str = "cuda"):
+        self.settings = settings
+        self.calib = calib
+        self.img_size = tuple(img_size)
+        self.device = torch.device(device)
+        self.proj = torch.as_tensor(calib.intrinsics_d.vector, device=self.device)
+        self.proj_rgb = torch.as_tensor(calib.intrinsics_rgb.vector, device=self.device)
+        self.rgb_to_depth = torch.as_tensor(calib.rgb_to_depth, device=self.device)
+        self.vol, self.render_state, self.tracking_state = hp.create_engine_state(settings, self.img_size,
+                                                                                  device=self.device)
+        self.fusion_active = True  # reference: turnOnIntegration / turnOffIntegration
+        self.main_processing = True
+        self.frame_no = 0
+
+    # ----- controls (reference: ITMMainEngine.h:95-117) ------------------
+    def turn_on_integration(self):
+        self.fusion_active = True
+
+    def turn_off_integration(self):
+        self.fusion_active = False
+
+    def turn_on_main_processing(self):
+        self.main_processing = True
+
+    def turn_off_main_processing(self):
+        self.main_processing = False
+
+    def reset_scene(self):
+        self.vol, self.render_state, self.tracking_state = hp.create_engine_state(self.settings, self.img_size,
+                                                                                  device=self.device)
+
+    # ----- per frame -----------------------------------------------------
+    def process_frame(self, raw_depth=None, rgb=None, metric_depth=None, imu_rotation=None, external_pose=None,
+                      on_phase=hp.no_phase):
+        """UpdateView → Track → Fuse → Prepare. Frames are numpy arrays or
+        tensors (moved to the engine's device); `imu_rotation` [3, 3] is a
+        differential rotation applied to the pose before tracking,
+        `external_pose` [4, 4] the pose the external tracker takes.
+        `on_phase(name)` is called as each phase has been issued ("view",
+        then process_frame_hash's), so a caller can time the phases with
+        CUDA events. Returns the frame's LazyDiag ({} while main processing
+        is off)."""
+        if not self.main_processing:
+            return {}
+        dev = self.device
+        rgb = frame_tensor(rgb, dev)
+        if metric_depth is not None:
+            view = build_view_from_metric_depth(frame_tensor(metric_depth, dev), self.settings, self.calib, rgb=rgb)
+        else:
+            view = build_view(frame_tensor(raw_depth, dev), self.calib, self.settings, rgb=rgb)
+        on_phase("view")
+        if imu_rotation is not None:
+            self.tracking_state = self.tracking_state._replace(
+                pose=apply_imu_rotation(self.tracking_state.pose, self._f32(imu_rotation)))
+        if external_pose is not None:
+            external_pose = self._f32(external_pose)
+        self.vol, self.render_state, self.tracking_state, d = hp.process_frame_hash(
+            self.vol, self.render_state, self.tracking_state, view, self.proj, self.settings,
+            fusion_active=self.fusion_active, proj_rgb=self.proj_rgb, rgb_to_depth=self.rgb_to_depth,
+            external_pose=external_pose, on_phase=on_phase,
+        )
+        self.frame_no += 1
+        return LazyDiag(d)
+
+    def _f32(self, a) -> torch.Tensor:
+        """A pose, rotation or intrinsics (numpy or tensor) as float32 on the
+        engine's device."""
+        return frame_tensor(a, self.device).to(torch.float32)
+
+    # ----- outputs (reference: GetImage) ---------------------------------
+    def get_pose(self) -> np.ndarray:
+        return self.tracking_state.pose.cpu().numpy()
+
+    def set_pose(self, pose) -> None:
+        """External pose injection (reference: RosPoseSourceEngine writes
+        trackingState->pose_d directly)."""
+        self.tracking_state = self.tracking_state._replace(pose=self._f32(pose))
+
+    def get_image(self, which: str = "raycast", pose=None, proj=None, view=None) -> np.ndarray:
+        """Render an image (reference GetImage types): 'raycast' (grey
+        shading from the current pose, [H, W] uint8), 'normals' ([H, W, 3]),
+        'colour' ([H, W, 3]), 'depth' (rainbow colormap [H, W, 4] of the
+        raycast depth; of `view`, an input depth map, when given: the
+        reference's ORIGINAL_DEPTH) and 'weight' (fusion-confidence colormap
+        [H, W, 4]); an explicit `pose` renders a freeview image through a
+        visible list rebuilt for that pose."""
+        dev = self.device
+        if which == "depth" and view is not None:
+            return cm.depth_to_uchar4(frame_tensor(view, dev)).cpu().numpy()
+        freeview = pose is not None
+        pose = self.tracking_state.pose if pose is None else self._f32(pose)
+        proj = self.proj if proj is None else self._f32(proj)
+        # the live list covers only the tracked camera's frustum (reference:
+        # FindVisibleBlocks on a freeview render state, ITMMainEngine.cpp:176-182)
+        rs = hp.find_visible_blocks(self.vol, pose, proj, self.img_size, self.settings) if freeview \
+            else self.render_state
+        res = hp.raycast_hash(self.vol, rs, pose, proj, self.img_size, self.settings)
+        voxel_size = self.settings.scene.voxel_size
+        inv = se3.invert(pose)
+        if which == "normals":
+            img = rc.render_normals(res, voxel_size, inv)
+        elif which == "colour":
+            img = rc.render_color(res, hv.make_hash_color_reader(self.vol, self.settings.hashing))
+        elif which == "depth":
+            # z of the raycast surface in the camera frame
+            found = res.points[..., 3] > 0
+            pw = res.points[..., :3] * voxel_size
+            z = se3.apply_planes(pose, pw[..., 0], pw[..., 1], pw[..., 2])[2]
+            img = cm.depth_to_uchar4(torch.where(found, z, torch.full_like(z, -1.0)))
+        elif which == "weight":
+            # fusion weight at the raycast surface (reference WeightToUchar4)
+            grid = hv.get_block_grid(self.vol, self.settings.block_grid)
+            read_w = hv.make_grid_weight_reader(self.vol, grid, self.settings.block_grid, self.settings.hashing)
+            w, _found = read_w(torch.floor(res.points[..., :3] + 0.5).to(torch.int32))
+            img = cm.weight_to_uchar4(torch.where(res.points[..., 3] > 0, w, torch.zeros_like(w)))
+        else:
+            img = rc.render_grey(res, voxel_size, inv)
+        return img.cpu().numpy()
+
+    def update_mesh(self):
+        raise NotImplementedError(MESH_NOT_PORTED)
+
+    def save_scene_to_mesh(self, path: str) -> None:
+        raise NotImplementedError(MESH_NOT_PORTED)

@@ -1,8 +1,10 @@
-"""Camera trackers: hierarchical Gauss-Newton depth ICP (reference
-ITMDepthTracker TrackCamera) and the photometric colour tracker (reference
-ITMColorTracker).
+"""Camera trackers: hierarchical Gauss-Newton depth ICP, also weighted per
+pixel by the depth noise (reference ITMDepthTracker TrackCamera,
+ITMWeightedICPTracker), the photometric colour tracker (reference
+ITMColorTracker), the external pose and the IMU prior (reference
+ITMExternalTracker, ITMIMUTracker).
 
-Counterpart of the ICP and colour parts of infinitam_tpu/engine/trackers.py.
+Counterpart of infinitam_tpu/engine/trackers.py without the Ren tracker.
 Each pyramid level runs a fixed number of iterations; once a level has
 converged its state is frozen by a mask, which gives the same result as the
 JAX package's early-exit loops without reading the convergence flag back to
@@ -13,7 +15,7 @@ logic stay in PyTorch on [6, 6] / [6] / [4, 4] tensors.
 
 from __future__ import annotations
 
-from typing import List, NamedTuple
+from typing import List, NamedTuple, Optional
 
 import torch
 
@@ -65,6 +67,21 @@ def scale_proj(proj: torch.Tensor, level: int) -> torch.Tensor:
     return proj * (0.5**level)
 
 
+def weight_pyramid(sigma: torch.Tensor, n_levels: int) -> List[torch.Tensor]:
+    """Per-level ICP weights from the view's σ_z map (reference
+    ITMWeightedICPTracker_CPU.cpp:43): σ subsampled with holes, then
+    ω = minσ/σ·0.5 + 0.5 ∈ (0.5, 1] where σ > 0, else 0; minσ is the level's
+    least positive σ, a device reduction (no host read)."""
+    sigma_pyr = build_depth_pyramid(sigma, n_levels)  # hole-aware 2× subsamples
+    out = []
+    for sig in sigma_pyr:
+        pos = sig > 0
+        min_sigma = torch.where(pos, sig, torch.full_like(sig, float("inf"))).amin()
+        w = min_sigma / sig.clamp(min=1e-12) * 0.5 + 0.5
+        out.append(torch.where(pos, w, torch.zeros_like(w)))
+    return out
+
+
 def track_depth(
     pose: torch.Tensor,  # [4,4] world→camera initial estimate
     depth: torch.Tensor,  # [H, W] metric depth, −1 invalid
@@ -73,14 +90,17 @@ def track_depth(
     normals_map: torch.Tensor,  # [H, W, 4]
     scene_pose: torch.Tensor,  # [4,4] world→camera of the raycast maps
     params: TrackingParams,
+    weights_map: Optional[torch.Tensor] = None,  # [H, W] σ_z of the view (weighted ICP)
 ) -> TrackResult:
     """Coarse→fine point-to-plane ICP with Levenberg accept/reject. The scene
     maps stay at full resolution for every level; only the view depth is
-    subsampled (reference ITMDepthTracker.cpp:62-76)."""
+    subsampled (reference ITMDepthTracker.cpp:62-76). With `weights_map`
+    each level's reduction is weighted per pixel (`weight_pyramid`)."""
     modes = level_modes(params)
     dists = level_dist_thresh(params)
     iters = level_iterations(params)
     depth_pyr = build_depth_pyramid(depth, params.n_levels)
+    weight_pyr = [None] * params.n_levels if weights_map is None else weight_pyramid(weights_map, params.n_levels)
     dev = depth.device
 
     inv_pose = se3.invert(pose)
@@ -106,7 +126,7 @@ def track_depth(
             gh = icp_kernel.icp_gh(
                 d_lvl, vproj, points_map, normals_map,
                 view_proj,  # scene maps are full resolution → level-0 intrinsics
-                ip, scene_pose, dists[lvl], params.min_valid_points,
+                ip, scene_pose, dists[lvl], params.min_valid_points, weights=weight_pyr[lvl],
             )
             reject = (gh.num_valid <= 0) | (gh.f > f_old)
             nv = gh.num_valid.clamp(min=1).to(torch.float32)
@@ -205,3 +225,18 @@ def track_color(
 
     n_last = (locations[..., 3] > 0).sum(dtype=torch.int32)
     return TrackResult(pose=se3.coerce(rgb_to_depth @ M), f=f_last, num_valid=n_last)
+
+
+def track_external(pose: torch.Tensor, external_pose: torch.Tensor) -> TrackResult:
+    """External pose injection: the tracker passes the given pose through
+    (reference ITMExternalTracker.cpp:27-30)."""
+    del pose
+    dev = external_pose.device
+    return TrackResult(pose=external_pose, f=torch.zeros((), dtype=torch.float32, device=dev),
+                       num_valid=torch.zeros((), dtype=torch.int32, device=dev))
+
+
+def apply_imu_rotation(pose: torch.Tensor, delta_rot: torch.Tensor) -> torch.Tensor:
+    """Pre-rotate the pose by a differential IMU rotation before ICP
+    (reference ITMIMUTracker.cpp:17-22, the IMU→ICP composite)."""
+    return se3.coerce(se3.pack_rt(pose[:3, :3] @ delta_rot, pose[:3, 3]))

@@ -9,7 +9,7 @@ K1 (ops/kernels/icp.py), which fuses both. The Gauss-Newton state is plain
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -93,13 +93,18 @@ def gh_from_sums(
     return GHResult(f=f, nabla=nabla, hessian=hessian, num_valid=n_valid)
 
 
-def reduce_gh(b: torch.Tensor, A: torch.Tensor, valid: torch.Tensor, min_valid: int = 100) -> GHResult:
-    """Normal-equation reduction over the valid pixels: H = Σ AAᵀ, ∇ = Σ bA."""
-    w = valid.to(b.dtype).reshape(-1)
+def reduce_gh(b: torch.Tensor, A: torch.Tensor, valid: torch.Tensor, min_valid: int = 100,
+              weights: Optional[torch.Tensor] = None) -> GHResult:
+    """Normal-equation reduction over the valid pixels v: H = Σ AAᵀ,
+    ∇ = Σ bA. With per-pixel `weights` ω (the weighted ICP tracker) the
+    JAX package's sums, quirks included: H = Σ (vωA)(vωA)ᵀ (ω² on H),
+    ∇ = Σ (vb)(vωA) (ω once), Σ(vωb)² for f, and N = Σ v unweighted."""
+    v = valid.to(b.dtype).reshape(-1)
+    w = v if weights is None else v * weights.reshape(-1)
     Af = A.reshape(-1, 6) * w[:, None]
     bf = b.reshape(-1) * w
     hessian = Af.T @ Af
-    nabla = bf @ Af
+    nabla = (bf if weights is None else b.reshape(-1) * v) @ Af
     return gh_from_sums(hessian, nabla, torch.sum(bf * bf), valid.sum(), min_valid)
 
 

@@ -46,9 +46,9 @@ F = ctypes.c_float
 
 # argtypes of every C entry point (all return int: cudaGetLastError())
 SIGNATURES = {
-    # depth, h, w, points, normals, hs, ws, view_proj, scene_proj, inv_pose, scene_pose, dist_thresh,
-    # min_valid, n_ctas, partial, counter, out, stream
-    "itpu_icp_gh": (P, I, I, P, P, I, I, P, P, P, P, F, I, I, P, P, P, P),
+    # depth, weights (or null), h, w, points, normals, hs, ws, view_proj, scene_proj, inv_pose, scene_pose,
+    # dist_thresh, min_valid, n_ctas, partial, counter, out, stream
+    "itpu_icp_gh": (P, P, I, I, P, P, I, I, P, P, P, P, F, I, I, P, P, P, P),
     # vox, ids, n_rows, entry_ptr, entry_pos, n_entries, block_size, depth, h, w, pose, proj, enable,
     # voxel_size, mu, max_w, stop_at_max_w, n_ctas, stream
     "itpu_integrate_depth": (P, P, I, P, P, I, I, P, I, I, P, P, P, F, F, I, I, I, P),
@@ -62,7 +62,7 @@ SIGNATURES = {
     "itpu_raycast": (P, P, I, I, I, I, I, I, I, P, P, F, P, P, I, I, F, P, P),
 }
 
-KERNELS = ("icp", "integrate", "integrate_color", "raycast")
+KERNELS = ("icp", "icp_weighted", "integrate", "integrate_color", "raycast")
 _launches = dict.fromkeys(KERNELS, 0)
 
 # seconds the last build took in this process (0 while none ran), and what

@@ -2,8 +2,8 @@
 
 Counterpart of infinitam_tpu/ops/raycast.py (reference:
 DeviceAgnostic/ITMVisualisationEngine.h:92-409 castRay, computeNormalAndAngle,
-processPixelICP). `pixel_rays` + `raycast_rays` (`generic_raycast`) are the
-plain version of kernel K3 (ops/kernels/raycast.py): the kernel builds and
+processPixelICP, drawPixelGrey / Normal / Colour). `pixel_rays` +
+`raycast_rays` (`generic_raycast`) are the plain version of kernel K3 (ops/kernels/raycast.py): the kernel builds and
 marches one ray per thread; this version marches the whole ray bundle in
 lock step and stops when no ray is active, which reads a flag back to the
 host once per step. It is the CPU path and the card's reference, never the
@@ -16,7 +16,12 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from infinitam_tpu_torch.ops.voxel_access import ReadFn, read_sdf_interpolated, read_sdf_uninterpolated
+from infinitam_tpu_torch.ops.voxel_access import (
+    ReadFn,
+    read_color_interpolated,
+    read_sdf_interpolated,
+    read_sdf_uninterpolated,
+)
 from infinitam_tpu_torch.utils import se3
 
 
@@ -208,3 +213,34 @@ def make_icp_maps(raycast: RaycastResult, voxel_size: float, inv_M: torch.Tensor
     points_map = torch.stack([torch.where(valid, c * voxel_size, z) for c in (px, py, pz)] + [w], dim=-1)
     normals_map = torch.stack([torch.where(valid, c, z) for c in (nx, ny, nz)] + [w], dim=-1)
     return points_map, normals_map
+
+
+def _light_source(inv_M: torch.Tensor) -> torch.Tensor:
+    return -inv_M[:3, 2] / torch.linalg.vector_norm(inv_M[:3, 2])
+
+
+def render_grey(raycast: RaycastResult, voxel_size: float, inv_M: torch.Tensor) -> torch.Tensor:
+    """Grey-shaded rendering [H, W] uint8 (reference drawPixelGrey:
+    0.8·angle + 0.2 with the light at the camera)."""
+    _n, angle, valid = compute_normals_image_space(raycast.points, voxel_size, _light_source(inv_M),
+                                                   use_smoothing=False)
+    shade = torch.where(valid, 0.8 * angle + 0.2, torch.zeros_like(angle))
+    return (shade.clamp(0.0, 1.0) * 255.0).to(torch.uint8)
+
+
+def render_normals(raycast: RaycastResult, voxel_size: float, inv_M: torch.Tensor) -> torch.Tensor:
+    """False-colour normals [H, W, 3] uint8 (reference drawPixelNormal)."""
+    n, _angle, valid = compute_normals_image_space(raycast.points, voxel_size, _light_source(inv_M),
+                                                   use_smoothing=False)
+    img = (0.3 + (-n + 1.0) * 0.35) * 255.0
+    img = torch.where(valid[..., None], img, torch.zeros_like(img))
+    return img.clamp(0, 255).to(torch.uint8)
+
+
+def render_color(raycast: RaycastResult, read_color) -> torch.Tensor:
+    """The volume's colour at the surface [H, W, 3] uint8 (reference
+    drawPixelColour)."""
+    rgb = read_color_interpolated(read_color, raycast.points[..., :3])
+    valid = raycast.points[..., 3] > 0
+    img = torch.where(valid[..., None], rgb * 255.0, torch.zeros_like(rgb))
+    return img.clamp(0, 255).to(torch.uint8)

@@ -172,8 +172,19 @@ def test_build_view_matches_jax(disparity):
 
 
 def test_build_view_refuses_unported_filters():
-    with pytest.raises(NotImplementedError):
-        t_vb.build_view_from_metric_depth(torch.ones(4, 4), Settings(use_bilateral_filter=True), default_calib(4, 4))
+    """No view-builder option is refused any more: the filter and the
+    sensor-noise model run (tests/test_torch_view.py holds them to the JAX
+    package). On a 4×4 frame every pixel lies in the filter's 2 px border,
+    which passes through, and only the inner 2×2 pixels have the four
+    neighbours a normal needs: a flat wall facing the camera there."""
+    view = t_vb.build_view_from_metric_depth(
+        torch.ones(4, 4), Settings(use_bilateral_filter=True, model_sensor_noise=True), default_calib(4, 4))
+    np.testing.assert_array_equal(view.depth.numpy(), np.ones((4, 4), np.float32))
+    assert view.depth_normals.shape == (4, 4, 4) and view.depth_uncertainty.shape == (4, 4)
+    inner = np.zeros((4, 4), bool)
+    inner[1:3, 1:3] = True
+    np.testing.assert_array_equal(view.depth_uncertainty.numpy() > 0, inner)
+    np.testing.assert_array_equal(view.depth_normals.numpy()[inner], np.tile([0.0, 0.0, 1.0, 1.0], (4, 1)))
 
 
 def test_tracking_state_matches_jax():

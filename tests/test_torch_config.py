@@ -62,10 +62,12 @@ def test_default_calib_matches_jax(size):
 def test_supported_settings_gate_reads_either_package(cfg):
     s = cfg.tiny_test_settings()
     t_hp.check_supported(s)
-    for good in (dict(use_color=True), dict(use_color=True, tracker_type=cfg.TrackerType.COLOR)):
+    for good in (dict(use_color=True), dict(use_color=True, tracker_type=cfg.TrackerType.COLOR),
+                 dict(tracker_type=cfg.TrackerType.WICP, model_sensor_noise=True, use_bilateral_filter=True),
+                 dict(tracker_type=cfg.TrackerType.EXTERNAL)):
         t_hp.check_supported(s.replace(**good))
-    for bad in (dict(tracker_type=cfg.TrackerType.WICP), dict(swapping_mode=cfg.SwappingMode.ENABLED),
-                dict(tracker_type=cfg.TrackerType.REN)):
+    for bad in (dict(swapping_mode=cfg.SwappingMode.ENABLED), dict(tracker_type=cfg.TrackerType.REN),
+                dict(use_approximate_raycast=True)):
         with pytest.raises(NotImplementedError):
             t_hp.check_supported(s.replace(**bad))
 

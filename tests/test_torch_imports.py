@@ -4,8 +4,9 @@ The port must run where no JAX is installed: every module imports torch and
 never jax, nor any module of the JAX package (config and calib are the port's
 own copies). On the CPU every kernel wrapper
 takes its plain PyTorch version, so a CPU frame, with colour or without,
-must leave every launch counter at 0 and never build the CUDA library. The
-entry points that place state on a device default to the card.
+through the frame step or the MainEngine façade, must leave every launch
+counter at 0 and never build the CUDA library. The entry points that place
+state on a device default to the card.
 """
 
 import inspect
@@ -53,8 +54,9 @@ def test_every_port_module_imports_without_jax():
         [sys.executable, "-c", IMPORT_ALL], cwd=REPO, env=env, capture_output=True, text=True, timeout=120
     )
     assert res.returncode == 0, res.stderr
-    # the 15 ported modules plus packages, kernels and helpers
-    assert int(res.stdout.split()[-1]) >= 20
+    # the ported modules (the façade, the CLI and the I/O copies among them)
+    # plus packages, kernels and helpers
+    assert int(res.stdout.split()[-1]) >= 28
 
 
 def test_cpu_frame_uses_only_plain_versions():
@@ -72,7 +74,8 @@ def test_cpu_frame_uses_only_plain_versions():
     # the second frame tracked against the first one's maps: real work ran
     assert int(diag.num_valid) > 1000
     assert np.isfinite(st.pose.numpy()).all()
-    assert build.launch_counts() == {"icp": 0, "integrate": 0, "integrate_color": 0, "raycast": 0}
+    assert build.launch_counts() == {"icp": 0, "icp_weighted": 0, "integrate": 0, "integrate_color": 0,
+                                     "raycast": 0}
     assert build.library.cache_info().currsize == 0  # no CUDA library was built or loaded
 
 
@@ -100,11 +103,34 @@ def test_cpu_color_frames_use_only_plain_versions():
     assert build.library.cache_info().currsize == 0
 
 
+def test_cpu_engine_frames_launch_no_kernel():
+    """MainEngine with the weighted ICP tracker, the bilateral filter and the
+    sensor-noise model, on the CPU: the second frame tracks with per-pixel
+    weights, and no kernel is launched or built."""
+    from infinitam_tpu_torch.engine.main_engine import MainEngine
+
+    img = (60, 80)
+    settings = tiny_test_settings().replace(tracking=TrackingParams(n_levels=3, min_valid_points=50),
+                                            tracker_type=TrackerType.WICP, model_sensor_noise=True,
+                                            use_bilateral_filter=True)
+    calib = default_calib(img[1], img[0])
+    src = synth.SyntheticSource(calib, n_frames=2, img_size=img, device="cpu")
+    eng = MainEngine(settings, calib, img, device="cpu")
+    build.reset_launch_counts()
+    for _ in range(2):
+        diag = eng.process_frame(metric_depth=src.get_images()[0])
+    assert diag["num_valid"] > 1000 and eng.get_image("raycast").max() > 0
+    assert build.launch_counts() == dict.fromkeys(build.KERNELS, 0)
+    assert build.library.cache_info().currsize == 0
+
+
 def _default_device_calls():
     """Each entry point of the port that places state or frames on a device,
     called without a device."""
     from infinitam_tpu_torch import convert
     from infinitam_tpu_torch.engine import tracking_state
+    from infinitam_tpu_torch.engine.main_engine import MainEngine
+    from infinitam_tpu_torch.io import sources
 
     settings = tiny_test_settings()
     cpu_state = tracking_state.create_tracking_state((6, 8), device="cpu")
@@ -118,11 +144,17 @@ def _default_device_calls():
                             lambda: synth.SyntheticSource(default_calib(8, 6), n_frames=1, img_size=(6, 8))),
         "from_numpy": (convert.from_numpy,
                        lambda: convert.from_numpy(tracking_state.TrackingState, convert.to_numpy(cpu_state))),
+        "MainEngine": (MainEngine.__init__, lambda: MainEngine(settings, default_calib(8, 6), (6, 8))),
+        "make_source": (sources.make_source, lambda: sources.make_source(img_size=(6, 8), n_frames=1)),
+        "DeviceFrameFeed": (sources.DeviceFrameFeed.__init__,
+                            lambda: sources.DeviceFrameFeed(synth.SyntheticSource(
+                                default_calib(8, 6), n_frames=1, img_size=(6, 8), device="cpu")).get_images()),
     }
 
 
 @pytest.mark.parametrize("entry", ["create_engine_state", "create_hash", "create_render_state",
-                                   "create_tracking_state", "SyntheticSource", "from_numpy"])
+                                   "create_tracking_state", "SyntheticSource", "from_numpy", "MainEngine",
+                                   "make_source", "DeviceFrameFeed"])
 def test_entry_points_default_to_the_card(entry):
     """The port runs on the card unless the caller passes device="cpu": the
     default is "cuda", and without a card a call that names no device raises

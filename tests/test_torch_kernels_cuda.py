@@ -1,5 +1,6 @@
 """Card-only tests: each hand-written CUDA kernel (K1 at the five pyramid
-levels' shapes and twice on one input, K2 with and without its colour half,
+levels' shapes and twice on one input, unweighted and with per-pixel
+weights, K2 with and without its colour half,
 also on edited visible lists and on a one-CTA grid, K3 at two voxel sizes)
 against its plain PyTorch version on an NVIDIA GPU, at a small size, and the
 launch counts of the depth and colour frame loops.
@@ -22,7 +23,7 @@ from infinitam_tpu_torch.engine import hash_pipeline as hp
 from infinitam_tpu_torch.engine import trackers
 from infinitam_tpu_torch.engine.view_builder import View
 from infinitam_tpu_torch.io import synth
-from infinitam_tpu_torch.ops import pyramid
+from infinitam_tpu_torch.ops import pyramid, view_ops
 from infinitam_tpu_torch.ops.kernels import build, icp, integrate, raycast
 from infinitam_tpu_torch.utils import se3
 
@@ -74,7 +75,8 @@ def fused_1cm(device):
 def test_main_path_launched_every_kernel(fused):
     *_rest, counts = fused
     levels = TrackingParams(n_levels=3).iterations_per_level[:3]
-    assert counts == {"icp": 3 * sum(levels), "integrate": 3, "integrate_color": 0, "raycast": 3}
+    assert counts == {"icp": 3 * sum(levels), "icp_weighted": 0, "integrate": 3, "integrate_color": 0,
+                      "raycast": 3}
 
 
 def k1_args(fused, level=0):
@@ -137,6 +139,55 @@ def test_k1_on_two_streams(fused):
     for got in main_out + side_out:
         for x, y in zip(got, ref):
             assert torch.equal(x, y)
+
+
+def k1_weights(fused, level):
+    """The weighted tracker's ω at pyramid `level`, from σ_z of frame 4's
+    bilateral-filtered depth (trackers.weight_pyramid)."""
+    depth = fused[5]
+    for _ in range(5):
+        depth = view_ops.bilateral_filter_depth(depth)
+    sigma = view_ops.compute_normals_and_weights(depth, default_calib(IMG[1], IMG[0]).intrinsics_d)[1]
+    return trackers.weight_pyramid(sigma, 5)[level]
+
+
+@pytest.mark.parametrize("level", range(5))
+def test_weighted_k1_matches_plain_at_every_level(fused, level):
+    args, w = k1_args(fused, level), k1_weights(fused, level)
+    assert w.shape == args[0].shape and float(w.max()) == 1.0
+    build.reset_launch_counts()
+    k = icp.icp_gh(*args, weights=w)
+    assert build.launch_counts()["icp_weighted"] == 1 and build.launch_counts()["icp"] == 0
+    p = icp.icp_gh_plain(*args, weights=w)
+    assert int(k.num_valid) == int(p.num_valid) == int(icp.icp_gh_plain(*args).num_valid) > 0
+    torch.testing.assert_close(k.hessian, p.hessian, rtol=1e-4, atol=1e-4 * float(p.hessian.abs().max()))
+    torch.testing.assert_close(k.nabla, p.nabla, rtol=1e-4, atol=1e-4 * float(p.nabla.abs().max()))
+    torch.testing.assert_close(k.f, p.f, rtol=1e-4, atol=0)
+    # the weights reached the sums
+    assert not torch.allclose(k.hessian, icp.icp_gh(*args).hessian, rtol=1e-3)
+
+
+def test_weighted_k1_is_bit_reproducible_with_one_device_op(fused):
+    """Two weighted launches on one input agree bit for bit; a call runs
+    one kernel and no other device op; the unweighted call is unchanged by
+    a weighted one before it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    args, w = k1_args(fused), k1_weights(fused, 0)
+    before = icp.icp_gh(*args)
+    a, b = icp.icp_gh(*args, weights=w), icp.icp_gh(*args, weights=w)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    for x, y in zip(icp.icp_gh(*args), before):
+        assert torch.equal(x, y)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            icp.icp_gh(*args, weights=w)
+        torch.cuda.synchronize()
+    ops = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len(ops) == 10 and all("itpu_icp_kernel" in n for n in ops), ops[:4]
 
 
 def k2_args(fused, device, ids=None, max_rows=None):
@@ -258,7 +309,8 @@ def fused_rgb(device):
 def test_color_path_launches_the_color_kernel(fused_rgb):
     *_rest, counts = fused_rgb
     levels = TrackingParams(n_levels=3).iterations_per_level[:3]
-    assert counts == {"icp": 3 * sum(levels), "integrate": 0, "integrate_color": 3, "raycast": 3}
+    assert counts == {"icp": 3 * sum(levels), "icp_weighted": 0, "integrate": 0, "integrate_color": 3,
+                      "raycast": 3}
 
 
 def k2c_args(fused_rgb, device, extrinsic=False, ids=None, max_rows=None):
@@ -339,6 +391,10 @@ def test_wrappers_check_their_inputs(fused, device):
         icp.icp_gh_cuda(depth, proj, st.points_map.transpose(0, 1), st.normals_map, proj, st.pose, st.pose, 0.01, 50)
     with pytest.raises(ValueError):  # the kernel reads the pose rows from memory: contiguous only
         icp.icp_gh_cuda(depth, proj, st.points_map, st.normals_map, proj, st.pose.T, st.pose, 0.01, 50)
+    for bad_w in (torch.ones_like(depth)[:, :-1], torch.ones_like(depth).double(), torch.ones_like(depth).cpu()):
+        with pytest.raises(ValueError):  # the weight map: [H, W] float32 on the card
+            icp.icp_gh_cuda(depth, proj, st.points_map, st.normals_map, proj, st.pose, st.pose, 0.01, 50,
+                            weights=bad_w)
     one = torch.ones((), dtype=torch.bool, device=device)
     rows = (rs.visible_ids, vol.entry_ptr, vol.entry_pos)
     for bad in (dict(entry_pos=vol.entry_pos[:, :2]), dict(visible_ids=rs.visible_ids.long()),
