@@ -11,7 +11,9 @@ half, K3 raycast) from infinitam_tpu_torch/csrc/ and holds each one to its
 plain PyTorch version on the card at the main path's shapes: K1 at each of
 the five pyramid levels, unweighted and weighted by the ω pyramid of a
 bilateral-filtered frame's σ_z, K2 and K3 on the 5 mm and on the 1 cm
-volume, K2's colour half over three chained frames. For each kernel it
+volume, K2's colour half over three chained frames, K3 also with its
+device-side enable flag false (the output must come back untouched) and
+true. For each kernel it
 prints its device time (the summed
 duration of its own kernels in a torch.profiler window of calls with
 arguments built once; for K2 and K2c also cold, with a 128 MB buffer written
@@ -30,27 +32,36 @@ through the port's frame loop in the three configurations of the JAX
 package's benchmark: 5 mm and 1 cm voxels with depth ICP, and the 1 cm point
 with colour fusion (`1cm_rgb`); and through MainEngine.process_frame, the
 façade a user calls, at 5 mm with the weighted ICP tracker, the bilateral
-filter and the sensor-noise model (`5mm_wicp`). Each replay is gated on
-tracking accuracy (ATE RMSE < 1 cm, rotation RMSE < 1°), the five
-silent-cap counters (max over the replay = 0), every kernel of its path
-launched (the colour kernel on every frame, the weighted K1 30 times a
-frame) and no host sync in its frame loop. From the last `5mm_wicp` engine
-it renders every `get_image` type, a freeview image from behind the scene
-among them, and the colour image of a `1cm_rgb` engine, and holds the live
-raycast image to the same render of the plain raycast (≤ 1 LSB on ≥ 99.9%
-of the pixels). Last, the headless runner (`apps/cli.py`) runs in-process on
-30 synthetic frames with its raycast dumps, and the committed PGM fixture
-replays through the port's ImageFileReader, DeviceFrameFeed and MainEngine
-on the card (final pose within 1 cm / 1° of its recorded trajectory).
+filter and the sensor-noise model (`5mm_wicp`) and with the composite ICP →
+Ren tracker (`5mm_ren`); and at 5 mm with the approximate raycast
+(`5mm_approx`). Each replay is gated on tracking accuracy (ATE RMSE < 1 cm,
+rotation RMSE < 1°), the five silent-cap counters (max over the replay =
+0), every kernel of its path launched (the colour kernel on every frame,
+the weighted K1 30 times a frame; at `5mm_ren` K1 28 times a frame, K2 and
+K3 once; at `5mm_approx` K1 30 times, K2 and K3 once, and both raycast
+branches taken: 0 < frames with a full raycast < 30) and no host sync in
+its frame loop. The 5 mm map after its replay is meshed on the card
+(blocks, triangles, seconds), gated on 0 dropped triangles, identical
+triangles from two chunk sizes, host syncs that do not grow with the
+chunks, vertices inside the synthetic scene and a 256-block subset equal
+to the same code on a CPU copy of the volume. From the last `5mm_wicp`
+engine it renders every `get_image` type, a freeview image from behind the
+scene among them, and the colour image of a `1cm_rgb` engine, and holds the
+live raycast image to the same render of the plain raycast (≤ 1 LSB on ≥
+99.9% of the pixels). Last, the headless runner (`apps/cli.py`) runs in-process on
+30 synthetic frames with its raycast dumps and `--out-mesh` (an STL of 84 +
+50·T bytes), and the committed PGM fixture replays through the port's
+ImageFileReader, DeviceFrameFeed and MainEngine on the card (final pose
+within 1 cm / 1° of its recorded trajectory).
 
 Output: the card's name and power limit, the kernel build time, the kernel
-lines, per config the accuracy, counters, launch counts and launches per
-frame, the source line of every host sync the frame loop issued, and a
-per-phase time table; the total wall time; then, only if every gate passed,
-a JSON line with the kernel results and, last, `{"ok": true, "device":
-{...}}`. Any failure exits non-zero without those two lines. Without a CUDA
-device, or run from a directory that is not a checkout of the repository, it
-exits 1 at once.
+lines, per config the accuracy, counters, frames with a full raycast, launch
+counts and launches per frame, the source line of every host sync the frame
+loop issued, and a per-phase time table; the mesh lines; the total wall
+time; then, only if every gate passed, a JSON line with the kernel results
+and, last, `{"ok": true, "device": {...}}`. Any failure exits non-zero
+without those two lines. Without a CUDA device, or run from a directory
+that is not a checkout of the repository, it exits 1 at once.
 
     python3 chip_smoke.py --profile
 
@@ -143,6 +154,18 @@ def wicp_settings(cfg):
     inputs: the 5× bilateral filter and the sensor-noise model."""
     return reference_settings(cfg).replace(tracker_type=cfg.TrackerType.WICP, model_sensor_noise=True,
                                            use_bilateral_filter=True)
+
+
+def ren_settings(cfg):
+    """The reference operating point with the composite ICP → Ren tracker
+    (ICP at levels 4..1, then the SDF refinement against the volume)."""
+    return reference_settings(cfg).replace(tracker_type=cfg.TrackerType.REN)
+
+
+def approx_settings(cfg):
+    """The reference operating point with the approximate raycast: the
+    tracking maps are refreshed only when the camera is far from them."""
+    return reference_settings(cfg).replace(use_approximate_raycast=True)
 
 
 # kernels each replay's path must launch, by launch-counter name
@@ -354,11 +377,13 @@ class Smoke:
         """The port's main path: view → process_frame_hash, frame by frame,
         from `state` (vol, render state, tracking state) or a fresh map.
         `frames` is (depths, rgbs); the rgb frames go into the view only when
-        the settings use colour."""
+        the settings use colour. `self.ages` keeps the tracking maps' age
+        after each frame (device tensors; 0: the maps were raycast anew)."""
         mark = on_phase or (lambda _phase: None)
         vol, rs, st = state or self.fresh_state(settings)
         depths, rgbs = frames
         poses, diags = [], []
+        self.ages = []
         for d, rgb in zip(depths, rgbs):
             mark("start")
             view = self.build_view(d, settings, self.calib, rgb=rgb if settings.use_color else None)
@@ -369,6 +394,7 @@ class Smoke:
             mark("other")
             poses.append(st.pose)
             diags.append(diag)
+            self.ages.append(st.age)
         return vol, rs, st, poses, diags
 
     def fresh_engine(self, settings):
@@ -377,16 +403,19 @@ class Smoke:
     def run_engine(self, settings, frames, engine=None, on_phase=None):
         """The path a user calls: MainEngine.process_frame on each frame,
         from `engine` or a fresh one. Returns (engine, poses, diagnostics),
-        device tensors all: nothing is read back in the loop."""
+        device tensors all: nothing is read back in the loop. `self.ages` as
+        in run_frames."""
         mark = on_phase or self.hp.no_phase
         engine = engine or self.fresh_engine(settings)
         poses, diags = [], []
+        self.ages = []
         for d, rgb in zip(*frames):
             mark("start")
             diag = engine.process_frame(metric_depth=d, rgb=rgb if settings.use_color else None, on_phase=mark)
             mark("other")
             poses.append(engine.tracking_state.pose)
             diags.append(diag.device)
+            self.ages.append(engine.tracking_state.age)
         return engine, poses, diags
 
     def fused(self, settings, frames):
@@ -478,8 +507,9 @@ class Smoke:
         """(bytes, float32 operations, march steps) of K3 on these inputs.
         The plain march runs through a reader that logs each read's grid
         cell and voxel word; the kernel makes the march reads of the rays
-        still active (a ray is active in its first `steps` reads) and the 16
-        refinement reads of the hits. Bytes: zmin, zmax, the points out, the
+        still active (a ray is active in its first `steps` reads, each logged
+        as [H, W]) and the two trilinear refinement reads of the hits (each
+        logged as one [8, H, W] read of its corners). Bytes: zmin, zmax, the points out, the
         distinct grid cells and voxel words read, inv_M's rows 0-2, proj."""
         sp, gp, hp = settings.scene, settings.block_grid, settings.hashing
         hv = self.hp.hv
@@ -501,11 +531,10 @@ class Smoke:
         res = self.raycast_ops.generic_raycast(logged_read, inv_M, self.proj, IMG, 1.0 / sp.voxel_size, sp.mu, zmin,
                                                zmax, block_size=hp.block_size)
         hit = res.points[..., 3] > 0
-        n_march = len(log) - 16
         cells = torch.zeros(flat_grid.numel(), dtype=torch.bool, device=self.dev)
         words = torch.zeros(vol.vox.numel(), dtype=torch.bool, device=self.dev)
         for i, (cell, word) in enumerate(log):
-            keep = res.steps > i if i < n_march else hit
+            keep = res.steps > i if cell.dim() == 2 else hit.expand_as(cell)
             c, wd = cell[keep], word[keep]
             cells[c[c >= 0].long()] = True
             words[wd[wd >= 0].long()] = True
@@ -643,9 +672,25 @@ class Smoke:
         # ops: hits must agree ray for ray and points to a few 1e-6 voxel
         # (below one float32 ulp beyond 32 voxels, so there they are equal)
         self.gate(n_mismatch == 0 and err <= 4e-6, f"K3 {label} hit mask equal to plain, points within 4e-6 voxel")
+        # the device-side enable flag (the approximate raycast): false, no
+        # ray is marched and the output keeps what it held; true, the
+        # points are those of the call without a flag
+        on, off = (torch.full((), v, dtype=torch.bool, device=self.dev) for v in (True, False))
+        sentinel = torch.full((*IMG, 4), -7.0, device=self.dev)
+        kept = self.k_ray.raycast_grid(*rargs, enable=off, out=sentinel.clone()).points
+        same = self.k_ray.raycast_grid(*rargs, enable=on).points
+        buf = torch.empty_like(sentinel)
+        dev_off, per_call_off, others_off = device_ms(
+            lambda: self.k_ray.raycast_grid(*rargs, enable=off, out=buf), 50)
+        print(f"  K3 {label} with its enable flag: false → output untouched {torch.equal(kept, sentinel)}, device "
+              f"{fmt_ms(dev_off)} ({per_call_off} kernel(s), {others_off:g} other op(s) a call) against "
+              f"{fmt_ms(dev)} with the flag true; true → equal to the call without a flag {torch.equal(same, pk)}")
+        self.gate(torch.equal(kept, sentinel), f"K3 {label} flag false leaves the output untouched")
+        self.gate(torch.equal(same, pk), f"K3 {label} flag true equal to the call without a flag")
+        self.gate(per_call_off == 1 and others_off == 0, f"K3 {label} flag false: one device kernel, no other op")
         return dict(name="raycast_grid", route="cuda", source="infinitam_tpu_torch/csrc/raycast.cu",
                     replaces="infinitam_tpu/ops/pallas/raycast_kernel.py:500", max_abs_err=err, ms=dev, call_ms=call,
-                    plain_ms=plain, library_ms=None, **b)
+                    plain_ms=plain, library_ms=None, flag_false_ms=dev_off, **b)
 
     def color_kernel_check(self, settings, vol, rs, frames, gt):
         """K2 with its colour half against its plain version on the 1 cm RGB
@@ -717,12 +762,13 @@ class Smoke:
         return entry
 
     # --- replays ------------------------------------------------------------
-    def replay(self, name, settings, frames, gt, path, via_engine=False):
+    def replay(self, name, settings, frames, gt, path, via_engine=False, expected=None):
         """Replay `frames` three ways, through the frame step or (with
         `via_engine`) through MainEngine: a correctness run (poses,
         counters), N_TIMED timed runs (the first one counts kernel launches)
-        and a phase run under the sync debug mode. Returns the launch counts
-        and the correctness run's final state (its engine with
+        and a phase run under the sync debug mode. `expected` maps launch
+        counters to the launches each frame must make. Returns the launch
+        counts and the correctness run's final state (its engine with
         `via_engine`, else its volume)."""
         depths = frames[0]
         run = self.run_engine if via_engine else self.run_frames
@@ -738,6 +784,9 @@ class Smoke:
                       "n_window_clipped")
         }
         n_vis = int(diags[-1].n_visible)
+        # frames whose maps were raycast anew (age 0), a device count read
+        # after the replay
+        n_full = int((torch.stack(self.ages) == 0).sum())
 
         # 2) timed runs, each on a fresh map built before its clock starts
         #    (host-clock times spread: the card's host is shared); the launch
@@ -796,7 +845,7 @@ class Smoke:
         print(f"{name}: {fps:.2f} frames/s over {len(depths)} frames (median of {N_TIMED} replays; ms/frame "
               + ", ".join(f"{t * 1000 / len(depths):.2f}" for t in times)
               + f"), ATE RMSE {ate * 1000:.3f} mm, rotation RMSE {rot:.4f} deg, n_visible(last) {n_vis}")
-        print(f"  counters (max over frames): {json.dumps(counters)}")
+        print(f"  counters (max over frames): {json.dumps(counters)}; frames with a full raycast: {n_full}")
         print(f"  kernel launches in the timed replay: {json.dumps(launches)}; per frame: "
               + json.dumps({k: v / len(depths) for k, v in launches.items()}))
         print(f"  host syncs flagged in the phase run: {n_syncs}")
@@ -815,6 +864,10 @@ class Smoke:
             per_frame = sum(self.trackers.level_iterations(settings.tracking))
             self.gate(launches["icp_weighted"] == per_frame * len(depths) and launches["icp"] == 0,
                       f"{name} weighted K1 launched {per_frame} times a frame, the unweighted one never")
+        for k, n in (expected or {}).items():
+            self.gate(launches[k] == n * len(depths), f"{name} {k} launched {n} time(s) a frame")
+        if settings.use_approximate_raycast:
+            self.gate(0 < n_full < len(depths), f"{name} both raycast branches ran (0 < full frames < {len(depths)})")
         self.gate(n_syncs == 0, f"{name} frame loop issued no host sync")
         return launches, final
 
@@ -863,29 +916,112 @@ class Smoke:
         self.gate(img.shape == shapes["colour"] and img.dtype == np.uint8 and filled(img) > 0.3,
                   "get_image colour shape, dtype and filled")
 
+    def mesh_check(self, settings, vol):
+        """The map's mesh after a replay, on the card: the blocks, triangles
+        and seconds of mesh_scene_hash (what MainEngine.update_mesh runs);
+        gated on 0 dropped triangles, two chunk sizes giving identical
+        triangles, the host syncs not growing with the chunks, the vertices
+        inside the synthetic scene and on its surface, and a 256-block subset
+        meshed by the same code on a CPU copy of the volume."""
+        from infinitam_tpu_torch.engine import meshing_engine
+        from infinitam_tpu_torch.ops import meshing
+
+        sp, hp = settings.scene, settings.hashing
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mesh = meshing_engine.mesh_scene_hash(vol, settings)
+        secs = time.perf_counter() - t0
+        ids = torch.nonzero(vol.entry_ptr >= 0).squeeze(1)
+        read = self.hp.hv.make_hash_reader(vol, hp)
+        bpos = vol.entry_pos[ids]
+        tris, n_valid = meshing.extract_mesh(read, bpos, hp.block_size, sp.voxel_size)
+        small, _n = meshing.extract_mesh(read, bpos, hp.block_size, sp.voxel_size,
+                                         chunk_blocks=meshing.CHUNK_BLOCKS // 8)
+        n_tri, n_valid = tris.shape[0], int(n_valid)
+        print(f"mesh of the map: {ids.shape[0]} allocated blocks, {mesh.n_triangles} triangles, {secs:.3f} s "
+              f"(host clock, with the copy to the host); the emit pass found {n_valid} valid (voxel, slot) pairs")
+        self.gate(mesh.n_triangles == n_tri == n_valid > 100000,
+                  "mesh: the triangle count equals the device's count of valid (voxel, slot) pairs (0 dropped)")
+        self.gate(torch.equal(tris, small) and np.array_equal(mesh.triangles, tris.cpu().numpy()),
+                  f"mesh: chunks of {meshing.CHUNK_BLOCKS} and {meshing.CHUNK_BLOCKS // 8} blocks give identical "
+                  "triangles")
+        counts = []
+        for chunk in (meshing.CHUNK_BLOCKS, meshing.CHUNK_BLOCKS // 8):
+            syncs = []
+
+            def on_warning(message, *_args, **_kw):
+                if SYNC_MSG in str(message):
+                    syncs.append(repo_stack(traceback.extract_stack()[:-1]))
+
+            with warnings.catch_warnings():
+                warnings.simplefilter("always")
+                warnings.showwarning = on_warning
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    meshing_engine.mesh_scene_hash(vol, settings, chunk_blocks=chunk)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            counts.append(len(syncs))
+        n_chunks = [(ids.shape[0] + c - 1) // c for c in (meshing.CHUNK_BLOCKS, meshing.CHUNK_BLOCKS // 8)]
+        print(f"  host syncs of mesh_scene_hash: {counts[0]} with {n_chunks[0]} chunks, {counts[1]} with "
+              f"{n_chunks[1]} chunks")
+        self.gate(counts[0] == counts[1], "mesh: host syncs do not grow with the number of chunks")
+        v = tris.reshape(-1, 3)
+        lo, hi = v.amin(0).tolist(), v.amax(0).tolist()
+        signed = self.synth.scene_sdf(v)
+        surf = signed.abs()
+        med = float(surf.median())
+        print(f"  vertices in x {lo[0]:.3f}..{hi[0]:.3f}, y {lo[1]:.3f}..{hi[1]:.3f}, z {lo[2]:.3f}..{hi[2]:.3f} m; "
+              f"scene sdf at the vertices: median {float(signed.median()) * 1000:.3f} mm, |·| 99th percentile "
+              f"{float(torch.quantile(surf[:: max(1, surf.numel() // 1000000)], 0.99)) * 1000:.3f} mm")
+        self.gate(all(abs(x) < 3.0 for x in lo[:2] + hi[:2]) and lo[2] > sp.view_frustum_min
+                  and hi[2] < 2.3 + sp.mu + sp.voxel_size,
+                  "mesh: vertices inside the synthetic scene (|x|, |y| < 3 m, z before the wall at 2.3 m + μ)")
+        # the synthetic depth lies up to ~8 mm behind the analytic surface
+        # (io/synth.py's sphere tracer keeps taking its 0.09 mm least step
+        # once it has converged), and the map follows the depth
+        self.gate(med < 2 * sp.voxel_size, "mesh: median distance of the vertices from the scene's surface < 2 voxels")
+        cpu_vol = type(vol)(*(None if t is None else t.cpu() for t in vol))
+        sub = bpos[:256]
+        on_card, _n = meshing.extract_mesh(read, sub, hp.block_size, sp.voxel_size)
+        on_cpu, _n = meshing.extract_mesh(self.hp.hv.make_hash_reader(cpu_vol, hp), sub.cpu(), hp.block_size,
+                                          sp.voxel_size)
+        diff = float((on_card.cpu() - on_cpu).abs().max()) if on_cpu.shape == on_card.shape and on_cpu.numel() else 0.0
+        print(f"  256-block subset: {on_card.shape[0]} triangles on the card, {on_cpu.shape[0]} on the CPU, "
+              f"max difference {diff:.3e} m")
+        self.gate(on_card.shape == on_cpu.shape and on_cpu.shape[0] > 0 and diff <= 1e-6,
+                  "mesh: a 256-block subset on the card equals the same code on the CPU within 1e-6 m")
+
     def cli_check(self):
         """The headless runner in-process on the card: N_FRAMES synthetic
-        640×480 frames with a raycast dump after each."""
+        640×480 frames with a raycast dump after each, and the map's mesh as
+        binary STL after the loop."""
         from infinitam_tpu_torch.apps import cli
         from infinitam_tpu_torch.utils.image_io import read_image
 
-        with tempfile.TemporaryDirectory() as tmp:
+        with tempfile.TemporaryDirectory() as tmp, tempfile.TemporaryDirectory() as mesh_dir:
             mask = os.path.join(tmp, "r_%04i.png")
+            stl = os.path.join(mesh_dir, "scene.stl")
             out = io.StringIO()
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(out):
-                rc = cli.main(["--synthetic", "--frames", str(N_FRAMES), "--out-render", mask])
+                rc = cli.main(["--synthetic", "--frames", str(N_FRAMES), "--out-render", mask, "--out-mesh", stl])
             wall = time.perf_counter() - t0
             text = out.getvalue()
             files = sorted(os.listdir(tmp))
             last = read_image(os.path.join(tmp, files[-1])) if files else np.zeros((1, 1, 3), np.uint8)
+            stl_bytes = os.path.getsize(stl) if os.path.exists(stl) else 0
+            n_stl = int.from_bytes(open(stl, "rb").read()[80:84], "little") if stl_bytes >= 84 else 0
         for line in text.splitlines():
             print(f"  cli: {line}")
-        print(f"cli --synthetic --frames {N_FRAMES} --out-render: rc {rc}, {len(files)} images, last "
-              f"{last.shape} {100 * filled(last):.1f}% filled, {wall:.1f} s wall")
+        print(f"cli --synthetic --frames {N_FRAMES} --out-render --out-mesh (STL): rc {rc}, {len(files)} images, "
+              f"last {last.shape} {100 * filled(last):.1f}% filled, mesh {n_stl} triangles in {stl_bytes} bytes, "
+              f"{wall:.1f} s wall")
         self.gate(rc == 0 and f"processed {N_FRAMES} frames" in text, f"cli returned 0 and processed {N_FRAMES} frames")
         self.gate(len(files) == N_FRAMES and last.shape == (*IMG, 3) and filled(last) > 0.3,
                   f"cli wrote {N_FRAMES} renders, the last one filled")
+        self.gate(f"mesh saved to {stl}" in text and n_stl > 100000 and stl_bytes == 84 + 50 * n_stl,
+                  "cli --out-mesh wrote an STL of 84 + 50·T bytes")
 
     def fixture_check(self):
         """The committed PGM fixture (raw mm depth) through the port's
@@ -978,13 +1114,19 @@ def main() -> int:
 
     depths, rgbs, gt = smoke.frames()
     frames = (depths, rgbs)
-    configs = [  # name, settings, kernels of its path, through MainEngine
-        ("5mm", reference_settings(smoke.cfg), DEPTH_PATH, False),
-        ("1cm", teddy_1cm_settings(smoke.cfg), DEPTH_PATH, False),
-        ("1cm_rgb", color_settings(smoke.cfg), RGB_PATH, False),
-        ("5mm_wicp", wicp_settings(smoke.cfg), WICP_PATH, True),
+    iters = smoke.trackers.level_iterations(smoke.cfg.TrackingParams())
+    configs = [  # name, settings, kernels of its path, through MainEngine, launches a frame
+        ("5mm", reference_settings(smoke.cfg), DEPTH_PATH, False, None),
+        ("1cm", teddy_1cm_settings(smoke.cfg), DEPTH_PATH, False, None),
+        ("1cm_rgb", color_settings(smoke.cfg), RGB_PATH, False, None),
+        ("5mm_wicp", wicp_settings(smoke.cfg), WICP_PATH, True, None),
+        # Ren's ICP pre-step stops above level 0
+        ("5mm_ren", ren_settings(smoke.cfg), DEPTH_PATH, True,
+         dict(icp=sum(iters[1:]), integrate=1, raycast=1)),
+        # K3 runs on every frame, marching only on the frames that refresh
+        ("5mm_approx", approx_settings(smoke.cfg), DEPTH_PATH, False, dict(icp=sum(iters), integrate=1, raycast=1)),
     ]
-    s5, s1d, s1, s5w = (c[1] for c in configs)
+    s5, s1d, s1, s5w = (c[1] for c in configs[:4])
     vol, rs, st, view = smoke.fused(s5, frames)
     k2 = smoke.k2_check("5 mm", s5, vol, rs, st, view)
     kernels = [smoke.k1_check(s5, st, view.depth), k2]
@@ -1006,18 +1148,20 @@ def main() -> int:
     # each replay
     launches = dict.fromkeys(build.KERNELS, 0)
     per_frame = {}
-    for name, settings, path, via_engine in configs:
-        counts, final = smoke.replay(name, settings, frames, gt, path, via_engine)
+    for name, settings, path, via_engine, expected in configs:
+        counts, final = smoke.replay(name, settings, frames, gt, path, via_engine, expected)
         per_frame[name] = {k: n / N_FRAMES for k, n in counts.items()}
         for k, n in counts.items():
             launches[k] += n
+        if name == "5mm":
+            smoke.mesh_check(settings, final)
         if name == "5mm_wicp":
             smoke.get_image_check(final, settings, frames, s1)
         del final
     smoke.cli_check()
     smoke.fixture_check()
     if args.profile:
-        for name, settings, _path, via_engine in configs:
+        for name, settings, _path, via_engine, _expected in configs:
             smoke.profile(name, settings, frames, via_engine)
     smoke.gate(not any(m.split(".")[0] in ("jax", "jaxlib", "infinitam_tpu") for m in sys.modules),
                "no module of JAX or of the JAX package was imported")

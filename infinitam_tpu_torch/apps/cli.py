@@ -5,15 +5,17 @@ UIEngine.cpp:498-508 input recording as --record / --replay).
 
 Usage:
     python -m infinitam_tpu_torch.apps.cli <calib.txt> [<rgb_mask> <depth_mask>]
-        [--frames N] [--synthetic] [--tum ROOT] [--out-render render_%04i.png]
-        [--record DIR] [--replay DIR] [--voxel-size 0.005] [--mu 0.02] [--cpu]
+        [--frames N] [--synthetic] [--tum ROOT] [--out-mesh scene.stl]
+        [--out-render render_%04i.png] [--record DIR] [--replay DIR]
+        [--tracker icp|wicp|color|ren|external] [--voxel-size 0.005] [--mu 0.02] [--cpu]
 
 It runs on the card (there is no fallback: without one it fails), or on the
 CPU with --cpu. The frame loop reads nothing back to the host except once
 every 10 frames for the statistics line; --out-render renders and writes
-the raycast after every frame, which waits for the card. --out-mesh,
---tracker ren and --swapping raise NotImplementedError before the first
-frame (ROADMAP Queue 1 items 14, 12 and 13). As in the JAX package,
+the raycast after every frame, which waits for the card; --out-mesh writes
+the map's mesh after the last frame (OBJ for a .obj path, else binary STL).
+--swapping raises NotImplementedError before the first frame (ROADMAP
+Queue 1 item 13). As in the JAX package,
 --tracker wicp does not turn on the sensor-noise model, so without it the
 weighted tracker runs unweighted (ROADMAP Queue 3).
 """
@@ -60,12 +62,10 @@ def main(argv=None):
 
     from infinitam_tpu_torch.calib import default_calib, read_rgbd_calib
     from infinitam_tpu_torch.config import SceneParams, Settings, SwappingMode, TrackerType
-    from infinitam_tpu_torch.engine.main_engine import MESH_NOT_PORTED, MainEngine
+    from infinitam_tpu_torch.engine.main_engine import MainEngine
     from infinitam_tpu_torch.io import sources as srcs
     from infinitam_tpu_torch.utils.image_io import expand_printf_mask, write_image
 
-    if args.out_mesh:
-        raise NotImplementedError(f"--out-mesh: {MESH_NOT_PORTED}")
     device = torch.device("cpu" if args.cpu else "cuda")
     settings = Settings(
         scene=SceneParams(voxel_size=args.voxel_size, mu=args.mu),
@@ -124,6 +124,9 @@ def main(argv=None):
             img = engine.get_image("raycast")
             write_image(expand_printf_mask(args.out_render, n), np.stack([img] * 3, axis=-1))
 
+    if args.out_mesh:
+        engine.save_scene_to_mesh(args.out_mesh)
+        print(f"mesh saved to {args.out_mesh}")
     print(f"processed {n} frames, avg {total_ms / max(n, 1):.1f} ms/frame")
     return 0
 

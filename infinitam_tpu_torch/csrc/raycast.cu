@@ -41,6 +41,10 @@
 //   three divisions of the distance to the block's exit run only in empty
 //   space, where that distance is the step; p / 2ᵏ is computed as p · 2⁻ᵏ,
 //   which rounds identically.
+// - `enable`, a device bool or null (on): when it is false each thread
+//   returns before its ray, so the approximate raycast decides on the card
+//   whether to march (the output keeps what it held) and the launch count
+//   does not depend on the data.
 // Built with -fmad=false, so each ray and each step round like the plain
 // version's separate ops (hit mask equal, points within 4e-6 voxel).
 // The TPU kernel's page lists, one-hot MXU taps and 8-bit sdf are not
@@ -152,11 +156,12 @@ __device__ __forceinline__ float itpu_ray_length(float dx, float dy, float z, fl
 // [h, w]; out: [h, w, 4]
 __global__ void itpu_raycast_kernel(ItpuGrid g, const float* __restrict__ inv_M, const float* __restrict__ proj,
                                     float inv_voxel, const float* __restrict__ zmin, const float* __restrict__ zmax,
-                                    int h, int w, float step_scale, float* __restrict__ out) {
+                                    int h, int w, float step_scale, const bool* __restrict__ enable,
+                                    float* __restrict__ out) {
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     const int x = blockIdx.x * RC_TILE_W + (warp & 1) * 8 + (lane & 7);
     const int y = blockIdx.y * RC_TILE_H + (warp >> 1) * 4 + (lane >> 3);
-    if (x >= w || y >= h) return;
+    if (x >= w || y >= h || (enable != nullptr && !*enable)) return;
     const int i = y * w + x;
 
     float M[12];
@@ -226,13 +231,14 @@ __global__ void itpu_raycast_kernel(ItpuGrid g, const float* __restrict__ inv_M,
 
 ITPU_EXPORT int itpu_raycast(const void* vox, const void* grid, int gx, int gy, int gz, int ox, int oy, int oz,
                              int block_shift, const void* inv_M, const void* proj, float inv_voxel, const void* zmin,
-                             const void* zmax, int h, int w, float step_scale, void* out, void* stream) {
+                             const void* zmax, int h, int w, float step_scale, const void* enable, void* out,
+                             void* stream) {
     if (h > 0 && w > 0) {
         const ItpuGrid g{(const int*)vox, (const int*)grid, gx, gy, gz, ox, oy, oz, block_shift};
         const dim3 tiles((w + RC_TILE_W - 1) / RC_TILE_W, (h + RC_TILE_H - 1) / RC_TILE_H);
         itpu_raycast_kernel<<<tiles, RC_THREADS, 0, (cudaStream_t)stream>>>(
             g, (const float*)inv_M, (const float*)proj, inv_voxel, (const float*)zmin, (const float*)zmax, h, w,
-            step_scale, (float*)out);
+            step_scale, (const bool*)enable, (float*)out);
     }
     return (int)cudaGetLastError();
 }

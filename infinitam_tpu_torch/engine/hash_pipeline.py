@@ -1,25 +1,32 @@
 """End-to-end per-frame pipeline on the voxel-block-hash volume.
 
 Counterpart of infinitam_tpu/engine/hash_pipeline.py for the depth-ICP,
-weighted-ICP, colour and external trackers, with or without colour fusion,
-without swapping (reference ITMMainEngine::ProcessFrame →
-ITMDenseMapper::ProcessFrame → ITMTrackingController::Prepare). Per frame:
-track (ICP and weighted ICP: kernel K1; colour: photometric LM; external:
-the given pose) → divergence gate → allocate → integrate (kernel K2, with its
-colour half when `use_color`) → expected-depth ranges → raycast (kernel K3;
-in the RGB frame for the colour tracker) → the next frame's tracking maps →
-diagnostics.
+weighted-ICP, colour, Ren and external trackers, with or without colour
+fusion and the approximate raycast, without swapping (reference
+ITMMainEngine::ProcessFrame → ITMDenseMapper::ProcessFrame →
+ITMTrackingController::Prepare). Per frame: track (ICP and weighted ICP:
+kernel K1; Ren: K1 at the coarse levels, then the SDF LM against the
+volume; colour: photometric LM; external: the given pose) → divergence
+gate → allocate → integrate (kernel K2, with its colour half when
+`use_color`) → expected-depth ranges → raycast (kernel K3; in the RGB frame
+for the colour tracker; with the approximate raycast, its result is kept
+only on the frames that need a full refresh) → the next frame's tracking
+maps → diagnostics. Swapping raises (ROADMAP Queue 1 item 13), and so do
+the read paths K3 does not serve (`use_block_grid=False`,
+`raycast_coarse_factor > 1`).
 
 Every step is a fixed sequence of tensor ops and kernel launches that reads
 nothing back to the host, so frames queue on the card without a sync. Where
 the JAX package skips a branch with `lax.cond` (allocation inserts,
-out-of-grid probes, the large-block widening), the branch runs
-unconditionally here: with nothing to do it writes nothing, so the result is
-the same and no host-side decision is needed.
+out-of-grid probes, the large-block widening, the approximate raycast's
+refresh), the branch runs unconditionally here: with nothing to do it
+writes nothing, or its result is not selected, so the result is the same
+and no host-side decision is needed.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import NamedTuple, Tuple
 
@@ -30,7 +37,14 @@ from infinitam_tpu_torch.config import Settings, SwappingMode, TrackerType
 from infinitam_tpu_torch.engine import hash_volume as hv
 from infinitam_tpu_torch.engine.hash_volume import HashVolume, RenderStateVH
 from infinitam_tpu_torch.engine.tracking_state import TrackingState, create_tracking_state
-from infinitam_tpu_torch.engine.trackers import TrackResult, track_color, track_depth, track_external
+from infinitam_tpu_torch.engine.trackers import (
+    TrackResult,
+    track_color,
+    track_depth,
+    track_external,
+    track_far_from_point_cloud,
+    track_ren,
+)
 from infinitam_tpu_torch.engine.view_builder import View
 from infinitam_tpu_torch.ops import hashing
 from infinitam_tpu_torch.ops import raycast as rc
@@ -61,27 +75,30 @@ def novel_cap(settings: Settings) -> int:
     return max(2 * settings.hashing.max_visible_blocks, 4096)
 
 
-PORTED_TRACKERS = (TrackerType.ICP.value, TrackerType.WICP.value, TrackerType.COLOR.value,
-                   TrackerType.EXTERNAL.value)
+# settings the port refuses, and the ROADMAP item that takes each up
+UNPORTED = {
+    "swapping_mode": "ROADMAP Queue 1 item 13 (swapping)",
+    "raycast_coarse_factor": "ROADMAP Queue 1, the read paths K3 does not serve",
+    "use_block_grid": "ROADMAP Queue 1, the read paths K3 does not serve",
+}
 
 
 def check_supported(settings: Settings) -> None:
-    """The port runs the depth-ICP, weighted-ICP, colour and external
-    trackers on the block-grid hash path, with or without colour fusion,
-    without swapping; other settings raise (the Ren tracker and the
-    approximate raycast: ROADMAP Queue 1 item 12; swapping: item 13). (The
+    """The port runs every tracker (depth ICP, weighted ICP, colour, Ren,
+    external) on the block-grid hash path, with or without colour fusion and
+    the approximate raycast, without swapping; swapping, the coarse raycast
+    pass and the hash-probe raycast raise, naming their ROADMAP item. (The
     Pallas-only settings are ignored, see config.py.) Enums are compared by
     value, so a Settings of the JAX package passes as well."""
-    unported = {
-        "tracker_type": settings.tracker_type.value not in PORTED_TRACKERS,
+    refused = {
         "swapping_mode": settings.swapping_mode.value != SwappingMode.DISABLED.value,
-        "use_approximate_raycast": settings.use_approximate_raycast,
         "raycast_coarse_factor": settings.raycast_coarse_factor > 1,
         "use_block_grid": not settings.use_block_grid,
     }
-    bad = [k for k, v in unported.items() if v]
+    bad = [k for k, v in refused.items() if v]
     if bad:
-        raise NotImplementedError(f"infinitam_tpu_torch does not port Settings {bad} yet")
+        raise NotImplementedError("infinitam_tpu_torch does not port Settings "
+                                  + "; ".join(f"{k}: {UNPORTED[k]}" for k in bad) + " yet")
 
 
 class FrameDiagnostics(NamedTuple):
@@ -450,16 +467,18 @@ def expected_depth_ranges(vol, render_state, pose, proj, img_size: Tuple[int, in
     return zmin_img[rows, cols], zmax_img[rows, cols], n_too_big
 
 
-def raycast_hash(vol, render_state, pose, proj, img_size: Tuple[int, int], settings: Settings) -> rc.RaycastResult:
+def raycast_hash(vol, render_state, pose, proj, img_size: Tuple[int, int], settings: Settings,
+                 enable: torch.Tensor | None = None) -> rc.RaycastResult:
     """Raycast of the volume from `pose` (kernel K3) between the expected
-    depth ranges (reference genericRaycast). The JAX package's optional
-    coarse pass is off by default and not ported."""
+    depth ranges (reference genericRaycast). With `enable` (a device bool)
+    false the march does not run and the points are unspecified. The JAX
+    package's optional coarse pass is off by default and not ported."""
     sp = settings.scene
     zmin, zmax, _ = expected_depth_ranges(vol, render_state, pose, proj, img_size, settings)
     grid = hv.get_block_grid(vol, settings.block_grid)
     return raycast_kernel.raycast_grid(
         vol, grid, settings.block_grid, settings.hashing, se3.invert(pose), proj, img_size,
-        1.0 / sp.voxel_size, sp.mu, zmin, zmax,
+        1.0 / sp.voxel_size, sp.mu, zmin, zmax, enable=enable,
     )
 
 
@@ -481,11 +500,13 @@ def find_visible_blocks(vol: HashVolume, pose: torch.Tensor, proj: torch.Tensor,
                          n_visible=n_visible)
 
 
-def prepare_tracking_maps(vol, render_state, pose, proj, img_size: Tuple[int, int], settings: Settings):
-    """Raycast + ICP maps for the next frame's tracker. Returns (points_map,
-    normals_map, n_pool_overflow); the CUDA raycast has no block pool, so
-    the overflow is 0 by construction."""
-    res = raycast_hash(vol, render_state, pose, proj, img_size, settings)
+def prepare_tracking_maps(vol, render_state, pose, proj, img_size: Tuple[int, int], settings: Settings,
+                          enable: torch.Tensor | None = None):
+    """Raycast + ICP maps for the next frame's tracker (unspecified where
+    `enable` is false, see raycast_hash). Returns (points_map, normals_map,
+    n_pool_overflow); the CUDA raycast has no block pool, so the overflow is
+    0 by construction."""
+    res = raycast_hash(vol, render_state, pose, proj, img_size, settings, enable=enable)
     pm, nm = rc.make_icp_maps(res, settings.scene.voxel_size, se3.invert(pose))
     return pm, nm, torch.zeros((), dtype=torch.int32, device=pose.device)
 
@@ -533,6 +554,21 @@ def _track_fuse_impl(vol, render_state, state: TrackingState, view: View, proj, 
             state.pose, view.rgb, proj_rgb if proj_rgb is not None else proj, state.points_map,
             state.normals_map, d2r, r2d, settings.tracking, skip_points=settings.skip_points,
         )
+    elif tt == TrackerType.REN.value:
+        # composite ICP → Ren (reference ITMTrackerFactory MakeRenTracker):
+        # ICP runs the coarse levels (noICPRunTillLevel = 1), then the SDF
+        # tracker refines at the finest level against the volume itself
+        tr_icp = track_depth(
+            state.pose, view.depth, proj, state.points_map, state.normals_map, state.pose_point_cloud,
+            dataclasses.replace(settings.tracking, no_icp_run_till_level=1),
+        )
+        read = hv.make_grid_reader(vol, hv.get_block_grid(vol, settings.block_grid), settings.block_grid,
+                                   settings.hashing)
+        tr = track_ren(tr_icp.pose, view.depth, proj, read, settings.scene.voxel_size, settings.tracking)
+        # the result reports Ren's own energy and ICP's correspondence count;
+        # the divergence gate below reads ICP's f, whose 1e5 sentinel it knows
+        gate_f = tr_icp.f
+        tr = tr._replace(num_valid=tr_icp.num_valid)
     else:
         # the weighted tracker takes the view's σ_z; without it (the view
         # was built without model_sensor_noise) it runs unweighted, as the
@@ -541,12 +577,14 @@ def _track_fuse_impl(vol, render_state, state: TrackingState, view: View, proj, 
             state.pose, view.depth, proj, state.points_map, state.normals_map, state.pose_point_cloud,
             settings.tracking, weights_map=view.depth_uncertainty if tt == TrackerType.WICP.value else None,
         )
+    if tt != TrackerType.REN.value:
+        gate_f = tr.f
     have_maps = state.age >= 0
     # divergence policy: a frame whose tracking energy spiked keeps the last
     # good pose and is not fused
     dvt = settings.tracking.divergence_f_threshold
     if dvt > 0:
-        track_bad = (tr.f >= dvt) & have_maps
+        track_bad = (gate_f >= dvt) & have_maps
     else:
         track_bad = torch.zeros((), dtype=torch.bool, device=proj.device)
     pose = torch.where(have_maps & ~track_bad, tr.pose, state.pose)
@@ -565,26 +603,39 @@ def _track_fuse_impl(vol, render_state, state: TrackingState, view: View, proj, 
     return vol, render_state, pose, tr, n_alloc_overflow
 
 
-def _prepare_impl(vol, render_state, view: View, pose, tr: TrackResult, proj, settings: Settings,
-                  proj_rgb=None, rgb_to_depth=None):
+def _prepare_impl(vol, render_state, state: TrackingState, view: View, pose, tr: TrackResult, proj,
+                  settings: Settings, proj_rgb=None, rgb_to_depth=None):
     """Raycast the next frame's tracking maps (reference
-    ITMTrackingController::Prepare, full-raycast branch; for the colour
-    tracker the point cloud in the RGB frame)."""
+    ITMTrackingController::Prepare; for the colour tracker the point cloud
+    in the RGB frame). With the approximate raycast the stale maps are kept
+    and aged until the camera is far from them (reference
+    TrackerFarFromPointCloud): the refresh test is a device bool, K3 runs
+    on every frame but marches only when it is true, and the maps, their
+    pose and age are chosen by torch.where, with no host read."""
     img_size = tuple(view.depth.shape)
+    zero = torch.zeros((), dtype=torch.int32, device=pose.device)
+    pose_pc, age = pose, zero
     if settings.tracker_type.value == TrackerType.COLOR.value:
         d2r, _r2d = _rgb_extrinsics(rgb_to_depth, proj.device)
         points_map, normals_map = create_point_cloud(
             vol, render_state, pose, proj_rgb if proj_rgb is not None else proj, d2r, img_size, settings
         )
-        n_pool = torch.zeros((), dtype=torch.int32, device=pose.device)
+        n_pool = zero
+    elif settings.use_approximate_raycast:
+        full = (state.age < 0) | track_far_from_point_cloud(pose, state.pose_point_cloud, state.age)
+        pm, nm, n_pool = prepare_tracking_maps(vol, render_state, pose, proj, img_size, settings, enable=full)
+        points_map = torch.where(full, pm, state.points_map)
+        normals_map = torch.where(full, nm, state.normals_map)
+        pose_pc = torch.where(full, pose, state.pose_point_cloud)
+        age = torch.where(full, zero, state.age + 1)
     else:
         points_map, normals_map, n_pool = prepare_tracking_maps(vol, render_state, pose, proj, img_size, settings)
     return TrackingState(
         pose=pose,
         points_map=points_map,
         normals_map=normals_map,
-        pose_point_cloud=pose,
-        age=torch.zeros((), dtype=torch.int32, device=pose.device),
+        pose_point_cloud=pose_pc,
+        age=age,
         f=tr.f,
         num_valid=tr.num_valid,
     ), n_pool
@@ -638,7 +689,8 @@ def process_frame_hash(
         vol, render_state, state, view, proj, settings, fusion_active, proj_rgb, rgb_to_depth, external_pose,
         on_phase,
     )
-    new_state, n_pool = _prepare_impl(vol, render_state, view, pose, tr, proj, settings, proj_rgb, rgb_to_depth)
+    new_state, n_pool = _prepare_impl(vol, render_state, state, view, pose, tr, proj, settings, proj_rgb,
+                                      rgb_to_depth)
     on_phase("raycast")
     diag = _frame_diag(vol, render_state, pose, proj, tr, settings, n_alloc_overflow, n_pool)
     return vol, render_state, new_state, diag

@@ -347,10 +347,7 @@ def _hash_voxels(vol: HashVolume, params: VoxelBlockHashParams):
     return lookup
 
 
-def make_grid_reader(vol: HashVolume, grid: torch.Tensor, grid_params, params: VoxelBlockHashParams):
-    """`(int voxel pts [..., 3]) -> (sdf, found)` through the dense block
-    grid: one grid tap + one voxel tap; empty space reads sdf = 1."""
-    lookup = _grid_voxels(grid, grid_params, params)
+def _sdf_reader(vol: HashVolume, lookup):
     flat_vox = vol.vox.reshape(-1)
 
     def read(pts_int: torch.Tensor):
@@ -359,6 +356,20 @@ def make_grid_reader(vol: HashVolume, grid: torch.Tensor, grid_params, params: V
         return torch.where(found, sdf, torch.ones_like(sdf)), found
 
     return read
+
+
+def make_grid_reader(vol: HashVolume, grid: torch.Tensor, grid_params, params: VoxelBlockHashParams):
+    """`(int voxel pts [..., 3]) -> (sdf, found)` through the dense block
+    grid: one grid tap + one voxel tap; empty space reads sdf = 1."""
+    return _sdf_reader(vol, _grid_voxels(grid, grid_params, params))
+
+
+def make_hash_reader(vol: HashVolume, params: VoxelBlockHashParams):
+    """`(int voxel pts [..., 3]) -> (sdf, found)` through the hash table
+    (reference readVoxel, hash overload): it finds every resident block,
+    those allocated outside the block grid's window too; empty space reads
+    sdf = 1."""
+    return _sdf_reader(vol, _hash_voxels(vol, params))
 
 
 def _weight_reader(vol: HashVolume, lookup):

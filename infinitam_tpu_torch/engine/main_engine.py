@@ -3,14 +3,16 @@ step (counterpart of infinitam_tpu/engine/main_engine.py; reference
 ITMLib/Engine/ITMMainEngine.{h,cpp}: owns the scene, the tracking state and
 the render state; ProcessFrame = UpdateView → Track → Fuse → Prepare
 (ITMMainEngine.cpp:111-127); GetImage renders the live, depth, weight and
-freeview images (:134-192); the fusion and processing switches).
+freeview images (:134-192); UpdateMesh / SaveSceneToMesh; the fusion and
+processing switches).
 
 The state lives on `device`, the card unless the caller passes "cpu".
 `process_frame` reads nothing back to the host: its diagnostics come back
 as a `LazyDiag` over device tensors. `get_image` returns numpy and so waits
-for the card, as the JAX package's does; it is not on the frame path.
-Swapping and meshing are not ported yet: swapping raises when the engine is
-made (hash_pipeline.check_supported), the mesh methods raise when called.
+for the card, as the JAX package's does; it is not on the frame path, and
+neither is the mesh, which reads back its block and triangle counts and
+the triangles. Swapping is not ported yet: it raises when the engine is
+made (hash_pipeline.check_supported).
 """
 
 from __future__ import annotations
@@ -24,16 +26,13 @@ from infinitam_tpu_torch.calib import RGBDCalib
 from infinitam_tpu_torch.config import Settings
 from infinitam_tpu_torch.engine import hash_pipeline as hp
 from infinitam_tpu_torch.engine import hash_volume as hv
+from infinitam_tpu_torch.engine.meshing_engine import Mesh, mesh_scene_hash
 from infinitam_tpu_torch.engine.trackers import apply_imu_rotation
 from infinitam_tpu_torch.engine.view_builder import build_view, build_view_from_metric_depth
 from infinitam_tpu_torch.io.sources import frame_tensor
 from infinitam_tpu_torch.ops import colormaps as cm
 from infinitam_tpu_torch.ops import raycast as rc
 from infinitam_tpu_torch.utils import se3
-
-MESH_NOT_PORTED = ("meshing is not ported to infinitam_tpu_torch yet (ROADMAP Queue 1 item 14: "
-                   "ops/meshing.py and engine/meshing_engine.py)")
-
 
 class LazyDiag:
     """Mapping view over a frame's FrameDiagnostics of device tensors: a
@@ -187,8 +186,14 @@ class MainEngine:
             img = rc.render_grey(res, voxel_size, inv)
         return img.cpu().numpy()
 
-    def update_mesh(self):
-        raise NotImplementedError(MESH_NOT_PORTED)
+    def update_mesh(self) -> Mesh:
+        """Every triangle of the map (reference UpdateMesh)."""
+        return mesh_scene_hash(self.vol, self.settings)
 
     def save_scene_to_mesh(self, path: str) -> None:
-        raise NotImplementedError(MESH_NOT_PORTED)
+        """The map's mesh as OBJ (a path ending in .obj) or binary STL."""
+        mesh = self.update_mesh()
+        if path.lower().endswith(".obj"):
+            mesh.write_obj(path)
+        else:
+            mesh.write_stl(path)

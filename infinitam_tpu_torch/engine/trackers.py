@@ -1,13 +1,15 @@
 """Camera trackers: hierarchical Gauss-Newton depth ICP, also weighted per
 pixel by the depth noise (reference ITMDepthTracker TrackCamera,
 ITMWeightedICPTracker), the photometric colour tracker (reference
-ITMColorTracker), the external pose and the IMU prior (reference
-ITMExternalTracker, ITMIMUTracker).
+ITMColorTracker), the Ren SDF tracker (reference ITMRenTracker), the
+external pose and the IMU prior (reference ITMExternalTracker,
+ITMIMUTracker), and the approximate raycast's refresh test (reference
+ITMTrackingState::TrackerFarFromPointCloud).
 
-Counterpart of infinitam_tpu/engine/trackers.py without the Ren tracker.
-Each pyramid level runs a fixed number of iterations; once a level has
-converged its state is frozen by a mask, which gives the same result as the
-JAX package's early-exit loops without reading the convergence flag back to
+Counterpart of infinitam_tpu/engine/trackers.py. Each pyramid level (and
+the Ren LM) runs a fixed number of iterations; once it has converged its
+state is frozen by a mask, which gives the same result as the JAX
+package's early-exit loops without reading the convergence flag back to
 the host. ICP's per-iteration residual pass and 6×6 reduction is kernel K1
 (ops/kernels/icp.py); the damped solves, pose updates and accept/reject
 logic stay in PyTorch on [6, 6] / [6] / [4, 4] tensors.
@@ -22,6 +24,7 @@ import torch
 from infinitam_tpu_torch.config import TrackingParams
 from infinitam_tpu_torch.ops import color_tracking as ct
 from infinitam_tpu_torch.ops import icp
+from infinitam_tpu_torch.ops import ren_tracking as rt
 from infinitam_tpu_torch.ops.kernels import icp as icp_kernel
 from infinitam_tpu_torch.ops.pyramid import build_depth_pyramid, build_rgb_pyramid, gradient_x, gradient_y
 from infinitam_tpu_torch.utils import se3
@@ -227,6 +230,56 @@ def track_color(
     return TrackResult(pose=se3.coerce(rgb_to_depth @ M), f=f_last, num_valid=n_last)
 
 
+# Ren LM constants (reference ITMRenTracker.cpp:106-160; the JAX package
+# caps the steps at 30)
+REN_MAX_STEPS = 30
+REN_MIN_STEP = 5e-5
+REN_MIN_DECREASE = 1e-4
+
+
+def track_ren(
+    pose: torch.Tensor,  # [4,4] world→camera initial estimate
+    depth: torch.Tensor,  # [H, W] metric depth
+    proj: torch.Tensor,
+    read,  # voxel SDF reader (int pts → (sdf, found))
+    voxel_size: float,
+    params: TrackingParams,
+    max_steps: int = REN_MAX_STEPS,
+) -> TrackResult:
+    """Ren et al. SDF tracker: LM on the exp-SDF energy with MRP rotations
+    at the finest level, as a refinement after ICP (reference
+    ITMRenTracker.cpp:106-160: λ ×0.1 on accept, ×10 on reject, MIN_STEP
+    5e-5, relative MIN_DECREASE 1e-4; the JAX package starts λ at 1).
+    `max_steps` steps, each frozen once the LM is done, as the JAX
+    package's while_loop stops; nothing is read back."""
+    del params  # the JAX package's signature: the Ren LM has no tracking parameters
+    dev = depth.device
+    one_over_voxel = 1.0 / voxel_size
+    diag_idx = torch.eye(6, dtype=torch.bool, device=dev)
+    pts_cam = rt.unproject_view(depth, proj)
+    inv = se3.invert(pose)
+    f = rt.energy(read, pts_cam, inv, one_over_voxel)
+    lam = torch.ones((), dtype=torch.float32, device=dev)
+    done = torch.zeros((), dtype=torch.bool, device=dev)
+    for _ in range(max_steps):
+        nabla, H = rt.gradient_hessian(read, pts_cam, inv, one_over_voxel)
+        d = torch.diagonal(H)
+        scaled = torch.where(d.abs() >= 1e-15, d * (1.0 + lam), lam * 1e-10)
+        step = -icp.solve_psd(torch.where(diag_idx, torch.diag_embed(scaled), H), nabla)
+        small = step.abs().amax() < REN_MIN_STEP
+
+        inv2 = se3.coerce(rt.delta_matrix(step) @ inv)
+        f2 = rt.energy(read, pts_cam, inv2, one_over_voxel)
+        accept = f2 < f
+        tiny = (f2 - f).abs() / f.abs().clamp(min=1e-12) < REN_MIN_DECREASE
+        take = ~done & accept & ~small
+        inv = torch.where(take, inv2, inv)
+        f = torch.where(take, f2, f)
+        lam = torch.where(done, lam, torch.where(accept, lam * 0.1, lam * 10.0))
+        done = done | small | (accept & tiny)
+    return TrackResult(pose=se3.invert(se3.coerce(inv)), f=f, num_valid=(depth > 0).sum(dtype=torch.int32))
+
+
 def track_external(pose: torch.Tensor, external_pose: torch.Tensor) -> TrackResult:
     """External pose injection: the tracker passes the given pose through
     (reference ITMExternalTracker.cpp:27-30)."""
@@ -240,3 +293,12 @@ def apply_imu_rotation(pose: torch.Tensor, delta_rot: torch.Tensor) -> torch.Ten
     """Pre-rotate the pose by a differential IMU rotation before ICP
     (reference ITMIMUTracker.cpp:17-22, the IMU→ICP composite)."""
     return se3.coerce(se3.pack_rt(pose[:3, :3] @ delta_rot, pose[:3, 3]))
+
+
+def track_far_from_point_cloud(pose: torch.Tensor, pose_point_cloud: torch.Tensor, age: torch.Tensor) -> torch.Tensor:
+    """Whether the tracking maps need a full raycast (reference
+    ITMTrackingState::TrackerFarFromPointCloud: older than 5 frames, or the
+    camera moved more than 0.0224 m since the last raycast); a device bool."""
+    t1 = se3.invert(pose)[:3, 3]
+    t2 = se3.invert(pose_point_cloud)[:3, 3]
+    return (age > 5) | (torch.linalg.vector_norm(t1 - t2) > 0.02236068)

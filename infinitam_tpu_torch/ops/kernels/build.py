@@ -58,8 +58,8 @@ SIGNATURES = {
     # a, b, out, n, stream: K2's division steps on n pairs (a card test holds them to IEEE division)
     "itpu_div_step_check": (P, P, P, I, P),
     # vox, grid, gx, gy, gz, ox, oy, oz, block_shift, inv_M, proj, inv_voxel, zmin, zmax, h, w,
-    # step_scale, out, stream
-    "itpu_raycast": (P, P, I, I, I, I, I, I, I, P, P, F, P, P, I, I, F, P, P),
+    # step_scale, enable (or null), out, stream
+    "itpu_raycast": (P, P, I, I, I, I, I, I, I, P, P, F, P, P, I, I, F, P, P, P),
 }
 
 KERNELS = ("icp", "icp_weighted", "integrate", "integrate_color", "raycast")

@@ -7,6 +7,7 @@ readFromSDF_color4u_interpolated).
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Tuple
 
 import torch
@@ -19,30 +20,32 @@ def read_sdf_uninterpolated(read: ReadFn, pts: torch.Tensor):
     return read(torch.floor(pts + 0.5).to(torch.int32))
 
 
+@functools.cache
+def _corner_offsets(device: torch.device) -> torch.Tensor:
+    """The 8 corner offsets [8, 3] int32, corner k = (dx, dy, dz) with
+    k = dx + 2·dy + 4·dz, made on `device` (no copy from the host)."""
+    k = torch.arange(8, dtype=torch.int32, device=device)
+    return torch.stack([k & 1, (k >> 1) & 1, k >> 2], dim=-1)
+
+
 def read_sdf_interpolated(read: ReadFn, pts: torch.Tensor):
     """Trilinear SDF over the 8 surrounding voxels. Returns (sdf, found),
-    found = all 8 taps found."""
+    found = all 8 taps found. The 8 taps are one read of the stacked
+    corners [8, ..., 3], which gives each tap what a read of its own gives,
+    with an eighth of the ops."""
     base = torch.floor(pts)
     coeff = pts - base
     ibase = base.to(torch.int32)
     cx, cy, cz = coeff[..., 0], coeff[..., 1], coeff[..., 2]
-    v, f = {}, {}
-    for dz in (0, 1):
-        for dy in (0, 1):
-            for dx in (0, 1):
-                off = torch.stack([ibase[..., 0] + dx, ibase[..., 1] + dy, ibase[..., 2] + dz], dim=-1)
-                v[dx, dy, dz], f[dx, dy, dz] = read(off)
-    r00 = (1 - cx) * v[0, 0, 0] + cx * v[1, 0, 0]
-    r10 = (1 - cx) * v[0, 1, 0] + cx * v[1, 1, 0]
-    r01 = (1 - cx) * v[0, 0, 1] + cx * v[1, 0, 1]
-    r11 = (1 - cx) * v[0, 1, 1] + cx * v[1, 1, 1]
+    offs = _corner_offsets(pts.device).reshape((8,) + (1,) * (pts.dim() - 1) + (3,))
+    v, f = read(ibase[None] + offs)
+    r00 = (1 - cx) * v[0] + cx * v[1]
+    r10 = (1 - cx) * v[2] + cx * v[3]
+    r01 = (1 - cx) * v[4] + cx * v[5]
+    r11 = (1 - cx) * v[6] + cx * v[7]
     r0 = (1 - cy) * r00 + cy * r10
     r1 = (1 - cy) * r01 + cy * r11
-    sdf = (1 - cz) * r0 + cz * r1
-    found = f[0, 0, 0]
-    for k in f.values():
-        found = found & k
-    return sdf, found
+    return (1 - cz) * r0 + cz * r1, f.all(dim=0)
 
 
 def read_color_interpolated(read_color: Callable[[torch.Tensor], torch.Tensor], pts: torch.Tensor) -> torch.Tensor:

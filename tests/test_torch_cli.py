@@ -1,7 +1,8 @@
 """The port's headless runner (`python -m infinitam_tpu_torch.apps.cli`),
 in-process on the CPU at 80×60: the synthetic run with its raycast dumps,
-the PGM fixture through the file reader, record and replay, and the
-settings that still raise before the first frame.
+the PGM fixture through the file reader, record and replay, the Ren
+tracker with the mesh written after the loop, and the setting that still
+raises before the first frame.
 """
 
 import os
@@ -54,12 +55,29 @@ def test_cli_records_and_replays(tmp_path, capsys):
     assert out.count("processed 2 frames") == 2
 
 
-@pytest.mark.parametrize("flags", [["--out-mesh", "scene.stl"], ["--tracker", "ren"], ["--swapping"]],
+@pytest.mark.parametrize("flags", [["--out-mesh", "scene.stl"], ["--tracker", "ren"], []],
                          ids=["out-mesh", "ren", "swapping"])
 def test_cli_refuses_unported_settings_before_any_frame(tmp_path, capsys, flags):
+    """--swapping (ROADMAP Queue 1 item 13) raises before the first frame,
+    alone or with the other flags: no frame, no render and no mesh."""
     mask = str(tmp_path / "r_%04i.png")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 14" if "--out-mesh" in flags else
-                       "infinitam_tpu_torch does not port"):
-        cli.main(["--synthetic", "--frames", "2", "--out-render", mask, *flags, *SMALL])
+    flags = [tmp_path / f if f.endswith(".stl") else f for f in flags]
+    with pytest.raises(NotImplementedError, match="item 13"):
+        cli.main(["--synthetic", "--frames", "2", "--out-render", mask, "--swapping", *map(str, flags), *SMALL])
     assert "frame" not in capsys.readouterr().out
     assert not os.listdir(tmp_path)
+
+
+def test_cli_runs_ren_and_writes_the_mesh(tmp_path, capsys):
+    """--tracker ren with --out-mesh: the mesh is written after the loop, an
+    OBJ for a .obj path."""
+    out_mesh = str(tmp_path / "scene.obj")
+    assert cli.main(["--synthetic", "--frames", "3", "--tracker", "ren", "--out-mesh", out_mesh, *SMALL]) == 0
+    out = capsys.readouterr().out
+    assert "processed 3 frames" in out and f"mesh saved to {out_mesh}" in out
+    # Ren reports ICP's inliers, counted at level 1 (40×30 pixels)
+    inliers = int(out.split("inliers=")[1].split()[0])
+    assert inliers > 500
+    lines = open(out_mesh).read().split("\n")
+    n_v, n_f = sum(ln.startswith("v ") for ln in lines), sum(ln.startswith("f ") for ln in lines)
+    assert n_f > 1000 and n_v == 3 * n_f

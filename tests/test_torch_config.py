@@ -64,11 +64,14 @@ def test_supported_settings_gate_reads_either_package(cfg):
     t_hp.check_supported(s)
     for good in (dict(use_color=True), dict(use_color=True, tracker_type=cfg.TrackerType.COLOR),
                  dict(tracker_type=cfg.TrackerType.WICP, model_sensor_noise=True, use_bilateral_filter=True),
-                 dict(tracker_type=cfg.TrackerType.EXTERNAL)):
+                 dict(tracker_type=cfg.TrackerType.EXTERNAL), dict(tracker_type=cfg.TrackerType.REN),
+                 dict(use_approximate_raycast=True)):
         t_hp.check_supported(s.replace(**good))
-    for bad in (dict(swapping_mode=cfg.SwappingMode.ENABLED), dict(tracker_type=cfg.TrackerType.REN),
-                dict(use_approximate_raycast=True)):
-        with pytest.raises(NotImplementedError):
+    # each refusal names the ROADMAP entry that takes it up
+    for bad, item in ((dict(swapping_mode=cfg.SwappingMode.ENABLED), "item 13"),
+                      (dict(raycast_coarse_factor=2), "K3 does not serve"),
+                      (dict(use_block_grid=False), "K3 does not serve")):
+        with pytest.raises(NotImplementedError, match=item):
             t_hp.check_supported(s.replace(**bad))
 
 

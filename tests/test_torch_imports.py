@@ -54,9 +54,9 @@ def test_every_port_module_imports_without_jax():
         [sys.executable, "-c", IMPORT_ALL], cwd=REPO, env=env, capture_output=True, text=True, timeout=120
     )
     assert res.returncode == 0, res.stderr
-    # the ported modules (the façade, the CLI and the I/O copies among them)
-    # plus packages, kernels and helpers
-    assert int(res.stdout.split()[-1]) >= 28
+    # the ported modules (the façade, the CLI, the I/O copies, the mesher
+    # and the Ren tracker among them) plus packages, kernels and helpers
+    assert int(res.stdout.split()[-1]) >= 32
 
 
 def test_cpu_frame_uses_only_plain_versions():
@@ -120,6 +120,29 @@ def test_cpu_engine_frames_launch_no_kernel():
     for _ in range(2):
         diag = eng.process_frame(metric_depth=src.get_images()[0])
     assert diag["num_valid"] > 1000 and eng.get_image("raycast").max() > 0
+    assert build.launch_counts() == dict.fromkeys(build.KERNELS, 0)
+    assert build.library.cache_info().currsize == 0
+
+
+@pytest.mark.parametrize("case", ["ren", "approximate_raycast"])
+def test_cpu_ren_and_approximate_frames_and_the_mesh_launch_no_kernel(case):
+    """The Ren tracker and the approximate raycast on the CPU, then the map's
+    mesh: every kernel wrapper takes its plain version."""
+    from infinitam_tpu_torch.engine.meshing_engine import mesh_scene_hash
+
+    img = (60, 80)
+    extra = dict(tracker_type=TrackerType.REN) if case == "ren" else dict(use_approximate_raycast=True)
+    settings = tiny_test_settings().replace(tracking=TrackingParams(n_levels=3, min_valid_points=50), **extra)
+    calib = default_calib(img[1], img[0])
+    proj = torch.as_tensor(calib.intrinsics_d.vector)
+    src = synth.SyntheticSource(calib, n_frames=3, img_size=img, device="cpu")
+    vol, rs, st = hp.create_engine_state(settings, img, device="cpu")
+    build.reset_launch_counts()
+    for _ in range(3):
+        view = build_view_from_metric_depth(src.get_images()[0], settings, calib)
+        vol, rs, st, diag = hp.process_frame_hash(vol, rs, st, view, proj, settings)
+    assert int(diag.num_valid) > 500 and np.isfinite(st.pose.numpy()).all()
+    assert mesh_scene_hash(vol, settings).n_triangles > 1000
     assert build.launch_counts() == dict.fromkeys(build.KERNELS, 0)
     assert build.library.cache_info().currsize == 0
 

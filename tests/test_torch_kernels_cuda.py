@@ -1,9 +1,11 @@
 """Card-only tests: each hand-written CUDA kernel (K1 at the five pyramid
 levels' shapes and twice on one input, unweighted and with per-pixel
 weights, K2 with and without its colour half,
-also on edited visible lists and on a one-CTA grid, K3 at two voxel sizes)
-against its plain PyTorch version on an NVIDIA GPU, at a small size, and the
-launch counts of the depth and colour frame loops.
+also on edited visible lists and on a one-CTA grid, K3 at two voxel sizes
+and with its enable flag false and true) against its plain PyTorch version
+on an NVIDIA GPU, at a small size; the launch counts of the depth, colour,
+Ren and approximate-raycast frame loops; the mesh on the card against the
+same code on the CPU.
 
 They carry the `cuda` marker and skip where no card is present. On a machine
 with a card (JAX need not be installed there), run them with:
@@ -18,7 +20,13 @@ import pytest
 import torch
 
 from infinitam_tpu_torch.calib import default_calib
-from infinitam_tpu_torch.config import SceneParams, TrackingParams, VoxelBlockHashParams, tiny_test_settings
+from infinitam_tpu_torch.config import (
+    SceneParams,
+    TrackerType,
+    TrackingParams,
+    VoxelBlockHashParams,
+    tiny_test_settings,
+)
 from infinitam_tpu_torch.engine import hash_pipeline as hp
 from infinitam_tpu_torch.engine import trackers
 from infinitam_tpu_torch.engine.view_builder import View
@@ -381,6 +389,53 @@ def test_k3_matches_plain(volume, request):
     p = raycast.raycast_grid_plain(*args).points
     assert int((p[..., 3] > 0).sum()) > 0.5 * IMG[0] * IMG[1]
     assert torch.equal(k, p)
+
+
+@pytest.mark.parametrize("flag", [True, False])
+def test_k3_enable_flag(fused, device, flag):
+    """With the device flag true K3 equals the plain march; false, no ray is
+    marched and an output filled with a sentinel comes back unchanged. The
+    flag costs no launch of its own."""
+    settings, proj, vol, rs, st, _depth, _c = fused
+    sp = settings.scene
+    zmin, zmax, _n = hp.expected_depth_ranges(vol, rs, st.pose, proj, IMG, settings)
+    args = (vol, hp.hv.get_block_grid(vol, settings.block_grid), settings.block_grid, settings.hashing,
+            se3.invert(st.pose), proj, IMG, 1.0 / sp.voxel_size, sp.mu, zmin, zmax)
+    enable = torch.tensor(flag, device=device)
+    sentinel = torch.full((*IMG, 4), -7.0, device=device)
+    build.reset_launch_counts()
+    k = raycast.raycast_grid(*args, enable=enable, out=sentinel.clone()).points
+    assert build.launch_counts()["raycast"] == 1
+    p = raycast.raycast_grid_plain(*args, enable=enable, out=sentinel).points
+    assert torch.equal(k, p)
+    assert torch.equal(k, sentinel) != flag
+
+
+@pytest.mark.parametrize("case", ["ren", "approximate_raycast"])
+def test_ren_and_approximate_paths_launch_their_kernels(device, case):
+    """3 frames on the card: Ren's ICP pre-step runs the levels above 0
+    (no_icp_run_till_level = 1); the approximate raycast launches K3 on
+    every frame, its march switched by a device flag."""
+    extra = dict(tracker_type=TrackerType.REN) if case == "ren" else dict(use_approximate_raycast=True)
+    _s, _p, vol, _rs, st, _d, counts = fuse_frames(SETTINGS.replace(**extra), device)
+    iters = TrackingParams(n_levels=3).iterations_per_level[:3]
+    icp_per_frame = sum(iters[1:]) if case == "ren" else sum(iters)
+    assert counts == {"icp": 3 * icp_per_frame, "icp_weighted": 0, "integrate": 3, "integrate_color": 0,
+                      "raycast": 3}
+    assert np.isfinite(st.pose.cpu().numpy()).all() and int((vol.entry_ptr >= 0).sum()) > 100
+
+
+def test_mesh_on_the_card_equals_the_cpu_mesh(fused):
+    """The same extraction code on the card and on a CPU copy of the volume:
+    the same triangles (counts equal, vertices within 1e-6 m)."""
+    from infinitam_tpu_torch.engine import meshing_engine
+
+    settings, _proj, vol, _rs, _st, _depth, _c = fused
+    on_card = meshing_engine.mesh_scene_hash(vol, settings)
+    cpu_vol = type(vol)(*(None if t is None else t.cpu() for t in vol))
+    on_cpu = meshing_engine.mesh_scene_hash(cpu_vol, settings)
+    assert on_card.n_triangles == on_cpu.n_triangles > 1000
+    np.testing.assert_allclose(on_card.triangles, on_cpu.triangles, rtol=0, atol=1e-6)
 
 
 def test_wrappers_check_their_inputs(fused, device):

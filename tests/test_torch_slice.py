@@ -22,7 +22,7 @@ import pytest
 import torch
 
 from infinitam_tpu.calib import default_calib
-from infinitam_tpu.config import TrackerType, TrackingParams, tiny_test_settings
+from infinitam_tpu.config import SwappingMode, TrackerType, TrackingParams, tiny_test_settings
 from infinitam_tpu.engine import hash_pipeline as j_hp
 from infinitam_tpu.engine.view_builder import View as JView
 from infinitam_tpu.io import synth as j_synth
@@ -113,9 +113,15 @@ def test_process_sequence_equals_frame_loop(replay):
 
 
 def test_unported_settings_are_refused(replay):
+    """Swapping and the read paths K3 does not serve raise; the Ren tracker
+    and the approximate raycast are ported."""
     settings, _calib, _d, _g = replay
-    with pytest.raises(NotImplementedError):
-        t_hp.create_engine_state(settings.replace(tracker_type=TrackerType.REN), IMG, device="cpu")
+    for bad in (dict(swapping_mode=SwappingMode.ENABLED), dict(raycast_coarse_factor=2),
+                dict(use_block_grid=False)):
+        with pytest.raises(NotImplementedError):
+            t_hp.create_engine_state(settings.replace(**bad), IMG, device="cpu")
+    for good in (dict(tracker_type=TrackerType.REN), dict(use_approximate_raycast=True)):
+        t_hp.create_engine_state(settings.replace(**good), IMG, device="cpu")
 
 
 def test_pgm_fixture_replay_tracks():
