@@ -33,8 +33,13 @@ package's benchmark: 5 mm and 1 cm voxels with depth ICP, and the 1 cm point
 with colour fusion (`1cm_rgb`); and through MainEngine.process_frame, the
 façade a user calls, at 5 mm with the weighted ICP tracker, the bilateral
 filter and the sensor-noise model (`5mm_wicp`) and with the composite ICP →
-Ren tracker (`5mm_ren`); and at 5 mm with the approximate raycast
-(`5mm_approx`). Each replay is gated on tracking accuracy (ATE RMSE < 1 cm,
+Ren tracker (`5mm_ren`); at 5 mm with the approximate raycast
+(`5mm_approx`); and through MainEngine with the host swap tier at 5 mm and
+at 1 cm (`5mm_swap`, `1cm_swap`, each right after its config without
+swapping; per replay it prints the blocks evicted, the needed-list entries
+resolved and those merged with stored data, the store's block count and the
+exchange's host waits, and at the end the swap ratio of frames/s). Each
+replay is gated on tracking accuracy (ATE RMSE < 1 cm,
 rotation RMSE < 1°), the five silent-cap counters (max over the replay =
 0), every kernel of its path launched (the colour kernel on every frame,
 the weighted K1 30 times a frame; at `5mm_ren` K1 28 times a frame, K2 and
@@ -44,7 +49,16 @@ its frame loop. The 5 mm map after its replay is meshed on the card
 (blocks, triangles, seconds), gated on 0 dropped triangles, identical
 triangles from two chunk sizes, host syncs that do not grow with the
 chunks, vertices inside the synthetic scene and a 256-block subset equal
-to the same code on a CPU copy of the volume. From the last `5mm_wicp`
+to the same code on a CPU copy of the volume. The `5mm_swap` engine then
+looks away for one frame (turned π about y) and replays frames 0-9 from
+frame 0's pose, gated on blocks evicted and merged back with stored data,
+the ATE over that return, the counters and no host sync; `flush_swap` must
+leave no eviction backlog and no block neither resident nor stored (its
+difference from a no-swap engine over the same 41 frames is printed, not
+gated); `save_engine` and `load_engine` into a fresh engine must give a
+byte-equal raycast image and an equal next pose (seconds and file sizes
+printed); and `apps/viewer.py` renders a 4-image orbit of the snapshot
+(4 PNGs and index.html, one image > 1% filled). From the last `5mm_wicp`
 engine it renders every `get_image` type, a freeview image from behind the
 scene among them, and the colour image of a `1cm_rgb` engine, and holds the
 live raycast image to the same render of the plain raycast (≤ 1 LSB on ≥
@@ -95,6 +109,7 @@ N_FRAMES = 30
 N_CHECK_FRAMES = 3  # frames fused before the kernel checks
 N_CHAIN_FRAMES = 3  # frames the K2 colour check fuses by kernel and by plain version
 N_TIMED = 3  # timed replays per config
+N_BACK = 10  # frames replayed from frame 0's pose in the 5mm_swap return phase
 PROFILE_FRAMES = 10  # frames in the --profile window, the last of the replay
 REPO = Path(__file__).resolve().parent
 SYNC_MSG = "called a synchronizing CUDA operation"
@@ -168,11 +183,21 @@ def approx_settings(cfg):
     return reference_settings(cfg).replace(use_approximate_raycast=True)
 
 
+def swap_settings(settings):
+    """A configuration with the host swap tier on (reference
+    ITMLibSettings::swappingMode, the JAX bench's swap point at 1 cm,
+    bench.py:169-204): blocks that leave the view stream to a host store of
+    1.81 GB (every hash entry's 512 voxels as int16 sdf and uint8 weight) and
+    back when they return."""
+    return settings.replace(swapping_mode=type(settings.swapping_mode).ENABLED)
+
+
 # kernels each replay's path must launch, by launch-counter name
 DEPTH_PATH = ("icp", "integrate", "raycast")
 RGB_PATH = ("icp", "integrate_color", "raycast")
 WICP_PATH = ("icp_weighted", "integrate", "raycast")
 # the JSON name of each kernel → its launch counter
+COUNTERS = ("n_alloc_overflow", "n_render_overflow", "n_pool_overflow", "n_too_big_blocks", "n_window_clipped")
 COUNTER = {"icp_reduce": "icp", "icp_reduce_weighted": "icp_weighted", "integrate_depth": "integrate",
            "integrate_color": "integrate_color", "raycast_grid": "raycast"}
 
@@ -219,25 +244,30 @@ def device_ms(fn, reps: int, flush: L2Flush | None = None):
     With `flush`, the L2 is flushed before each call (a cold time); the
     flush is not counted among the call's device ops. The profiler may lose
     an event at the window's edge, so the kernel count is rounded and the
-    time is a mean over the kernels it saw. The device ms is None when the
-    profiler saw none of the repo's kernels."""
+    time is a mean over the kernels it saw; it has also lost a whole
+    window's device events on the card, so a window in which it saw less
+    than half a kernel a call is taken again, twice at most. The device ms
+    is None when the profiler saw none of the repo's kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
     fn()
     torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            if flush is not None:
-                flush()
-            fn()
-        torch.cuda.synchronize()
-    on_device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    ours = [e for e in on_device if "itpu_" in e.name]
-    per_call = round(len(ours) / reps)
+    for _window in range(3):
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                if flush is not None:
+                    flush()
+                fn()
+            torch.cuda.synchronize()
+        on_device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        ours = [e for e in on_device if "itpu_" in e.name]
+        per_call = round(len(ours) / reps)
+        if per_call > 0:
+            break
     others = (len(on_device) - len(ours)) / reps - (flush is not None)
-    if not ours:
+    if per_call == 0:
         return None, per_call, others
     us = sum(e.time_range.end - e.time_range.start for e in ours)
     return us / 1000 / len(ours) * per_call, per_call, others
@@ -301,6 +331,25 @@ def repo_stack(frames) -> str:
         if path.is_relative_to(REPO):
             sites.append(f"{path.relative_to(REPO)}:{f.lineno}")
     return " < ".join(sites[:6])
+
+
+@contextlib.contextmanager
+def flag_syncs(sites: list):
+    """torch's sync debug mode over the block: the repo's source lines on the
+    stack of each host sync it reports are appended to `sites` (the mode's
+    one-time "prototype feature" notice is not a sync)."""
+    def on_warning(message, *_args, **_kw):
+        if SYNC_MSG in str(message):
+            sites.append(repo_stack(traceback.extract_stack()[:-1]))
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = on_warning
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield sites
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
 
 
 def back_pose() -> np.ndarray:
@@ -768,21 +817,21 @@ class Smoke:
         counters), N_TIMED timed runs (the first one counts kernel launches)
         and a phase run under the sync debug mode. `expected` maps launch
         counters to the launches each frame must make. Returns the launch
-        counts and the correctness run's final state (its engine with
-        `via_engine`, else its volume)."""
+        counts, the correctness run's final state (its engine with
+        `via_engine`, else its volume) and (frames/s of the timed runs, the
+        phase run's ms a frame).
+        With swapping it prints the exchange's counts and host waits."""
         depths = frames[0]
         run = self.run_engine if via_engine else self.run_frames
         fresh = self.fresh_engine if via_engine else self.fresh_state
         torch.cuda.synchronize()
         # 1) correctness run: poses, counters (read after the loop)
         final, *_rest, poses, diags = run(settings, frames)
+        swap = via_engine and final.swapping
+        waits = []  # the exchange's host waits in each timed run, then the phase run
         poses_np = torch.stack(poses).cpu().numpy().astype(np.float64)
         ate, rot = trajectory_errors(poses_np, gt.astype(np.float64))
-        counters = {
-            k: int(torch.stack([getattr(d, k) for d in diags]).max())
-            for k in ("n_alloc_overflow", "n_render_overflow", "n_pool_overflow", "n_too_big_blocks",
-                      "n_window_clipped")
-        }
+        counters = {k: int(torch.stack([getattr(d, k) for d in diags]).max()) for k in COUNTERS}
         n_vis = int(diags[-1].n_visible)
         # frames whose maps were raycast anew (age 0), a device count read
         # after the replay
@@ -803,6 +852,8 @@ class Smoke:
             times.append(time.perf_counter() - t0)
             if rep == 0:
                 launches = self.build.launch_counts()
+            if swap:
+                waits.append(state.swap_exchange.n_waits)
         dt = float(np.median(times))
 
         # 3) phase run: a CUDA event after each phase is issued; torch's sync
@@ -815,22 +866,13 @@ class Smoke:
             e.record()
             events.append((phase, e))
 
-        def on_warning(message, *_args, **_kw):
-            # the mode's one-time "prototype feature" notice is not a sync
-            if SYNC_MSG in str(message):
-                syncs.append(repo_stack(traceback.extract_stack()[:-1]))
-
         state = fresh(settings)
         torch.cuda.synchronize()
-        with warnings.catch_warnings():
-            warnings.simplefilter("always")
-            warnings.showwarning = on_warning
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                run(settings, frames, state, on_phase=mark)
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
+        with flag_syncs(syncs):
+            run(settings, frames, state, on_phase=mark)
         torch.cuda.synchronize()
+        if swap:
+            waits.append(state.swap_exchange.n_waits)
         n_syncs = len(syncs)
         phases = {}
         prev = None
@@ -854,6 +896,13 @@ class Smoke:
         print("  phase table (device-stream time between phase events, ms/frame): "
               + ", ".join(f"{k} {v:.3f} ({100 * v / frame_ms:.1f}%)" for k, v in table.items())
               + f"; frame {frame_ms:.3f}")
+        if swap:
+            ex = final.swap_exchange
+            print(f"  swap exchange of the correctness run (host halves done, two frames behind): {ex.n_evicted} "
+                  f"blocks evicted to the host store, {ex.n_listed} needed-list entries resolved, {ex.n_merged} "
+                  f"of them merged with stored data; the store holds {int(final.global_cache.has_stored.sum())} "
+                  f"blocks; host waits on a copy: {ex.n_waits} in that run, {waits[:-1]} in the timed runs, "
+                  f"{waits[-1]} in the phase run")
         self.gate(ate < 0.01, f"{name} ATE RMSE < 1 cm")
         self.gate(rot < 1.0, f"{name} rotation RMSE < 1 deg")
         self.gate(all(v == 0 for v in counters.values()), f"{name} all five counters 0")
@@ -869,7 +918,7 @@ class Smoke:
         if settings.use_approximate_raycast:
             self.gate(0 < n_full < len(depths), f"{name} both raycast branches ran (0 < full frames < {len(depths)})")
         self.gate(n_syncs == 0, f"{name} frame loop issued no host sync")
-        return launches, final
+        return launches, final, (fps, frame_ms)
 
     def get_image_check(self, engine, settings, frames, rgb_settings):
         """Every get_image type from a replay's last engine, a freeview
@@ -947,20 +996,8 @@ class Smoke:
                   "triangles")
         counts = []
         for chunk in (meshing.CHUNK_BLOCKS, meshing.CHUNK_BLOCKS // 8):
-            syncs = []
-
-            def on_warning(message, *_args, **_kw):
-                if SYNC_MSG in str(message):
-                    syncs.append(repo_stack(traceback.extract_stack()[:-1]))
-
-            with warnings.catch_warnings():
-                warnings.simplefilter("always")
-                warnings.showwarning = on_warning
-                torch.cuda.set_sync_debug_mode("warn")
-                try:
-                    meshing_engine.mesh_scene_hash(vol, settings, chunk_blocks=chunk)
-                finally:
-                    torch.cuda.set_sync_debug_mode("default")
+            with flag_syncs([]) as syncs:
+                meshing_engine.mesh_scene_hash(vol, settings, chunk_blocks=chunk)
             counts.append(len(syncs))
         n_chunks = [(ids.shape[0] + c - 1) // c for c in (meshing.CHUNK_BLOCKS, meshing.CHUNK_BLOCKS // 8)]
         print(f"  host syncs of mesh_scene_hash: {counts[0]} with {n_chunks[0]} chunks, {counts[1]} with "
@@ -1044,6 +1081,155 @@ class Smoke:
         self.gate(n == gt.shape[0] and on_card, "PGM fixture: every frame uploaded to the card as raw depth")
         self.gate(t_err[0] < 0.01 and r_err[0] < 1.0, "PGM fixture final pose within 1 cm and 1 deg")
 
+    def swap_return_check(self, settings, engine, frames, gt, noswap_settings):
+        """The swapping engine after its replay looks away for one frame (the
+        pose turned π about the camera's y axis, depth rendered there, maps
+        stale), then comes back to frame 0's pose (maps stale) and replays
+        frames 0..N_BACK-1, under the sync debug mode: blocks go out to the
+        host store and their stored data merges back. Gated on evictions
+        and merges with data in the phase, the ATE over frames 1..N_BACK-1 of
+        the return, the counters and no host sync; then on flush_swap leaving
+        no backlog and losing no block. Prints, ungated, the difference from
+        a no-swap engine that ran the same frames."""
+        depths = frames[0]
+        dev = self.dev
+        away = self.se3.se3_exp(torch.tensor([0.0, 0.0, 0.0, 0.0, float(np.pi), 0.0], device=dev))
+        far = self.synth.render_depth(away, self.proj, IMG)
+        start = torch.as_tensor(gt[0], device=dev)
+        stale = torch.full((), -1, dtype=torch.int32, device=dev)
+
+        def look_away_and_back(eng):
+            eng.set_pose(away)
+            eng.tracking_state = eng.tracking_state._replace(age=stale)
+            diags = [eng.process_frame(metric_depth=far).device]
+            eng.set_pose(start)
+            eng.tracking_state = eng.tracking_state._replace(age=stale)
+            poses = []
+            for d in depths[:N_BACK]:
+                diags.append(eng.process_frame(metric_depth=d).device)
+                poses.append(eng.tracking_state.pose)
+            return poses, diags
+
+        ex = engine.swap_exchange
+        before = (ex.n_evicted, ex.n_listed, ex.n_merged, int(engine.global_cache.has_stored.sum()))
+        torch.cuda.synchronize()
+        with flag_syncs([]) as syncs:
+            poses, diags = look_away_and_back(engine)
+        torch.cuda.synchronize()
+        evicted, listed, merged = ex.n_evicted - before[0], ex.n_listed - before[1], ex.n_merged - before[2]
+        ate, rot = trajectory_errors(torch.stack(poses).cpu().numpy().astype(np.float64),
+                                     gt[:N_BACK].astype(np.float64))
+        counters = {k: int(torch.stack([getattr(d, k) for d in diags]).max()) for k in COUNTERS}
+
+        def backlog(eng):
+            return int(((eng.swap_states == 2) & (eng.vol.entry_ptr >= 0)
+                        & (eng.render_state.visible_type == 0)).sum())
+
+        pending = backlog(engine)
+        t0 = time.perf_counter()
+        engine.flush_swap()
+        torch.cuda.synchronize()
+        flush_s = time.perf_counter() - t0
+        ptr = engine.vol.entry_ptr
+        stored = torch.from_numpy(engine.global_cache.has_stored).to(dev)
+        lost = int(((ptr == -1) & ~stored).sum())
+        n_alloc, n_res = int((ptr >= -1).sum()), int((ptr >= 0).sum())
+        print(f"5mm_swap return phase (1 frame looking away, then frames 0-{N_BACK - 1} from frame 0's pose): "
+              f"{evicted} blocks evicted, {listed} needed-list entries resolved, {merged} merged with stored data, "
+              f"the store {before[3]} → {int(engine.global_cache.has_stored.sum())} blocks before the flush; ATE "
+              f"RMSE over frames 1-{N_BACK - 1} {ate * 1000:.3f} mm, rotation {rot:.4f} deg; counters "
+              f"{json.dumps(counters)}; host syncs flagged {len(syncs)}; host waits on a copy "
+              f"{ex.n_waits} in the engine's life")
+        for site in sorted(set(syncs)):
+            print(f"    {syncs.count(site)}× at {site}")
+        print(f"  flush_swap: backlog {pending} → {backlog(engine)} (state 2, resident, not visible), "
+              f"{flush_s:.3f} s; {n_alloc} allocated entries, {n_res} resident, {int(stored.sum())} stored, {lost} neither")
+        self.gate(evicted > 0 and merged > 0, "5mm_swap return: blocks evicted and merged back with stored data")
+        self.gate(ate < 0.01, "5mm_swap return: ATE RMSE < 1 cm over frames 1-9")
+        self.gate(all(v == 0 for v in counters.values()), "5mm_swap return: all five counters 0")
+        self.gate(len(syncs) == 0, "5mm_swap return: no host sync")
+        self.gate(backlog(engine) == 0, "5mm_swap flush_swap: no eviction backlog")
+        self.gate(lost == 0, "5mm_swap flush_swap: every allocated block resident or stored")
+
+        # the same frames through a no-swap engine, compared over the blocks
+        # resident in both (not gated)
+        ref, _p, _d = self.run_engine(noswap_settings, frames)
+        look_away_and_back(ref)
+
+        def resident(eng):
+            ids = torch.nonzero(eng.vol.entry_ptr >= 0).squeeze(1)
+            pos = eng.vol.entry_pos[ids].cpu().numpy().astype(np.int64) + 2**20
+            return (pos[:, 0] << 42) | (pos[:, 1] << 21) | pos[:, 2], eng.vol.entry_ptr[ids]
+
+        (ka, pa), (kb, pb) = resident(engine), resident(ref)
+        _common, ia, ib = np.intersect1d(ka, kb, return_indices=True)
+        va = engine.vol.vox[pa[torch.from_numpy(ia).to(dev)].long()]
+        vb = ref.vol.vox[pb[torch.from_numpy(ib).to(dev)].long()]
+        dsdf = ((va >> 16) - (vb >> 16)).abs().cpu().numpy() / 32767.0
+        same_w = float((((va >> 8) & 0xFF) == ((vb >> 8) & 0xFF)).float().mean())
+        print(f"  against a no-swap engine over the same {N_FRAMES + 1 + N_BACK} frames (not gated): {len(ia)} blocks "
+              f"resident in both (of {len(ka)} and {len(kb)}); |Δsdf| median {np.median(dsdf):.6f}, 99th percentile "
+              f"{np.percentile(dsdf, 99):.6f} (×μ: {np.median(dsdf) * settings.scene.mu * 1000:.4f} / "
+              f"{np.percentile(dsdf, 99) * settings.scene.mu * 1000:.4f} mm); equal weight on {100 * same_w:.2f}% "
+              "of the voxels")
+
+    def checkpoint_check(self, settings, engine, frames, tmp) -> str:
+        """save_engine of the swapping engine and load_engine into a fresh
+        one (made before the clock starts), on the card; gated on the live
+        raycast image byte-equal and the next frame's pose equal. Returns the
+        snapshot's path."""
+        from infinitam_tpu_torch.utils import checkpoint
+
+        path = os.path.join(tmp, "snap.npz")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        checkpoint.save_engine(path, engine)
+        save_s = time.perf_counter() - t0
+        sizes = os.path.getsize(path), os.path.getsize(path + ".cache.npz")
+        loaded = self.fresh_engine(settings)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        checkpoint.load_engine(path, loaded)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        a, b = engine.get_image("raycast"), loaded.get_image("raycast")
+        nxt = frames[0][N_BACK]
+        engine.process_frame(metric_depth=nxt)
+        loaded.process_frame(metric_depth=nxt)
+        same_pose = np.array_equal(engine.get_pose(), loaded.get_pose())
+        print(f"checkpoint of the 5mm_swap engine: save_engine {save_s:.2f} s ({sizes[0]} bytes of state, "
+              f"{sizes[1]} bytes of host store, compressed), load_engine {load_s:.2f} s; live raycast image "
+              f"byte-equal {a.tobytes() == b.tobytes()} ({100 * filled(a):.1f}% filled); next frame's pose equal "
+              f"{same_pose}")
+        self.gate(a.tobytes() == b.tobytes() and filled(a) > 0.3, "checkpoint: the live raycast image byte-equal")
+        self.gate(same_pose, "checkpoint: the next frame's pose equal")
+        return path
+
+    def viewer_check(self, settings, snapshot: str) -> None:
+        """apps/viewer.py in-process: a 4-image orbit from the snapshot, with
+        its settings, on the card."""
+        from infinitam_tpu_torch.apps import viewer
+        from infinitam_tpu_torch.utils.image_io import read_image
+
+        sp, gp = settings.scene, settings.block_grid
+        with tempfile.TemporaryDirectory() as out_dir:
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = viewer.main(["--snapshot", snapshot, "--orbit", "4", "--out", out_dir, "--voxel-size",
+                                  str(sp.voxel_size), "--mu", str(sp.mu), "--grid-dims", *map(str, gp.dims),
+                                  "--grid-origin", *map(str, gp.origin)])
+            wall = time.perf_counter() - t0
+            files = sorted(os.listdir(out_dir))
+            fills = [filled(read_image(os.path.join(out_dir, f))) for f in files if f.endswith(".png")]
+        for line in out.getvalue().splitlines():
+            print(f"  viewer: {line}")
+        print(f"viewer --snapshot --orbit 4: rc {rc}, {files}, filled " + ", ".join(f"{100 * f:.1f}%" for f in fills)
+              + f", {wall:.1f} s wall")
+        self.gate(rc == 0 and files == ["index.html"] + [f"orbit_{k:04d}.png" for k in range(4)],
+                  "viewer wrote 4 orbit PNGs and index.html")
+        self.gate(max(fills, default=0.0) > 0.01, "viewer: an orbit image more than 1% filled")
+
     def profile(self, name, settings, frames, via_engine=False):
         """torch.profiler over the last PROFILE_FRAMES frames of a replay on a
         fresh map (the frames before them warm the map up, unprofiled)."""
@@ -1097,7 +1283,8 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
 
     t_start = time.perf_counter()
-    print(card_line())
+    card = card_line()
+    print(card)
     smoke = Smoke()
     from infinitam_tpu_torch.ops.kernels import build
 
@@ -1115,18 +1302,24 @@ def main() -> int:
     depths, rgbs, gt = smoke.frames()
     frames = (depths, rgbs)
     iters = smoke.trackers.level_iterations(smoke.cfg.TrackingParams())
+    every_frame = dict(icp=sum(iters), integrate=1, raycast=1)
     configs = [  # name, settings, kernels of its path, through MainEngine, launches a frame
         ("5mm", reference_settings(smoke.cfg), DEPTH_PATH, False, None),
+        # each swap replay right after its config without swapping: the
+        # ratio of their frames/s compares two replays minutes apart
+        ("5mm_swap", swap_settings(reference_settings(smoke.cfg)), DEPTH_PATH, True, every_frame),
         ("1cm", teddy_1cm_settings(smoke.cfg), DEPTH_PATH, False, None),
+        ("1cm_swap", swap_settings(teddy_1cm_settings(smoke.cfg)), DEPTH_PATH, True, every_frame),
         ("1cm_rgb", color_settings(smoke.cfg), RGB_PATH, False, None),
         ("5mm_wicp", wicp_settings(smoke.cfg), WICP_PATH, True, None),
         # Ren's ICP pre-step stops above level 0
         ("5mm_ren", ren_settings(smoke.cfg), DEPTH_PATH, True,
          dict(icp=sum(iters[1:]), integrate=1, raycast=1)),
         # K3 runs on every frame, marching only on the frames that refresh
-        ("5mm_approx", approx_settings(smoke.cfg), DEPTH_PATH, False, dict(icp=sum(iters), integrate=1, raycast=1)),
+        ("5mm_approx", approx_settings(smoke.cfg), DEPTH_PATH, False, every_frame),
     ]
-    s5, s1d, s1, s5w = (c[1] for c in configs[:4])
+    by_name = {c[0]: c[1] for c in configs}
+    s5, s1d, s1, s5w = (by_name[k] for k in ("5mm", "1cm", "1cm_rgb", "5mm_wicp"))
     vol, rs, st, view = smoke.fused(s5, frames)
     k2 = smoke.k2_check("5 mm", s5, vol, rs, st, view)
     kernels = [smoke.k1_check(s5, st, view.depth), k2]
@@ -1147,9 +1340,9 @@ def main() -> int:
     # counts are reset just before it and read just after), and per frame of
     # each replay
     launches = dict.fromkeys(build.KERNELS, 0)
-    per_frame = {}
+    per_frame, timing = {}, {}
     for name, settings, path, via_engine, expected in configs:
-        counts, final = smoke.replay(name, settings, frames, gt, path, via_engine, expected)
+        counts, final, timing[name] = smoke.replay(name, settings, frames, gt, path, via_engine, expected)
         per_frame[name] = {k: n / N_FRAMES for k, n in counts.items()}
         for k, n in counts.items():
             launches[k] += n
@@ -1157,7 +1350,16 @@ def main() -> int:
             smoke.mesh_check(settings, final)
         if name == "5mm_wicp":
             smoke.get_image_check(final, settings, frames, s1)
+        if name == "5mm_swap":
+            smoke.swap_return_check(settings, final, frames, gt, s5)
+            with tempfile.TemporaryDirectory() as tmp:
+                smoke.viewer_check(settings, smoke.checkpoint_check(settings, final, frames, tmp))
         del final
+    for size in ("5mm", "1cm"):
+        (fps, frame_ms), (fps_sw, frame_ms_sw) = timing[size], timing[f"{size}_swap"]
+        print(f"swap ratio, {size}_swap against {size} ({card}): frames/s with swapping over frames/s without "
+              f"{fps_sw / fps:.3f} ({fps_sw:.2f} / {fps:.2f}, timed replays); frame time without over frame "
+              f"time with {frame_ms / frame_ms_sw:.3f} ({frame_ms:.3f} / {frame_ms_sw:.3f} ms, phase runs)")
     smoke.cli_check()
     smoke.fixture_check()
     if args.profile:

@@ -7,17 +7,17 @@ Usage:
     python -m infinitam_tpu_torch.apps.cli <calib.txt> [<rgb_mask> <depth_mask>]
         [--frames N] [--synthetic] [--tum ROOT] [--out-mesh scene.stl]
         [--out-render render_%04i.png] [--record DIR] [--replay DIR]
-        [--tracker icp|wicp|color|ren|external] [--voxel-size 0.005] [--mu 0.02] [--cpu]
+        [--tracker icp|wicp|color|ren|external] [--swapping] [--voxel-size 0.005] [--mu 0.02] [--cpu]
 
 It runs on the card (there is no fallback: without one it fails), or on the
 CPU with --cpu. The frame loop reads nothing back to the host except once
 every 10 frames for the statistics line; --out-render renders and writes
 the raycast after every frame, which waits for the card; --out-mesh writes
 the map's mesh after the last frame (OBJ for a .obj path, else binary STL).
---swapping raises NotImplementedError before the first frame (ROADMAP
-Queue 1 item 13). As in the JAX package,
---tracker wicp does not turn on the sensor-noise model, so without it the
-weighted tracker runs unweighted (ROADMAP Queue 3).
+--swapping streams blocks that leave the view to a host store and back (the
+mesh then covers the resident blocks, as in the JAX package). As in the JAX
+package, --tracker wicp does not turn on the sensor-noise model, so without
+it the weighted tracker runs unweighted (ROADMAP Queue 3).
 """
 
 from __future__ import annotations
@@ -93,7 +93,7 @@ def main(argv=None):
         )
         calib = src.calib
     img_size = (calib.intrinsics_d.height, calib.intrinsics_d.width)
-    # made before the first frame is read: unported settings raise here
+    # made before the first frame is read
     engine = MainEngine(settings, calib, img_size, device=device)
     if args.record:
         src = srcs.RecordingSource(src, args.record)

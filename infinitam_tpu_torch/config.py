@@ -14,7 +14,9 @@ Fields that configure only the Pallas kernels (`use_pallas_*`,
 `raycast_t_march`, `raycast_pages_per_tile`, `raycast_pages_small`,
 `raycast_page_blocks`) are kept for that equality and ignored by the port,
 whose CUDA kernels have no page lists or tiers.
-engine/hash_pipeline.check_supported names what is not ported yet.
+engine/hash_pipeline.check_supported refuses what is not ported yet: the
+read paths K3 does not serve (`use_block_grid=False`,
+`raycast_coarse_factor > 1`).
 """
 
 from __future__ import annotations

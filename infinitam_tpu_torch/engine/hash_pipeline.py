@@ -2,7 +2,7 @@
 
 Counterpart of infinitam_tpu/engine/hash_pipeline.py for the depth-ICP,
 weighted-ICP, colour, Ren and external trackers, with or without colour
-fusion and the approximate raycast, without swapping (reference
+fusion, the approximate raycast and swapping (reference
 ITMMainEngine::ProcessFrame → ITMDenseMapper::ProcessFrame →
 ITMTrackingController::Prepare). Per frame: track (ICP and weighted ICP:
 kernel K1; Ren: K1 at the coarse levels, then the SDF LM against the
@@ -11,9 +11,12 @@ gate → allocate → integrate (kernel K2, with its colour half when
 `use_color`) → expected-depth ranges → raycast (kernel K3; in the RGB frame
 for the colour tracker; with the approximate raycast, its result is kept
 only on the frames that need a full refresh) → the next frame's tracking
-maps → diagnostics. Swapping raises (ROADMAP Queue 1 item 13), and so do
-the read paths K3 does not serve (`use_block_grid=False`,
-`raycast_coarse_factor > 1`).
+maps → diagnostics. With swapping, `step_frame_swap` also merges an earlier
+frame's needed blocks before tracking, reallocates and marks the visible
+swapped-out entries after allocating, and builds the needed list and evicts
+a window of invisible blocks before the raycast (engine/swapping.py). The
+read paths K3 does not serve (`use_block_grid=False`,
+`raycast_coarse_factor > 1`) raise.
 
 Every step is a fixed sequence of tensor ops and kernel launches that reads
 nothing back to the host, so frames queue on the card without a sync. Where
@@ -35,6 +38,7 @@ import torch.nn.functional as F
 
 from infinitam_tpu_torch.config import Settings, SwappingMode, TrackerType
 from infinitam_tpu_torch.engine import hash_volume as hv
+from infinitam_tpu_torch.engine import swapping
 from infinitam_tpu_torch.engine.hash_volume import HashVolume, RenderStateVH
 from infinitam_tpu_torch.engine.tracking_state import TrackingState, create_tracking_state
 from infinitam_tpu_torch.engine.trackers import (
@@ -77,7 +81,6 @@ def novel_cap(settings: Settings) -> int:
 
 # settings the port refuses, and the ROADMAP item that takes each up
 UNPORTED = {
-    "swapping_mode": "ROADMAP Queue 1 item 13 (swapping)",
     "raycast_coarse_factor": "ROADMAP Queue 1, the read paths K3 does not serve",
     "use_block_grid": "ROADMAP Queue 1, the read paths K3 does not serve",
 }
@@ -85,13 +88,12 @@ UNPORTED = {
 
 def check_supported(settings: Settings) -> None:
     """The port runs every tracker (depth ICP, weighted ICP, colour, Ren,
-    external) on the block-grid hash path, with or without colour fusion and
-    the approximate raycast, without swapping; swapping, the coarse raycast
-    pass and the hash-probe raycast raise, naming their ROADMAP item. (The
-    Pallas-only settings are ignored, see config.py.) Enums are compared by
-    value, so a Settings of the JAX package passes as well."""
+    external) on the block-grid hash path, with or without colour fusion,
+    the approximate raycast and swapping; the coarse raycast pass and the
+    hash-probe raycast raise, naming their ROADMAP entry. (The Pallas-only
+    settings are ignored, see config.py.) Enums are compared by value, so a
+    Settings of the JAX package passes as well."""
     refused = {
-        "swapping_mode": settings.swapping_mode.value != SwappingMode.DISABLED.value,
         "raycast_coarse_factor": settings.raycast_coarse_factor > 1,
         "use_block_grid": not settings.use_block_grid,
     }
@@ -110,7 +112,7 @@ class FrameDiagnostics(NamedTuple):
     n_alloc_overflow: torch.Tensor  # new blocks deferred (alloc / novel / out-of-grid caps)
     n_render_overflow: torch.Tensor  # visible blocks beyond max_render_blocks
     n_pool_overflow: torch.Tensor  # raycast blocks dropped; no pool in the CUDA raycast: 0
-    n_too_big_blocks: torch.Tensor  # blocks whose bbox exceeded the range raster tile
+    n_too_big_blocks: torch.Tensor  # blocks meeting the image whose bbox exceeded the range raster tile
     n_window_clipped: torch.Tensor  # integrate window clipping; K2 has no window: 0
 
 
@@ -134,7 +136,9 @@ def allocate_scene_from_depth(
     compact allocator: ±mu band DDA → neighbour dedupe → exact dedupe through
     the cell-claim plane → entry-grid taps (visible rows, allocation wants) →
     out-of-grid hash probes → last frame's visibles re-checked by projection
-    → the new compact visible list. `enable` (bool tensor) suppresses new
+    → the new compact visible list. With swapping, the [E] visible_type
+    plane is kept too (swapped-out entries coded VT_VISIBLE_SWAPPED) and the
+    re-check pads the image by 1/8. `enable` (bool tensor) suppresses new
     allocations while visibility still refreshes.
 
     Returns (vol, render_state, n_alloc_overflow). Which of several equal
@@ -151,6 +155,7 @@ def allocate_scene_from_depth(
     G3 = gx * gy * gz
     Vcap = hp.max_visible_blocks
     epoch = render_state.epoch + 1
+    use_swapping = settings.swapping_mode.value == SwappingMode.ENABLED.value
     i32 = dict(dtype=torch.int32, device=dev)
     if not torch.is_tensor(enable):
         enable = torch.full((), bool(enable), device=dev)
@@ -212,10 +217,12 @@ def allocate_scene_from_depth(
     oe = torch.where(ofound, opr.entry_idx, E)
     entry_epoch = scatter_drop(render_state.entry_epoch, oe, epoch)
     # sort-dedupe the found rows: many band candidates probe the same entry
-    # (their visible_type codes matter only to the swapping path)
-    oe_s, _ = torch.sort(oe, stable=True)
+    oe_s, order = torch.sort(oe, stable=True)
     first = torch.cat([torch.ones((1,), dtype=torch.bool, device=dev), oe_s[1:] != oe_s[:-1]]) & (oe_s < E)
     oog_vis_idx = torch.where(first, oe_s, E).to(torch.int32)
+    if use_swapping:
+        ocode = torch.where(opr.entry_ptr == hv.SWAPPED_PTR, hv.VT_VISIBLE_SWAPPED, hv.VT_VISIBLE)
+        oog_vis_code = torch.where(first, torch.where(ofound, ocode, 0)[order], 0)
     oog_new_idx = torch.full((OOG_CAP,), E, **i32)
 
     n_alloc_overflow = novel_overflow + k_overflow
@@ -227,7 +234,7 @@ def allocate_scene_from_depth(
         n_alloc_overflow = (
             n_alloc_overflow + (n_want - settings.max_alloc_blocks).clamp(min=0) + (n_oog - OOG_CAP).clamp(min=0)
         )
-        dummy_vt = torch.zeros((1,), **i32)  # codes are tracked compactly here
+        dummy_vt = torch.zeros((1,), **i32)  # the codes are written below
         ncell, _ = compact_by_mask(want, kcell, settings.max_alloc_blocks, fill=G3)
         nv = ncell < G3
         ncell_c = ncell.clamp(0, G3 - 1)
@@ -258,7 +265,7 @@ def allocate_scene_from_depth(
     ppos = vol.entry_pos[pidc.long()]
     ppx, ppy, ppz = ppos[:, 0], ppos[:, 1], ppos[:, 2]
     pvis = hv.check_block_visibility_planes(
-        ppx, ppy, ppz, pose, proj, img_size, sp.voxel_size, hp.block_size, enlarged=False
+        ppx, ppy, ppz, pose, proj, img_size, sp.voxel_size, hp.block_size, enlarged=use_swapping
     )
     pgx, pgy, pgz = ppx - ox, ppy - oy, ppz - oz
     pinb = (pgx >= 0) & (pgx < gx) & (pgy >= 0) & (pgy < gy) & (pgz >= 0) & (pgz < gz)
@@ -284,8 +291,21 @@ def allocate_scene_from_depth(
     # true visible count, uncapped: _frame_diag compares it with the caps
     n_visible = n_k_eff + n_prev + n_oog_v
 
+    # swapping evicts over the full [E] visible_type plane: clear last
+    # frame's rows, then write this frame's codes, in the JAX package's
+    # order (a later scatter wins an entry that two of them touch); without
+    # swapping the plane is carried untouched
+    vt = render_state.visible_type
+    if use_swapping:
+        k_code = torch.where((packed & 1) == 1, hv.VT_VISIBLE_SWAPPED, hv.VT_VISIBLE)
+        vt = scatter_drop(vt, torch.where(pvalid, pidc, E), hv.VT_NOT_VISIBLE)
+        vt = scatter_drop(vt, torch.where(k_live, k_eidx, E), k_code)
+        vt = scatter_drop(vt, torch.where(keep_prev, pidc, E), hv.VT_VISIBLE_PREVIOUS)
+        vt = scatter_drop(vt, torch.where(om_f, oog_vis_idx, E), oog_vis_code)
+        vt = scatter_drop(vt, torch.where(om_n, oog_new_idx, E), hv.VT_VISIBLE)
+
     new_rs = RenderStateVH(
-        visible_type=render_state.visible_type,
+        visible_type=vt,
         visible_ids=ids,
         n_visible=n_visible,
         cell_claim=cell_claim,
@@ -358,18 +378,25 @@ def _project_block_corners(bpos: torch.Tensor, pose: torch.Tensor, proj: torch.T
     return torch.stack(us, -1), torch.stack(vs, -1), torch.stack(zs, -1)
 
 
-def count_too_big_blocks(vol, render_state, pose, proj, settings: Settings) -> torch.Tensor:
+def count_too_big_blocks(vol, render_state, pose, proj, settings: Settings,
+                         img_size: Tuple[int, int]) -> torch.Tensor:
     """Visible blocks whose projected bbox reaches the MAX_T×MAX_T raster tile
-    of expected_depth_ranges (their range widens to the frustum)."""
+    of expected_depth_ranges (their range widens to the frustum), among those
+    whose bbox meets the image. A block wholly beside the image, which the
+    swap path's visibility test (the image padded by 1/8) can keep, clips to
+    the image's border in the raster and widens nothing; the JAX package
+    counts it (ROADMAP Queue 3)."""
+    H, W = img_size
     sub = settings.minmax_subsample
     _ids, _ptr, bpos, valid = _visible_rows(vol, render_state, settings.max_render_blocks)
     U, V, Z = _project_block_corners(
         bpos.to(torch.float32), pose, proj, settings.hashing.block_size * settings.scene.voxel_size
     )
-    du = (U.amax(-1) - U.amin(-1)) / sub
-    dv = (V.amax(-1) - V.amin(-1)) / sub
+    u_lo, u_hi, v_lo, v_hi = U.amin(-1), U.amax(-1), V.amin(-1), V.amax(-1)
+    meets = (u_hi >= 0) & (u_lo < W) & (v_hi >= 0) & (v_lo < H)
     onscreen = (Z > 0).any(-1)
-    return (valid & onscreen & ((du >= MINMAX_MAX_T) | (dv >= MINMAX_MAX_T))).sum(dtype=torch.int32)
+    big = ((u_hi - u_lo) / sub >= MINMAX_MAX_T) | ((v_hi - v_lo) / sub >= MINMAX_MAX_T)
+    return (valid & onscreen & meets & big).sum(dtype=torch.int32)
 
 
 def expected_depth_ranges(vol, render_state, pose, proj, img_size: Tuple[int, int], settings: Settings):
@@ -541,9 +568,11 @@ def no_phase(_name: str) -> None:
 
 def _track_fuse_impl(vol, render_state, state: TrackingState, view: View, proj, settings: Settings,
                      fusion_active: bool, proj_rgb=None, rgb_to_depth=None, external_pose=None,
-                     on_phase=no_phase):
-    """Track → divergence gate → allocate → integrate. Returns (vol,
-    render_state, pose, tr, n_alloc_overflow)."""
+                     on_phase=no_phase, swap_states=None):
+    """Track → divergence gate → allocate (with `swap_states`: then the
+    visible swapped-out entries take blocks and the visible entries are
+    marked for a swap-in check) → integrate. Returns (vol, render_state,
+    swap_states, pose, tr, n_alloc_overflow)."""
     tt = settings.tracker_type.value
     if tt == TrackerType.EXTERNAL.value:
         tr = track_external(state.pose, external_pose if external_pose is not None else state.pose)
@@ -595,12 +624,16 @@ def _track_fuse_impl(vol, render_state, state: TrackingState, view: View, proj, 
         vol, render_state, view.depth, pose, proj, settings,
         only_update_visible=not fusion_active, enable=fuse_enable,
     )
+    if swap_states is not None:
+        vol = swapping.reallocate_swapped_out(vol, render_state.visible_type, settings,
+                                              visible_ids=render_state.visible_ids)
+        swap_states = swapping.mark_visible_for_swap_compact(swap_states, render_state.visible_ids)
     on_phase("alloc")
     if fusion_active:
         vol = integrate_into_scene(vol, render_state, view, pose, proj, settings, proj_rgb=proj_rgb,
                                    rgb_to_depth=rgb_to_depth, enable=fuse_enable)
     on_phase("integrate")
-    return vol, render_state, pose, tr, n_alloc_overflow
+    return vol, render_state, swap_states, pose, tr, n_alloc_overflow
 
 
 def _prepare_impl(vol, render_state, state: TrackingState, view: View, pose, tr: TrackResult, proj,
@@ -642,7 +675,7 @@ def _prepare_impl(vol, render_state, state: TrackingState, view: View, pose, tr:
 
 
 def _frame_diag(vol, render_state, pose, proj, tr: TrackResult, settings: Settings, n_alloc_overflow,
-                n_pool_overflow) -> FrameDiagnostics:
+                n_pool_overflow, img_size: Tuple[int, int]) -> FrameDiagnostics:
     zero = torch.zeros((), dtype=torch.int32, device=pose.device)
     n_vis = render_state.n_visible
     n_render = (n_vis - settings.max_render_blocks).clamp(min=0) if settings.max_render_blocks else zero
@@ -654,7 +687,7 @@ def _frame_diag(vol, render_state, pose, proj, tr: TrackResult, settings: Settin
         n_alloc_overflow=n_alloc_overflow.to(torch.int32),
         n_render_overflow=n_render.to(torch.int32),
         n_pool_overflow=n_pool_overflow,
-        n_too_big_blocks=count_too_big_blocks(vol, render_state, pose, proj, settings),
+        n_too_big_blocks=count_too_big_blocks(vol, render_state, pose, proj, settings, img_size),
         # K2 fuses every voxel of a block with no image window, so nothing
         # clips: 0 by construction
         n_window_clipped=zero,
@@ -685,15 +718,87 @@ def process_frame_hash(
     "alloc", "integrate", "raycast"), so a caller can record a CUDA event
     there to time the phases; it must not sync."""
     check_supported(settings)
-    vol, render_state, pose, tr, n_alloc_overflow = _track_fuse_impl(
+    vol, render_state, _sw, pose, tr, n_alloc_overflow = _track_fuse_impl(
         vol, render_state, state, view, proj, settings, fusion_active, proj_rgb, rgb_to_depth, external_pose,
         on_phase,
     )
     new_state, n_pool = _prepare_impl(vol, render_state, state, view, pose, tr, proj, settings, proj_rgb,
                                       rgb_to_depth)
     on_phase("raycast")
-    diag = _frame_diag(vol, render_state, pose, proj, tr, settings, n_alloc_overflow, n_pool)
+    diag = _frame_diag(vol, render_state, pose, proj, tr, settings, n_alloc_overflow, n_pool,
+                       tuple(view.depth.shape))
     return vol, render_state, new_state, diag
+
+
+def step_track_fuse_swap(vol, render_state, state: TrackingState, swap_states, view: View, proj,
+                         settings: Settings, fusion_active: bool = True, proj_rgb=None, rgb_to_depth=None,
+                         external_pose=None, on_phase=no_phase):
+    """The device half-frame before a synchronous swap exchange: the same
+    tracker, divergence gate and fusion as process_frame_hash, with the
+    swap-protocol hooks (reference ITMDenseMapper.cpp:51-65). Returns (vol,
+    render_state, swap_states, pose, tr, diag)."""
+    check_supported(settings)
+    vol, render_state, swap_states, pose, tr, n_alloc_overflow = _track_fuse_impl(
+        vol, render_state, state, view, proj, settings, fusion_active, proj_rgb, rgb_to_depth, external_pose,
+        on_phase, swap_states=swap_states,
+    )
+    zero = torch.zeros((), dtype=torch.int32, device=proj.device)
+    diag = _frame_diag(vol, render_state, pose, proj, tr, settings, n_alloc_overflow, zero,
+                       tuple(view.depth.shape))
+    return vol, render_state, swap_states, pose, tr, diag
+
+
+def step_frame_swap(vol, render_state, state: TrackingState, swap_states, view: View, proj, settings: Settings,
+                    fusion_active: bool = True, proj_rgb=None, rgb_to_depth=None, external_pose=None,
+                    merge_flips: torch.Tensor | None = None, merge_slab: torch.Tensor | None = None,
+                    on_phase=no_phase):
+    """One swap-mode frame, all of it on the device with no host read: the
+    resolution of an earlier frame's needed list (`merge_flips`, that list's
+    meta [Q+1]: its entries go to state 2; `merge_slab`: the blocks of it
+    that have stored data, merged) → track → allocate → integrate (as
+    process_frame_hash) → this frame's needed list over the visible list →
+    the eviction of one rotating window → raycast. SwapExchange runs the
+    host halves around it.
+
+    `on_phase` as in process_frame_hash, with "swap" after the list and the
+    eviction. Returns (vol, render_state, tracking state, swap_states, diag,
+    in_meta [Q+1] (needed ids, count), (ev_meta [Qe+1] (evicted ids, count),
+    ev_sdf, ev_w, ev_clr, ev_wc))."""
+    check_supported(settings)
+    E = settings.hashing.n_entries
+    if merge_flips is not None:
+        # listed entries without stored data go straight to state 2 (the
+        # flips are an earlier frame's in_meta; its count row is dropped)
+        flips = merge_flips[:-1]
+        swap_states = scatter_drop(swap_states, torch.where(flips >= 0, flips, E), 2)
+    if merge_slab is not None:
+        vol, swap_states = swapping.merge_data_slab(vol, swap_states, merge_slab, settings,
+                                                    with_color=settings.use_color and vol.vox_rgb is not None)
+    vol, render_state, swap_states, pose, tr, n_alloc_overflow = _track_fuse_impl(
+        vol, render_state, state, view, proj, settings, fusion_active, proj_rgb, rgb_to_depth, external_pose,
+        on_phase, swap_states=swap_states,
+    )
+    in_ids, in_n, swap_states = swapping.build_swap_in_list_visible(
+        swap_states, render_state.visible_ids, swapping.exchange_quantum(settings))
+    vol, swap_states, ev_ids, ev_sdf, ev_w, ev_clr, ev_wc, ev_n = swapping.evict_blocks_window(
+        vol, swap_states, render_state.visible_type, settings, swapping.evict_quantum(settings),
+        render_state.epoch)
+    on_phase("swap")
+    new_state, n_pool = _prepare_impl(vol, render_state, state, view, pose, tr, proj, settings, proj_rgb,
+                                      rgb_to_depth)
+    on_phase("raycast")
+    diag = _frame_diag(vol, render_state, pose, proj, tr, settings, n_alloc_overflow, n_pool,
+                       tuple(view.depth.shape))
+    in_meta = torch.cat([in_ids, in_n[None]])
+    ev_meta = torch.cat([ev_ids, ev_n[None]])
+    return vol, render_state, new_state, swap_states, diag, in_meta, (ev_meta, ev_sdf, ev_w, ev_clr, ev_wc)
+
+
+def step_prepare(vol, render_state, state: TrackingState, view: View, pose, tr: TrackResult, proj,
+                 settings: Settings, proj_rgb=None, rgb_to_depth=None):
+    """The device half-frame after a synchronous swap exchange (the raycast
+    prepare). Returns (tracking state, n_pool_overflow)."""
+    return _prepare_impl(vol, render_state, state, view, pose, tr, proj, settings, proj_rgb, rgb_to_depth)
 
 
 def process_sequence_hash(vol, render_state, state, depths: torch.Tensor, proj, settings: Settings,

@@ -11,7 +11,8 @@ voxel block array (VBA); −1 → allocated but swapped out; ≤−2 → empty e
 
 Functions return new state tensors like their JAX counterparts, with one
 exception: `vox` (and `vox_rgb` with colour) is updated in place by the
-integrate step (ops/kernels/integrate.py), as the Pallas kernel aliases it.
+integrate step (ops/kernels/integrate.py), as the Pallas kernel aliases it,
+and by the swap merge and eviction (engine/swapping.py).
 """
 
 from __future__ import annotations
@@ -31,9 +32,12 @@ SWAPPED_PTR = -1  # allocated, streamed out to the host tier
 SDF_SCALE = 32767.0
 VOX_INIT = 32767 << 16  # empty space: sdf = 1.0, w = 0
 
-# visible_type code of a block inserted this frame (reference
-# ITMRenderState_VH; the other codes belong to the swapping path)
+# visible_type codes (reference ITMRenderState_VH); the [E] plane is kept
+# only when swapping, whose eviction reads VT_NOT_VISIBLE
+VT_NOT_VISIBLE = 0
 VT_VISIBLE = 1
+VT_VISIBLE_SWAPPED = 2  # visible, its block streamed out to the host store
+VT_VISIBLE_PREVIOUS = 3  # visible last frame and still in view
 
 # static bound on hash-chain walks (the default table's load factor is ~6%)
 MAX_PROBE = 4
@@ -234,6 +238,13 @@ def build_block_grid(vol: HashVolume, grid_params) -> torch.Tensor:
     inb = inb & (vol.entry_ptr >= 0)
     grid = torch.full((gx * gy * gz,), -1, dtype=torch.int32, device=cell.device)
     return scatter_drop(grid, torch.where(inb, cell, gx * gy * gz), vol.entry_ptr).reshape(gx, gy, gz)
+
+
+def refresh_caches(vol: HashVolume, grid_params) -> HashVolume:
+    """`entry_grid` and `block_grid` rebuilt from the hash (a snapshot that
+    lacks them; the test oracle of their per-frame upkeep)."""
+    return vol._replace(entry_grid=build_entry_grid(vol, grid_params),
+                        block_grid=build_block_grid(vol, grid_params).reshape(-1))
 
 
 def get_block_grid(vol: HashVolume, grid_params) -> torch.Tensor:

@@ -11,8 +11,10 @@ The state lives on `device`, the card unless the caller passes "cpu".
 as a `LazyDiag` over device tensors. `get_image` returns numpy and so waits
 for the card, as the JAX package's does; it is not on the frame path, and
 neither is the mesh, which reads back its block and triangle counts and
-the triangles. Swapping is not ported yet: it raises when the engine is
-made (hash_pipeline.check_supported).
+the triangles. With swapping, the frame runs as `step_frame_swap` and the
+host halves of the exchange pipeline two frames behind it
+(swapping.SwapExchange), so the frame still reads nothing back; the host
+store is numpy (`global_cache`), and `flush_swap` drains the exchange.
 """
 
 from __future__ import annotations
@@ -23,9 +25,10 @@ import numpy as np
 import torch
 
 from infinitam_tpu_torch.calib import RGBDCalib
-from infinitam_tpu_torch.config import Settings
+from infinitam_tpu_torch.config import Settings, SwappingMode
 from infinitam_tpu_torch.engine import hash_pipeline as hp
 from infinitam_tpu_torch.engine import hash_volume as hv
+from infinitam_tpu_torch.engine import swapping as sw
 from infinitam_tpu_torch.engine.meshing_engine import Mesh, mesh_scene_hash
 from infinitam_tpu_torch.engine.trackers import apply_imu_rotation
 from infinitam_tpu_torch.engine.view_builder import build_view, build_view_from_metric_depth
@@ -33,6 +36,7 @@ from infinitam_tpu_torch.io.sources import frame_tensor
 from infinitam_tpu_torch.ops import colormaps as cm
 from infinitam_tpu_torch.ops import raycast as rc
 from infinitam_tpu_torch.utils import se3
+
 
 class LazyDiag:
     """Mapping view over a frame's FrameDiagnostics of device tensors: a
@@ -75,8 +79,8 @@ class MainEngine:
         self.proj = torch.as_tensor(calib.intrinsics_d.vector, device=self.device)
         self.proj_rgb = torch.as_tensor(calib.intrinsics_rgb.vector, device=self.device)
         self.rgb_to_depth = torch.as_tensor(calib.rgb_to_depth, device=self.device)
-        self.vol, self.render_state, self.tracking_state = hp.create_engine_state(settings, self.img_size,
-                                                                                  device=self.device)
+        self.swapping = settings.swapping_mode.value == SwappingMode.ENABLED.value
+        self.reset_scene()
         self.fusion_active = True  # reference: turnOnIntegration / turnOffIntegration
         self.main_processing = True
         self.frame_no = 0
@@ -95,13 +99,20 @@ class MainEngine:
         self.main_processing = False
 
     def reset_scene(self):
+        """A fresh map (and, with swapping, fresh swap states, host store and
+        exchange)."""
         self.vol, self.render_state, self.tracking_state = hp.create_engine_state(self.settings, self.img_size,
                                                                                   device=self.device)
+        self.swap_states = self.global_cache = self.swap_exchange = None
+        if self.swapping:
+            self.swap_states = sw.create_swap_states(self.settings, device=self.device)
+            self.global_cache = sw.GlobalCache.create(self.settings)
+            self.swap_exchange = sw.SwapExchange(self.settings, self.settings.use_color, device=self.device)
 
     # ----- per frame -----------------------------------------------------
     def process_frame(self, raw_depth=None, rgb=None, metric_depth=None, imu_rotation=None, external_pose=None,
                       on_phase=hp.no_phase):
-        """UpdateView → Track → Fuse → Prepare. Frames are numpy arrays or
+        """UpdateView → Track → Fuse (→ swap) → Prepare. Frames are numpy arrays or
         tensors (moved to the engine's device); `imu_rotation` [3, 3] is a
         differential rotation applied to the pose before tracking,
         `external_pose` [4, 4] the pose the external tracker takes.
@@ -123,13 +134,36 @@ class MainEngine:
                 pose=apply_imu_rotation(self.tracking_state.pose, self._f32(imu_rotation)))
         if external_pose is not None:
             external_pose = self._f32(external_pose)
-        self.vol, self.render_state, self.tracking_state, d = hp.process_frame_hash(
-            self.vol, self.render_state, self.tracking_state, view, self.proj, self.settings,
-            fusion_active=self.fusion_active, proj_rgb=self.proj_rgb, rgb_to_depth=self.rgb_to_depth,
-            external_pose=external_pose, on_phase=on_phase,
-        )
+        if self.swapping:
+            # the exchange's device half runs inside the frame step and its
+            # host half two frames behind, on copies that have landed
+            m_flips, m_slab = self.swap_exchange.merge_args()
+            (self.vol, self.render_state, self.tracking_state, self.swap_states, d, in_meta,
+             out_pack) = hp.step_frame_swap(
+                self.vol, self.render_state, self.tracking_state, self.swap_states, view, self.proj, self.settings,
+                fusion_active=self.fusion_active, proj_rgb=self.proj_rgb, rgb_to_depth=self.rgb_to_depth,
+                external_pose=external_pose, merge_flips=m_flips, merge_slab=m_slab, on_phase=on_phase,
+            )
+            self.swap_exchange.after_frame(in_meta, out_pack, self.global_cache)
+        else:
+            self.vol, self.render_state, self.tracking_state, d = hp.process_frame_hash(
+                self.vol, self.render_state, self.tracking_state, view, self.proj, self.settings,
+                fusion_active=self.fusion_active, proj_rgb=self.proj_rgb, rgb_to_depth=self.rgb_to_depth,
+                external_pose=external_pose, on_phase=on_phase,
+            )
         self.frame_no += 1
         return LazyDiag(d)
+
+    def flush_swap(self) -> None:
+        """Drain the pipelined exchange (checkpoint save, shutdown): the
+        pending host halves and merges, then one full-scan eviction (the
+        frame scans a rotating window), so that the map and the host store
+        hold every processed frame. It reads back to the host."""
+        if not self.swapping:
+            return
+        self.vol, self.swap_states = self.swap_exchange.flush(self.vol, self.swap_states, self.global_cache)
+        self.vol, self.swap_states = sw.swap_out(self.vol, self.swap_states, self.render_state, self.global_cache,
+                                                 self.settings)
 
     def _f32(self, a) -> torch.Tensor:
         """A pose, rotation or intrinsics (numpy or tensor) as float32 on the
@@ -187,7 +221,9 @@ class MainEngine:
         return img.cpu().numpy()
 
     def update_mesh(self) -> Mesh:
-        """Every triangle of the map (reference UpdateMesh)."""
+        """Every triangle of the map's resident blocks (reference UpdateMesh;
+        with swapping, as in the JAX package, blocks in the host store are
+        not meshed)."""
         return mesh_scene_hash(self.vol, self.settings)
 
     def save_scene_to_mesh(self, path: str) -> None:

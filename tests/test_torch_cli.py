@@ -1,8 +1,9 @@
-"""The port's headless runner (`python -m infinitam_tpu_torch.apps.cli`),
-in-process on the CPU at 80×60: the synthetic run with its raycast dumps,
-the PGM fixture through the file reader, record and replay, the Ren
-tracker with the mesh written after the loop, and the setting that still
-raises before the first frame.
+"""The port's headless runner (`python -m infinitam_tpu_torch.apps.cli`)
+and orbit viewer (`python -m infinitam_tpu_torch.apps.viewer`), in-process
+on the CPU at 80×60: the synthetic run with its raycast dumps, the PGM
+fixture through the file reader, record and replay, the Ren tracker with the
+mesh written after the loop, --swapping with each of those, and the viewer's
+orbit from a synthetic replay and from a snapshot.
 """
 
 import os
@@ -11,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from infinitam_tpu_torch.apps import cli
+from infinitam_tpu_torch.apps import cli, viewer
 from infinitam_tpu_torch.utils.image_io import read_image
 
 FIX = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures", "replay")
@@ -58,14 +59,19 @@ def test_cli_records_and_replays(tmp_path, capsys):
 @pytest.mark.parametrize("flags", [["--out-mesh", "scene.stl"], ["--tracker", "ren"], []],
                          ids=["out-mesh", "ren", "swapping"])
 def test_cli_refuses_unported_settings_before_any_frame(tmp_path, capsys, flags):
-    """--swapping (ROADMAP Queue 1 item 13) raises before the first frame,
-    alone or with the other flags: no frame, no render and no mesh."""
+    """--swapping, which the port refused until it ported swapping, runs, alone
+    or with the other flags: every frame is processed and rendered, and the
+    mesh (of the resident blocks) is written after the loop."""
     mask = str(tmp_path / "r_%04i.png")
     flags = [tmp_path / f if f.endswith(".stl") else f for f in flags]
-    with pytest.raises(NotImplementedError, match="item 13"):
-        cli.main(["--synthetic", "--frames", "2", "--out-render", mask, "--swapping", *map(str, flags), *SMALL])
-    assert "frame" not in capsys.readouterr().out
-    assert not os.listdir(tmp_path)
+    assert cli.main(["--synthetic", "--frames", "2", "--out-render", mask, "--swapping", *map(str, flags), *SMALL]) == 0
+    out = capsys.readouterr().out
+    assert "processed 2 frames" in out and "frame    2:" in out
+    assert int(out.split("inliers=")[1].split()[0]) > 500
+    files = sorted(os.listdir(tmp_path))
+    assert files == sorted(["r_0001.png", "r_0002.png"] + (["scene.stl"] if flags and str(flags[0]) == "--out-mesh"
+                                                           else []))
+    assert (read_image(mask.replace("%04i", "0002")) > 0).mean() > 0.3
 
 
 def test_cli_runs_ren_and_writes_the_mesh(tmp_path, capsys):
@@ -81,3 +87,35 @@ def test_cli_runs_ren_and_writes_the_mesh(tmp_path, capsys):
     lines = open(out_mesh).read().split("\n")
     n_v, n_f = sum(ln.startswith("v ") for ln in lines), sum(ln.startswith("f ") for ln in lines)
     assert n_f > 1000 and n_v == 3 * n_f
+
+
+@pytest.mark.parametrize("source", ["synthetic", "snapshot"])
+def test_viewer_writes_an_orbit(tmp_path, capsys, source):
+    """Two freeview renders on an orbit around the scene and the HTML strip,
+    from a 3-frame synthetic replay or from a swapping engine's snapshot
+    (written by save_engine after 3 frames; the viewer renders its resident
+    blocks)."""
+    from infinitam_tpu_torch.calib import default_calib
+    from infinitam_tpu_torch.config import SceneParams, Settings, SwappingMode
+    from infinitam_tpu_torch.engine.main_engine import MainEngine
+    from infinitam_tpu_torch.io import synth
+    from infinitam_tpu_torch.utils import checkpoint
+
+    flags = ["--synthetic", "--frames", "3"]
+    if source == "snapshot":
+        settings = Settings(scene=SceneParams(voxel_size=0.025, mu=0.1), swapping_mode=SwappingMode.ENABLED)
+        calib = default_calib(80, 60)
+        eng = MainEngine(settings, calib, (60, 80), device="cpu")
+        src = synth.SyntheticSource(calib, n_frames=3, img_size=(60, 80), device="cpu")
+        for _ in range(3):
+            eng.process_frame(metric_depth=src.get_images()[0])
+        checkpoint.save_engine(str(tmp_path / "snap.npz"), eng)
+        flags = ["--snapshot", str(tmp_path / "snap.npz")]
+    out_dir = tmp_path / "orbit"
+    assert viewer.main([*flags, "--orbit", "2", "--out", str(out_dir), *SMALL]) == 0
+    out = capsys.readouterr().out
+    assert ("restored snapshot at frame 3" in out) == (source == "snapshot")
+    assert sorted(os.listdir(out_dir)) == ["index.html", "orbit_0000.png", "orbit_0001.png"]
+    shots = [read_image(str(out_dir / f"orbit_{k:04d}.png")) for k in range(2)]
+    assert all(s.shape == (60, 80, 3) for s in shots) and max((s > 0).mean() for s in shots) > 0.1
+    assert open(out_dir / "index.html").read().count("<img") == 2

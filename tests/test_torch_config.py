@@ -65,11 +65,10 @@ def test_supported_settings_gate_reads_either_package(cfg):
     for good in (dict(use_color=True), dict(use_color=True, tracker_type=cfg.TrackerType.COLOR),
                  dict(tracker_type=cfg.TrackerType.WICP, model_sensor_noise=True, use_bilateral_filter=True),
                  dict(tracker_type=cfg.TrackerType.EXTERNAL), dict(tracker_type=cfg.TrackerType.REN),
-                 dict(use_approximate_raycast=True)):
+                 dict(use_approximate_raycast=True), dict(swapping_mode=cfg.SwappingMode.ENABLED)):
         t_hp.check_supported(s.replace(**good))
     # each refusal names the ROADMAP entry that takes it up
-    for bad, item in ((dict(swapping_mode=cfg.SwappingMode.ENABLED), "item 13"),
-                      (dict(raycast_coarse_factor=2), "K3 does not serve"),
+    for bad, item in ((dict(raycast_coarse_factor=2), "K3 does not serve"),
                       (dict(use_block_grid=False), "K3 does not serve")):
         with pytest.raises(NotImplementedError, match=item):
             t_hp.check_supported(s.replace(**bad))

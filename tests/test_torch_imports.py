@@ -5,8 +5,9 @@ never jax, nor any module of the JAX package (config and calib are the port's
 own copies). On the CPU every kernel wrapper
 takes its plain PyTorch version, so a CPU frame, with colour or without,
 through the frame step or the MainEngine façade, must leave every launch
-counter at 0 and never build the CUDA library. The entry points that place
-state on a device default to the card.
+counter at 0 and never build the CUDA library, with swapping and a
+checkpoint round trip too. The entry points that place state on a device
+default to the card, the swap tier and the viewer among them.
 """
 
 import inspect
@@ -20,7 +21,7 @@ import pytest
 import torch
 
 from infinitam_tpu_torch.calib import default_calib
-from infinitam_tpu_torch.config import TrackerType, TrackingParams, tiny_test_settings
+from infinitam_tpu_torch.config import SwappingMode, TrackerType, TrackingParams, tiny_test_settings
 from infinitam_tpu_torch.engine import hash_pipeline as hp
 from infinitam_tpu_torch.engine import hash_volume as hv
 from infinitam_tpu_torch.engine.view_builder import build_view_from_metric_depth
@@ -54,9 +55,10 @@ def test_every_port_module_imports_without_jax():
         [sys.executable, "-c", IMPORT_ALL], cwd=REPO, env=env, capture_output=True, text=True, timeout=120
     )
     assert res.returncode == 0, res.stderr
-    # the ported modules (the façade, the CLI, the I/O copies, the mesher
-    # and the Ren tracker among them) plus packages, kernels and helpers
-    assert int(res.stdout.split()[-1]) >= 32
+    # the ported modules (the façade, the CLI, the I/O copies, the mesher,
+    # the Ren tracker, the swap tier, the checkpoint and the viewer among
+    # them) plus packages, kernels and helpers
+    assert int(res.stdout.split()[-1]) >= 35
 
 
 def test_cpu_frame_uses_only_plain_versions():
@@ -147,11 +149,51 @@ def test_cpu_ren_and_approximate_frames_and_the_mesh_launch_no_kernel(case):
     assert build.library.cache_info().currsize == 0
 
 
+def test_cpu_swap_frames_and_checkpoint_launch_no_kernel(tmp_path):
+    """A swapping MainEngine on the CPU (the frame step, the exchange, the
+    flush) and a checkpoint round trip take only plain versions: no kernel
+    is launched or built, and the restored state lies on the engine's
+    device."""
+    from infinitam_tpu_torch.engine.main_engine import MainEngine
+    from infinitam_tpu_torch.utils import checkpoint
+
+    img = (60, 80)
+    settings = tiny_test_settings().replace(tracking=TrackingParams(n_levels=3, min_valid_points=50),
+                                            swapping_mode=SwappingMode.ENABLED)
+    calib = default_calib(img[1], img[0])
+    src = synth.SyntheticSource(calib, n_frames=3, img_size=img, device="cpu")
+    eng = MainEngine(settings, calib, img, device="cpu")
+    build.reset_launch_counts()
+    for _ in range(3):
+        diag = eng.process_frame(metric_depth=src.get_images()[0])
+    path = str(tmp_path / "snap.npz")
+    checkpoint.save_engine(path, eng)  # drains the exchange: flush_swap
+    eng2 = MainEngine(settings, calib, img, device="cpu")
+    checkpoint.load_engine(path, eng2)
+    assert diag["num_valid"] > 1000 and eng2.swap_exchange.n_listed == 0 < eng.swap_exchange.n_listed
+    assert all(t.device.type == "cpu" for t in (*eng2.vol[:8], *eng2.tracking_state, eng2.swap_states))
+    assert build.launch_counts() == dict.fromkeys(build.KERNELS, 0)
+    assert build.library.cache_info().currsize == 0
+
+
+def test_viewer_runs_on_the_card_by_default(tmp_path):
+    """The viewer places its engine on the card unless --cpu is passed:
+    without a card it raises instead of falling back to the CPU."""
+    from infinitam_tpu_torch.apps import viewer
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default runs there")
+    with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+        viewer.main(["--synthetic", "--frames", "1", "--orbit", "1", "--out", str(tmp_path), "--width", "8",
+                     "--height", "6"])
+    assert not os.listdir(tmp_path)
+
+
 def _default_device_calls():
     """Each entry point of the port that places state or frames on a device,
     called without a device."""
     from infinitam_tpu_torch import convert
-    from infinitam_tpu_torch.engine import tracking_state
+    from infinitam_tpu_torch.engine import swapping, tracking_state
     from infinitam_tpu_torch.engine.main_engine import MainEngine
     from infinitam_tpu_torch.io import sources
 
@@ -168,6 +210,10 @@ def _default_device_calls():
         "from_numpy": (convert.from_numpy,
                        lambda: convert.from_numpy(tracking_state.TrackingState, convert.to_numpy(cpu_state))),
         "MainEngine": (MainEngine.__init__, lambda: MainEngine(settings, default_calib(8, 6), (6, 8))),
+        "swapping MainEngine": (MainEngine.__init__, lambda: MainEngine(
+            settings.replace(swapping_mode=SwappingMode.ENABLED), default_calib(8, 6), (6, 8))),
+        "create_swap_states": (swapping.create_swap_states, lambda: swapping.create_swap_states(settings)),
+        "SwapExchange": (swapping.SwapExchange.__init__, lambda: swapping.SwapExchange(settings, False)),
         "make_source": (sources.make_source, lambda: sources.make_source(img_size=(6, 8), n_frames=1)),
         "DeviceFrameFeed": (sources.DeviceFrameFeed.__init__,
                             lambda: sources.DeviceFrameFeed(synth.SyntheticSource(
@@ -177,7 +223,8 @@ def _default_device_calls():
 
 @pytest.mark.parametrize("entry", ["create_engine_state", "create_hash", "create_render_state",
                                    "create_tracking_state", "SyntheticSource", "from_numpy", "MainEngine",
-                                   "make_source", "DeviceFrameFeed"])
+                                   "make_source", "DeviceFrameFeed", "swapping MainEngine", "create_swap_states",
+                                   "SwapExchange"])
 def test_entry_points_default_to_the_card(entry):
     """The port runs on the card unless the caller passes device="cpu": the
     default is "cuda", and without a card a call that names no device raises

@@ -5,7 +5,10 @@ also on edited visible lists and on a one-CTA grid, K3 at two voxel sizes
 and with its enable flag false and true) against its plain PyTorch version
 on an NVIDIA GPU, at a small size; the launch counts of the depth, colour,
 Ren and approximate-raycast frame loops; the mesh on the card against the
-same code on the CPU.
+same code on the CPU; K2 and K2c on visible lists with swapped-out and
+reallocated rows; the swap eviction and merge on the card against the same
+code on the CPU, and a swapping engine's round trip through the pinned
+exchange.
 
 They carry the `cuda` marker and skip where no card is present. On a machine
 with a card (JAX need not be installed there), run them with:
@@ -22,13 +25,16 @@ import torch
 from infinitam_tpu_torch.calib import default_calib
 from infinitam_tpu_torch.config import (
     SceneParams,
+    SwappingMode,
     TrackerType,
     TrackingParams,
     VoxelBlockHashParams,
     tiny_test_settings,
 )
 from infinitam_tpu_torch.engine import hash_pipeline as hp
-from infinitam_tpu_torch.engine import trackers
+from infinitam_tpu_torch.engine import hash_volume as hv
+from infinitam_tpu_torch.engine import swapping, trackers
+from infinitam_tpu_torch.engine.swapping import SWAP_IN_FLIGHT
 from infinitam_tpu_torch.engine.view_builder import View
 from infinitam_tpu_torch.io import synth
 from infinitam_tpu_torch.ops import pyramid, view_ops
@@ -467,3 +473,148 @@ def test_wrappers_check_their_inputs(fused, device):
             integrate.integrate_rgbd_cuda(vol.vox, a["vox_rgb"], *rows, depth, a["rgb"], st.pose, proj, st.pose,
                                           proj, one, 0.02, 0.08, 100, False)
     assert np.isfinite(st.pose.cpu().numpy()).all()
+
+
+def swapped_out_and_back(fused, device):
+    """A copy of the fused volume in which every other entry of the visible
+    list was evicted (ptr −1, its block cleared and freed) and every other
+    evicted entry then took a fresh block again (reallocated, cleared), as
+    the swap path leaves a visible list before K2 runs."""
+    settings, _proj, vol, rs, _st, _depth, *_c = fused
+    S = settings.replace(swapping_mode=SwappingMode.ENABLED)
+    E = S.hashing.n_entries
+    ids = rs.visible_ids[rs.visible_ids >= 0]
+    out, back = ids[::2], ids[::4]
+    vt = torch.ones(E, dtype=torch.int32, device=device)
+    vt[out.long()] = 0
+    vol2 = type(vol)(*(None if t is None else t.clone() for t in vol))
+    ss = torch.full((E,), 2, dtype=torch.int32, device=device)
+    vol2, ss, _ids, _s, _w, _c, _wc, n = swapping.evict_blocks(vol2, ss, vt, S, cap=int(out.numel()))
+    assert int(n) == out.numel()
+    vt2 = torch.zeros(E, dtype=torch.int32, device=device)
+    vt2[back.long()] = hv.VT_VISIBLE_SWAPPED
+    vol2 = swapping.reallocate_swapped_out(vol2, vt2, S, visible_ids=back.contiguous())
+    ptr = vol2.entry_ptr[ids.long()]
+    assert int((ptr == -1).sum()) > 50 and bool((vol2.entry_ptr[back.long()] >= 0).all())
+    return vol2
+
+
+def test_k2_on_a_list_with_swapped_out_and_reallocated_rows(fused, device):
+    """K2 skips the rows whose entry is swapped out (ptr −1) and fuses the
+    reallocated (cleared) blocks, bit for bit as its plain twin."""
+    vol2 = swapped_out_and_back(fused, device)
+    args = list(k2_args(fused, device))
+    args[1] = vol2.entry_ptr
+    vk, vp = vol2.vox.clone(), vol2.vox.clone()
+    build.reset_launch_counts()
+    integrate.integrate_depth(vk, *args)
+    assert build.launch_counts()["integrate"] == 1
+    integrate.integrate_depth_plain(vp, *args)
+    assert int((vp != vol2.vox).sum()) > 10000 and int((vk != vp).sum()) == 0
+
+
+def test_k2_color_on_a_list_with_swapped_out_and_reallocated_rows(fused_rgb, device):
+    vol2 = swapped_out_and_back(fused_rgb, device)
+    args = list(k2c_args(fused_rgb, device, True))
+    args[1] = vol2.entry_ptr
+    k = (vol2.vox.clone(), vol2.vox_rgb.clone())
+    p = (vol2.vox.clone(), vol2.vox_rgb.clone())
+    integrate.integrate_rgbd(*k, *args)
+    integrate.integrate_rgbd_plain(*p, *args)
+    assert int((p[1] != vol2.vox_rgb).sum()) > 1000
+    assert int((k[0] != p[0]).sum()) == 0 and int((k[1] != p[1]).sum()) == 0
+
+
+def cpu_copy(x):
+    """A copy on the CPU of a tensor or a state NamedTuple of tensors."""
+    if x is None:
+        return None
+    return x.to("cpu", copy=True) if torch.is_tensor(x) else type(x)(*(cpu_copy(t) for t in x))
+
+
+def assert_equal_outputs(card, cpu):
+    for a, b in zip(card, cpu):
+        if hasattr(a, "_fields"):
+            assert_equal_outputs(a, b)
+        elif a is not None:
+            assert torch.equal(a.cpu(), b), a.dtype
+
+
+@pytest.mark.parametrize("window", [0, 7, 15])
+def test_evict_blocks_window_on_the_card_equals_the_cpu(fused, device, window):
+    """The same eviction code on the card and on a CPU copy, with random
+    swap states and visible-type codes from a seed: every output equal."""
+    settings, _proj, vol, _rs, _st, _depth, _c = fused
+    S = settings.replace(swapping_mode=SwappingMode.ENABLED)
+    E = S.hashing.n_entries
+    rng = np.random.default_rng(window)
+    ss = torch.from_numpy(rng.choice(4, E, p=[0.2, 0.2, 0.5, 0.1]).astype(np.int32))
+    vt = torch.from_numpy(rng.choice(4, E, p=[0.6, 0.2, 0.1, 0.1]).astype(np.int32))
+    card = swapping.evict_blocks_window(type(vol)(*(None if t is None else t.clone() for t in vol)), ss.to(device),
+                                        vt.to(device), S, 64, torch.tensor(window + 32, device=device))
+    cpu = swapping.evict_blocks_window(cpu_copy(vol), ss, vt, S, 64, torch.tensor(window + 32))
+    assert int(cpu[-1]) > 0
+    assert_equal_outputs(card, cpu)
+
+
+@pytest.mark.parametrize("color", [False, True], ids=["depth", "colour"])
+def test_merge_data_slab_on_the_card_equals_the_cpu(fused, fused_rgb, color):
+    """A data slab packed from random host blocks (SwapExchange's packing),
+    merged by the same code on the card and on a CPU copy: the voxels (and
+    colours) and the swap states equal word for word."""
+    settings, _proj, vol, *_rest = fused_rgb if color else fused
+    S = settings.replace(swapping_mode=SwappingMode.ENABLED)
+    hp_, S3 = S.hashing, S.hashing.block_volume
+    rng = np.random.default_rng(3)
+    alloc = torch.nonzero(vol.entry_ptr >= 0).squeeze(1).cpu().numpy()
+    q = swapping.exchange_quantum(S)
+    ids = rng.choice(alloc, q, replace=False).astype(np.int32)
+    has = rng.random(q) < 0.5
+    bs = rng.integers(-32767, 32768, (q, S3)).astype(np.int16)
+    bw = np.where(has[:, None], rng.integers(0, 120, (q, S3)), 0).astype(np.uint8)
+    bc = rng.integers(0, 256, (q, S3, 3)).astype(np.uint8) if color else None
+    bwc = np.where(has[:, None], rng.integers(0, 120, (q, S3)), 0).astype(np.uint8) if color else None
+    slab = swapping.SwapExchange(S, color, device="cpu")._pack_data_slab(ids, bs, bw, has, bc, bwc, int(has.sum()))
+    ss = torch.full((hp_.n_entries,), SWAP_IN_FLIGHT, dtype=torch.int32)
+    card = swapping.merge_data_slab(type(vol)(*(None if t is None else t.clone() for t in vol)), ss.to(vol.vox.device),
+                                    torch.from_numpy(slab).to(vol.vox.device), S, with_color=color)
+    cpu = swapping.merge_data_slab(cpu_copy(vol), ss, torch.from_numpy(slab), S, with_color=color)
+    assert int((cpu[0].vox != vol.vox.cpu()).sum()) > 1000
+    assert_equal_outputs(card, cpu)
+
+
+def test_swap_engine_round_trip_on_the_card(device):
+    """MainEngine with swapping on the card: K1, K2 and K3 launched every
+    frame; blocks go out on a look-away frame and merge their stored data
+    when the camera comes back; the exchange's pinned copies are always
+    ready when the host reads them two frames on (0 waits); after the flush
+    every allocated block is resident or stored."""
+    from infinitam_tpu_torch.engine.main_engine import MainEngine
+
+    settings = SETTINGS.replace(swapping_mode=SwappingMode.ENABLED)
+    calib = default_calib(IMG[1], IMG[0])
+    src = synth.SyntheticSource(calib, n_frames=6, img_size=IMG, device=device)
+    frames = [src.get_images() for _ in range(6)]
+    eng = MainEngine(settings, calib, IMG, device=device)
+    build.reset_launch_counts()
+    for depth, _rgb, _gt in frames:
+        eng.process_frame(metric_depth=depth)
+    iters = sum(TrackingParams(n_levels=3).iterations_per_level[:3])
+    assert build.launch_counts() == {"icp": 6 * iters, "icp_weighted": 0, "integrate": 6, "integrate_color": 0,
+                                     "raycast": 6}
+    away = se3.se3_exp(torch.tensor([0.0, 0.0, 0.0, 0.0, float(np.pi), 0.0], device=device))
+    eng.set_pose(away)
+    eng.tracking_state = eng.tracking_state._replace(age=torch.tensor(-1, dtype=torch.int32, device=device))
+    eng.process_frame(metric_depth=synth.render_depth(away, eng.proj, IMG))
+    eng.set_pose(frames[0][2])
+    eng.tracking_state = eng.tracking_state._replace(age=torch.tensor(-1, dtype=torch.int32, device=device))
+    for depth, _rgb, _gt in frames[:5]:
+        eng.process_frame(metric_depth=depth)
+    ex = eng.swap_exchange
+    assert ex.n_waits == 0 and ex.n_evicted > 0 and ex.n_merged > 0
+    eng.flush_swap()
+    allocated = torch.nonzero(eng.vol.entry_ptr >= -1).squeeze(1)
+    resident = eng.vol.entry_ptr[allocated] >= 0
+    stored = torch.from_numpy(eng.global_cache.has_stored).to(device)[allocated]
+    assert bool((resident | stored).all())
+    assert np.isfinite(eng.get_pose()).all()

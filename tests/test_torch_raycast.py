@@ -72,9 +72,36 @@ def test_expected_depth_ranges_match_jax(scene):
     np.testing.assert_array_equal(zmax_t.numpy(), np.asarray(zmax_j))
     assert int(n_t) == int(n_j)
     assert (np.asarray(zmax_j) > np.asarray(zmin_j)).mean() > 0.5
-    assert int(t_hp.count_too_big_blocks(vt, rt, T(pose), T(proj), settings)) == int(
+    assert int(t_hp.count_too_big_blocks(vt, rt, T(pose), T(proj), settings, IMG)) == int(
         j_hp.count_too_big_blocks(vol, rs, jnp.asarray(pose), jnp.asarray(proj), settings)
     )
+
+
+@pytest.mark.parametrize("beside", [False, True], ids=["in_image", "beside_image"])
+def test_too_big_counter_skips_blocks_beside_the_image(beside):
+    """One block close to the camera whose projected bbox exceeds the range
+    raster's tile: straddling the camera plane it covers the image, and both
+    packages count it; wholly beside the image (where the swap path's
+    visibility test, which pads the image by 1/8, can keep a block), the
+    raster clips it to the border and widens nothing, so the port does not
+    count it, while the JAX package does (ROADMAP Queue 3)."""
+    settings = tiny_test_settings()
+    hp_ = settings.hashing
+    proj = default_calib(IMG[1], IMG[0]).intrinsics_d.vector
+    vol = t_hv.create_hash(hp_, grid_params=settings.block_grid, device="cpu")
+    vol.entry_pos[0] = torch.tensor([5, 0, 1] if beside else [0, 0, 0], dtype=torch.int32)
+    vol.entry_ptr[0] = 0
+    rs = t_hv.create_render_state(hp_, grid_params=settings.block_grid, device="cpu")
+    rs.visible_ids[0] = 0
+    pose = np.eye(4, dtype=np.float32)
+    U, _V, _Z = t_hp._project_block_corners(vol.entry_pos[:1].float(), T(pose), T(proj),
+                                            hp_.block_size * settings.scene.voxel_size)
+    assert bool((U.amin() > IMG[1]) if beside else (U.amax() - U.amin() > IMG[1]))
+    jvol = j_hv.HashVolume(**{k: None if v is None else jnp.asarray(v) for k, v in convert.to_numpy(vol).items()})
+    jrs = j_hv.RenderStateVH(**{k: None if v is None else jnp.asarray(v) for k, v in convert.to_numpy(rs).items()})
+    n_j = int(j_hp.count_too_big_blocks(jvol, jrs, jnp.asarray(pose), jnp.asarray(proj), settings))
+    n_t = int(t_hp.count_too_big_blocks(vol, rs, T(pose), T(proj), settings, IMG))
+    assert (n_j, n_t) == ((1, 0) if beside else (1, 1))
 
 
 def test_pixel_rays_match_jax(scene):

@@ -113,14 +113,14 @@ def test_process_sequence_equals_frame_loop(replay):
 
 
 def test_unported_settings_are_refused(replay):
-    """Swapping and the read paths K3 does not serve raise; the Ren tracker
-    and the approximate raycast are ported."""
+    """The read paths K3 does not serve raise; the Ren tracker, the
+    approximate raycast and swapping are ported."""
     settings, _calib, _d, _g = replay
-    for bad in (dict(swapping_mode=SwappingMode.ENABLED), dict(raycast_coarse_factor=2),
-                dict(use_block_grid=False)):
+    for bad in (dict(raycast_coarse_factor=2), dict(use_block_grid=False)):
         with pytest.raises(NotImplementedError):
             t_hp.create_engine_state(settings.replace(**bad), IMG, device="cpu")
-    for good in (dict(tracker_type=TrackerType.REN), dict(use_approximate_raycast=True)):
+    for good in (dict(tracker_type=TrackerType.REN), dict(use_approximate_raycast=True),
+                 dict(swapping_mode=SwappingMode.ENABLED)):
         t_hp.create_engine_state(settings.replace(**good), IMG, device="cpu")
 
 
