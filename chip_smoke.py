@@ -7,25 +7,28 @@ Run from the repository root, with no arguments:
 
 It builds the hand-written CUDA kernels (K1 ICP reduction, unweighted and
 with per-pixel weights, K2 TSDF integration with and without its colour
-half, K3 raycast) from infinitam_tpu_torch/csrc/ and holds each one to its
-plain PyTorch version on the card at the main path's shapes: K1 at each of
-the five pyramid levels, unweighted and weighted by the ω pyramid of a
-bilateral-filtered frame's σ_z, K2 and K3 on the 5 mm and on the 1 cm
-volume, K2's colour half over three chained frames, K3 also with its
-device-side enable flag false (the output must come back untouched) and
-true. For each kernel it
-prints its device time (the summed
+half, K3 raycast through the block grid and its two reader variants, K3h
+through the hash table and K3d over the dense voxel array) from
+infinitam_tpu_torch/csrc/ and holds each one to its plain PyTorch version on
+the card at the main path's shapes: K1 at each of the five pyramid levels,
+unweighted and weighted by the ω pyramid of a bilateral-filtered frame's
+σ_z, K2 and K3 on the 5 mm and on the 1 cm volume, K2's colour half over
+three chained frames, K3h on the 5 mm volume, K3d on the 512³ dense array
+after three dense frames; each raycast also with its device-side enable
+flag false (the output must come back untouched) and true. For each kernel
+it prints its device time (the summed
 duration of its own kernels in a torch.profiler window of calls with
-arguments built once; for K2 and K2c also cold, with a 128 MB buffer written
-before each call to empty the L2), the wrapper's call time (CUDA events
+arguments built once; for K2, K2c and the raycasts also cold, with a 128 MB
+buffer written before each call to empty the L2), the wrapper's call time (CUDA events
 around back-to-back calls, which time the host while it issues more slowly
 than the card runs), the plain version's time, and the kernel's bound: the
 larger of its bytes (each input read once, each output written once) over
 the card's memory rate and its float32 operations over the card's float32
 rate, with the share of the bound that the device time reaches. Bytes and
 operations are those this run's inputs need: the distinct pixels, grid
-cells and voxel words the kernel touches, the voxels it updates and the
-march steps its rays take, found through its plain version.
+cells, hash entries (20 B each) and voxel or sdf words the kernel touches,
+the voxels it updates and the march steps its rays take, found through its
+plain version.
 
 Then it replays 30 synthetic 640×480 RGB-D frames, rendered on the card,
 through the port's frame loop in the three configurations of the JAX
@@ -38,10 +41,16 @@ Ren tracker (`5mm_ren`); at 5 mm with the approximate raycast
 at 1 cm (`5mm_swap`, `1cm_swap`, each right after its config without
 swapping; per replay it prints the blocks evicted, the needed-list entries
 resolved and those merged with stored data, the store's block count and the
-exchange's host waits, and at the end the swap ratio of frames/s). Each
+exchange's host waits, and at the end the swap ratio of frames/s); through
+the dense frame step on the reference's 512³ voxel array (`dense_5mm`: K1
+30 and K3d once a frame, integration in torch ops); at 5 mm read through
+the hash table (`5mm_hashprobe`: K3h instead of K3) and with the coarse
+320×240 raycast pre-pass (`5mm_coarse2`: K3 twice a frame). Each
 replay is gated on tracking accuracy (ATE RMSE < 1 cm,
-rotation RMSE < 1°), the five silent-cap counters (max over the replay =
-0), every kernel of its path launched (the colour kernel on every frame,
+rotation RMSE < 1°), the silent-cap counters its path has (max over the
+replay = 0; the dense path has none), every kernel of its path launched
+(exact launches a frame for the three replays above and the swap and
+approximate ones; the colour kernel on every frame,
 the weighted K1 30 times a frame; at `5mm_ren` K1 28 times a frame, K2 and
 K3 once; at `5mm_approx` K1 30 times, K2 and K3 once, and both raycast
 branches taken: 0 < frames with a full raycast < 30) and no host sync in
@@ -49,7 +58,12 @@ its frame loop. The 5 mm map after its replay is meshed on the card
 (blocks, triangles, seconds), gated on 0 dropped triangles, identical
 triangles from two chunk sizes, host syncs that do not grow with the
 chunks, vertices inside the synthetic scene and a 256-block subset equal
-to the same code on a CPU copy of the volume. The `5mm_swap` engine then
+to the same code on a CPU copy of the volume; the dense map after its replay
+is meshed on the card too (0 dropped triangles, vertices on the scene's
+surface), and the share of valid depth pixels whose surface lies inside
+the 512³ array is printed, with each replay's peak device memory. The
+`5mm_hashprobe`, `5mm_coarse2` and `dense_5mm` poses are printed against
+the 5 mm replay's (not gated). The `5mm_swap` engine then
 looks away for one frame (turned π about y) and replays frames 0-9 from
 frame 0's pose, gated on blocks evicted and merged back with stored data,
 the ATE over that return, the counters and no host sync; `flush_swap` must
@@ -126,7 +140,11 @@ INTEGRATE_OPS_VOXEL = 37  # csrc/integrate.cu: centre, transform, projection, de
 INTEGRATE_OPS_UPDATE = 12  # an updated voxel's running average and quantisation
 INTEGRATE_OPS_COLOR = 100  # a colour voxel's transform, projection, bilinear tap and colour average
 RAYCAST_OPS_RAY = 80  # csrc/raycast.cu: the ray from the pixel and its two depth bounds
-RAYCAST_OPS_STEP = 40  # one march step
+# a march step of csrc/raycast.cu by its branch (a multiply-add counts 2):
+RAYCAST_OPS_READ = 10  # every step: + 0.5, floor and convert per axis, the sdf ≤ 0 test
+RAYCAST_OPS_DECODE = 2  # a block reader's found voxel: the int16 sdf's convert and scale (K3, K3h)
+RAYCAST_OPS_FOUND = 10  # a found voxel's step: s·step_scale, max(·, 1), the position's 3 multiply-adds, total's add and test
+RAYCAST_OPS_EMPTY = 34  # an empty voxel's DDA step: 7 a axis (·1/S, floor, + u, ·S, − p, ÷ d, the tiny select), 2 mins, + 0.01, max, min, then the position and total
 RAYCAST_OPS_HIT = 95  # a hit's secant step and two trilinear refinements
 
 
@@ -183,6 +201,27 @@ def approx_settings(cfg):
     return reference_settings(cfg).replace(use_approximate_raycast=True)
 
 
+def dense_settings(cfg):
+    """The reference's plain-voxel-array configuration (ITMPlainVoxelArray,
+    its default 512³ voxels at offset (−256, −256, 0): 1 GiB of float32 sdf
+    and int32 weight on the card) with reference_settings()' scene and
+    tracking."""
+    return reference_settings(cfg).replace(plain=cfg.PlainVoxelArrayParams())
+
+
+def hashprobe_settings(cfg):
+    """The reference operating point read through the hash table (the
+    reference's own per-voxel hash lookup, ITMRepresentationAccess.h)
+    instead of the block grid: the raycast is kernel K3h."""
+    return reference_settings(cfg).replace(use_block_grid=False)
+
+
+def coarse_settings(cfg):
+    """The reference operating point with the JAX package's hierarchical
+    raycast: a 320×240 pre-pass tightens the ranges of the full raycast."""
+    return reference_settings(cfg).replace(raycast_coarse_factor=2)
+
+
 def swap_settings(settings):
     """A configuration with the host swap tier on (reference
     ITMLibSettings::swappingMode, the JAX bench's swap point at 1 cm,
@@ -196,10 +235,13 @@ def swap_settings(settings):
 DEPTH_PATH = ("icp", "integrate", "raycast")
 RGB_PATH = ("icp", "integrate_color", "raycast")
 WICP_PATH = ("icp_weighted", "integrate", "raycast")
+DENSE_PATH = ("icp", "raycast_dense")
+HASHPROBE_PATH = ("icp", "integrate", "raycast_hash")
 # the JSON name of each kernel → its launch counter
 COUNTERS = ("n_alloc_overflow", "n_render_overflow", "n_pool_overflow", "n_too_big_blocks", "n_window_clipped")
 COUNTER = {"icp_reduce": "icp", "icp_reduce_weighted": "icp_weighted", "integrate_depth": "integrate",
-           "integrate_color": "integrate_color", "raycast_grid": "raycast"}
+           "integrate_color": "integrate_color", "raycast_grid": "raycast", "raycast_hash_probe": "raycast_hash",
+           "raycast_dense": "raycast_dense"}
 
 
 def card_line() -> str:
@@ -245,16 +287,18 @@ def device_ms(fn, reps: int, flush: L2Flush | None = None):
     flush is not counted among the call's device ops. The profiler may lose
     an event at the window's edge, so the kernel count is rounded and the
     time is a mean over the kernels it saw; it has also lost a whole
-    window's device events on the card, so a window in which it saw less
-    than half a kernel a call is taken again, twice at most. The device ms
-    is None when the profiler saw none of the repo's kernels."""
+    window's device events on the card. So a window in which it saw less
+    than half a kernel a call, or device ops that are not a whole number a
+    call (an event lost), is taken again, twice at most, and its counts are
+    printed; the last window counts. The device ms is None when the profiler saw none of the repo's
+    kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
     fn()
     torch.cuda.synchronize()
-    for _window in range(3):
+    for window in range(3):
         with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 if flush is not None:
@@ -264,8 +308,10 @@ def device_ms(fn, reps: int, flush: L2Flush | None = None):
         on_device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
         ours = [e for e in on_device if "itpu_" in e.name]
         per_call = round(len(ours) / reps)
-        if per_call > 0:
+        if per_call > 0 and len(ours) % reps == 0 and len(on_device) % reps == 0:
             break
+        print(f"  (profiler window {window + 1} of 3 lost events: {len(ours)} repo kernels and {len(on_device)} "
+              f"device ops over {reps} calls; " + ("taken again)" if window < 2 else "kept as the last)"))
     others = (len(on_device) - len(ours)) / reps - (flush is not None)
     if per_call == 0:
         return None, per_call, others
@@ -383,10 +429,11 @@ def gh_errors(a, b):
 class Smoke:
     def __init__(self):
         from infinitam_tpu_torch import calib, config
-        from infinitam_tpu_torch.engine import hash_pipeline, trackers
+        from infinitam_tpu_torch.engine import dense_pipeline, hash_pipeline, trackers, volume
         from infinitam_tpu_torch.engine.main_engine import MainEngine
         from infinitam_tpu_torch.engine.view_builder import build_view_from_metric_depth
         from infinitam_tpu_torch.io import sources, synth
+        from infinitam_tpu_torch.ops import hashing
         from infinitam_tpu_torch.ops import icp as icp_ops
         from infinitam_tpu_torch.ops import pyramid
         from infinitam_tpu_torch.ops import raycast as raycast_ops
@@ -394,6 +441,7 @@ class Smoke:
         from infinitam_tpu_torch.utils import se3
 
         self.cfg, self.hp, self.trackers, self.synth, self.se3 = config, hash_pipeline, trackers, synth, se3
+        self.dp, self.vol_mod, self.hashing = dense_pipeline, volume, hashing
         self.pyramid, self.icp_ops, self.raycast_ops = pyramid, icp_ops, raycast_ops
         self.build, self.k_icp, self.k_int, self.k_ray = build, icp, integrate, raycast
         self.build_view = build_view_from_metric_depth
@@ -406,6 +454,9 @@ class Smoke:
         self.rgb_to_depth = torch.as_tensor(self.calib.rgb_to_depth, device=self.dev)
         self.flush = L2Flush(self.dev)
         self.failures: list[str] = []
+        self.poses: dict = {}  # each replay's correctness-run poses (numpy), by name
+        self.ates: dict = {}  # each replay's ATE RMSE in metres, by name
+        self.k3_points = None  # K3's points in the last k3_check, for K3h's comparison
 
     def gate(self, ok: bool, what: str) -> None:
         print(f"  gate {'PASS' if ok else 'FAIL'}: {what}")
@@ -473,6 +524,55 @@ class Smoke:
         vol, rs, st, _p, _d = self.run_frames(settings, (depths[:N_CHECK_FRAMES], rgbs[:N_CHECK_FRAMES]))
         view = self.build_view(depths[N_CHECK_FRAMES], settings, self.calib, rgb=rgbs[N_CHECK_FRAMES])
         return vol, rs, st, view
+
+    def fresh_dense(self, settings):
+        return self.dp.create_engine_state(settings, IMG, device=self.dev)
+
+    def run_dense(self, settings, frames, state=None, on_phase=None):
+        """The dense voxel array's path: view → process_frame_dense, frame by
+        frame, from `state` (volume, tracking state) or a fresh 512³ volume.
+        Returns (volume, tracking state, poses, diagnostics); `self.ages` as
+        in run_frames."""
+        mark = on_phase or self.hp.no_phase
+        vol, st = state or self.fresh_dense(settings)
+        poses, diags = [], []
+        self.ages = []
+        for d in frames[0]:
+            mark("start")
+            view = self.build_view(d, settings, self.calib)
+            mark("view")
+            vol, st, diag = self.dp.process_frame_dense(vol, st, view, self.proj, settings, on_phase=mark)
+            mark("other")
+            poses.append(st.pose)
+            diags.append(diag)
+            self.ages.append(st.age)
+        return vol, st, poses, diags
+
+    def runner(self, kind: str):
+        """(run, fresh) of a replay kind: "frames" (process_frame_hash),
+        "engine" (MainEngine.process_frame) or "dense" (process_frame_dense)."""
+        return {"frames": (self.run_frames, self.fresh_state), "engine": (self.run_engine, self.fresh_engine),
+                "dense": (self.run_dense, self.fresh_dense)}[kind]
+
+    def inside_share(self, settings, frames, gt) -> float:
+        """The share of valid depth pixels, over all frames, whose surface
+        point at the true pose lies inside the dense array."""
+        p = settings.plain
+        lo = torch.tensor(p.offset, device=self.dev)
+        hi = lo + torch.tensor(p.size, device=self.dev)
+        fx, fy, cx, cy = self.proj
+        h, w = IMG
+        xs = torch.arange(w, dtype=torch.float32, device=self.dev)[None, :].expand(h, w)
+        ys = torch.arange(h, dtype=torch.float32, device=self.dev)[:, None].expand(h, w)
+        n_in = n_valid = 0
+        for d, g in zip(frames[0], gt):
+            inv = self.se3.invert(torch.as_tensor(g, device=self.dev))
+            pw = self.se3.apply_planes(inv, (xs - cx) / fx * d, (ys - cy) / fy * d, d)
+            vox = torch.floor(torch.stack(pw, -1) / settings.scene.voxel_size + 0.5)
+            valid = d > 0
+            inside = valid & ((vox >= lo) & (vox < hi)).all(-1)
+            n_in, n_valid = n_in + int(inside.sum()), n_valid + int(valid.sum())
+        return n_in / max(n_valid, 1)
 
     # --- what each kernel must move on its inputs -------------------------
     # The bound counts the distinct words a kernel reads and writes on this
@@ -552,45 +652,103 @@ class Smoke:
             n_ops += n_col * INTEGRATE_OPS_COLOR
         return n_bytes, n_ops
 
-    def raycast_traffic(self, settings, vol, grid, inv_M, zmin, zmax):
-        """(bytes, float32 operations, march steps) of K3 on these inputs.
-        The plain march runs through a reader that logs each read's grid
-        cell and voxel word; the kernel makes the march reads of the rays
-        still active (a ray is active in its first `steps` reads, each logged
-        as [H, W]) and the two trilinear refinement reads of the hits (each
-        logged as one [8, H, W] read of its corners). Bytes: zmin, zmax, the points out, the
-        distinct grid cells and voxel words read, inv_M's rows 0-2, proj."""
-        sp, gp, hp = settings.scene, settings.block_grid, settings.hashing
-        hv = self.hp.hv
-        read = hv.make_grid_reader(vol, grid, gp, hp)
-        flat_grid = grid.reshape(-1)
-        dims = torch.tensor(gp.dims, device=self.dev)
-        origin = torch.tensor(gp.origin, device=self.dev)
+    def raycast_traffic(self, settings, read, touched, tables, inv_M, zmin, zmax, decode_ops):
+        """(bytes, float32 operations, march steps by branch) of a K3 variant
+        on these inputs. The plain march runs through `read` while `touched(pts)` logs,
+        for each read of integer voxel points [..., 3], the entry of each
+        table the kernel loads for it ({table: index [...] or [..., k], −1
+        for none}); `tables` gives each table's (entries, bytes an entry).
+        The kernel makes the march reads of the rays still active (a ray is
+        active in its first `steps` reads, each logged as [H, W]) and the two
+        trilinear refinement reads of the hits (each logged as one [8, H, W]
+        read of its corners). Bytes: zmin, zmax, the points out, the distinct
+        table entries loaded, inv_M's rows 0-2, proj. Operations: each ray's
+        set-up, each march step by the branch its read takes ("found": a
+        found voxel with sdf > 0, "empty": a voxel not found, "stop": a found
+        voxel with sdf ≤ 0, which ends the march) plus `decode_ops` for
+        each found read, and each hit's refinement."""
+        sp = settings.scene
         log = []
 
         def logged_read(pts):
+            out = read(pts)
+            log.append((pts.dim() == 3, touched(pts), out))
+            return out
+
+        res = self.raycast_ops.generic_raycast(logged_read, inv_M, self.proj, IMG, 1.0 / sp.voxel_size, sp.mu, zmin,
+                                               zmax, block_size=settings.hashing.block_size)
+        hit = res.points[..., 3] > 0
+        seen = {k: torch.zeros(n, dtype=torch.bool, device=self.dev) for k, (n, _b) in tables.items()}
+        steps = dict(found=0, empty=0, stop=0)
+        for i, (march, idx, (s, found)) in enumerate(log):
+            if march:
+                active = res.steps > i
+                steps["found"] += int((active & found & (s > 0)).sum())
+                steps["empty"] += int((active & ~found).sum())
+                steps["stop"] += int((active & found & (s <= 0)).sum())
+            for k, ix in idx.items():
+                keep = res.steps > i if march else hit[None]
+                keep = keep.reshape(keep.shape + (1,) * (ix.dim() - keep.dim())).expand_as(ix)
+                sel = ix[keep]
+                seen[k][sel[sel >= 0].long()] = True
+        n_rays = IMG[0] * IMG[1]
+        assert sum(steps.values()) == int(res.steps.sum())
+        n_bytes = (n_rays * (4 + 4 + 16) + sum(int(seen[k].sum()) * b for k, (_n, b) in tables.items()) + 48 + 16)
+        n_ops = (n_rays * RAYCAST_OPS_RAY + sum(steps.values()) * RAYCAST_OPS_READ
+                 + (steps["found"] + steps["stop"]) * decode_ops + steps["found"] * RAYCAST_OPS_FOUND
+                 + steps["empty"] * RAYCAST_OPS_EMPTY + int(hit.sum()) * RAYCAST_OPS_HIT)
+        return n_bytes, n_ops, steps
+
+    def grid_touched(self, settings, vol, grid):
+        """K3's loads: the grid cell of the block and the voxel word."""
+        gp, hp = settings.block_grid, settings.hashing
+        hv = self.hp.hv
+        flat_grid = grid.reshape(-1)
+        dims = torch.tensor(gp.dims, device=self.dev)
+        origin = torch.tensor(gp.origin, device=self.dev)
+
+        def touched(pts):
             block, lin = hv.point_to_block(pts, hp.block_size)
             g = block - origin
             inb = ((g >= 0) & (g < dims)).all(dim=-1)
             cell = torch.where(inb, (g[..., 0] * gp.dims[1] + g[..., 1]) * gp.dims[2] + g[..., 2], -1)
             ptr = torch.where(inb, flat_grid[cell.clamp(min=0).long()], -1)
-            log.append((cell, torch.where(ptr >= 0, ptr * hp.block_volume + lin, -1)))
-            return read(pts)
+            return {"cell": cell, "word": torch.where(ptr >= 0, ptr * hp.block_volume + lin, -1)}
 
-        res = self.raycast_ops.generic_raycast(logged_read, inv_M, self.proj, IMG, 1.0 / sp.voxel_size, sp.mu, zmin,
-                                               zmax, block_size=hp.block_size)
-        hit = res.points[..., 3] > 0
-        cells = torch.zeros(flat_grid.numel(), dtype=torch.bool, device=self.dev)
-        words = torch.zeros(vol.vox.numel(), dtype=torch.bool, device=self.dev)
-        for i, (cell, word) in enumerate(log):
-            keep = res.steps > i if cell.dim() == 2 else hit.expand_as(cell)
-            c, wd = cell[keep], word[keep]
-            cells[c[c >= 0].long()] = True
-            words[wd[wd >= 0].long()] = True
-        n_rays, n_steps = IMG[0] * IMG[1], int(res.steps.sum())
-        n_bytes = n_rays * (4 + 4 + 16) + 4 * (int(cells.sum()) + int(words.sum())) + 48 + 16
-        n_ops = n_rays * RAYCAST_OPS_RAY + n_steps * RAYCAST_OPS_STEP + int(hit.sum()) * RAYCAST_OPS_HIT
-        return n_bytes, n_ops, n_steps
+        return touched, {"cell": (flat_grid.numel(), 4), "word": (vol.vox.numel(), 4)}
+
+    def hash_touched(self, settings, vol):
+        """K3h's loads: the entries its walk of the block's hash chain reads
+        (pos 12 B, ptr 4 B, offset 4 B: hash_volume.probe with
+        include_swapped=False, at most MAX_PROBE) and the voxel word."""
+        hp = settings.hashing
+        hv = self.hp.hv
+
+        def touched(pts):
+            block, lin = hv.point_to_block(pts, hp.block_size)
+            cur = self.hashing.hash_index(block, hp.hash_mask)
+            alive = torch.ones(cur.shape, dtype=torch.bool, device=self.dev)
+            walked = []
+            for _k in range(hv.MAX_PROBE):
+                walked.append(torch.where(alive, cur, -1))
+                c = cur.long()
+                match = (vol.entry_pos[c] == block).all(dim=-1) & (vol.entry_ptr[c] >= 0)
+                off = vol.entry_offset[c]
+                alive = alive & ~match & (off >= 1)
+                cur = torch.where(alive, hp.n_buckets + off - 1, cur)
+            pr = hv.probe(vol, block, hp, include_swapped=False)
+            word = torch.where(pr.found, pr.entry_ptr.long() * hp.block_volume + lin, -1)
+            return {"entry": torch.stack(walked, dim=-1), "word": word}
+
+        return touched, {"entry": (hp.n_entries, 20), "word": (vol.vox.numel(), 4)}
+
+    def dense_touched(self, settings, vol):
+        """K3d's loads: the float32 sdf word of each voxel inside the array."""
+        def touched(pts):
+            idx, inb = self.vol_mod._flat_index(settings.plain, pts)
+            return {"sdf": torch.where(inb, idx, -1)}
+
+        return touched, {"sdf": (vol.sdf.numel(), 4)}
 
     # --- kernel checks ----------------------------------------------------
     def k1_check(self, settings, st, depth, weights=None):
@@ -687,6 +845,66 @@ class Smoke:
                     replaces="infinitam_tpu/ops/pallas/integrate_kernel.py:256", max_abs_err=lsb / 32767.0, ms=dev,
                     cold_ms=cold, call_ms=call, plain_ms=plain, library_ms=None, **b)
 
+    def raycast_check(self, label, kernel, plain, args, traffic):
+        """A K3 variant against its plain twin, both called with `args` (the
+        main path's inputs): the hit mask equal and the points within 4e-6
+        voxel; one device kernel and no other device op a call, warm and cold
+        (the L2 flushed before each call); with the enable flag false the
+        output keeps what it held, true the points equal the call without a
+        flag. Returns the numbers of the JSON entry and the points."""
+        pk = kernel(*args).points
+        pp = plain(*args).points
+        n_bytes, n_ops, steps = traffic
+        n_steps = sum(steps.values())
+        fk, fp = pk[..., 3] > 0, pp[..., 3] > 0
+        n_mismatch = int((fk != fp).sum())
+        both = fk & fp
+        d = (pk[..., :3] - pp[..., :3]).norm(dim=-1)[both]
+        n_hits = int(fp.sum())
+        if not int(both.sum()):  # nothing to compare; the hits gate below fails
+            d = torch.full((1,), float("nan"), device=self.dev)
+        med, p95 = float(d.median()), float(torch.quantile(d, 0.95))
+        err = float((pk[..., :3] - pp[..., :3]).abs()[both].max()) if int(both.sum()) else float("nan")
+        b = bound(n_bytes, n_ops)
+        dev, per_call, others = device_ms(lambda: kernel(*args), 50)
+        cold, cold_per_call, cold_others = device_ms(lambda: kernel(*args), 50, self.flush)
+        call = cuda_ms(lambda: kernel(*args), 20)
+        plain_ms = cuda_ms(lambda: plain(*args), 2)
+        print(f"{label}: {n_hits} plain hits, {n_mismatch} hit/miss mismatches, offset max {err:.3e} voxels, "
+              f"{n_steps} march steps ({steps['found']} found, {steps['empty']} empty, {steps['stop']} at a hit); "
+              + timing_line(dev, per_call, others, b, call, plain_ms))
+        print(f"  {label} cold (L2 flushed before each call): device {fmt_ms(cold)} ({cold_per_call} kernel(s) "
+              f"and {cold_others:g} other device op(s) per call), "
+              + ("n/a" if cold is None else f"{100 * b['bound_ms'] / cold:.1f}%") + " of the bound")
+        # for reading only: the bars the JAX package holds its Pallas raycast to
+        print(f"  (Pallas-vs-XLA bars, not gated: agreement {1 - n_mismatch / fp.numel():.6f} > 0.93, "
+              f"median offset {med:.3e} < 0.5, p95 {p95:.3e} < 2 voxels)")
+        self.gate(int(both.sum()) > 100000, f"{label} hits most of the frame")
+        # same march and refinement as the plain version in the same float32
+        # ops: hits must agree ray for ray and points to a few 1e-6 voxel
+        # (below one float32 ulp beyond 32 voxels, so there they are equal)
+        self.gate(n_mismatch == 0 and err <= 4e-6, f"{label} hit mask equal to plain, points within 4e-6 voxel")
+        self.gate(per_call == 1 and others == 0 and cold_per_call == 1 and cold_others == 0,
+                  f"{label}: one device kernel per call, no other device op")
+        # the device-side enable flag (the approximate raycast): false, no
+        # ray is marched and the output keeps what it held; true, the
+        # points are those of the call without a flag
+        on, off = (torch.full((), v, dtype=torch.bool, device=self.dev) for v in (True, False))
+        sentinel = torch.full((*IMG, 4), -7.0, device=self.dev)
+        kept = kernel(*args, enable=off, out=sentinel.clone()).points
+        same = kernel(*args, enable=on).points
+        buf = torch.empty_like(sentinel)
+        dev_off, per_call_off, others_off = device_ms(lambda: kernel(*args, enable=off, out=buf), 50)
+        print(f"  {label} with its enable flag: false → output untouched {torch.equal(kept, sentinel)}, device "
+              f"{fmt_ms(dev_off)} ({per_call_off} kernel(s), {others_off:g} other op(s) a call) against "
+              f"{fmt_ms(dev)} with the flag true; true → equal to the call without a flag {torch.equal(same, pk)}")
+        self.gate(torch.equal(kept, sentinel), f"{label} flag false leaves the output untouched")
+        self.gate(torch.equal(same, pk), f"{label} flag true equal to the call without a flag")
+        self.gate(per_call_off == 1 and others_off == 0, f"{label} flag false: one device kernel, no other op")
+        return dict(max_abs_err=err, ms=dev, cold_ms=cold, call_ms=call, plain_ms=plain_ms, library_ms=None,
+                    flag_false_ms=dev_off, march_steps=n_steps,
+                    march_steps_found=steps["found"], march_steps_empty=steps["empty"], **b), pk
+
     def k3_check(self, label, settings, vol, rs, st):
         """K3 from the last pose over the fused volume, against the plain
         lock-step march on the same ranges."""
@@ -695,51 +913,55 @@ class Smoke:
         grid = self.hp.hv.get_block_grid(vol, settings.block_grid)
         rargs = (vol, grid, settings.block_grid, settings.hashing, self.se3.invert(st.pose), self.proj, IMG,
                  1.0 / sp.voxel_size, sp.mu, zmin, zmax)
-        pk = self.k_ray.raycast_grid(*rargs).points
-        pp = self.k_ray.raycast_grid_plain(*rargs).points
-        n_bytes, n_ops, n_steps = self.raycast_traffic(settings, vol, grid, rargs[4], zmin, zmax)
-        fk, fp = pk[..., 3] > 0, pp[..., 3] > 0
-        n_mismatch = int((fk != fp).sum())
-        both = fk & fp
-        d = (pk[..., :3] - pp[..., :3]).norm(dim=-1)[both]
-        med, p95 = float(d.median()), float(torch.quantile(d, 0.95))
-        err = float((pk[..., :3] - pp[..., :3]).abs()[both].max())
-        n_hits = int(fp.sum())
+        read = self.hp.hv.make_grid_reader(vol, grid, settings.block_grid, settings.hashing)
+        traffic = self.raycast_traffic(settings, read, *self.grid_touched(settings, vol, grid), rargs[4], zmin, zmax,
+                                       RAYCAST_OPS_DECODE)
         n_rows = int(self.hp._visible_rows(vol, rs, 0)[3].sum())
-        b = bound(n_bytes, n_ops)
-        dev, per_call, others = device_ms(lambda: self.k_ray.raycast_grid(*rargs), 50)
-        call = cuda_ms(lambda: self.k_ray.raycast_grid(*rargs), 20)
-        plain = cuda_ms(lambda: self.k_ray.raycast_grid_plain(*rargs), 2)
-        print(f"K3 raycast, {label}: {n_hits} plain hits, {n_mismatch} hit/miss mismatches, offset max {err:.3e} "
-              f"voxels, {n_rows} visible blocks, {n_steps} march steps; "
-              + timing_line(dev, per_call, others, b, call, plain))
-        # for reading only: the bars the JAX package holds its Pallas raycast to
-        print(f"  (Pallas-vs-XLA bars, not gated: agreement {1 - n_mismatch / fp.numel():.6f} > 0.93, "
-              f"median offset {med:.3e} < 0.5, p95 {p95:.3e} < 2 voxels)")
-        self.gate(int(both.sum()) > 100000, f"K3 {label} hits most of the frame")
-        # same march and refinement as the plain version in the same float32
-        # ops: hits must agree ray for ray and points to a few 1e-6 voxel
-        # (below one float32 ulp beyond 32 voxels, so there they are equal)
-        self.gate(n_mismatch == 0 and err <= 4e-6, f"K3 {label} hit mask equal to plain, points within 4e-6 voxel")
-        # the device-side enable flag (the approximate raycast): false, no
-        # ray is marched and the output keeps what it held; true, the
-        # points are those of the call without a flag
-        on, off = (torch.full((), v, dtype=torch.bool, device=self.dev) for v in (True, False))
-        sentinel = torch.full((*IMG, 4), -7.0, device=self.dev)
-        kept = self.k_ray.raycast_grid(*rargs, enable=off, out=sentinel.clone()).points
-        same = self.k_ray.raycast_grid(*rargs, enable=on).points
-        buf = torch.empty_like(sentinel)
-        dev_off, per_call_off, others_off = device_ms(
-            lambda: self.k_ray.raycast_grid(*rargs, enable=off, out=buf), 50)
-        print(f"  K3 {label} with its enable flag: false → output untouched {torch.equal(kept, sentinel)}, device "
-              f"{fmt_ms(dev_off)} ({per_call_off} kernel(s), {others_off:g} other op(s) a call) against "
-              f"{fmt_ms(dev)} with the flag true; true → equal to the call without a flag {torch.equal(same, pk)}")
-        self.gate(torch.equal(kept, sentinel), f"K3 {label} flag false leaves the output untouched")
-        self.gate(torch.equal(same, pk), f"K3 {label} flag true equal to the call without a flag")
-        self.gate(per_call_off == 1 and others_off == 0, f"K3 {label} flag false: one device kernel, no other op")
+        print(f"K3 raycast, {label}: {n_rows} visible blocks")
+        entry, points = self.raycast_check(f"K3 {label}", self.k_ray.raycast_grid, self.k_ray.raycast_grid_plain,
+                                           rargs, traffic)
+        self.k3_points = points
         return dict(name="raycast_grid", route="cuda", source="infinitam_tpu_torch/csrc/raycast.cu",
-                    replaces="infinitam_tpu/ops/pallas/raycast_kernel.py:500", max_abs_err=err, ms=dev, call_ms=call,
-                    plain_ms=plain, library_ms=None, flag_false_ms=dev_off, **b)
+                    replaces="infinitam_tpu/ops/pallas/raycast_kernel.py:500", **entry)
+
+    def k3h_check(self, settings, vol, rs, st):
+        """K3h from the last pose over the fused 5 mm volume, read through the
+        hash table, against its plain twin (the march over make_hash_reader)
+        on the ranges of the main path; its points against K3's on the same
+        map are printed (the map lies inside the grid's window)."""
+        sp, hp = settings.scene, settings.hashing
+        zmin, zmax, _ = self.hp.expected_depth_ranges(vol, rs, st.pose, self.proj, IMG, settings)
+        rargs = (vol, hp, self.se3.invert(st.pose), self.proj, IMG, 1.0 / sp.voxel_size, sp.mu, zmin, zmax)
+        traffic = self.raycast_traffic(settings, self.hp.hv.make_hash_reader(vol, hp),
+                                       *self.hash_touched(settings, vol), rargs[2], zmin, zmax,
+                                       RAYCAST_OPS_DECODE)
+        entry, points = self.raycast_check("K3h raycast (hash probe), 5 mm", self.k_ray.raycast_hash_probe,
+                                           self.k_ray.raycast_hash_probe_plain, rargs, traffic)
+        print(f"  K3h against K3 on the same map and ranges: equal {torch.equal(points, self.k3_points)}")
+        return dict(name="raycast_hash_probe", route="cuda", source="infinitam_tpu_torch/csrc/raycast.cu",
+                    replaces="infinitam_tpu/ops/pallas/raycast_kernel.py:500",
+                    stands_for="infinitam_tpu/engine/hash_pipeline.py:1162 (the XLA march over "
+                               "hash_volume.make_hash_reader)", **entry)
+
+    def k3d_check(self, settings, vol, st):
+        """K3d from the last pose over the dense 512³ volume after
+        N_CHECK_FRAMES dense frames, against its plain twin (the march over
+        volume.make_dense_reader) over the frustum's depth range, as
+        dense_pipeline.raycast_dense passes it."""
+        sp = settings.scene
+        zmin = torch.full(IMG, sp.view_frustum_min, dtype=torch.float32, device=self.dev)
+        zmax = torch.full(IMG, sp.view_frustum_max, dtype=torch.float32, device=self.dev)
+        rargs = (vol, settings.plain, self.se3.invert(st.pose), self.proj, IMG, 1.0 / sp.voxel_size, sp.mu, zmin,
+                 zmax)
+        read = self.vol_mod.make_dense_reader(vol, settings.plain)
+        traffic = self.raycast_traffic(settings, read, *self.dense_touched(settings, vol), rargs[2], zmin, zmax,
+                                       0)
+        entry, _points = self.raycast_check("K3d raycast (dense 512³), 5 mm", self.k_ray.raycast_dense,
+                                            self.k_ray.raycast_dense_plain, rargs, traffic)
+        return dict(name="raycast_dense", route="cuda", source="infinitam_tpu_torch/csrc/raycast.cu",
+                    replaces="infinitam_tpu/ops/pallas/raycast_kernel.py:500",
+                    stands_for="infinitam_tpu/engine/dense_pipeline.py:93 (the XLA march over "
+                               "volume.make_dense_reader)", **entry)
 
     def color_kernel_check(self, settings, vol, rs, frames, gt):
         """K2 with its colour half against its plain version on the 1 cm RGB
@@ -811,28 +1033,33 @@ class Smoke:
         return entry
 
     # --- replays ------------------------------------------------------------
-    def replay(self, name, settings, frames, gt, path, via_engine=False, expected=None):
-        """Replay `frames` three ways, through the frame step or (with
-        `via_engine`) through MainEngine: a correctness run (poses,
-        counters), N_TIMED timed runs (the first one counts kernel launches)
-        and a phase run under the sync debug mode. `expected` maps launch
-        counters to the launches each frame must make. Returns the launch
-        counts, the correctness run's final state (its engine with
-        `via_engine`, else its volume) and (frames/s of the timed runs, the
-        phase run's ms a frame).
+    def replay(self, name, settings, frames, gt, path, kind="frames", expected=None):
+        """Replay `frames` three ways, through the hash frame step, through
+        MainEngine or through the dense frame step (`kind`, see runner): a
+        correctness run (poses, counters, peak device memory), N_TIMED timed
+        runs (the first one counts kernel launches) and a phase run under the
+        sync debug mode. `expected` maps launch counters to the launches each
+        frame must make. Returns the launch counts, the correctness run's
+        final state (its engine through MainEngine, else its volume) and
+        (frames/s of the timed runs, the phase run's ms a frame).
         With swapping it prints the exchange's counts and host waits."""
         depths = frames[0]
-        run = self.run_engine if via_engine else self.run_frames
-        fresh = self.fresh_engine if via_engine else self.fresh_state
+        run, fresh = self.runner(kind)
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         # 1) correctness run: poses, counters (read after the loop)
         final, *_rest, poses, diags = run(settings, frames)
-        swap = via_engine and final.swapping
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        swap = kind == "engine" and final.swapping
         waits = []  # the exchange's host waits in each timed run, then the phase run
         poses_np = torch.stack(poses).cpu().numpy().astype(np.float64)
         ate, rot = trajectory_errors(poses_np, gt.astype(np.float64))
-        counters = {k: int(torch.stack([getattr(d, k) for d in diags]).max()) for k in COUNTERS}
-        n_vis = int(diags[-1].n_visible)
+        self.poses[name], self.ates[name] = poses_np, ate
+        # the counters the path has (the dense path's diagnostics have none)
+        counters = {k: int(torch.stack([getattr(d, k) for d in diags]).max()) for k in COUNTERS
+                    if hasattr(diags[0], k)}
+        n_vis = int(diags[-1].n_visible) if hasattr(diags[-1], "n_visible") else "n/a"
         # frames whose maps were raycast anew (age 0), a device count read
         # after the replay
         n_full = int((torch.stack(self.ages) == 0).sum())
@@ -887,7 +1114,8 @@ class Smoke:
         print(f"{name}: {fps:.2f} frames/s over {len(depths)} frames (median of {N_TIMED} replays; ms/frame "
               + ", ".join(f"{t * 1000 / len(depths):.2f}" for t in times)
               + f"), ATE RMSE {ate * 1000:.3f} mm, rotation RMSE {rot:.4f} deg, n_visible(last) {n_vis}")
-        print(f"  counters (max over frames): {json.dumps(counters)}; frames with a full raycast: {n_full}")
+        print(f"  counters (max over frames): {json.dumps(counters)}; frames with a full raycast: {n_full}; peak "
+              f"device memory of the correctness run {peak / 2**30:.3f} GiB (torch.cuda.max_memory_allocated)")
         print(f"  kernel launches in the timed replay: {json.dumps(launches)}; per frame: "
               + json.dumps({k: v / len(depths) for k, v in launches.items()}))
         print(f"  host syncs flagged in the phase run: {n_syncs}")
@@ -905,7 +1133,7 @@ class Smoke:
                   f"{waits[-1]} in the phase run")
         self.gate(ate < 0.01, f"{name} ATE RMSE < 1 cm")
         self.gate(rot < 1.0, f"{name} rotation RMSE < 1 deg")
-        self.gate(all(v == 0 for v in counters.values()), f"{name} all five counters 0")
+        self.gate(all(v == 0 for v in counters.values()), f"{name} every counter of its path 0 ({len(counters)})")
         self.gate(all(launches[k] > 0 for k in path), f"{name} every kernel of its path launched: {', '.join(path)}")
         if "integrate_color" in path:
             self.gate(launches["integrate_color"] == len(depths), f"{name} colour kernel launched on every frame")
@@ -1028,6 +1256,33 @@ class Smoke:
               f"max difference {diff:.3e} m")
         self.gate(on_card.shape == on_cpu.shape and on_cpu.shape[0] > 0 and diff <= 1e-6,
                   "mesh: a 256-block subset on the card equals the same code on the CPU within 1e-6 m")
+
+    def dense_mesh_check(self, settings, vol):
+        """The dense map's mesh after its replay, on the card: the occupied
+        virtual blocks, the triangles and seconds of mesh_scene_dense; gated
+        on 0 dropped triangles and the vertices on the synthetic scene's
+        surface."""
+        from infinitam_tpu_torch.engine import meshing_engine
+        from infinitam_tpu_torch.ops import meshing
+
+        sp = settings.scene
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mesh = meshing_engine.mesh_scene_dense(vol, settings)
+        secs = time.perf_counter() - t0
+        blocks = meshing_engine.dense_blocks(vol, settings.plain)
+        tris, n_valid = meshing.extract_mesh(self.vol_mod.make_dense_reader(vol, settings.plain), blocks,
+                                             self.vol_mod.VIRTUAL_BLOCK, sp.voxel_size)
+        n_valid = int(n_valid)
+        signed = self.synth.scene_sdf(tris.reshape(-1, 3))
+        med = float(signed.abs().median())
+        print(f"mesh of the dense map: {blocks.shape[0]} occupied 8³ blocks of {settings.plain.size}, "
+              f"{mesh.n_triangles} triangles, {secs:.3f} s (host clock, with the copy to the host); the emit pass "
+              f"found {n_valid} valid (voxel, slot) pairs; scene sdf at the vertices: median |·| {med * 1000:.3f} mm")
+        self.gate(mesh.n_triangles == tris.shape[0] == n_valid > 100000,
+                  "dense mesh: the triangle count equals the device's count of valid (voxel, slot) pairs (0 dropped)")
+        self.gate(med < 2 * sp.voxel_size, "dense mesh: median distance of the vertices from the scene's surface "
+                  "< 2 voxels")
 
     def cli_check(self):
         """The headless runner in-process on the card: N_FRAMES synthetic
@@ -1230,7 +1485,7 @@ class Smoke:
                   "viewer wrote 4 orbit PNGs and index.html")
         self.gate(max(fills, default=0.0) > 0.01, "viewer: an orbit image more than 1% filled")
 
-    def profile(self, name, settings, frames, via_engine=False):
+    def profile(self, name, settings, frames, kind="frames"):
         """torch.profiler over the last PROFILE_FRAMES frames of a replay on a
         fresh map (the frames before them warm the map up, unprofiled)."""
         from torch.autograd import DeviceType
@@ -1239,12 +1494,10 @@ class Smoke:
 
         n = PROFILE_FRAMES
         depths, rgbs = frames
-        if via_engine:
-            state, _p, _d = self.run_engine(settings, (depths[:-n], rgbs[:-n]))
-            run = self.run_engine
-        else:
-            state = self.run_frames(settings, (depths[:-n], rgbs[:-n]))[:3]
-            run = self.run_frames
+        run, _fresh = self.runner(kind)
+        warm = run(settings, (depths[:-n], rgbs[:-n]))
+        # the state a run continues from: the engine, or the volume and states
+        state = warm[0] if kind == "engine" else warm[:-2]
         torch.cuda.synchronize()
         with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -1303,23 +1556,32 @@ def main() -> int:
     frames = (depths, rgbs)
     iters = smoke.trackers.level_iterations(smoke.cfg.TrackingParams())
     every_frame = dict(icp=sum(iters), integrate=1, raycast=1)
-    configs = [  # name, settings, kernels of its path, through MainEngine, launches a frame
-        ("5mm", reference_settings(smoke.cfg), DEPTH_PATH, False, None),
+    none = dict.fromkeys(build.KERNELS, 0)
+    configs = [  # name, settings, kernels of its path, replay kind (Smoke.runner), launches a frame
+        ("5mm", reference_settings(smoke.cfg), DEPTH_PATH, "frames", None),
         # each swap replay right after its config without swapping: the
         # ratio of their frames/s compares two replays minutes apart
-        ("5mm_swap", swap_settings(reference_settings(smoke.cfg)), DEPTH_PATH, True, every_frame),
-        ("1cm", teddy_1cm_settings(smoke.cfg), DEPTH_PATH, False, None),
-        ("1cm_swap", swap_settings(teddy_1cm_settings(smoke.cfg)), DEPTH_PATH, True, every_frame),
-        ("1cm_rgb", color_settings(smoke.cfg), RGB_PATH, False, None),
-        ("5mm_wicp", wicp_settings(smoke.cfg), WICP_PATH, True, None),
+        ("5mm_swap", swap_settings(reference_settings(smoke.cfg)), DEPTH_PATH, "engine", every_frame),
+        ("1cm", teddy_1cm_settings(smoke.cfg), DEPTH_PATH, "frames", None),
+        ("1cm_swap", swap_settings(teddy_1cm_settings(smoke.cfg)), DEPTH_PATH, "engine", every_frame),
+        ("1cm_rgb", color_settings(smoke.cfg), RGB_PATH, "frames", None),
+        ("5mm_wicp", wicp_settings(smoke.cfg), WICP_PATH, "engine", None),
         # Ren's ICP pre-step stops above level 0
-        ("5mm_ren", ren_settings(smoke.cfg), DEPTH_PATH, True,
+        ("5mm_ren", ren_settings(smoke.cfg), DEPTH_PATH, "engine",
          dict(icp=sum(iters[1:]), integrate=1, raycast=1)),
         # K3 runs on every frame, marching only on the frames that refresh
-        ("5mm_approx", approx_settings(smoke.cfg), DEPTH_PATH, False, every_frame),
+        ("5mm_approx", approx_settings(smoke.cfg), DEPTH_PATH, "frames", every_frame),
+        # the dense 512³ array: ICP and K3d, integration in torch ops (no K2)
+        ("dense_5mm", dense_settings(smoke.cfg), DENSE_PATH, "dense", none | dict(icp=sum(iters), raycast_dense=1)),
+        # the hash table instead of the block grid: K3h instead of K3
+        ("5mm_hashprobe", hashprobe_settings(smoke.cfg), HASHPROBE_PATH, "frames",
+         none | dict(icp=sum(iters), integrate=1, raycast_hash=1)),
+        # the coarse pre-pass: K3 twice a frame
+        ("5mm_coarse2", coarse_settings(smoke.cfg), DEPTH_PATH, "frames",
+         none | dict(icp=sum(iters), integrate=1, raycast=2)),
     ]
     by_name = {c[0]: c[1] for c in configs}
-    s5, s1d, s1, s5w = (by_name[k] for k in ("5mm", "1cm", "1cm_rgb", "5mm_wicp"))
+    s5, s1d, s1, s5w, sd = (by_name[k] for k in ("5mm", "1cm", "1cm_rgb", "5mm_wicp", "dense_5mm"))
     vol, rs, st, view = smoke.fused(s5, frames)
     k2 = smoke.k2_check("5 mm", s5, vol, rs, st, view)
     kernels = [smoke.k1_check(s5, st, view.depth), k2]
@@ -1329,7 +1591,11 @@ def main() -> int:
     omega = smoke.trackers.weight_pyramid(wview.depth_uncertainty, s5w.tracking.n_levels)
     kernels.insert(1, smoke.k1_check(s5w, st, wview.depth, weights=omega))
     kernels.append(smoke.k3_check("5 mm", s5, vol, rs, st))
+    kernels.append(smoke.k3h_check(by_name["5mm_hashprobe"], vol, rs, st))
     del vol, rs, st, view, wview, omega
+    dvol, dst, _p, _d = smoke.run_dense(sd, (depths[:N_CHECK_FRAMES], rgbs[:N_CHECK_FRAMES]))
+    kernels.append(smoke.k3d_check(sd, dvol, dst))
+    del dvol, dst
     k2_1cm = smoke.k2_check("1 cm", s1d, *smoke.fused(s1d, frames))
     k2.update({f"{k}_1cm": k2_1cm[k] for k in ("ms", "cold_ms", "call_ms", "plain_ms", "bound_ms", "bound_by")})
     vol, rs, st, _view = smoke.fused(s1, frames)
@@ -1341,8 +1607,8 @@ def main() -> int:
     # each replay
     launches = dict.fromkeys(build.KERNELS, 0)
     per_frame, timing = {}, {}
-    for name, settings, path, via_engine, expected in configs:
-        counts, final, timing[name] = smoke.replay(name, settings, frames, gt, path, via_engine, expected)
+    for name, settings, path, kind, expected in configs:
+        counts, final, timing[name] = smoke.replay(name, settings, frames, gt, path, kind, expected)
         per_frame[name] = {k: n / N_FRAMES for k, n in counts.items()}
         for k, n in counts.items():
             launches[k] += n
@@ -1354,7 +1620,18 @@ def main() -> int:
             smoke.swap_return_check(settings, final, frames, gt, s5)
             with tempfile.TemporaryDirectory() as tmp:
                 smoke.viewer_check(settings, smoke.checkpoint_check(settings, final, frames, tmp))
+        if name == "dense_5mm":
+            print(f"dense_5mm: {100 * smoke.inside_share(settings, frames, gt):.2f}% of the valid depth pixels "
+                  f"({N_FRAMES} frames, true poses) have their surface point inside the {settings.plain.size} array")
+            smoke.dense_mesh_check(settings, final)
         del final
+    # expectations, printed and not gated: the map lies inside the block
+    # grid's window, so both readers find the same blocks
+    centre = {k: np.array([np.linalg.inv(p)[:3, 3] for p in v]) for k, v in smoke.poses.items()}
+    for name in ("5mm_hashprobe", "5mm_coarse2", "dense_5mm"):
+        diff = np.linalg.norm(centre[name] - centre["5mm"], axis=1)
+        print(f"{name} against 5mm: largest per-frame camera-centre difference {diff.max() * 1000:.4f} mm, ATE "
+              f"{smoke.ates[name] * 1000:.3f} mm against {smoke.ates['5mm'] * 1000:.3f} mm")
     for size in ("5mm", "1cm"):
         (fps, frame_ms), (fps_sw, frame_ms_sw) = timing[size], timing[f"{size}_swap"]
         print(f"swap ratio, {size}_swap against {size} ({card}): frames/s with swapping over frames/s without "
@@ -1363,8 +1640,8 @@ def main() -> int:
     smoke.cli_check()
     smoke.fixture_check()
     if args.profile:
-        for name, settings, _path, via_engine, _expected in configs:
-            smoke.profile(name, settings, frames, via_engine)
+        for name, settings, _path, kind, _expected in configs:
+            smoke.profile(name, settings, frames, kind)
     smoke.gate(not any(m.split(".")[0] in ("jax", "jaxlib", "infinitam_tpu") for m in sys.modules),
                "no module of JAX or of the JAX package was imported")
     print(f"chip_smoke wall time: {time.perf_counter() - t_start:.1f} s")

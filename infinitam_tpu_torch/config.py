@@ -14,9 +14,6 @@ Fields that configure only the Pallas kernels (`use_pallas_*`,
 `raycast_t_march`, `raycast_pages_per_tile`, `raycast_pages_small`,
 `raycast_page_blocks`) are kept for that equality and ignored by the port,
 whose CUDA kernels have no page lists or tiers.
-engine/hash_pipeline.check_supported refuses what is not ported yet: the
-read paths K3 does not serve (`use_block_grid=False`,
-`raycast_coarse_factor > 1`).
 """
 
 from __future__ import annotations
@@ -127,7 +124,7 @@ class TrackingParams:
     # run ICP only down to this level (reference noICPRunTillLevel = 0)
     no_icp_run_till_level: int = 0
     use_pallas_icp: bool = True  # Pallas-only: ignored by the port
-    # colour tracker (not ported yet)
+    # colour tracker
     color_n_levels: int = 4
     color_skip_points: bool = True
 
@@ -144,7 +141,7 @@ class Settings:
     # allocation-ray pixel stride (1 = every pixel); a block must span ≥ 2
     # strides at the far plane so that every surface block is tapped
     alloc_subsample: int = 4
-    # coarse raycast pass at 1/factor resolution (1 = off; not ported)
+    # coarse raycast pass at 1/factor resolution (1 = off)
     raycast_coarse_factor: int = 1
     # Pallas-only raycast and integrate settings: ignored by the port
     use_pallas_raycast: bool = True

@@ -1,7 +1,8 @@
 """State conversion between the JAX package and the port.
 
 Both packages keep their state in NamedTuples with the same field names,
-shapes and dtypes (`HashVolume`, `RenderStateVH`, `TrackingState`), their
+shapes and dtypes (`HashVolume`, `RenderStateVH`, `TrackingState`, the
+dense array's `DenseVolume`), their
 swap states in one [E] int32 array, and their host store in a `GlobalCache`
 dataclass of numpy arrays with the same fields. The exchange format is a
 dict of numpy arrays keyed by field (None where a field is absent), or one

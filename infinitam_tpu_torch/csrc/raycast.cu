@@ -1,4 +1,8 @@
-// K3 — per-pixel raycast of the TSDF through the dense block grid.
+// K3 — per-pixel raycast of the TSDF, with three readers of the volume:
+// K3 through the dense block grid, K3h through the hash table (a chain walk
+// per block, `use_block_grid=False`) and K3d over the dense voxel array
+// (engine/volume.py). The march, the ray construction and the refinement
+// are one template over the reader; only the reader differs.
 //
 // Replaces: the Pallas kernel infinitam_tpu/ops/pallas/raycast_kernel.py
 // (`raycast_tiles` → `_raycast_kernel`). This kernel reproduces the JAX
@@ -49,6 +53,26 @@
 // version's separate ops (hit mask equal, points within 4e-6 voxel).
 // The TPU kernel's page lists, one-hot MXU taps and 8-bit sdf are not
 // carried over.
+//
+// K3h replaces the JAX package's XLA march over hash_volume.py
+// make_hash_reader (hash_pipeline.py raycast_hash without the block grid):
+// a block's VBA row comes from the reference hash
+// ((x·73856093) ^ (y·19349669) ^ (z·83492791)) & mask in uint32 arithmetic
+// and a walk of the bucket entry and at most MAX_PROBE − 1 = 3 excess links
+// (next = n_buckets + offset − 1; offset 0 ends the chain), matching on the
+// position and ptr ≥ 0, so swapped-out entries read as empty, as
+// hash_volume.probe(include_swapped=False) does. It finds blocks outside any
+// grid window. The cached block keeps the walk to block changes, and the
+// refinement walks only for corners across a block face. Its extra bound:
+// the 20 bytes (pos 12, ptr 4, offset 4) of each entry a walk touches.
+//
+// K3d replaces the XLA march over volume.py make_dense_reader
+// (dense_pipeline.py raycast_dense): a float32 sdf at [z, y, x] after the
+// offset; a voxel in the array is found (an empty one reads 1.0, so the
+// step is max(μ/voxel, 1)), one outside reads (1.0, not found) and takes the
+// DDA step to the exit of its 8-voxel virtual block; refinement corners
+// beyond the array's faces read 1.0. No block is cached: a read is one
+// bounds test and one load.
 
 #include <climits>
 
@@ -57,72 +81,12 @@
 #define RC_THREADS 128  // one 16×8 pixel tile, four warps of 8×4 pixels
 #define RC_TILE_W 16
 #define RC_TILE_H 8
+#define ITPU_MAX_PROBE 4  // hash_volume.MAX_PROBE: the bucket entry and 3 excess links
 
-struct ItpuGrid {
-    const int* vox;
-    const int* grid;
-    int gx, gy, gz, ox, oy, oz;
-    int shift;  // block edge S = 1 << shift voxels
-};
-
-// VBA row of block (bx, by, bz); −1 when unallocated or outside the grid
-__device__ __forceinline__ int itpu_block_ptr(const ItpuGrid& g, int bx, int by, int bz) {
-    const int cx = bx - g.ox, cy = by - g.oy, cz = bz - g.oz;
-    if (cx < 0 || cx >= g.gx || cy < 0 || cy >= g.gy || cz < 0 || cz >= g.gz) return -1;
-    return __ldg(g.grid + (cx * g.gy + cy) * g.gz + cz);
-}
-
-// sdf of voxel (lx, ly, lz) of the block at VBA row ptr; empty space (ptr < 0)
-// reads 1, as make_grid_reader
-__device__ __forceinline__ float itpu_sdf(const ItpuGrid& g, int ptr, int lx, int ly, int lz) {
-    if (ptr < 0) return 1.0f;
-    const int lin = lx + ((ly + (lz << g.shift)) << g.shift);
-    return (float)(__ldg(g.vox + ((long long)ptr << (3 * g.shift)) + lin) >> 16) * ITPU_INV_SDF_SCALE;
-}
-
-// the block a ray is in, and its VBA row
-struct ItpuBlockCache {
-    int bx, by, bz, ptr;
-};
-
-__device__ __forceinline__ int itpu_cached_ptr(const ItpuGrid& g, ItpuBlockCache& c, int bx, int by, int bz) {
-    if (bx != c.bx || by != c.by || bz != c.bz) {
-        c.bx = bx;
-        c.by = by;
-        c.bz = bz;
-        c.ptr = itpu_block_ptr(g, bx, by, bz);
-    }
-    return c.ptr;
-}
-
-// trilinear sdf over the 8 voxels around p (voxel_access.read_sdf_interpolated):
-// the corner blocks are resolved first, a neighbour only across a block face
-__device__ __forceinline__ float itpu_read_interpolated(const ItpuGrid& g, ItpuBlockCache& c, float px, float py,
-                                                        float pz) {
-    const float fx = floorf(px), fy = floorf(py), fz = floorf(pz);
-    const float cx = px - fx, cy = py - fy, cz = pz - fz;
-    const int ix = (int)fx, iy = (int)fy, iz = (int)fz;
-    const int m = (1 << g.shift) - 1;
-    const int bx = ix >> g.shift, by = iy >> g.shift, bz = iz >> g.shift;
-    const int lx = ix & m, ly = iy & m, lz = iz & m;
-    const bool ex = lx == m, ey = ly == m, ez = lz == m;  // the +1 corner lies in the next block
-    const int lx1 = (lx + 1) & m, ly1 = (ly + 1) & m, lz1 = (lz + 1) & m;
-    const int p000 = itpu_cached_ptr(g, c, bx, by, bz);
-    const int p100 = ex ? itpu_block_ptr(g, bx + 1, by, bz) : p000;
-    const int p010 = ey ? itpu_block_ptr(g, bx, by + 1, bz) : p000;
-    const int p001 = ez ? itpu_block_ptr(g, bx, by, bz + 1) : p000;
-    const int p110 = ex ? (ey ? itpu_block_ptr(g, bx + 1, by + 1, bz) : p100) : p010;
-    const int p101 = ex ? (ez ? itpu_block_ptr(g, bx + 1, by, bz + 1) : p100) : p001;
-    const int p011 = ey ? (ez ? itpu_block_ptr(g, bx, by + 1, bz + 1) : p010) : p001;
-    const int p111 = ex ? (ey ? (ez ? itpu_block_ptr(g, bx + 1, by + 1, bz + 1) : p110) : p101) : p011;
-    const float v000 = itpu_sdf(g, p000, lx, ly, lz);
-    const float v100 = itpu_sdf(g, p100, lx1, ly, lz);
-    const float v010 = itpu_sdf(g, p010, lx, ly1, lz);
-    const float v110 = itpu_sdf(g, p110, lx1, ly1, lz);
-    const float v001 = itpu_sdf(g, p001, lx, ly, lz1);
-    const float v101 = itpu_sdf(g, p101, lx1, ly, lz1);
-    const float v011 = itpu_sdf(g, p011, lx, ly1, lz1);
-    const float v111 = itpu_sdf(g, p111, lx1, ly1, lz1);
+// the trilinear blend of voxel_access.read_sdf_interpolated, corner vXYZ at
+// (x, y, z) offsets, in its order of ops
+__device__ __forceinline__ float itpu_trilinear(float v000, float v100, float v010, float v110, float v001,
+                                                float v101, float v011, float v111, float cx, float cy, float cz) {
     const float r00 = (1.0f - cx) * v000 + cx * v100;
     const float r10 = (1.0f - cx) * v010 + cx * v110;
     const float r01 = (1.0f - cx) * v001 + cx * v101;
@@ -131,6 +95,143 @@ __device__ __forceinline__ float itpu_read_interpolated(const ItpuGrid& g, ItpuB
     const float r1 = (1.0f - cy) * r01 + cy * r11;
     return (1.0f - cz) * r0 + cz * r1;
 }
+
+// the dense block grid: a block's VBA row is one load; −1 when unallocated
+// or outside the grid
+struct ItpuGridIndex {
+    const int* grid;
+    int gx, gy, gz, ox, oy, oz;
+
+    __device__ __forceinline__ int ptr(int bx, int by, int bz) const {
+        const int cx = bx - ox, cy = by - oy, cz = bz - oz;
+        if (cx < 0 || cx >= gx || cy < 0 || cy >= gy || cz < 0 || cz >= gz) return -1;
+        return __ldg(grid + (cx * gy + cy) * gz + cz);
+    }
+};
+
+// the hash table: the block's VBA row by a walk of its chain (ops/hashing.py
+// hash_index, hash_volume.probe with include_swapped=False); −1 when no
+// resident entry matches
+struct ItpuHashIndex {
+    const int* entry_pos;  // [E, 3]
+    const int* entry_ptr;  // [E]
+    const int* entry_offset;  // [E]
+    int n_buckets;
+    unsigned mask;
+
+    __device__ __forceinline__ int ptr(int bx, int by, int bz) const {
+        // uint32 products wrap as the reference's do (int32 would overflow)
+        int cur = (int)((((unsigned)bx * 73856093u) ^ ((unsigned)by * 19349669u) ^ ((unsigned)bz * 83492791u)) & mask);
+#pragma unroll
+        for (int k = 0; k < ITPU_MAX_PROBE; ++k) {
+            const int* pos = entry_pos + 3LL * cur;
+            const int p = __ldg(entry_ptr + cur);
+            if (p >= 0 && __ldg(pos) == bx && __ldg(pos + 1) == by && __ldg(pos + 2) == bz) return p;
+            const int off = __ldg(entry_offset + cur);
+            if (off < 1) return -1;
+            cur = n_buckets + off - 1;
+        }
+        return -1;
+    }
+};
+
+// the block a ray is in, and its VBA row
+struct ItpuBlockCache {
+    int bx, by, bz, ptr;
+};
+
+// a voxel-block volume (int32 words sdf << 16 | w << 8, blocks of S³ = 2^(3·shift)
+// voxels at their VBA rows) read through `Index`: K3 with the grid, K3h with
+// the hash
+template <class Index>
+struct ItpuBlockReader {
+    Index index;
+    const int* vox;
+    int shift;  // block edge S = 1 << shift voxels
+    using Cache = ItpuBlockCache;
+
+    __device__ __forceinline__ Cache fresh() const { return Cache{INT_MIN, INT_MIN, INT_MIN, -1}; }
+
+    __device__ __forceinline__ int cached_ptr(Cache& c, int bx, int by, int bz) const {
+        if (bx != c.bx || by != c.by || bz != c.bz) {
+            c.bx = bx;
+            c.by = by;
+            c.bz = bz;
+            c.ptr = index.ptr(bx, by, bz);
+        }
+        return c.ptr;
+    }
+
+    // sdf of voxel (lx, ly, lz) of the block at VBA row ptr; empty space
+    // (ptr < 0) reads 1, as make_grid_reader and make_hash_reader
+    __device__ __forceinline__ float sdf(int ptr, int lx, int ly, int lz) const {
+        if (ptr < 0) return 1.0f;
+        const int lin = lx + ((ly + (lz << shift)) << shift);
+        return (float)(__ldg(vox + ((long long)ptr << (3 * shift)) + lin) >> 16) * ITPU_INV_SDF_SCALE;
+    }
+
+    // the march's read of integer voxel (vx, vy, vz): sdf, and found = the
+    // block is resident
+    __device__ __forceinline__ float read(Cache& c, int vx, int vy, int vz, bool& found) const {
+        const int m = (1 << shift) - 1;
+        const int ptr = cached_ptr(c, vx >> shift, vy >> shift, vz >> shift);
+        found = ptr >= 0;
+        return sdf(ptr, vx & m, vy & m, vz & m);
+    }
+
+    // trilinear sdf over the 8 voxels around p (voxel_access.read_sdf_interpolated):
+    // the corner blocks are resolved first, a neighbour only across a block face
+    __device__ __forceinline__ float interpolated(Cache& c, float px, float py, float pz) const {
+        const float fx = floorf(px), fy = floorf(py), fz = floorf(pz);
+        const float cx = px - fx, cy = py - fy, cz = pz - fz;
+        const int ix = (int)fx, iy = (int)fy, iz = (int)fz;
+        const int m = (1 << shift) - 1;
+        const int bx = ix >> shift, by = iy >> shift, bz = iz >> shift;
+        const int lx = ix & m, ly = iy & m, lz = iz & m;
+        const bool ex = lx == m, ey = ly == m, ez = lz == m;  // the +1 corner lies in the next block
+        const int lx1 = (lx + 1) & m, ly1 = (ly + 1) & m, lz1 = (lz + 1) & m;
+        const int p000 = cached_ptr(c, bx, by, bz);
+        const int p100 = ex ? index.ptr(bx + 1, by, bz) : p000;
+        const int p010 = ey ? index.ptr(bx, by + 1, bz) : p000;
+        const int p001 = ez ? index.ptr(bx, by, bz + 1) : p000;
+        const int p110 = ex ? (ey ? index.ptr(bx + 1, by + 1, bz) : p100) : p010;
+        const int p101 = ex ? (ez ? index.ptr(bx + 1, by, bz + 1) : p100) : p001;
+        const int p011 = ey ? (ez ? index.ptr(bx, by + 1, bz + 1) : p010) : p001;
+        const int p111 = ex ? (ey ? (ez ? index.ptr(bx + 1, by + 1, bz + 1) : p110) : p101) : p011;
+        return itpu_trilinear(sdf(p000, lx, ly, lz), sdf(p100, lx1, ly, lz), sdf(p010, lx, ly1, lz),
+                              sdf(p110, lx1, ly1, lz), sdf(p001, lx, ly, lz1), sdf(p101, lx1, ly, lz1),
+                              sdf(p011, lx, ly1, lz1), sdf(p111, lx1, ly1, lz1), cx, cy, cz);
+    }
+};
+
+// the dense voxel array (engine/volume.py): float32 sdf [Z, Y, X] at global
+// voxel (x, y, z) − offset; a voxel inside the array is found, one outside
+// reads (1.0, not found), as make_dense_reader
+struct ItpuDenseReader {
+    const float* sdf_zyx;
+    int sx, sy, sz, ox, oy, oz;
+    struct Cache {};
+
+    __device__ __forceinline__ Cache fresh() const { return Cache{}; }
+
+    __device__ __forceinline__ float read(Cache&, int vx, int vy, int vz, bool& found) const {
+        const int x = vx - ox, y = vy - oy, z = vz - oz;
+        found = (unsigned)x < (unsigned)sx && (unsigned)y < (unsigned)sy && (unsigned)z < (unsigned)sz;
+        return found ? __ldg(sdf_zyx + ((long long)z * sy + y) * sx + x) : 1.0f;
+    }
+
+    // trilinear sdf over the 8 voxels around p; corners outside read 1.0
+    __device__ __forceinline__ float interpolated(Cache& c, float px, float py, float pz) const {
+        const float fx = floorf(px), fy = floorf(py), fz = floorf(pz);
+        const float cx = px - fx, cy = py - fy, cz = pz - fz;
+        const int ix = (int)fx, iy = (int)fy, iz = (int)fz;
+        bool f;
+        return itpu_trilinear(read(c, ix, iy, iz, f), read(c, ix + 1, iy, iz, f), read(c, ix, iy + 1, iz, f),
+                              read(c, ix + 1, iy + 1, iz, f), read(c, ix, iy, iz + 1, f),
+                              read(c, ix + 1, iy, iz + 1, f), read(c, ix, iy + 1, iz + 1, f),
+                              read(c, ix + 1, iy + 1, iz + 1, f), cx, cy, cz);
+    }
+};
 
 // camera point (dx·z, dy·z, z) → world voxel units (pixel_rays to_world_voxels)
 __device__ __forceinline__ void itpu_to_world_voxels(const float* M, float dx, float dy, float z, float inv_voxel,
@@ -153,11 +254,13 @@ __device__ __forceinline__ float itpu_ray_length(float dx, float dy, float z, fl
 }
 
 // inv_M: camera→world [4, 4] row-major; proj: (fx, fy, cx, cy); zmin, zmax:
-// [h, w]; out: [h, w, 4]
-__global__ void itpu_raycast_kernel(ItpuGrid g, const float* __restrict__ inv_M, const float* __restrict__ proj,
-                                    float inv_voxel, const float* __restrict__ zmin, const float* __restrict__ zmax,
-                                    int h, int w, float step_scale, const bool* __restrict__ enable,
-                                    float* __restrict__ out) {
+// [h, w]; out: [h, w, 4]; empty space steps to the exit of its
+// (1 << block_shift)-voxel block
+template <class Reader>
+__global__ void itpu_raycast_kernel(Reader rd, int block_shift, const float* __restrict__ inv_M,
+                                    const float* __restrict__ proj, float inv_voxel, const float* __restrict__ zmin,
+                                    const float* __restrict__ zmax, int h, int w, float step_scale,
+                                    const bool* __restrict__ enable, float* __restrict__ out) {
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     const int x = blockIdx.x * RC_TILE_W + (warp & 1) * 8 + (lane & 7);
     const int y = blockIdx.y * RC_TILE_H + (warp >> 1) * 4 + (lane >> 3);
@@ -181,21 +284,19 @@ __global__ void itpu_raycast_kernel(ItpuGrid g, const float* __restrict__ inv_M,
     float total = itpu_ray_length(pdx, pdy, z0, inv_voxel);
     const float end = itpu_ray_length(pdx, pdy, z1, inv_voxel);
 
-    const float S = (float)(1 << g.shift);
+    const float S = (float)(1 << block_shift);
     const float inv_S = 1.0f / S;  // exact: p · 2⁻ᵏ rounds as p / 2ᵏ
-    const int m = (1 << g.shift) - 1;
     const bool tx = fabsf(dx) < 1e-9f, ty = fabsf(dy) < 1e-9f, tz = fabsf(dz) < 1e-9f;
     const float sx = tx ? 1e-9f : dx, sy = ty ? 1e-9f : dy, sz = tz ? 1e-9f : dz;
     const float ux = dx > 0.0f ? 1.0f : 0.0f, uy = dy > 0.0f ? 1.0f : 0.0f, uz = dz > 0.0f ? 1.0f : 0.0f;
-    ItpuBlockCache cache{INT_MIN, INT_MIN, INT_MIN, -1};
+    typename Reader::Cache cache = rd.fresh();
     float sdf = 1.0f;
     // every ray takes at least one step, as in the lock-step oracle; the loop
     // ends at a hit or when `total` passes len_end (each step is ≥ 0.5 voxel)
     while (true) {
         const int vx = (int)floorf(px + 0.5f), vy = (int)floorf(py + 0.5f), vz = (int)floorf(pz + 0.5f);
-        const int ptr = itpu_cached_ptr(g, cache, vx >> g.shift, vy >> g.shift, vz >> g.shift);
-        const bool found = ptr >= 0;
-        const float s = itpu_sdf(g, ptr, vx & m, vy & m, vz & m);
+        bool found;
+        const float s = rd.read(cache, vx, vy, vz, found);
         sdf = s;
         if (found && s <= 0.0f) break;
         float step;
@@ -217,11 +318,11 @@ __global__ void itpu_raycast_kernel(ItpuGrid g, const float* __restrict__ inv_M,
     float4 o;
     if (sdf <= 0.0f) {
         float rx = px + (sdf * step_scale) * dx, ry = py + (sdf * step_scale) * dy, rz = pz + (sdf * step_scale) * dz;
-        const float r1 = itpu_read_interpolated(g, cache, rx, ry, rz) * step_scale;
+        const float r1 = rd.interpolated(cache, rx, ry, rz) * step_scale;
         rx = rx + r1 * dx;
         ry = ry + r1 * dy;
         rz = rz + r1 * dz;
-        const float r2 = itpu_read_interpolated(g, cache, rx, ry, rz) * step_scale;
+        const float r2 = rd.interpolated(cache, rx, ry, rz) * step_scale;
         o = make_float4(rx + r2 * dx, ry + r2 * dy, rz + r2 * dz, 1.0f);
     } else {
         o = make_float4(px, py, pz, 0.0f);
@@ -229,16 +330,48 @@ __global__ void itpu_raycast_kernel(ItpuGrid g, const float* __restrict__ inv_M,
     reinterpret_cast<float4*>(out)[i] = o;
 }
 
+template <class Reader>
+static int itpu_raycast_launch(const Reader& rd, int block_shift, const void* inv_M, const void* proj,
+                               float inv_voxel, const void* zmin, const void* zmax, int h, int w, float step_scale,
+                               const void* enable, void* out, void* stream) {
+    if (h > 0 && w > 0) {
+        const dim3 tiles((w + RC_TILE_W - 1) / RC_TILE_W, (h + RC_TILE_H - 1) / RC_TILE_H);
+        itpu_raycast_kernel<Reader><<<tiles, RC_THREADS, 0, (cudaStream_t)stream>>>(
+            rd, block_shift, (const float*)inv_M, (const float*)proj, inv_voxel, (const float*)zmin,
+            (const float*)zmax, h, w, step_scale, (const bool*)enable, (float*)out);
+    }
+    return (int)cudaGetLastError();
+}
+
+// K3: through the block grid [gx, gy, gz] at block origin (ox, oy, oz)
 ITPU_EXPORT int itpu_raycast(const void* vox, const void* grid, int gx, int gy, int gz, int ox, int oy, int oz,
                              int block_shift, const void* inv_M, const void* proj, float inv_voxel, const void* zmin,
                              const void* zmax, int h, int w, float step_scale, const void* enable, void* out,
                              void* stream) {
-    if (h > 0 && w > 0) {
-        const ItpuGrid g{(const int*)vox, (const int*)grid, gx, gy, gz, ox, oy, oz, block_shift};
-        const dim3 tiles((w + RC_TILE_W - 1) / RC_TILE_W, (h + RC_TILE_H - 1) / RC_TILE_H);
-        itpu_raycast_kernel<<<tiles, RC_THREADS, 0, (cudaStream_t)stream>>>(
-            g, (const float*)inv_M, (const float*)proj, inv_voxel, (const float*)zmin, (const float*)zmax, h, w,
-            step_scale, (const bool*)enable, (float*)out);
-    }
-    return (int)cudaGetLastError();
+    const ItpuBlockReader<ItpuGridIndex> rd{{(const int*)grid, gx, gy, gz, ox, oy, oz}, (const int*)vox, block_shift};
+    return itpu_raycast_launch(rd, block_shift, inv_M, proj, inv_voxel, zmin, zmax, h, w, step_scale, enable, out,
+                               stream);
+}
+
+// K3h: through the hash table (entry_pos [E, 3], entry_ptr, entry_offset [E])
+ITPU_EXPORT int itpu_raycast_hash(const void* vox, const void* entry_pos, const void* entry_ptr,
+                                  const void* entry_offset, int n_buckets, int hash_mask, int block_shift,
+                                  const void* inv_M, const void* proj, float inv_voxel, const void* zmin,
+                                  const void* zmax, int h, int w, float step_scale, const void* enable, void* out,
+                                  void* stream) {
+    const ItpuBlockReader<ItpuHashIndex> rd{
+        {(const int*)entry_pos, (const int*)entry_ptr, (const int*)entry_offset, n_buckets, (unsigned)hash_mask},
+        (const int*)vox, block_shift};
+    return itpu_raycast_launch(rd, block_shift, inv_M, proj, inv_voxel, zmin, zmax, h, w, step_scale, enable, out,
+                               stream);
+}
+
+// K3d: over the dense array sdf [sz, sy, sx] at voxel offset (ox, oy, oz)
+ITPU_EXPORT int itpu_raycast_dense(const void* sdf, int sx, int sy, int sz, int ox, int oy, int oz, int block_shift,
+                                   const void* inv_M, const void* proj, float inv_voxel, const void* zmin,
+                                   const void* zmax, int h, int w, float step_scale, const void* enable, void* out,
+                                   void* stream) {
+    const ItpuDenseReader rd{(const float*)sdf, sx, sy, sz, ox, oy, oz};
+    return itpu_raycast_launch(rd, block_shift, inv_M, proj, inv_voxel, zmin, zmax, h, w, step_scale, enable, out,
+                               stream);
 }

@@ -14,9 +14,11 @@ only on the frames that need a full refresh) → the next frame's tracking
 maps → diagnostics. With swapping, `step_frame_swap` also merges an earlier
 frame's needed blocks before tracking, reallocates and marks the visible
 swapped-out entries after allocating, and builds the needed list and evicts
-a window of invisible blocks before the raycast (engine/swapping.py). The
-read paths K3 does not serve (`use_block_grid=False`,
-`raycast_coarse_factor > 1`) raise.
+a window of invisible blocks before the raycast (engine/swapping.py). With
+`use_block_grid=False` the raycast (kernel K3h) and the Ren tracker read the
+volume through the hash table instead of the block grid; with
+`raycast_coarse_factor` c > 1 a coarse raycast at 1/c resolution first
+tightens the per-pixel ranges.
 
 Every step is a fixed sequence of tensor ops and kernel launches that reads
 nothing back to the host, so frames queue on the card without a sync. Where
@@ -77,30 +79,6 @@ def band_steps(settings: Settings) -> int:
 def novel_cap(settings: Settings) -> int:
     """Capacity of the compacted novel-candidate stage of the allocator."""
     return max(2 * settings.hashing.max_visible_blocks, 4096)
-
-
-# settings the port refuses, and the ROADMAP item that takes each up
-UNPORTED = {
-    "raycast_coarse_factor": "ROADMAP Queue 1, the read paths K3 does not serve",
-    "use_block_grid": "ROADMAP Queue 1, the read paths K3 does not serve",
-}
-
-
-def check_supported(settings: Settings) -> None:
-    """The port runs every tracker (depth ICP, weighted ICP, colour, Ren,
-    external) on the block-grid hash path, with or without colour fusion,
-    the approximate raycast and swapping; the coarse raycast pass and the
-    hash-probe raycast raise, naming their ROADMAP entry. (The Pallas-only
-    settings are ignored, see config.py.) Enums are compared by value, so a
-    Settings of the JAX package passes as well."""
-    refused = {
-        "raycast_coarse_factor": settings.raycast_coarse_factor > 1,
-        "use_block_grid": not settings.use_block_grid,
-    }
-    bad = [k for k, v in refused.items() if v]
-    if bad:
-        raise NotImplementedError("infinitam_tpu_torch does not port Settings "
-                                  + "; ".join(f"{k}: {UNPORTED[k]}" for k in bad) + " yet")
 
 
 class FrameDiagnostics(NamedTuple):
@@ -496,17 +474,39 @@ def expected_depth_ranges(vol, render_state, pose, proj, img_size: Tuple[int, in
 
 def raycast_hash(vol, render_state, pose, proj, img_size: Tuple[int, int], settings: Settings,
                  enable: torch.Tensor | None = None) -> rc.RaycastResult:
-    """Raycast of the volume from `pose` (kernel K3) between the expected
-    depth ranges (reference genericRaycast). With `enable` (a device bool)
-    false the march does not run and the points are unspecified. The JAX
-    package's optional coarse pass is off by default and not ported."""
-    sp = settings.scene
+    """Raycast of the volume from `pose` between the expected depth ranges
+    (reference genericRaycast): kernel K3 through the block grid, or K3h
+    through the hash table when `use_block_grid` is false. With
+    `raycast_coarse_factor` c > 1, where c divides the image, a first launch
+    at (H/c, W/c) with every intrinsic divided by c, over the min and max of
+    the ranges in each c×c window, tightens the ranges of the full launch
+    (ops/raycast.py refine_ranges_from_coarse, margin 2μ), as the JAX
+    package's hierarchical raycast does. With `enable` (a device bool)
+    false no ray is marched and the points are unspecified."""
+    sp, hp = settings.scene, settings.hashing
     zmin, zmax, _ = expected_depth_ranges(vol, render_state, pose, proj, img_size, settings)
-    grid = hv.get_block_grid(vol, settings.block_grid)
-    return raycast_kernel.raycast_grid(
-        vol, grid, settings.block_grid, settings.hashing, se3.invert(pose), proj, img_size,
-        1.0 / sp.voxel_size, sp.mu, zmin, zmax, enable=enable,
-    )
+    inv_M = se3.invert(pose)
+    if settings.use_block_grid:
+        grid = hv.get_block_grid(vol, settings.block_grid)
+
+        def march(proj_l, size, z0, z1):
+            return raycast_kernel.raycast_grid(vol, grid, settings.block_grid, hp, inv_M, proj_l, size,
+                                               1.0 / sp.voxel_size, sp.mu, z0, z1, enable=enable)
+    else:
+        def march(proj_l, size, z0, z1):
+            return raycast_kernel.raycast_hash_probe(vol, hp, inv_M, proj_l, size, 1.0 / sp.voxel_size, sp.mu, z0,
+                                                     z1, enable=enable)
+
+    H, W = img_size
+    c = settings.raycast_coarse_factor
+    if c > 1 and H % c == 0 and W % c == 0:
+        Hc, Wc = H // c, W // c
+        zmin_c = zmin.reshape(Hc, c, Wc, c).amin(dim=(1, 3))
+        zmax_c = zmax.reshape(Hc, c, Wc, c).amax(dim=(1, 3))
+        res_c = march(proj / c, (Hc, Wc), zmin_c, zmax_c)
+        zmin, zmax = rc.refine_ranges_from_coarse(res_c.points, pose, sp.voxel_size, img_size, c,
+                                                  margin_m=2.0 * sp.mu, zmin0=zmin, zmax0=zmax)
+    return march(proj, img_size, zmin, zmax)
 
 
 def find_visible_blocks(vol: HashVolume, pose: torch.Tensor, proj: torch.Tensor, img_size: Tuple[int, int],
@@ -591,8 +591,11 @@ def _track_fuse_impl(vol, render_state, state: TrackingState, view: View, proj, 
             state.pose, view.depth, proj, state.points_map, state.normals_map, state.pose_point_cloud,
             dataclasses.replace(settings.tracking, no_icp_run_till_level=1),
         )
-        read = hv.make_grid_reader(vol, hv.get_block_grid(vol, settings.block_grid), settings.block_grid,
-                                   settings.hashing)
+        if settings.use_block_grid:
+            read = hv.make_grid_reader(vol, hv.get_block_grid(vol, settings.block_grid), settings.block_grid,
+                                       settings.hashing)
+        else:
+            read = hv.make_hash_reader(vol, settings.hashing)
         tr = track_ren(tr_icp.pose, view.depth, proj, read, settings.scene.voxel_size, settings.tracking)
         # the result reports Ren's own energy and ICP's correspondence count;
         # the divergence gate below reads ICP's f, whose 1e5 sentinel it knows
@@ -717,7 +720,6 @@ def process_frame_hash(
     `on_phase(name)` is called as each phase has been issued ("track",
     "alloc", "integrate", "raycast"), so a caller can record a CUDA event
     there to time the phases; it must not sync."""
-    check_supported(settings)
     vol, render_state, _sw, pose, tr, n_alloc_overflow = _track_fuse_impl(
         vol, render_state, state, view, proj, settings, fusion_active, proj_rgb, rgb_to_depth, external_pose,
         on_phase,
@@ -737,7 +739,6 @@ def step_track_fuse_swap(vol, render_state, state: TrackingState, swap_states, v
     tracker, divergence gate and fusion as process_frame_hash, with the
     swap-protocol hooks (reference ITMDenseMapper.cpp:51-65). Returns (vol,
     render_state, swap_states, pose, tr, diag)."""
-    check_supported(settings)
     vol, render_state, swap_states, pose, tr, n_alloc_overflow = _track_fuse_impl(
         vol, render_state, state, view, proj, settings, fusion_active, proj_rgb, rgb_to_depth, external_pose,
         on_phase, swap_states=swap_states,
@@ -764,7 +765,6 @@ def step_frame_swap(vol, render_state, state: TrackingState, swap_states, view: 
     eviction. Returns (vol, render_state, tracking state, swap_states, diag,
     in_meta [Q+1] (needed ids, count), (ev_meta [Qe+1] (evicted ids, count),
     ev_sdf, ev_w, ev_clr, ev_wc))."""
-    check_supported(settings)
     E = settings.hashing.n_entries
     if merge_flips is not None:
         # listed entries without stored data go straight to state 2 (the
@@ -824,7 +824,6 @@ def create_engine_state(settings: Settings, img_size: Tuple[int, int], device: t
     """(HashVolume, RenderStateVH, TrackingState) for a fresh map on `device`:
     the card unless the caller passes device="cpu" (no fallback: without a
     card the default raises)."""
-    check_supported(settings)
     vol = hv.create_hash(settings.hashing, with_color=settings.use_color, grid_params=settings.block_grid,
                          device=device)
     rs = hv.create_render_state(settings.hashing, grid_params=settings.block_grid, device=device)

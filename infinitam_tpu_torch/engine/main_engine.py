@@ -212,8 +212,12 @@ class MainEngine:
             img = cm.depth_to_uchar4(torch.where(found, z, torch.full_like(z, -1.0)))
         elif which == "weight":
             # fusion weight at the raycast surface (reference WeightToUchar4)
-            grid = hv.get_block_grid(self.vol, self.settings.block_grid)
-            read_w = hv.make_grid_weight_reader(self.vol, grid, self.settings.block_grid, self.settings.hashing)
+            if self.settings.use_block_grid:
+                grid = hv.get_block_grid(self.vol, self.settings.block_grid)
+                read_w = hv.make_grid_weight_reader(self.vol, grid, self.settings.block_grid,
+                                                    self.settings.hashing)
+            else:
+                read_w = hv.make_hash_weight_reader(self.vol, self.settings.hashing)
             w, _found = read_w(torch.floor(res.points[..., :3] + 0.5).to(torch.int32))
             img = cm.weight_to_uchar4(torch.where(res.points[..., 3] > 0, w, torch.zeros_like(w)))
         else:

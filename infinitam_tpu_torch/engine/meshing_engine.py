@@ -3,8 +3,9 @@
 Counterpart of infinitam_tpu/engine/meshing_engine.py (reference
 ITMLib/Engine/ITMMeshingEngine.h + _CUDA.cu, MeshScene over the allocated
 blocks; ITMLib/Objects/ITMMesh.h:34-113, WriteOBJ / WriteSTL binary
-format). The extraction (ops/meshing.py) keeps every triangle; the
-dense-volume mesher comes with the dense volume (ROADMAP Queue 1).
+format), for the voxel-block hash and for the dense voxel array. The
+extraction (ops/meshing.py) keeps every triangle: the JAX package's
+per-chunk cap, which drops triangles in both of its meshers, is not copied.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch
 
 from infinitam_tpu_torch.config import Settings
 from infinitam_tpu_torch.engine import hash_volume as hv
+from infinitam_tpu_torch.engine import volume as vol_mod
 from infinitam_tpu_torch.ops import meshing as mops
 
 # one binary STL record: normal, 3 vertices, attribute (50 bytes, packed)
@@ -69,4 +71,38 @@ def mesh_scene_hash(vol: hv.HashVolume, settings: Settings, chunk_blocks: int = 
     ids = torch.nonzero(vol.entry_ptr >= 0).squeeze(1)
     tris, _n_valid = mops.extract_mesh(hv.make_hash_reader(vol, hp), vol.entry_pos[ids], hp.block_size,
                                        settings.scene.voxel_size, chunk_blocks)
+    return Mesh(triangles=tris.cpu().numpy())
+
+
+def dense_blocks(vol: vol_mod.DenseVolume, params) -> torch.Tensor:
+    """The virtual 8³ blocks of the dense array that hold a voxel of weight
+    > 0, as global block coords [N, 3] int32 on the volume's device, in the
+    JAX package's order (x outermost, then y, then z). The occupancy screen
+    runs on the card; the block count is the one host read. Blocks are
+    aligned to the global grid and cover the array whole: where an extent or
+    the offset is not a multiple of 8, the edge blocks are partial (the JAX
+    version needs each extent divisible by 8)."""
+    S = vol_mod.VIRTUAL_BLOCK
+    Z, Y, X = vol.w_depth.shape
+    ox, oy, oz = params.offset
+    lead = [o % S for o in (oz, oy, ox)]  # voxels of the first global block before the array
+    n = [(l + e + S - 1) // S for l, e in zip(lead, (Z, Y, X))]
+    occ = vol.w_depth > 0
+    if lead != [0, 0, 0] or [S * k for k in n] != [Z, Y, X]:
+        padded = torch.zeros((n[0] * S, n[1] * S, n[2] * S), dtype=torch.bool, device=occ.device)
+        padded[lead[0]:lead[0] + Z, lead[1]:lead[1] + Y, lead[2]:lead[2] + X] = occ
+        occ = padded
+    occ = occ.reshape(n[0], S, n[1], S, n[2], S).any(dim=5).any(dim=3).any(dim=1)  # [bz, by, bx]
+    first = torch.tensor([ox // S, oy // S, oz // S], dtype=torch.int64, device=occ.device)
+    return (torch.nonzero(occ.permute(2, 1, 0)) + first).to(torch.int32)
+
+
+def mesh_scene_dense(vol: vol_mod.DenseVolume, settings: Settings) -> Mesh:
+    """MeshScene for the dense array, treated as a grid of virtual 8³ blocks:
+    the blocks with any fused voxel (dense_blocks, on the card), meshed
+    through the dense reader with every triangle kept. Three host reads in
+    all: the block count, the triangle total and the triangles."""
+    tris, _n_valid = mops.extract_mesh(vol_mod.make_dense_reader(vol, settings.plain),
+                                       dense_blocks(vol, settings.plain), vol_mod.VIRTUAL_BLOCK,
+                                       settings.scene.voxel_size)
     return Mesh(triangles=tris.cpu().numpy())

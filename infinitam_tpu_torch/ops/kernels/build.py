@@ -60,9 +60,15 @@ SIGNATURES = {
     # vox, grid, gx, gy, gz, ox, oy, oz, block_shift, inv_M, proj, inv_voxel, zmin, zmax, h, w,
     # step_scale, enable (or null), out, stream
     "itpu_raycast": (P, P, I, I, I, I, I, I, I, P, P, F, P, P, I, I, F, P, P, P),
+    # vox, entry_pos, entry_ptr, entry_offset, n_buckets, hash_mask, block_shift, inv_M, proj, inv_voxel, zmin,
+    # zmax, h, w, step_scale, enable (or null), out, stream
+    "itpu_raycast_hash": (P, P, P, P, I, I, I, P, P, F, P, P, I, I, F, P, P, P),
+    # sdf, sx, sy, sz, ox, oy, oz, block_shift, inv_M, proj, inv_voxel, zmin, zmax, h, w, step_scale,
+    # enable (or null), out, stream
+    "itpu_raycast_dense": (P, I, I, I, I, I, I, I, P, P, F, P, P, I, I, F, P, P, P),
 }
 
-KERNELS = ("icp", "icp_weighted", "integrate", "integrate_color", "raycast")
+KERNELS = ("icp", "icp_weighted", "integrate", "integrate_color", "raycast", "raycast_hash", "raycast_dense")
 _launches = dict.fromkeys(KERNELS, 0)
 
 # seconds the last build took in this process (0 while none ran), and what

@@ -2,8 +2,10 @@
 
 Counterpart of infinitam_tpu/ops/raycast.py (reference:
 DeviceAgnostic/ITMVisualisationEngine.h:92-409 castRay, computeNormalAndAngle,
-processPixelICP, drawPixelGrey / Normal / Colour). `pixel_rays` +
-`raycast_rays` (`generic_raycast`) are the plain version of kernel K3 (ops/kernels/raycast.py): the kernel builds and
+processPixelICP, drawPixelGrey / Normal / Colour), with the JAX package's
+coarse-pass range refinement. `pixel_rays` + `raycast_rays`
+(`generic_raycast`) over a reader are the plain version of kernel K3 and its
+reader variants K3h and K3d (ops/kernels/raycast.py): the kernel builds and
 marches one ray per thread; this version marches the whole ray bundle in
 lock step and stops when no ray is active, which reads a flag back to the
 host once per step. It is the CPU path and the card's reference, never the
@@ -146,6 +148,53 @@ def generic_raycast(
     pt_start, ray_dir, len_start, len_end = pixel_rays(inv_M, proj, img_size, one_over_voxel_size, zmin, zmax)
     points, steps = raycast_rays(read, pt_start, ray_dir, len_start, len_end, mu * one_over_voxel_size, block_size)
     return RaycastResult(points=points, steps=steps)
+
+
+def refine_ranges_from_coarse(
+    points_coarse: torch.Tensor,  # [Hc, Wc, 4] coarse raycast, voxel units
+    M: torch.Tensor,  # [4, 4] world→camera
+    voxel_size: float,
+    img_size: Tuple[int, int],
+    factor: int,
+    margin_m: float,
+    zmin0: torch.Tensor,  # [H, W] the full-resolution ranges
+    zmax0: torch.Tensor,
+):
+    """Tightened full-resolution ranges from a coarse pass at 1/factor
+    resolution (the JAX package's hierarchical raycast, op for op): a pixel
+    whose coarse 3×3 neighbourhood is all hits marches over
+    [min(z) − margin, max(z) + margin] of that neighbourhood, within its own
+    ranges; any other pixel keeps its ranges (silhouette safety). As in the
+    JAX package, the neighbourhood wraps around the image border (`roll`)."""
+    H, W = img_size
+    Hc, Wc = points_coarse.shape[:2]
+    dev = points_coarse.device
+    found = points_coarse[..., 3] > 0
+    pw = points_coarse[..., :3] * voxel_size
+    z = se3.apply_planes(M, pw[..., 0], pw[..., 1], pw[..., 2])[2]
+    z = torch.where(found, z, torch.zeros_like(z))
+
+    zmin_n = torch.full((Hc, Wc), 1e9, dtype=torch.float32, device=dev)
+    zmax_n = torch.full((Hc, Wc), -1e9, dtype=torch.float32, device=dev)
+    all_found = torch.ones((Hc, Wc), dtype=torch.bool, device=dev)
+    for dy in (-1, 0, 1):
+        for dx in (-1, 0, 1):
+            zs = torch.roll(z, shifts=(dy, dx), dims=(0, 1))
+            fs = torch.roll(found, shifts=(dy, dx), dims=(0, 1))
+            zmin_n = torch.minimum(zmin_n, torch.where(fs, zs, 1e9))
+            zmax_n = torch.maximum(zmax_n, torch.where(fs, zs, -1e9))
+            all_found = all_found & fs
+
+    rows = (torch.arange(H, device=dev) // factor).clamp(0, Hc - 1)
+    cols = (torch.arange(W, device=dev) // factor).clamp(0, Wc - 1)
+
+    def up(a):
+        return a[rows][:, cols]
+
+    ok = up(all_found)
+    zmin = torch.where(ok, torch.maximum(up(zmin_n) - margin_m, zmin0), zmin0)
+    zmax = torch.where(ok, torch.minimum(up(zmax_n) + margin_m, zmax0), zmax0)
+    return zmin, zmax
 
 
 def _normals_planes(px, py, pz, found, voxel_size: float, light_source, use_smoothing: bool = True):

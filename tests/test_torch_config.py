@@ -2,7 +2,7 @@
 JAX package's (infinitam_tpu_torch/config.py and calib.py are copies, so
 that the port runs without the JAX package): the same classes, fields,
 defaults and enum values, the same test settings and default calibration,
-and one frame-loop gate that accepts a Settings from either package.
+and a frame loop that accepts a Settings from either package.
 """
 
 import dataclasses
@@ -10,12 +10,19 @@ import enum
 
 import numpy as np
 import pytest
+import torch
 
 from infinitam_tpu import calib as j_calib
 from infinitam_tpu import config as j_cfg
 from infinitam_tpu_torch import calib as t_calib
 from infinitam_tpu_torch import config as t_cfg
 from infinitam_tpu_torch.engine import hash_pipeline as t_hp
+from infinitam_tpu_torch.engine.view_builder import View
+from infinitam_tpu_torch.io import synth as t_synth
+
+# the tensors here are tiny: one intra-op thread per process keeps torch from
+# contending for the cores with the other test workers (tier-1 runs under xdist)
+torch.set_num_threads(1)
 
 PARAM_CLASSES = ("SceneParams", "VoxelBlockHashParams", "PlainVoxelArrayParams", "BlockGridParams",
                  "TrackingParams", "Settings")
@@ -60,18 +67,25 @@ def test_default_calib_matches_jax(size):
 
 @pytest.mark.parametrize("cfg", [t_cfg, j_cfg], ids=["port", "jax"])
 def test_supported_settings_gate_reads_either_package(cfg):
-    s = cfg.tiny_test_settings()
-    t_hp.check_supported(s)
+    """The port reads a Settings of either package by field and its enums by
+    value, and refuses none of them: every tracker, colour, the approximate
+    raycast and swapping set up an engine state, and the coarse raycast pass
+    and the hash-probe raycast run a frame."""
+    s = cfg.tiny_test_settings().replace(tracking=cfg.TrackingParams(n_levels=3, min_valid_points=50))
     for good in (dict(use_color=True), dict(use_color=True, tracker_type=cfg.TrackerType.COLOR),
                  dict(tracker_type=cfg.TrackerType.WICP, model_sensor_noise=True, use_bilateral_filter=True),
                  dict(tracker_type=cfg.TrackerType.EXTERNAL), dict(tracker_type=cfg.TrackerType.REN),
                  dict(use_approximate_raycast=True), dict(swapping_mode=cfg.SwappingMode.ENABLED)):
-        t_hp.check_supported(s.replace(**good))
-    # each refusal names the ROADMAP entry that takes it up
-    for bad, item in ((dict(raycast_coarse_factor=2), "K3 does not serve"),
-                      (dict(use_block_grid=False), "K3 does not serve")):
-        with pytest.raises(NotImplementedError, match=item):
-            t_hp.check_supported(s.replace(**bad))
+        t_hp.create_engine_state(s.replace(**good), (6, 8), device="cpu")
+    img = (60, 80)
+    calib = t_calib.default_calib(img[1], img[0])
+    proj = torch.as_tensor(calib.intrinsics_d.vector)
+    depth = t_synth.render_depth(torch.eye(4), proj, img)
+    for ported in (dict(raycast_coarse_factor=2), dict(use_block_grid=False)):
+        settings = s.replace(**ported)
+        vol, rs, st = t_hp.create_engine_state(settings, img, device="cpu")
+        vol, rs, st, diag = t_hp.process_frame_hash(vol, rs, st, View(depth=depth), proj, settings)
+        assert int(diag.n_visible) > 100 and float(st.points_map[..., 3].max()) == 1.0
 
 
 def test_rgb_to_depth_matches_jax():

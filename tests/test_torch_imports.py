@@ -7,7 +7,8 @@ takes its plain PyTorch version, so a CPU frame, with colour or without,
 through the frame step or the MainEngine façade, must leave every launch
 counter at 0 and never build the CUDA library, with swapping and a
 checkpoint round trip too. The entry points that place state on a device
-default to the card, the swap tier and the viewer among them.
+default to the card, the swap tier, the viewer and the dense volume among
+them.
 """
 
 import inspect
@@ -77,7 +78,7 @@ def test_cpu_frame_uses_only_plain_versions():
     assert int(diag.num_valid) > 1000
     assert np.isfinite(st.pose.numpy()).all()
     assert build.launch_counts() == {"icp": 0, "icp_weighted": 0, "integrate": 0, "integrate_color": 0,
-                                     "raycast": 0}
+                                     "raycast": 0, "raycast_hash": 0, "raycast_dense": 0}
     assert build.library.cache_info().currsize == 0  # no CUDA library was built or loaded
 
 
@@ -193,7 +194,7 @@ def _default_device_calls():
     """Each entry point of the port that places state or frames on a device,
     called without a device."""
     from infinitam_tpu_torch import convert
-    from infinitam_tpu_torch.engine import swapping, tracking_state
+    from infinitam_tpu_torch.engine import dense_pipeline, swapping, tracking_state, volume
     from infinitam_tpu_torch.engine.main_engine import MainEngine
     from infinitam_tpu_torch.io import sources
 
@@ -213,6 +214,9 @@ def _default_device_calls():
         "swapping MainEngine": (MainEngine.__init__, lambda: MainEngine(
             settings.replace(swapping_mode=SwappingMode.ENABLED), default_calib(8, 6), (6, 8))),
         "create_swap_states": (swapping.create_swap_states, lambda: swapping.create_swap_states(settings)),
+        "create_dense": (volume.create_dense, lambda: volume.create_dense(settings.plain)),
+        "dense create_engine_state": (dense_pipeline.create_engine_state,
+                                      lambda: dense_pipeline.create_engine_state(settings, (6, 8))),
         "SwapExchange": (swapping.SwapExchange.__init__, lambda: swapping.SwapExchange(settings, False)),
         "make_source": (sources.make_source, lambda: sources.make_source(img_size=(6, 8), n_frames=1)),
         "DeviceFrameFeed": (sources.DeviceFrameFeed.__init__,
@@ -224,7 +228,7 @@ def _default_device_calls():
 @pytest.mark.parametrize("entry", ["create_engine_state", "create_hash", "create_render_state",
                                    "create_tracking_state", "SyntheticSource", "from_numpy", "MainEngine",
                                    "make_source", "DeviceFrameFeed", "swapping MainEngine", "create_swap_states",
-                                   "SwapExchange"])
+                                   "SwapExchange", "create_dense", "dense create_engine_state"])
 def test_entry_points_default_to_the_card(entry):
     """The port runs on the card unless the caller passes device="cpu": the
     default is "cuda", and without a card a call that names no device raises

@@ -8,7 +8,10 @@ Ren and approximate-raycast frame loops; the mesh on the card against the
 same code on the CPU; K2 and K2c on visible lists with swapped-out and
 reallocated rows; the swap eviction and merge on the card against the same
 code on the CPU, and a swapping engine's round trip through the pinned
-exchange.
+exchange; K3's two reader variants, K3h through the hash table (also on
+blocks outside the grid's window, behind an excess link and swapped out)
+and K3d over a dense voxel array, with the dense frame loop's launches and
+its mesh on the card against the CPU's.
 
 They carry the `cuda` marker and skip where no card is present. On a machine
 with a card (JAX need not be installed there), run them with:
@@ -24,6 +27,7 @@ import torch
 
 from infinitam_tpu_torch.calib import default_calib
 from infinitam_tpu_torch.config import (
+    PlainVoxelArrayParams,
     SceneParams,
     SwappingMode,
     TrackerType,
@@ -31,6 +35,7 @@ from infinitam_tpu_torch.config import (
     VoxelBlockHashParams,
     tiny_test_settings,
 )
+from infinitam_tpu_torch.engine import dense_pipeline as dp
 from infinitam_tpu_torch.engine import hash_pipeline as hp
 from infinitam_tpu_torch.engine import hash_volume as hv
 from infinitam_tpu_torch.engine import swapping, trackers
@@ -90,7 +95,7 @@ def test_main_path_launched_every_kernel(fused):
     *_rest, counts = fused
     levels = TrackingParams(n_levels=3).iterations_per_level[:3]
     assert counts == {"icp": 3 * sum(levels), "icp_weighted": 0, "integrate": 3, "integrate_color": 0,
-                      "raycast": 3}
+                      "raycast": 3, "raycast_hash": 0, "raycast_dense": 0}
 
 
 def k1_args(fused, level=0):
@@ -324,7 +329,7 @@ def test_color_path_launches_the_color_kernel(fused_rgb):
     *_rest, counts = fused_rgb
     levels = TrackingParams(n_levels=3).iterations_per_level[:3]
     assert counts == {"icp": 3 * sum(levels), "icp_weighted": 0, "integrate": 0, "integrate_color": 3,
-                      "raycast": 3}
+                      "raycast": 3, "raycast_hash": 0, "raycast_dense": 0}
 
 
 def k2c_args(fused_rgb, device, extrinsic=False, ids=None, max_rows=None):
@@ -427,7 +432,7 @@ def test_ren_and_approximate_paths_launch_their_kernels(device, case):
     iters = TrackingParams(n_levels=3).iterations_per_level[:3]
     icp_per_frame = sum(iters[1:]) if case == "ren" else sum(iters)
     assert counts == {"icp": 3 * icp_per_frame, "icp_weighted": 0, "integrate": 3, "integrate_color": 0,
-                      "raycast": 3}
+                      "raycast": 3, "raycast_hash": 0, "raycast_dense": 0}
     assert np.isfinite(st.pose.cpu().numpy()).all() and int((vol.entry_ptr >= 0).sum()) > 100
 
 
@@ -601,7 +606,7 @@ def test_swap_engine_round_trip_on_the_card(device):
         eng.process_frame(metric_depth=depth)
     iters = sum(TrackingParams(n_levels=3).iterations_per_level[:3])
     assert build.launch_counts() == {"icp": 6 * iters, "icp_weighted": 0, "integrate": 6, "integrate_color": 0,
-                                     "raycast": 6}
+                                     "raycast": 6, "raycast_hash": 0, "raycast_dense": 0}
     away = se3.se3_exp(torch.tensor([0.0, 0.0, 0.0, 0.0, float(np.pi), 0.0], device=device))
     eng.set_pose(away)
     eng.tracking_state = eng.tracking_state._replace(age=torch.tensor(-1, dtype=torch.int32, device=device))
@@ -618,3 +623,123 @@ def test_swap_engine_round_trip_on_the_card(device):
     stored = torch.from_numpy(eng.global_cache.has_stored).to(device)[allocated]
     assert bool((resident | stored).all())
     assert np.isfinite(eng.get_pose()).all()
+
+
+def assert_raycast_matches_plain(k, p):
+    """K3's bar against its plain twin: the hit mask equal, points within
+    4e-6 voxel."""
+    fk, fp = k[..., 3] > 0, p[..., 3] > 0
+    assert torch.equal(fk, fp)
+    assert float((k[..., :3] - p[..., :3]).abs()[fp].max()) <= 4e-6
+
+
+@pytest.mark.parametrize("volume", ["fused", "fused_1cm"])
+def test_k3h_matches_plain(volume, request, device):
+    """K3h walks the hash chains; on a map inside the grid's window it also
+    equals K3. Its enable flag keeps `out` as K3's does."""
+    settings, proj, vol, rs, st, _depth, _c = request.getfixturevalue(volume)
+    sp = settings.scene
+    zmin, zmax, _n = hp.expected_depth_ranges(vol, rs, st.pose, proj, IMG, settings)
+    args = (vol, settings.hashing, se3.invert(st.pose), proj, IMG, 1.0 / sp.voxel_size, sp.mu, zmin, zmax)
+    build.reset_launch_counts()
+    k = raycast.raycast_hash_probe(*args).points
+    assert build.launch_counts()["raycast_hash"] == 1
+    p = raycast.raycast_hash_probe_plain(*args).points
+    assert int((p[..., 3] > 0).sum()) > 0.5 * IMG[0] * IMG[1]
+    assert_raycast_matches_plain(k, p)
+    g = raycast.raycast_grid(vol, hp.hv.get_block_grid(vol, settings.block_grid), settings.block_grid,
+                             settings.hashing, *args[2:]).points
+    assert torch.equal(k, g)
+    sentinel = torch.full((*IMG, 4), -7.0, device=device)
+    off = torch.zeros((), dtype=torch.bool, device=device)
+    assert torch.equal(raycast.raycast_hash_probe(*args, enable=off, out=sentinel.clone()).points, sentinel)
+
+
+def far_blocks(device, swapped: bool):
+    """Three solid blocks (sdf −0.5) outside the tiny settings' grid window
+    in front of a camera at x = 6.56 m: (40, 0, 4); (41, 0, 4) in the excess
+    list behind (−4055, 0, 4), which hashes to its bucket; (40, 1, 4),
+    swapped out when `swapped`. Returns (volume, pose)."""
+    h, gp = SETTINGS.hashing, SETTINGS.block_grid
+    vol = hv.create_hash(h, grid_params=gp, device=device)
+    vt = torch.zeros(h.n_entries, dtype=torch.int32, device=device)
+    A, B, C, D = (40, 0, 4), (41, 0, 4), (-4055, 0, 4), (40, 1, 4)
+    for group in ([C], [A, B, D]):
+        blocks = torch.tensor(group, dtype=torch.int32, device=device)
+        vol, vt, _w = hv.insert_blocks(vol, vt, blocks, torch.ones(len(group), dtype=torch.bool, device=device), h,
+                                       gp)
+    pr = hv.probe(vol, torch.tensor([A, B, D], dtype=torch.int32, device=device), h)
+    assert bool(pr.found.all()) and int(pr.entry_idx[1]) >= h.n_buckets
+    vol.vox[pr.entry_ptr.long()] = hv.pack_vox(hv.sdf_to_q(torch.full((h.block_volume,), -0.5, device=device)),
+                                               torch.ones(h.block_volume, dtype=torch.int32, device=device))
+    if swapped:
+        ptr = vol.entry_ptr.clone()
+        ptr[pr.entry_idx[2].long()] = hv.SWAPPED_PTR
+        vol = vol._replace(entry_ptr=ptr)
+    pose = torch.eye(4, device=device)
+    pose[:3, 3] = torch.tensor([-6.56, -0.16, 0.0], device=device)
+    return vol, pose
+
+
+def test_k3h_finds_blocks_outside_the_grid(device):
+    """Blocks the grid cannot see: K3h finds them (one through an excess
+    link) as its plain twin does, and a swapped-out block reads as empty."""
+    sp, h = SETTINGS.scene, SETTINGS.hashing
+    proj = torch.as_tensor(default_calib(IMG[1], IMG[0]).intrinsics_d.vector, device=device)
+    zmin = torch.full(IMG, sp.view_frustum_min, device=device)
+    zmax = torch.full(IMG, sp.view_frustum_max, device=device)
+    hits = {}
+    for swapped in (False, True):
+        vol, pose = far_blocks(device, swapped)
+        args = (vol, h, se3.invert(pose), proj, IMG, 1.0 / sp.voxel_size, sp.mu, zmin, zmax)
+        k = raycast.raycast_hash_probe(*args).points
+        assert_raycast_matches_plain(k, raycast.raycast_hash_probe_plain(*args).points)
+        hits[swapped] = k[..., 3] > 0
+    assert int(hits[True].sum()) < int(hits[False].sum()) and not bool((hits[True] & ~hits[False]).any())
+
+
+@pytest.fixture(scope="module")
+def dense_fused(device):
+    """3 synthetic frames through the dense frame loop on the card, at 2 cm
+    in a 128³ array, with the loop's launch counts."""
+    settings = SETTINGS.replace(plain=PlainVoxelArrayParams(size=(128, 128, 128), offset=(-64, -64, 0)))
+    calib = default_calib(IMG[1], IMG[0])
+    proj = torch.as_tensor(calib.intrinsics_d.vector, device=device)
+    src = synth.SyntheticSource(calib, n_frames=3, img_size=IMG, device=device)
+    vol, st = dp.create_engine_state(settings, IMG, device=device)
+    build.reset_launch_counts()
+    for _ in range(3):
+        vol, st, _d = dp.process_frame_dense(vol, st, View(depth=src.get_images()[0]), proj, settings)
+    torch.cuda.synchronize()
+    return settings, proj, vol, st, build.launch_counts()
+
+
+def test_k3d_matches_plain_and_the_dense_loop_launches_it(dense_fused, device):
+    settings, proj, vol, st, counts = dense_fused
+    iters = sum(TrackingParams(n_levels=3).iterations_per_level[:3])
+    assert counts == dict.fromkeys(build.KERNELS, 0) | {"icp": 3 * iters, "raycast_dense": 3}
+    sp = settings.scene
+    zmin = torch.full(IMG, sp.view_frustum_min, device=device)
+    zmax = torch.full(IMG, sp.view_frustum_max, device=device)
+    args = (vol, settings.plain, se3.invert(st.pose), proj, IMG, 1.0 / sp.voxel_size, sp.mu, zmin, zmax)
+    k = raycast.raycast_dense(*args).points
+    p = raycast.raycast_dense_plain(*args).points
+    assert int((p[..., 3] > 0).sum()) > 0.5 * IMG[0] * IMG[1]
+    assert_raycast_matches_plain(k, p)
+    sentinel = torch.full((*IMG, 4), -7.0, device=device)
+    for flag in (True, False):
+        enable = torch.tensor(flag, device=device)
+        out = raycast.raycast_dense(*args, enable=enable, out=sentinel.clone()).points
+        assert torch.equal(out, k if flag else sentinel)
+    with pytest.raises(ValueError):  # the sdf must match the array's size
+        raycast.raycast_dense_cuda(vol._replace(sdf=vol.sdf[:-1]), *args[1:])
+
+
+def test_dense_mesh_on_the_card_equals_the_cpu_mesh(dense_fused):
+    from infinitam_tpu_torch.engine import meshing_engine
+
+    settings, _proj, vol, _st, _c = dense_fused
+    on_card = meshing_engine.mesh_scene_dense(vol, settings)
+    on_cpu = meshing_engine.mesh_scene_dense(type(vol)(*(None if t is None else t.cpu() for t in vol)), settings)
+    assert on_card.n_triangles == on_cpu.n_triangles > 1000
+    np.testing.assert_allclose(on_card.triangles, on_cpu.triangles, rtol=0, atol=1e-6)

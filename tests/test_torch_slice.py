@@ -113,12 +113,17 @@ def test_process_sequence_equals_frame_loop(replay):
 
 
 def test_unported_settings_are_refused(replay):
-    """The read paths K3 does not serve raise; the Ren tracker, the
-    approximate raycast and swapping are ported."""
-    settings, _calib, _d, _g = replay
-    for bad in (dict(raycast_coarse_factor=2), dict(use_block_grid=False)):
-        with pytest.raises(NotImplementedError):
-            t_hp.create_engine_state(settings.replace(**bad), IMG, device="cpu")
+    """Nothing is refused any more: the read paths beside K3's block grid
+    (the coarse raycast pass and the hash-probe raycast) run two frames, and
+    the Ren tracker, the approximate raycast and swapping set up."""
+    settings, calib, depths, _g = replay
+    proj = torch.from_numpy(calib.intrinsics_d.vector)
+    for ported in (dict(raycast_coarse_factor=2), dict(use_block_grid=False)):
+        s = settings.replace(**ported)
+        v, r, st = t_hp.create_engine_state(s, IMG, device="cpu")
+        for depth in depths[:2]:
+            v, r, st, d = t_hp.process_frame_hash(v, r, st, View(depth=torch.from_numpy(depth.copy())), proj, s)
+        assert int(d.num_valid) > 1000 and np.isfinite(st.pose.numpy()).all()
     for good in (dict(tracker_type=TrackerType.REN), dict(use_approximate_raycast=True),
                  dict(swapping_mode=SwappingMode.ENABLED)):
         t_hp.create_engine_state(settings.replace(**good), IMG, device="cpu")
