@@ -30,6 +30,13 @@ cells, hash entries (20 B each) and voxel or sdf words the kernel touches,
 the voxels it updates and the march steps its rays take, found through its
 plain version.
 
+The kernels are lane-indexed (one launch serves B lanes of a torch.vmap
+batch): K1 at each level, K2, K3 and K3d are also launched for 3 lanes
+(copies of the same inputs, each lane with its own pose), each lane held to
+its single launch (K1 and K2 bit for bit, K3 and K3d equal) and to the
+plain twin, with the B = 3 device time printed beside 3 × the single
+launch's.
+
 Then it replays 30 synthetic 640×480 RGB-D frames, rendered on the card,
 through the port's frame loop in the three configurations of the JAX
 package's benchmark: 5 mm and 1 cm voxels with depth ICP, and the 1 cm point
@@ -45,7 +52,19 @@ exchange's host waits, and at the end the swap ratio of frames/s); through
 the dense frame step on the reference's 512³ voxel array (`dense_5mm`: K1
 30 and K3d once a frame, integration in torch ops); at 5 mm read through
 the hash table (`5mm_hashprobe`: K3h instead of K3) and with the coarse
-320×240 raycast pre-pass (`5mm_coarse2`: K3 twice a frame). Each
+320×240 raycast pre-pass (`5mm_coarse2`: K3 twice a frame); through
+parallel/batch.py's batched steps (`batched_5mm`: 4 sequences at 5 mm,
+`batched_dense_5mm`: 2 on their own 512³ arrays; lane 0 replays the smoke's
+frames, lane b make_trajectory(30, scale=1 − 0.15·b), each right after its
+unbatched config; gated per lane on ATE, rotation and counters, on exactly
+30 K1, 1 K2 and 1 K3 launches a step (dense: 30 K1, 1 K3d), whatever the
+lane count, and on no host sync; printed: steps/s, frames/s summed over the
+lanes, batch_efficiency = that ÷ (B × the unbatched replay's frames/s in
+this call), lane 0's largest camera-centre difference from the unbatched
+replay, peak memory); and 10 frames at 5 mm on a render state without its
+claim plane (`5mm_gridless`: the legacy allocator, gated as the others; its
+final block set's symmetric difference from the compact allocator's over
+the same frames printed). Each
 replay is gated on tracking accuracy (ATE RMSE < 1 cm,
 rotation RMSE < 1°), the silent-cap counters its path has (max over the
 replay = 0; the dense path has none), every kernel of its path launched
@@ -97,7 +116,13 @@ runs the same gates and adds, per config, a torch.profiler window over the
 last PROFILE_FRAMES frames of a replay: device busy time per frame (the union
 of the intervals in which a kernel, copy or set ran on the card), device ops
 per frame, wall time per frame under the profiler, and the largest device
-consumers.
+consumers; for the two batched configs per step, with their device ops a
+step gated below 2× a frame of their unbatched config (a loop over the
+lanes would show as ~B×).
+
+It also builds native/itpu_io.cpp with g++ into build/native/ (a gate) and
+checks every config's allocation stride with assert_alloc_stride_safe, as
+the JAX package's bench.py does.
 """
 
 from __future__ import annotations
@@ -125,6 +150,10 @@ N_CHAIN_FRAMES = 3  # frames the K2 colour check fuses by kernel and by plain ve
 N_TIMED = 3  # timed replays per config
 N_BACK = 10  # frames replayed from frame 0's pose in the 5mm_swap return phase
 PROFILE_FRAMES = 10  # frames in the --profile window, the last of the replay
+BATCH_LANES = 4  # lanes of batched_5mm
+DENSE_LANES = 2  # lanes of batched_dense_5mm (1 GiB of array a lane)
+N_GRIDLESS = 10  # frames of 5mm_gridless
+LANE_CHECK = 3  # lanes of the lane-indexed kernel checks
 REPO = Path(__file__).resolve().parent
 SYNC_MSG = "called a synchronizing CUDA operation"
 
@@ -431,7 +460,7 @@ class Smoke:
         from infinitam_tpu_torch import calib, config
         from infinitam_tpu_torch.engine import dense_pipeline, hash_pipeline, trackers, volume
         from infinitam_tpu_torch.engine.main_engine import MainEngine
-        from infinitam_tpu_torch.engine.view_builder import build_view_from_metric_depth
+        from infinitam_tpu_torch.engine.view_builder import View, build_view_from_metric_depth
         from infinitam_tpu_torch.io import sources, synth
         from infinitam_tpu_torch.ops import hashing
         from infinitam_tpu_torch.ops import icp as icp_ops
@@ -445,6 +474,7 @@ class Smoke:
         self.pyramid, self.icp_ops, self.raycast_ops = pyramid, icp_ops, raycast_ops
         self.build, self.k_icp, self.k_int, self.k_ray = build, icp, integrate, raycast
         self.build_view = build_view_from_metric_depth
+        self.View = View
         self.MainEngine, self.sources = MainEngine, sources
         self.dev = torch.device("cuda", 0)
         self.calib = calib.default_calib(IMG[1], IMG[0])
@@ -548,11 +578,88 @@ class Smoke:
             self.ages.append(st.age)
         return vol, st, poses, diags
 
+    def fresh_gridless(self, settings):
+        """A fresh map whose render state has no claim plane (the trick of
+        tests/test_hash_pipeline.py:188): process_frame_hash then takes the
+        legacy allocator."""
+        vol, rs, st = self.fresh_state(settings)
+        return vol, rs._replace(cell_claim=None, entry_epoch=None, epoch=None), st
+
+    @property
+    def batch(self):
+        """parallel/batch.py, imported on first use (tools/ probes time older
+        checkouts, which lack it, through this class)."""
+        from infinitam_tpu_torch.parallel import batch
+
+        return batch
+
+    def fresh_batched(self, settings, n_lanes: int = BATCH_LANES):
+        return self.batch.batched_state_hash(settings, IMG, n_lanes, device=self.dev)
+
+    def fresh_batched_dense(self, settings, n_lanes: int = DENSE_LANES):
+        return self.batch.batched_state_dense(settings, IMG, n_lanes, device=self.dev)
+
+    def run_batched(self, settings, frames, state=None, on_phase=None):
+        """B sequences through parallel/batch.py's batched hash step:
+        frames[0][f] is step f's depth of every lane [B, H, W]. Returns (vol,
+        rs, tracking state, poses [B, 4, 4] a step, diagnostics with [B]
+        fields a step); `self.ages` as in run_frames."""
+        mark = on_phase or self.hp.no_phase
+        vol, rs, st = state or self.fresh_batched(settings, frames[0][0].shape[0])
+        step = self.batch.make_batched_step(settings)
+        poses, diags = [], []
+        self.ages = []
+        for d in frames[0]:
+            mark("start")
+            view = self.View(depth=d)
+            mark("view")
+            vol, rs, st, metrics = step(vol, rs, st, view, self.proj, on_phase=mark)
+            mark("other")
+            poses.append(st.pose)
+            diags.append(metrics["diag"])
+            self.ages.append(st.age)
+        return vol, rs, st, poses, diags
+
+    def run_batched_dense(self, settings, frames, state=None, on_phase=None):
+        """B sequences through the batched dense step (as run_batched)."""
+        mark = on_phase or self.hp.no_phase
+        vol, st = state or self.fresh_batched_dense(settings, frames[0][0].shape[0])
+        step = self.batch.make_batched_step_dense(settings)
+        poses, diags = [], []
+        self.ages = []
+        for d in frames[0]:
+            mark("start")
+            view = self.View(depth=d)
+            mark("view")
+            vol, st, metrics = step(vol, st, view, self.proj, on_phase=mark)
+            mark("other")
+            poses.append(st.pose)
+            diags.append(metrics["diag"])
+            self.ages.append(st.age)
+        return vol, st, poses, diags
+
     def runner(self, kind: str):
         """(run, fresh) of a replay kind: "frames" (process_frame_hash),
-        "engine" (MainEngine.process_frame) or "dense" (process_frame_dense)."""
+        "engine" (MainEngine.process_frame), "dense" (process_frame_dense),
+        "gridless" (process_frame_hash on a state that takes the legacy
+        allocator), "batched" or "batched_dense" (parallel/batch.py, lane
+        frames)."""
         return {"frames": (self.run_frames, self.fresh_state), "engine": (self.run_engine, self.fresh_engine),
-                "dense": (self.run_dense, self.fresh_dense)}[kind]
+                "dense": (self.run_dense, self.fresh_dense), "gridless": (self.run_frames, self.fresh_gridless),
+                "batched": (self.run_batched, self.fresh_batched),
+                "batched_dense": (self.run_batched_dense, self.fresh_batched_dense)}[kind]
+
+    def lane_frames(self, frames, gt, n_lanes: int):
+        """Lane frames for a batched replay: lane 0 replays the smoke's own
+        frames, lane b = 1.. make_trajectory(N_FRAMES, scale=1 − 0.15·b),
+        rendered on the card. Returns ((per step [B, H, W] depths, Nones),
+        the lanes' ground-truth poses)."""
+        gts = [gt] + [self.synth.make_trajectory(N_FRAMES, scale=1.0 - 0.15 * b) for b in range(1, n_lanes)]
+        steps = [torch.stack([frames[0][f]] + [self.synth.render_depth(torch.as_tensor(g[f], device=self.dev),
+                                                                        self.proj, IMG) for g in gts[1:]])
+                 for f in range(N_FRAMES)]
+        torch.cuda.synchronize()
+        return (steps, [None] * N_FRAMES), gts
 
     def inside_share(self, settings, frames, gt) -> float:
         """The share of valid depth pixels, over all frames, whose surface
@@ -1485,6 +1592,240 @@ class Smoke:
                   "viewer wrote 4 orbit PNGs and index.html")
         self.gate(max(fills, default=0.0) > 0.01, "viewer: an orbit image more than 1% filled")
 
+    def batched_replay(self, name, settings, frames, gts, kind, expected, single):
+        """A batched replay (`kind` "batched" or "batched_dense", `frames`
+        from lane_frames): a correctness run (each lane's ATE and rotation,
+        its counters, peak device memory), N_TIMED timed runs (the first
+        counts kernel launches, which must be `expected` a step, whatever
+        the lane count) and a phase run under the sync debug mode. `single`:
+        (name, frames/s) of the unbatched replay of lane 0's frames in this
+        call, for lane 0's poses against it and the batch efficiency.
+        Returns (launches, (steps/s, frames/s summed over the lanes, the
+        phase run's ms a step))."""
+        depths = frames[0]
+        n, B = len(depths), depths[0].shape[0]
+        run, fresh = self.runner(kind)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        *_state, poses, diags = run(settings, frames)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        del _state
+        P = torch.stack(poses).cpu().numpy().astype(np.float64)  # [steps, B, 4, 4]
+        errs = [trajectory_errors(P[:, b], gts[b][:n].astype(np.float64)) for b in range(B)]
+        counters = {k: torch.stack([getattr(d, k) for d in diags]).amax(0).tolist() for k in COUNTERS
+                    if hasattr(diags[0], k)}
+        ref_name, ref_fps = single
+        centre = [np.array([np.linalg.inv(p)[:3, 3] for p in x]) for x in (P[:, 0], self.poses[ref_name][:n])]
+        lane0_diff = float(np.linalg.norm(centre[0] - centre[1], axis=1).max())
+        times = []
+        for rep in range(N_TIMED):
+            state = fresh(settings, B)
+            torch.cuda.synchronize()
+            if rep == 0:
+                self.build.reset_launch_counts()
+            t0 = time.perf_counter()
+            run(settings, frames, state)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            if rep == 0:
+                launches = self.build.launch_counts()
+            del state
+        dt = float(np.median(times))
+        events, syncs = [], []
+
+        def mark(phase):
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            events.append((phase, e))
+
+        state = fresh(settings, B)
+        torch.cuda.synchronize()
+        with flag_syncs(syncs):
+            run(settings, frames, state, on_phase=mark)
+        torch.cuda.synchronize()
+        del state
+        phases, prev = {}, None
+        for phase, e in events:
+            if phase != "start":
+                phases[phase] = phases.get(phase, 0.0) + prev.elapsed_time(e)
+            prev = e
+        table = {k: v / n for k, v in phases.items()}
+        step_ms = sum(table.values())
+        steps_s = n / dt
+        fps = B * steps_s
+        efficiency = fps / (B * ref_fps)
+        print(f"{name}: {B} lanes × {n} steps, {steps_s:.3f} steps/s, {fps:.2f} frames/s summed over the lanes "
+              f"(median of {N_TIMED} replays; ms/step " + ", ".join(f"{t * 1000 / n:.2f}" for t in times)
+              + f"), batch_efficiency {efficiency:.3f} (frames/s ÷ ({B} × {ref_name}'s {ref_fps:.2f} frames/s in "
+              f"this call)); peak device memory of the correctness run {peak / 2**30:.3f} GiB")
+        for b, (ate, rot) in enumerate(errs):
+            print(f"  lane {b}: ATE RMSE {ate * 1000:.3f} mm, rotation RMSE {rot:.4f} deg")
+        print(f"  lane 0 against the {ref_name} replay of the same frames: largest per-frame camera-centre "
+              f"difference {lane0_diff * 1000:.4f} mm")
+        print(f"  counters per lane (max over steps): {json.dumps(counters)}")
+        print(f"  kernel launches in the timed replay: {json.dumps(launches)}; per step: "
+              + json.dumps({k: v / n for k, v in launches.items()}))
+        print(f"  host syncs flagged in the phase run: {len(syncs)}")
+        for site in sorted(set(syncs)):
+            print(f"    {syncs.count(site)}× at {site}")
+        print("  phase table (device-stream time between phase events, ms/step): "
+              + ", ".join(f"{k} {v:.3f} ({100 * v / step_ms:.1f}%)" for k, v in table.items())
+              + f"; step {step_ms:.3f}")
+        for b, (ate, rot) in enumerate(errs):
+            self.gate(ate < 0.01 and rot < 1.0, f"{name} lane {b} ATE RMSE < 1 cm and rotation RMSE < 1 deg")
+        self.gate(all(v == 0 for lanes in counters.values() for v in lanes),
+                  f"{name} every counter of every lane 0 ({len(counters)} a lane)")
+        self.gate(launches == dict.fromkeys(self.build.KERNELS, 0) | {k: v * n for k, v in expected.items()},
+                  f"{name} launches exactly {expected} a step (one launch for all {B} lanes)")
+        self.gate(len(syncs) == 0, f"{name} step loop issued no host sync")
+        return launches, (steps_s, fps, step_ms), efficiency
+
+    def lane_checks(self, settings, vol, rs, st, view, dense_settings, dvol, dst):
+        """The lane-indexed launches at B = LANE_CHECK under torch.vmap, at
+        the main path's shapes: K1 at each level, K2 and K3 on copies of the
+        5 mm volume, K3d on copies of the 512³ array, each lane with its own
+        tensors (copies) and its own pose, ~1 mm / 0.06° apart; the
+        intrinsics shared (stride 0). Each is held to the B single-lane
+        launches (K1 and K2 bit-identical, K3 and K3d equal) and to the
+        plain twin (as the single-lane checks hold it), and timed: the B = 3
+        launch's device time beside the single launch's. Returns {kernel
+        JSON name: (B = 3 ms, single-lane ms)}."""
+        B = LANE_CHECK
+        d6 = torch.tensor([[0.0] * 6, [0.001, -0.001, 0.0005, 0.001, 0.0, -0.001],
+                           [-0.0008, 0.0005, 0.001, -0.001, 0.001, 0.0]], device=self.dev)
+
+        def lanes(x):
+            return torch.stack([x.clone() for _ in range(B)])
+
+        def poses(p):
+            return torch.stack([self.se3.se3_exp(d6[b]) @ p for b in range(B)])
+
+        out = {}
+
+        def timed(label, batched, single_call):
+            dev_b, per_b, oth_b = device_ms(batched, 30)
+            dev_1, per_1, oth_1 = device_ms(single_call, 30)
+            print(f"  {label} at B = {B}: device {fmt_ms(dev_b)} ({per_b} kernel(s), {oth_b:g} other op(s) a call) "
+                  f"against 3 × {fmt_ms(dev_1)} = {fmt_ms(None if dev_1 is None else 3 * dev_1)} for {B} single "
+                  f"launches")
+            self.gate(per_b == 1 and oth_b == 0, f"{label} at B = {B}: one launch for the {B} lanes, no other op")
+            return dev_b, dev_1
+
+        # K1 at each pyramid level
+        tp = settings.tracking
+        depths = self.pyramid.build_depth_pyramid(view.depth, tp.n_levels)
+        dists = self.trackers.level_dist_thresh(tp)
+        pm, nm, spc = lanes(st.points_map), lanes(st.normals_map), lanes(st.pose_point_cloud)
+        inv = torch.stack([self.se3.invert(p) for p in poses(st.pose)])
+        k1 = []
+        for lvl in range(tp.n_levels):
+            vproj = self.trackers.scale_proj(self.proj, lvl)
+            dl = lanes(depths[lvl])
+
+            def fn(d, p, n_, ip, sp_, vproj=vproj, lvl=lvl):
+                return self.k_icp.icp_gh(d, vproj, p, n_, self.proj, ip, sp_, dists[lvl], tp.min_valid_points)
+
+            got = torch.vmap(fn)(dl, pm, nm, inv, spc)
+            same, rel = True, 0.0
+            for b in range(B):
+                one = fn(dl[b], pm[b], nm[b], inv[b], spc[b])
+                same &= all(torch.equal(x[b], y) for x, y in zip(got, one))
+                p = self.k_icp.icp_gh_plain(dl[b], vproj, pm[b], nm[b], self.proj, inv[b], spc[b], dists[lvl],
+                                            tp.min_valid_points)
+                rel = max(rel, gh_errors(one, p)[0])
+                same &= int(one.num_valid) == int(p.num_valid)
+            print(f"K1 level {lvl}, {B} lanes in one launch: each lane bit-identical to its single launch {same}, "
+                  f"single launches within {rel:.3e} relative of plain")
+            self.gate(same and rel < 1e-4, f"K1 level {lvl} at B = {B}: lanes bit-identical to single launches, "
+                                           "plain within 1e-4")
+            k1.append(timed(f"K1 level {lvl}", lambda fn=fn, dl=dl: torch.vmap(fn)(dl, pm, nm, inv, spc),
+                            lambda fn=fn, dl=dl: fn(dl[0], pm[0], nm[0], inv[0], spc[0])))
+        out["icp_reduce"] = k1[0]
+        out["icp_reduce_level_ms"] = k1
+        del pm, nm, spc
+
+        # K2 on copies of the volume and its visible list
+        sp = settings.scene
+        fuse = (sp.voxel_size, sp.mu, sp.max_w, sp.stop_integrating_at_max_w, settings.hashing.block_size,
+                settings.max_fused_blocks)
+        args = (lanes(rs.visible_ids), lanes(vol.entry_ptr), lanes(vol.entry_pos), lanes(view.depth),
+                poses(st.pose), torch.ones((B,), dtype=torch.bool, device=self.dev))
+
+        def k2(vx, ids, ep, epos, d, pose, en):
+            self.k_int.integrate_depth(vx, ids, ep, epos, d, pose, self.proj, en, *fuse)
+            return vx
+
+        vk = lanes(vol.vox)
+        torch.vmap(k2)(vk, *args)
+        same = True
+        for b in range(B):
+            one, plain = vol.vox.clone(), vol.vox.clone()
+            k2(one, *(a[b] for a in args))
+            self.k_int.integrate_depth_plain(plain, args[0][b], args[1][b], args[2][b], args[3][b], args[4][b],
+                                             self.proj, args[5][b], *fuse)
+            same &= torch.equal(vk[b], one) and torch.equal(one, plain) and not torch.equal(one, vol.vox)
+        print(f"K2, {B} lanes in one launch: each lane bit-identical to its single launch and to plain {same}")
+        self.gate(same, f"K2 at B = {B}: lanes bit-identical to single launches and to plain")
+        out["integrate_depth"] = timed("K2", lambda: torch.vmap(k2)(vk, *args),
+                                       lambda: k2(one, *(a[0] for a in args)))
+        del args, one, plain
+
+        # K3 on the updated copies, through each lane's grid
+        zmin, zmax, _ = self.hp.expected_depth_ranges(vol, rs, st.pose, self.proj, IMG, settings)
+        gp, hp_ = settings.block_grid, settings.hashing
+        grid = lanes(self.hp.hv.get_block_grid(vol, gp).reshape(-1))
+        z0, z1 = lanes(zmin), lanes(zmax)
+        inv = torch.stack([self.se3.invert(p) for p in poses(st.pose)])
+
+        def k3(vx, g, im, a, b_):
+            return self.k_ray.raycast_grid(vol._replace(vox=vx), g, gp, hp_, im, self.proj, IMG, 1.0 / sp.voxel_size,
+                                           sp.mu, a, b_).points
+
+        def k3_plain(b):
+            return self.k_ray.raycast_grid_plain(vol._replace(vox=vk[b]), grid[b], gp, hp_, inv[b], self.proj, IMG,
+                                                 1.0 / sp.voxel_size, sp.mu, z0[b], z1[b]).points
+
+        out["raycast_grid"] = self.lane_raycast("K3", k3, k3_plain, (vk, grid, inv, z0, z1), timed)
+        del vk, grid, z0, z1
+
+        # K3d on copies of the dense array
+        sd = dense_settings.scene
+        zmin = torch.full(IMG, sd.view_frustum_min, device=self.dev)
+        zmax = torch.full(IMG, sd.view_frustum_max, device=self.dev)
+        sdf = lanes(dvol.sdf)
+        inv = torch.stack([self.se3.invert(p) for p in poses(dst.pose)])
+
+        def k3d(s_, im):
+            return self.k_ray.raycast_dense(dvol._replace(sdf=s_), dense_settings.plain, im, self.proj, IMG,
+                                            1.0 / sd.voxel_size, sd.mu, zmin, zmax).points
+
+        def k3d_plain(b):
+            return self.k_ray.raycast_dense_plain(dvol._replace(sdf=sdf[b]), dense_settings.plain, inv[b], self.proj,
+                                                  IMG, 1.0 / sd.voxel_size, sd.mu, zmin, zmax).points
+
+        out["raycast_dense"] = self.lane_raycast("K3d", k3d, k3d_plain, (sdf, inv), timed)
+        return out
+
+    def lane_raycast(self, label, kernel, plain, args, timed):
+        """A raycast variant at B = LANE_CHECK: the batched launch, each lane
+        equal to its single launch and held to its plain twin (hit mask
+        equal, points within 4e-6 voxel); then timed."""
+        B = LANE_CHECK
+        got = torch.vmap(kernel)(*args)
+        same, ok = True, True
+        for b in range(B):
+            one = kernel(*(a[b] for a in args))
+            p = plain(b)
+            same &= torch.equal(got[b], one)
+            fk, fp = one[..., 3] > 0, p[..., 3] > 0
+            ok &= torch.equal(fk, fp) and int(fp.sum()) > 100000 and float(
+                (one[..., :3] - p[..., :3]).abs()[fp].max()) <= 4e-6
+        print(f"{label}, {B} lanes in one launch: each lane equal to its single launch {same}, single launches "
+              f"within the plain twin's bar (hit mask equal, 4e-6 voxel) {ok}")
+        self.gate(same and ok, f"{label} at B = {B}: lanes equal to single launches, plain within its bar")
+        return timed(label, lambda: torch.vmap(kernel)(*args), lambda: kernel(*(a[0] for a in args)))
+
     def profile(self, name, settings, frames, kind="frames"):
         """torch.profiler over the last PROFILE_FRAMES frames of a replay on a
         fresh map (the frames before them warm the map up, unprofiled)."""
@@ -1508,18 +1849,21 @@ class Smoke:
                        if e.device_type == DeviceType.CUDA)
         if not spans:
             print(f"{name} profile: the profiler saw no device activity; device busy not measured")
-            return
+            return None
         busy, end, by_name = 0.0, float("-inf"), {}
         for s, e, op in spans:  # union of the intervals, in µs
             busy += max(0.0, e - max(s, end))
             end = max(end, e)
             by_name[op] = by_name.get(op, 0.0) + (e - s)
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-        print(f"{name} profile over the last {n} of {len(depths)} frames: device busy {busy / 1000 / n:.3f} ms/frame "
-              f"(union of device intervals), {len(spans) / n:.1f} device ops/frame, wall {wall * 1000 / n:.3f} "
-              f"ms/frame under the profiler, device idle {100 * (1 - busy / 1e6 / wall):.1f}% of that wall")
+        unit = "step" if kind.startswith("batched") else "frame"
+        print(f"{name} profile over the last {n} of {len(depths)} {unit}s: device busy {busy / 1000 / n:.3f} "
+              f"ms/{unit} (union of device intervals), {len(spans) / n:.1f} device ops/{unit}, wall "
+              f"{wall * 1000 / n:.3f} ms/{unit} under the profiler, device idle {100 * (1 - busy / 1e6 / wall):.1f}% "
+              "of that wall")
         for op, us in top:
-            print(f"    {us / 1000 / n:8.3f} ms/frame  {op[:110]}")
+            print(f"    {us / 1000 / n:8.3f} ms/{unit}  {op[:110]}")
+        return len(spans) / n
 
 
 def main() -> int:
@@ -1552,6 +1896,11 @@ def main() -> int:
             elif kernel and ("Used" in line or "spill" in line):
                 print(f"  ptxas, {source} {kernel}: {line.split(':', 1)[-1].strip()}")
 
+    from infinitam_tpu_torch.utils import native
+
+    smoke.gate(native.get_lib() is not None and native.library_path().exists(),
+               f"native/itpu_io.cpp built with g++ into {native.library_path().relative_to(REPO)} and loaded")
+
     depths, rgbs, gt = smoke.frames()
     frames = (depths, rgbs)
     iters = smoke.trackers.level_iterations(smoke.cfg.TrackingParams())
@@ -1581,6 +1930,15 @@ def main() -> int:
          none | dict(icp=sum(iters), integrate=1, raycast=2)),
     ]
     by_name = {c[0]: c[1] for c in configs}
+    for name, settings, *_rest in configs:  # as bench.py:96-99 checks its configs
+        try:
+            smoke.cfg.assert_alloc_stride_safe(settings, smoke.calib.intrinsics_d.fx)
+            safe = True
+        except ValueError as e:
+            print(f"{name}: {e}")
+            safe = False
+        smoke.gate(safe, f"{name} alloc_subsample {settings.alloc_subsample} within the safe stride "
+                         f"{smoke.cfg.safe_alloc_stride(settings, smoke.calib.intrinsics_d.fx)}")
     s5, s1d, s1, s5w, sd = (by_name[k] for k in ("5mm", "1cm", "1cm_rgb", "5mm_wicp", "dense_5mm"))
     vol, rs, st, view = smoke.fused(s5, frames)
     k2 = smoke.k2_check("5 mm", s5, vol, rs, st, view)
@@ -1592,10 +1950,17 @@ def main() -> int:
     kernels.insert(1, smoke.k1_check(s5w, st, wview.depth, weights=omega))
     kernels.append(smoke.k3_check("5 mm", s5, vol, rs, st))
     kernels.append(smoke.k3h_check(by_name["5mm_hashprobe"], vol, rs, st))
-    del vol, rs, st, view, wview, omega
+    del wview, omega
     dvol, dst, _p, _d = smoke.run_dense(sd, (depths[:N_CHECK_FRAMES], rgbs[:N_CHECK_FRAMES]))
     kernels.append(smoke.k3d_check(sd, dvol, dst))
-    del dvol, dst
+    lanes = smoke.lane_checks(s5, vol, rs, st, view, sd, dvol, dst)
+    for k in kernels:
+        if k["name"] in lanes:
+            k["lanes3_ms"], k["lanes3_single_ms"] = lanes[k["name"]]
+            k["lanes3_bound_ms"] = LANE_CHECK * k["bound_ms"]
+        if k["name"] == "icp_reduce":
+            k["lanes3_level_ms"] = [list(t) for t in lanes["icp_reduce_level_ms"]]
+    del vol, rs, st, view, dvol, dst
     k2_1cm = smoke.k2_check("1 cm", s1d, *smoke.fused(s1d, frames))
     k2.update({f"{k}_1cm": k2_1cm[k] for k in ("ms", "cold_ms", "call_ms", "plain_ms", "bound_ms", "bound_by")})
     vol, rs, st, _view = smoke.fused(s1, frames)
@@ -1606,7 +1971,18 @@ def main() -> int:
     # counts are reset just before it and read just after), and per frame of
     # each replay
     launches = dict.fromkeys(build.KERNELS, 0)
-    per_frame, timing = {}, {}
+    per_frame, per_step, timing, efficiency = {}, {}, {}, {}
+
+    def batched(name, settings, kind, n_lanes, expected, single):
+        """A batched replay right after the unbatched replay of its lane 0."""
+        bframes, bgts = smoke.lane_frames(frames, gt, n_lanes)
+        counts, timing[name], efficiency[name] = smoke.batched_replay(name, settings, bframes, bgts, kind, expected,
+                                                                      (single, timing[single][0]))
+        per_step[name] = {k: n / N_FRAMES for k, n in counts.items()}
+        per_frame[name] = {k: n / (N_FRAMES * n_lanes) for k, n in counts.items()}
+        for k, n in counts.items():
+            launches[k] += n
+
     for name, settings, path, kind, expected in configs:
         counts, final, timing[name] = smoke.replay(name, settings, frames, gt, path, kind, expected)
         per_frame[name] = {k: n / N_FRAMES for k, n in counts.items()}
@@ -1614,6 +1990,20 @@ def main() -> int:
             launches[k] += n
         if name == "5mm":
             smoke.mesh_check(settings, final)
+            del final
+            batched("batched_5mm", settings, "batched", BATCH_LANES, every_frame, "5mm")
+            # the legacy allocator on the card: a render state without its claim plane
+            sub = (depths[:N_GRIDLESS], rgbs[:N_GRIDLESS])
+            counts, final, timing["5mm_gridless"] = smoke.replay("5mm_gridless", settings, sub, gt[:N_GRIDLESS],
+                                                                 DEPTH_PATH, "gridless", every_frame)
+            per_frame["5mm_gridless"] = {k: n / N_GRIDLESS for k, n in counts.items()}
+            for k, n in counts.items():
+                launches[k] += n
+            compact = smoke.run_frames(settings, sub)[0]
+            sets = [set(map(tuple, v.entry_pos[v.entry_ptr >= 0].tolist())) for v in (final, compact)]
+            print(f"5mm_gridless: final block set {len(sets[0])} blocks, the compact allocator's over the same "
+                  f"{N_GRIDLESS} frames {len(sets[1])}, symmetric difference {len(sets[0] ^ sets[1])} blocks")
+            del compact
         if name == "5mm_wicp":
             smoke.get_image_check(final, settings, frames, s1)
         if name == "5mm_swap":
@@ -1624,7 +2014,10 @@ def main() -> int:
             print(f"dense_5mm: {100 * smoke.inside_share(settings, frames, gt):.2f}% of the valid depth pixels "
                   f"({N_FRAMES} frames, true poses) have their surface point inside the {settings.plain.size} array")
             smoke.dense_mesh_check(settings, final)
-        del final
+            del final
+            batched("batched_dense_5mm", settings, "batched_dense", DENSE_LANES,
+                    dict(icp=sum(iters), raycast_dense=1), "dense_5mm")
+        final = None
     # expectations, printed and not gated: the map lies inside the block
     # grid's window, so both readers find the same blocks
     centre = {k: np.array([np.linalg.inv(p)[:3, 3] for p in v]) for k, v in smoke.poses.items()}
@@ -1640,8 +2033,20 @@ def main() -> int:
     smoke.cli_check()
     smoke.fixture_check()
     if args.profile:
+        ops = {}
         for name, settings, _path, kind, _expected in configs:
-            smoke.profile(name, settings, frames, kind)
+            ops[name] = smoke.profile(name, settings, frames, kind)
+        ops["batched_5mm"] = smoke.profile("batched_5mm", s5, smoke.lane_frames(frames, gt, BATCH_LANES)[0],
+                                           "batched")
+        ops["batched_dense_5mm"] = smoke.profile("batched_dense_5mm", sd, smoke.lane_frames(frames, gt, DENSE_LANES)[0],
+                                                 "batched_dense")
+        for name, single in (("batched_5mm", "5mm"), ("batched_dense_5mm", "dense_5mm")):
+            if ops[name] is None or ops[single] is None:
+                print(f"{name}: device ops per step not measured")
+                continue
+            print(f"{name}: {ops[name]:.1f} device ops a step against {ops[single]:.1f} a frame of {single} "
+                  f"({ops[name] / ops[single]:.3f}×)")
+            smoke.gate(ops[name] < 2 * ops[single], f"{name} device ops a step < 2× {single}'s a frame")
     smoke.gate(not any(m.split(".")[0] in ("jax", "jaxlib", "infinitam_tpu") for m in sys.modules),
                "no module of JAX or of the JAX package was imported")
     print(f"chip_smoke wall time: {time.perf_counter() - t_start:.1f} s")
@@ -1653,6 +2058,7 @@ def main() -> int:
         k["bound_share"] = None if k["ms"] is None else k["bound_ms"] / k["ms"]
         k["launches"] = launches[COUNTER[k["name"]]]
         k["launches_per_frame"] = {name: pf[COUNTER[k["name"]]] for name, pf in per_frame.items()}
+        k["launches_per_step"] = {name: ps[COUNTER[k["name"]]] for name, ps in per_step.items()}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

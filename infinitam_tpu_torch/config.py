@@ -172,6 +172,29 @@ class Settings:
         return dataclasses.replace(self, **kw)
 
 
+def safe_alloc_stride(settings: Settings, focal_px: float) -> int:
+    """The largest allocation-ray stride that still puts ≥ 2 taps across a
+    block's projected footprint at the far frustum plane (derived from
+    voxel_size · block_size, the focal length and view_frustum_max)."""
+    block_m = settings.scene.voxel_size * settings.hashing.block_size
+    min_footprint_px = focal_px * block_m / settings.scene.view_frustum_max
+    return max(1, int(min_footprint_px // 2))
+
+
+def assert_alloc_stride_safe(settings: Settings, focal_px: float) -> None:
+    """Raise ValueError when `alloc_subsample` exceeds safe_alloc_stride:
+    surface blocks between allocation rays would be silently missed."""
+    safe = safe_alloc_stride(settings, focal_px)
+    if settings.alloc_subsample > safe:
+        raise ValueError(
+            f"alloc_subsample={settings.alloc_subsample} exceeds the safe "
+            f"stride {safe} for voxel {settings.scene.voxel_size} m × block "
+            f"{settings.hashing.block_size} at f={focal_px:.0f} px, far plane "
+            f"{settings.scene.view_frustum_max} m — surface blocks between "
+            "allocation rays would be silently missed"
+        )
+
+
 def tiny_test_settings() -> Settings:
     """Small capacities for fast CPU tests (alloc stride 2: the default
     stride 4 is sized for 640×480)."""

@@ -32,3 +32,26 @@ __device__ __forceinline__ void itpu_transform(const float* M, float x, float y,
     oy = itpu_fma(M[6], z, itpu_fma(M[5], y, M[4] * x)) + M[7];
     oz = itpu_fma(M[10], z, itpu_fma(M[9], y, M[8] * x)) + M[11];
 }
+
+// Lanes: B independent problems in one launch (the port's torch.vmap
+// batch). A kernel reads its lane from a grid index and moves each of its
+// tensor arguments on by lane · stride elements; a stride of 0 shares one
+// tensor among the lanes. The entry points take the strides as a host
+// array, in the order each one documents, and pass them by value.
+#define ITPU_MAX_LANE_ARGS 12
+
+struct ItpuLanes {
+    long long s[ITPU_MAX_LANE_ARGS];
+};
+
+static inline ItpuLanes itpu_lanes(const long long* strides, int n) {
+    ItpuLanes l = {};
+    for (int i = 0; i < n && i < ITPU_MAX_LANE_ARGS; ++i) l.s[i] = strides ? strides[i] : 0;
+    return l;
+}
+
+// p moved on to lane b of a tensor argument with `stride` elements between lanes
+template <class T>
+__device__ __forceinline__ T* itpu_lane(T* p, long long b, long long stride) {
+    return p ? p + b * stride : p;
+}

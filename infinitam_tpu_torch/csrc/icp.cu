@@ -6,7 +6,7 @@
 // ops/icp.py::compute_residuals for each view pixel, reduces the 21
 // upper-triangle terms of H = ΣAAᵀ, the 6 terms of ∇ = ΣbA, Σb² and the valid
 // count, and writes what icp.gh_from_sums returns: H [6×6], ∇ [6], the energy
-// f = √|Σb²|/N when N > min_valid (else the 1e5 sentinel) and N as int32.
+// f = √|Σb²|/N when N > min_valid (else the 1e5 sentinel), and N.
 //
 // What bounds it on the H100: bytes and launch latency. A call reads the
 // view depth (1.2 MB at level 0) and taps the [H, W, 4] float32 point and
@@ -34,6 +34,14 @@
 // The maps are read with float4 loads; the scattered taps stay in L2. The
 // TPU kernel's one-hot MXU taps, bf16 plane splits and window-miss
 // invalidation are not carried over.
+//
+// Lanes (the batched step): grid (n_ctas, B), blockIdx.y the lane. Each
+// lane reads its own depth, weights, maps, intrinsics and poses (stride 0:
+// shared), writes its own partials, ticket counter, 43 words and count, and sums
+// its n_ctas partials in the same fixed order as a single-lane launch, so
+// its result is bit-identical to that launch's. The count N goes to its own
+// int32 word (not into the float buffer), so that no dtype view of the
+// buffer is needed, which torch.vmap does not batch.
 //
 // Per-pixel weights (the weighted ICP tracker): with a weight map ω [h, w]
 // at the view level's resolution, the kernel is the WITH_WEIGHTS variant of
@@ -142,7 +150,7 @@ __device__ __forceinline__ void itpu_icp_pixel(int i, const float* __restrict__ 
 }
 
 // partial: [gridDim.x, 29] scratch; counter: the stream's ticket counter (0
-// between launches); out: H [6×6] row-major, ∇ [6], f, N (int32 bits);
+// between launches); out: H [6×6] row-major, ∇ [6], f; count: N;
 // weights: [h, w], read only by the WITH_WEIGHTS variant
 template <bool WITH_WEIGHTS>
 __global__ void __launch_bounds__(ICP_THREADS)
@@ -151,7 +159,21 @@ itpu_icp_kernel(const float* __restrict__ depth, const float* __restrict__ weigh
                 const float4* __restrict__ nrm, int hs, int ws, const float* __restrict__ view_proj,
                 const float* __restrict__ scene_proj, const float* __restrict__ inv_pose,
                 const float* __restrict__ scene_pose, float dist_thresh, int min_valid, float* partial,
-                unsigned int* counter, float* __restrict__ out) {
+                unsigned int* counter, float* __restrict__ out, int* __restrict__ count, ItpuLanes ln) {
+    // this CTA's lane: strides in elements, in itpu_icp_gh's order
+    const long long lane_id = blockIdx.y;
+    depth += lane_id * ln.s[0];
+    if (WITH_WEIGHTS) weights += lane_id * ln.s[1];
+    pts = reinterpret_cast<const float4*>(reinterpret_cast<const float*>(pts) + lane_id * ln.s[2]);
+    nrm = reinterpret_cast<const float4*>(reinterpret_cast<const float*>(nrm) + lane_id * ln.s[3]);
+    view_proj += lane_id * ln.s[4];
+    scene_proj += lane_id * ln.s[5];
+    inv_pose += lane_id * ln.s[6];
+    scene_pose += lane_id * ln.s[7];
+    partial += lane_id * gridDim.x * ICP_N_SUMS;
+    counter += lane_id;
+    out += lane_id * 43;
+    count += lane_id;
     ItpuIcpCam cam;
     cam.vfx = view_proj[0], cam.vfy = view_proj[1], cam.vcx = view_proj[2], cam.vcy = view_proj[3];
     cam.sfx = scene_proj[0], cam.sfy = scene_proj[1], cam.scx = scene_proj[2], cam.scy = scene_proj[3];
@@ -214,20 +236,26 @@ itpu_icp_kernel(const float* __restrict__ depth, const float* __restrict__ weigh
         const int n_valid = (int)tot[28];
         const float sum_f = (float)tot[27];
         out[42] = n_valid > min_valid ? sqrtf(fabsf(sum_f)) / (float)max(n_valid, 1) : 1e5f;
-        reinterpret_cast<int*>(out)[43] = n_valid;
+        *count = n_valid;
         *counter = 0u;  // ready for the next launch
     }
 }
 
-// weights: a [h, w] float32 map, or null for the unweighted kernel
+// weights: a [h, w] float32 map, or null for the unweighted kernel.
+// n_lanes lanes; partial [n_lanes, n_ctas, 29], counter [n_lanes] (0
+// between launches), out [n_lanes, 43], count [n_lanes]; strides: depth,
+// weights, points, normals, view_proj, scene_proj, inv_pose, scene_pose
 ITPU_EXPORT int itpu_icp_gh(const void* depth, const void* weights, int h, int w, const void* pts, const void* nrm,
                             int hs, int ws, const void* view_proj, const void* scene_proj, const void* inv_pose,
                             const void* scene_pose, float dist_thresh, int min_valid, int n_ctas, void* partial,
-                            void* counter, void* out, void* stream) {
+                            void* counter, void* out, void* count, int n_lanes, const long long* strides,
+                            void* stream) {
+    if (n_lanes <= 0) return (int)cudaGetLastError();
     auto kernel = weights ? itpu_icp_kernel<true> : itpu_icp_kernel<false>;
-    kernel<<<n_ctas, ICP_THREADS, 0, (cudaStream_t)stream>>>(
+    kernel<<<dim3(n_ctas, n_lanes), ICP_THREADS, 0, (cudaStream_t)stream>>>(
         (const float*)depth, (const float*)weights, h, w, (const float4*)pts, (const float4*)nrm, hs, ws,
         (const float*)view_proj, (const float*)scene_proj, (const float*)inv_pose, (const float*)scene_pose,
-        dist_thresh, min_valid, (float*)partial, (unsigned int*)counter, (float*)out);
+        dist_thresh, min_valid, (float*)partial, (unsigned int*)counter, (float*)out, (int*)count,
+        itpu_lanes(strides, 8));
     return (int)cudaGetLastError();
 }

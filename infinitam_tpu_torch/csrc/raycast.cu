@@ -74,6 +74,16 @@
 // beyond the array's faces read 1.0. No block is cached: a read is one
 // bounds test and one load.
 
+// Lanes (the batched step): the tiles × B grid, blockIdx.z the lane. Each
+// lane marches its own volume (the reader's arrays moved on to the lane)
+// from its own camera, ranges and enable flag into its own output; a stride
+// of 0 shares an argument (the intrinsics). The lane's rays are those of a
+// single-lane launch, step for step. The lane offsets are a compile-time
+// switch (LANES), on for B > 1 only, so B = 1 runs the kernel as it was:
+// offsetting the reader and the arrays in every launch took the B = 1
+// kernel 3.8% (K3) and 3.8-8.9% (K3d) longer, in one run on the card with
+// the kernel without lanes (tools/lane_kernel_probe.py).
+
 #include <climits>
 
 #include "common.cuh"
@@ -102,6 +112,9 @@ struct ItpuGridIndex {
     const int* grid;
     int gx, gy, gz, ox, oy, oz;
 
+    // strides after the raycast's own six: vox (s[6]), then the grid
+    __device__ __forceinline__ void to_lane(long long b, const ItpuLanes& ln) { grid += b * ln.s[7]; }
+
     __device__ __forceinline__ int ptr(int bx, int by, int bz) const {
         const int cx = bx - ox, cy = by - oy, cz = bz - oz;
         if (cx < 0 || cx >= gx || cy < 0 || cy >= gy || cz < 0 || cz >= gz) return -1;
@@ -118,6 +131,13 @@ struct ItpuHashIndex {
     const int* entry_offset;  // [E]
     int n_buckets;
     unsigned mask;
+
+    // strides after vox (s[6]): entry_pos, entry_ptr, entry_offset
+    __device__ __forceinline__ void to_lane(long long b, const ItpuLanes& ln) {
+        entry_pos += b * ln.s[7];
+        entry_ptr += b * ln.s[8];
+        entry_offset += b * ln.s[9];
+    }
 
     __device__ __forceinline__ int ptr(int bx, int by, int bz) const {
         // uint32 products wrap as the reference's do (int32 would overflow)
@@ -149,6 +169,11 @@ struct ItpuBlockReader {
     const int* vox;
     int shift;  // block edge S = 1 << shift voxels
     using Cache = ItpuBlockCache;
+
+    __device__ __forceinline__ void to_lane(long long b, const ItpuLanes& ln) {
+        vox += b * ln.s[6];
+        index.to_lane(b, ln);
+    }
 
     __device__ __forceinline__ Cache fresh() const { return Cache{INT_MIN, INT_MIN, INT_MIN, -1}; }
 
@@ -212,6 +237,8 @@ struct ItpuDenseReader {
     int sx, sy, sz, ox, oy, oz;
     struct Cache {};
 
+    __device__ __forceinline__ void to_lane(long long b, const ItpuLanes& ln) { sdf_zyx += b * ln.s[6]; }
+
     __device__ __forceinline__ Cache fresh() const { return Cache{}; }
 
     __device__ __forceinline__ float read(Cache&, int vx, int vy, int vz, bool& found) const {
@@ -256,11 +283,21 @@ __device__ __forceinline__ float itpu_ray_length(float dx, float dy, float z, fl
 // inv_M: camera→world [4, 4] row-major; proj: (fx, fy, cx, cy); zmin, zmax:
 // [h, w]; out: [h, w, 4]; empty space steps to the exit of its
 // (1 << block_shift)-voxel block
-template <class Reader>
+template <class Reader, bool LANES>
 __global__ void itpu_raycast_kernel(Reader rd, int block_shift, const float* __restrict__ inv_M,
                                     const float* __restrict__ proj, float inv_voxel, const float* __restrict__ zmin,
                                     const float* __restrict__ zmax, int h, int w, float step_scale,
-                                    const bool* __restrict__ enable, float* __restrict__ out) {
+                                    const bool* __restrict__ enable, float* __restrict__ out, ItpuLanes ln) {
+    if constexpr (LANES) {  // this CTA's lane: strides in elements, inv_M, proj, zmin, zmax, enable, out, the reader's
+        const long long lane_id = blockIdx.z;
+        rd.to_lane(lane_id, ln);
+        inv_M += lane_id * ln.s[0];
+        proj += lane_id * ln.s[1];
+        zmin += lane_id * ln.s[2];
+        zmax += lane_id * ln.s[3];
+        enable = itpu_lane(enable, lane_id, ln.s[4]);
+        out += lane_id * ln.s[5];
+    }
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     const int x = blockIdx.x * RC_TILE_W + (warp & 1) * 8 + (lane & 7);
     const int y = blockIdx.y * RC_TILE_H + (warp >> 1) * 4 + (lane >> 3);
@@ -333,45 +370,53 @@ __global__ void itpu_raycast_kernel(Reader rd, int block_shift, const float* __r
 template <class Reader>
 static int itpu_raycast_launch(const Reader& rd, int block_shift, const void* inv_M, const void* proj,
                                float inv_voxel, const void* zmin, const void* zmax, int h, int w, float step_scale,
-                               const void* enable, void* out, void* stream) {
-    if (h > 0 && w > 0) {
-        const dim3 tiles((w + RC_TILE_W - 1) / RC_TILE_W, (h + RC_TILE_H - 1) / RC_TILE_H);
-        itpu_raycast_kernel<Reader><<<tiles, RC_THREADS, 0, (cudaStream_t)stream>>>(
+                               const void* enable, void* out, int n_lanes, const long long* strides, int n_strides,
+                               void* stream) {
+    if (h > 0 && w > 0 && n_lanes > 0) {
+        const dim3 tiles((w + RC_TILE_W - 1) / RC_TILE_W, (h + RC_TILE_H - 1) / RC_TILE_H, n_lanes);
+        auto kernel = n_lanes > 1 ? itpu_raycast_kernel<Reader, true> : itpu_raycast_kernel<Reader, false>;
+        kernel<<<tiles, RC_THREADS, 0, (cudaStream_t)stream>>>(
             rd, block_shift, (const float*)inv_M, (const float*)proj, inv_voxel, (const float*)zmin,
-            (const float*)zmax, h, w, step_scale, (const bool*)enable, (float*)out);
+            (const float*)zmax, h, w, step_scale, (const bool*)enable, (float*)out, itpu_lanes(strides, n_strides));
     }
     return (int)cudaGetLastError();
 }
 
-// K3: through the block grid [gx, gy, gz] at block origin (ox, oy, oz)
+// Every entry point: n_lanes lanes, strides inv_M, proj, zmin, zmax, enable,
+// out, then its reader's arrays.
+//
+// K3: through the block grid [gx, gy, gz] at block origin (ox, oy, oz);
+// reader strides vox, grid
 ITPU_EXPORT int itpu_raycast(const void* vox, const void* grid, int gx, int gy, int gz, int ox, int oy, int oz,
                              int block_shift, const void* inv_M, const void* proj, float inv_voxel, const void* zmin,
                              const void* zmax, int h, int w, float step_scale, const void* enable, void* out,
-                             void* stream) {
+                             int n_lanes, const long long* strides, void* stream) {
     const ItpuBlockReader<ItpuGridIndex> rd{{(const int*)grid, gx, gy, gz, ox, oy, oz}, (const int*)vox, block_shift};
     return itpu_raycast_launch(rd, block_shift, inv_M, proj, inv_voxel, zmin, zmax, h, w, step_scale, enable, out,
-                               stream);
+                               n_lanes, strides, 8, stream);
 }
 
-// K3h: through the hash table (entry_pos [E, 3], entry_ptr, entry_offset [E])
+// K3h: through the hash table (entry_pos [E, 3], entry_ptr, entry_offset
+// [E]); reader strides vox, entry_pos, entry_ptr, entry_offset
 ITPU_EXPORT int itpu_raycast_hash(const void* vox, const void* entry_pos, const void* entry_ptr,
                                   const void* entry_offset, int n_buckets, int hash_mask, int block_shift,
                                   const void* inv_M, const void* proj, float inv_voxel, const void* zmin,
                                   const void* zmax, int h, int w, float step_scale, const void* enable, void* out,
-                                  void* stream) {
+                                  int n_lanes, const long long* strides, void* stream) {
     const ItpuBlockReader<ItpuHashIndex> rd{
         {(const int*)entry_pos, (const int*)entry_ptr, (const int*)entry_offset, n_buckets, (unsigned)hash_mask},
         (const int*)vox, block_shift};
     return itpu_raycast_launch(rd, block_shift, inv_M, proj, inv_voxel, zmin, zmax, h, w, step_scale, enable, out,
-                               stream);
+                               n_lanes, strides, 10, stream);
 }
 
-// K3d: over the dense array sdf [sz, sy, sx] at voxel offset (ox, oy, oz)
+// K3d: over the dense array sdf [sz, sy, sx] at voxel offset (ox, oy, oz);
+// reader stride sdf
 ITPU_EXPORT int itpu_raycast_dense(const void* sdf, int sx, int sy, int sz, int ox, int oy, int oz, int block_shift,
                                    const void* inv_M, const void* proj, float inv_voxel, const void* zmin,
                                    const void* zmax, int h, int w, float step_scale, const void* enable, void* out,
-                                   void* stream) {
+                                   int n_lanes, const long long* strides, void* stream) {
     const ItpuDenseReader rd{(const float*)sdf, sx, sy, sz, ox, oy, oz};
     return itpu_raycast_launch(rd, block_shift, inv_M, proj, inv_voxel, zmin, zmax, h, w, step_scale, enable, out,
-                               stream);
+                               n_lanes, strides, 7, stream);
 }

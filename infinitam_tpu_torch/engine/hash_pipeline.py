@@ -122,7 +122,12 @@ def allocate_scene_from_depth(
     Returns (vol, render_state, n_alloc_overflow). Which of several equal
     candidates wins a claim, and so which VBA row a block gets, is
     unspecified, as in the JAX package: compare results as sets of block
-    coordinates."""
+    coordinates. A render state without its claim plane, or a volume
+    without its entry grid, takes the legacy allocator instead, as in the
+    JAX package."""
+    if render_state.cell_claim is None or vol.entry_grid is None:
+        return _allocate_scene_from_depth_legacy(vol, render_state, depth, pose, proj, settings,
+                                                 only_update_visible=only_update_visible, enable=enable)
     hp = settings.hashing
     sp = settings.scene
     dev = depth.device
@@ -159,10 +164,10 @@ def allocate_scene_from_depth(
     key = torch.where(cval & in_grid, cell, -1).reshape(nsteps, Ph, Pw)
 
     def matches_any(shifted):  # key vs every step of a neighbour pixel
-        m = torch.zeros(key.shape, dtype=torch.bool, device=dev)
+        m = torch.zeros_like(key, dtype=torch.bool)
         for s2 in range(nsteps):
             nb = shifted[s2][None]
-            m |= (key == nb) & (nb >= 0)
+            m = m | ((key == nb) & (nb >= 0))
         return m
 
     dup_nb = matches_any(_pad_before(key, 0, 1)) | matches_any(_pad_before(key, 1, 0)) | matches_any(
@@ -290,6 +295,94 @@ def allocate_scene_from_depth(
         entry_epoch=entry_epoch,
         epoch=epoch,
     )
+    return vol, new_rs, n_alloc_overflow
+
+
+def _allocate_scene_from_depth_legacy(
+    vol: HashVolume,
+    render_state: RenderStateVH,
+    depth: torch.Tensor,
+    pose: torch.Tensor,
+    proj: torch.Tensor,
+    settings: Settings,
+    only_update_visible: bool = False,
+    enable: torch.Tensor | bool = True,
+) -> Tuple[HashVolume, RenderStateVH, torch.Tensor]:
+    """The JAX package's oracle allocator over the full [E] visible-type
+    plane (reference-shaped: setToType3 → plan → allocate →
+    buildVisibleList), for a volume without its entry grid or a render state
+    without its claim plane; also the oracle of the compact allocator. The
+    ±mu band of every alloc_subsample-th pixel (MAX_BAND_STEPS DDA steps)
+    taps the entry grid (rebuilt from the hash when the volume has none);
+    in-grid cells without an entry are the wants, deduped through a [G³]
+    plane, compacted and inserted in two rounds; out-of-grid candidates
+    probe the hash and insert what they miss. The JAX package skips the
+    probe and the inserts with `lax.cond` when there is nothing to do; here
+    they always run, with nothing to write then. The new state has no claim
+    or epoch planes."""
+    hp = settings.hashing
+    sp = settings.scene
+    dev = depth.device
+    img_size = tuple(depth.shape)
+    E = hp.n_entries
+    i32 = dict(dtype=torch.int32, device=dev)
+    visible_type = hv.set_previous_visible(render_state)
+
+    s = settings.alloc_subsample
+    depth_a = depth[::s, ::s] if s > 1 else depth
+    proj_a = proj / s if s > 1 else proj
+    blocks, valid = hashing.blocks_on_ray_segment(depth_a, proj_a, se3.invert(pose), sp.mu, sp.voxel_size,
+                                                  hp.block_size, MAX_BAND_STEPS, sp.view_frustum_min,
+                                                  sp.view_frustum_max)
+    cand = blocks.reshape(-1, 3)
+    cand_valid = valid.reshape(-1) & enable
+
+    gp = settings.block_grid
+    gx, gy, gz = gp.dims
+    ox, oy, oz = gp.origin
+    G3 = gx * gy * gz
+    g0, g1, g2 = cand[:, 0] - ox, cand[:, 1] - oy, cand[:, 2] - oz
+    in_grid = (g0 >= 0) & (g0 < gx) & (g1 >= 0) & (g1 < gy) & (g2 >= 0) & (g2 < gz)
+    cell = (g0 * gy + g1) * gz + g2
+    entry_grid = vol.entry_grid if vol.entry_grid is not None else hv.build_entry_grid(vol, gp)
+    code = entry_grid[cell.clamp(0, G3 - 1).long()]
+    known = cand_valid & in_grid & (code >= 0)
+    # visibility marks for known entries: 2 if swapped out, 1 otherwise
+    vis_val = torch.where((code & 1) == 1, hv.VT_VISIBLE_SWAPPED, hv.VT_VISIBLE)
+    visible_type = scatter_drop(visible_type, torch.where(known, code >> 1, E), torch.where(known, vis_val, 0))
+
+    # out-of-grid candidates probe the hash (the grid is an accelerator,
+    # the hash stays canonical)
+    oog = cand_valid & ~in_grid
+    n_oog = oog.sum(dtype=torch.int32)
+    oidx, _ = compact_by_mask(oog, torch.arange(oog.shape[0], **i32), OOG_CAP, fill=-1)
+    ocand = cand[oidx.clamp(0, cand.shape[0] - 1).long()]
+    ovalid = oidx >= 0
+    opr = hv.probe(vol, ocand, hp, include_swapped=True)
+    ofound = ovalid & opr.found
+    ovis = torch.where(opr.entry_ptr == hv.SWAPPED_PTR, hv.VT_VISIBLE_SWAPPED, hv.VT_VISIBLE)
+    visible_type = scatter_drop(visible_type, torch.where(ofound, opr.entry_idx, E), torch.where(ofound, ovis, 0))
+
+    n_alloc_overflow = torch.zeros((), **i32)
+    if not only_update_visible:
+        # new in-grid cells: deduped through a want plane, compacted, inserted
+        want_at = torch.where(cand_valid & in_grid & (code < 0), cell, G3)
+        want = scatter_drop(torch.zeros((G3 + 1,), dtype=torch.bool, device=dev), want_at, True)[:G3]
+        n_want = want.sum(dtype=torch.int32)
+        n_alloc_overflow = (n_want - settings.max_alloc_blocks).clamp(min=0) + (n_oog - OOG_CAP).clamp(min=0)
+        ncell, _ = compact_by_mask(want, torch.arange(G3, **i32), settings.max_alloc_blocks, fill=-1)
+        ncell_c = ncell.clamp(0, G3 - 1)
+        nblocks = torch.stack([ncell_c // (gy * gz) + ox, (ncell_c // gz) % gy + oy, ncell_c % gz + oz],
+                              dim=-1).to(torch.int32)
+        # round 2 on the same set: same-bucket losers of round 1 insert now
+        # (already-inserted blocks re-probe as found and are no-ops)
+        vol, visible_type, _ = hv.insert_blocks(vol, visible_type, nblocks, ncell >= 0, hp, grid_params=gp)
+        vol, visible_type, _ = hv.insert_blocks(vol, visible_type, nblocks, ncell >= 0, hp, grid_params=gp)
+        vol, visible_type, _ = hv.insert_blocks(vol, visible_type, ocand, ovalid & ~opr.found, hp, grid_params=gp)
+
+    use_swapping = settings.swapping_mode.value == SwappingMode.ENABLED.value
+    new_rs = hv.build_visible_list(vol, visible_type, pose, proj, img_size, sp.voxel_size, hp,
+                                   use_enlarged=use_swapping, prev_ids=render_state.visible_ids)
     return vol, new_rs, n_alloc_overflow
 
 
@@ -507,6 +600,15 @@ def raycast_hash(vol, render_state, pose, proj, img_size: Tuple[int, int], setti
         zmin, zmax = rc.refine_ranges_from_coarse(res_c.points, pose, sp.voxel_size, img_size, c,
                                                   margin_m=2.0 * sp.mu, zmin0=zmin, zmax0=zmax)
     return march(proj, img_size, zmin, zmax)
+
+
+def raycast_hash_diag(vol, render_state, pose, proj, img_size: Tuple[int, int],
+                      settings: Settings) -> Tuple[rc.RaycastResult, torch.Tensor]:
+    """raycast_hash and its dropped-page count: 0, as on the JAX package's
+    XLA path, since the kernels have no page pool (the raster cap is counted
+    by n_too_big_blocks)."""
+    return (raycast_hash(vol, render_state, pose, proj, img_size, settings),
+            torch.zeros((), dtype=torch.int32, device=pose.device))
 
 
 def find_visible_blocks(vol: HashVolume, pose: torch.Tensor, proj: torch.Tensor, img_size: Tuple[int, int],

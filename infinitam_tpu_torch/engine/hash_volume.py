@@ -22,7 +22,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from infinitam_tpu_torch.config import VoxelBlockHashParams
-from infinitam_tpu_torch.ops.hashing import hash_index, point_to_block, scatter_drop
+from infinitam_tpu_torch.ops.hashing import compact_by_mask, hash_index, point_to_block, scatter_drop
 
 FREE_PTR = -2  # empty hash entry
 SWAPPED_PTR = -1  # allocated, streamed out to the host tier
@@ -190,9 +190,17 @@ class ProbeResult(NamedTuple):
     ordered_empty: torch.Tensor  # bool: the ordered bucket itself is empty
 
 
-def probe(vol: HashVolume, block_pos: torch.Tensor, params: VoxelBlockHashParams, include_swapped: bool = True) -> ProbeResult:
+def pack_entries(vol: HashVolume) -> torch.Tensor:
+    """[E, 5] int32 (pos.xyz, ptr, offset): one row gather per chain link in
+    `probe` instead of three table gathers."""
+    return torch.cat([vol.entry_pos, vol.entry_ptr[:, None], vol.entry_offset[:, None]], dim=1)
+
+
+def probe(vol: HashVolume, block_pos: torch.Tensor, params: VoxelBlockHashParams, include_swapped: bool = True,
+          packed: Optional[torch.Tensor] = None) -> ProbeResult:
     """Vectorized hash-chain walk, unrolled to MAX_PROBE links (reference
-    findVoxel hash overload, ITMRepresentationAccess.h:22-54)."""
+    findVoxel hash overload, ITMRepresentationAccess.h:22-54). `packed`
+    (pack_entries(vol), reused across calls) reads the tables by rows."""
     min_ptr = SWAPPED_PTR if include_swapped else 0
     idx0 = hash_index(block_pos, params.hash_mask)
     cur = idx0
@@ -203,9 +211,11 @@ def probe(vol: HashVolume, block_pos: torch.Tensor, params: VoxelBlockHashParams
     ordered_empty = None
     for k in range(MAX_PROBE):
         c = cur.long()
-        pos = vol.entry_pos[c]
-        ptr = vol.entry_ptr[c]
-        off = vol.entry_offset[c]
+        if packed is None:
+            pos, ptr, off = vol.entry_pos[c], vol.entry_ptr[c], vol.entry_offset[c]
+        else:
+            row = packed[c]
+            pos, ptr, off = row[..., :3], row[..., 3], row[..., 4]
         if k == 0:
             ordered_empty = ptr < SWAPPED_PTR
         match = (pos == block_pos).all(dim=-1) & (ptr >= min_ptr) & ~found
@@ -456,7 +466,7 @@ def check_block_visibility_planes(
                 zs = torch.where(ok, z, torch.ones_like(z))
                 u = fx * (p0[0] + co[0]) / zs + cx
                 v = fy * (p0[1] + co[1]) / zs + cy
-                vis |= ok & (u >= x_lo) & (u < x_hi) & (v >= y_lo) & (v < y_hi)
+                vis = vis | (ok & (u >= x_lo) & (u < x_hi) & (v >= y_lo) & (v < y_hi))
     return vis
 
 
@@ -466,3 +476,128 @@ def check_block_visibility(block_pos, M_d, proj, img_size, voxel_size, block_siz
         block_pos[..., 0], block_pos[..., 1], block_pos[..., 2],
         M_d, proj, img_size, voxel_size, block_size, enlarged,
     )
+
+
+class AllocationPlan(NamedTuple):
+    alloc_type: torch.Tensor  # [E] int32: 0 none, 1 ordered, 2 excess
+    block_coords: torch.Tensor  # [E, 3] int32 requested block pos
+    visible_type: torch.Tensor  # [E] int32 updated visibility marks
+    cand_need: torch.Tensor  # [N] bool: candidate not found (allocation wanted)
+
+
+def plan_allocations(
+    vol: HashVolume,
+    visible_type: torch.Tensor,  # [E] int32 (entries from last frame pre-set to 3)
+    cand_blocks: torch.Tensor,  # [N, 3] int32 candidate block coords
+    cand_valid: torch.Tensor,  # [N] bool
+    params: VoxelBlockHashParams,
+    packed: Optional[torch.Tensor] = None,
+) -> AllocationPlan:
+    """Mark entries to allocate and the visibility of touched entries
+    (reference buildHashAllocAndVisibleTypePP, its scatter phase). A
+    contended bucket keeps ONE winner per frame (duplicate-index scatter,
+    unspecified winner, as the reference's last-writer-wins race); losers
+    retry on a later frame."""
+    E = params.n_entries
+    pr = probe(vol, cand_blocks, params, include_swapped=True, packed=packed)
+    # visibility marks for found entries: 2 if swapped out, 1 otherwise
+    vis_val = torch.where(pr.entry_ptr == SWAPPED_PTR, VT_VISIBLE_SWAPPED, VT_VISIBLE)
+    hit = cand_valid & pr.found
+    visible_type = scatter_drop(visible_type, torch.where(hit, pr.entry_idx, E), torch.where(hit, vis_val, 0))
+    need = cand_valid & ~pr.found
+    a_type = torch.where(pr.ordered_empty, 1, 2)
+    tidx = torch.where(need, pr.tail_idx, E)
+    zeros = torch.zeros_like(vol.entry_ptr)
+    alloc_type = scatter_drop(zeros, tidx, torch.where(need, a_type, 0))
+    block_coords = scatter_drop(torch.zeros_like(vol.entry_pos), tidx, cand_blocks)
+    # new ordered entries are visible at once (reference: the planning sets
+    # entriesVisibleType[hashIdx] = 1 for !isExcess)
+    visible_type = scatter_drop(visible_type, torch.where(need & (a_type == 1), pr.tail_idx, E), VT_VISIBLE)
+    return AllocationPlan(alloc_type=alloc_type, block_coords=block_coords, visible_type=visible_type,
+                          cand_need=need)
+
+
+def execute_allocations(vol: HashVolume, plan: AllocationPlan,
+                        params: VoxelBlockHashParams) -> Tuple[HashVolume, torch.Tensor]:
+    """Pop the free lists and write the planned entries (reference
+    allocateVoxelBlocksList_device). Returns (vol, visible_type): excess
+    children become visible here."""
+    E = params.n_entries
+    visible_type = plan.visible_type
+    needs_block = plan.alloc_type > 0
+    needs_excess = plan.alloc_type == 2
+    block_rank = torch.cumsum(needs_block.to(torch.int32), 0) - 1
+    excess_rank = torch.cumsum(needs_excess.to(torch.int32), 0) - 1
+    blk_list_idx = vol.last_free_block - block_rank
+    exl_list_idx = vol.last_free_excess - excess_rank
+    has_block = needs_block & (blk_list_idx >= 0)
+    has_excess = needs_excess & (exl_list_idx >= 0)
+    new_block = vol.alloc_list[blk_list_idx.clamp(0, vol.alloc_list.shape[0] - 1).long()]
+    excess_slot = vol.excess_list[exl_list_idx.clamp(0, vol.excess_list.shape[0] - 1).long()]
+    iota = torch.arange(E, dtype=torch.int32, device=vol.entry_ptr.device)
+
+    # type 1: the ordered bucket itself
+    do1 = (plan.alloc_type == 1) & has_block
+    idx1 = torch.where(do1, iota, E)
+    entry_pos = scatter_drop(vol.entry_pos, idx1, plan.block_coords)
+    entry_ptr = scatter_drop(vol.entry_ptr, idx1, new_block)
+    entry_offset = scatter_drop(vol.entry_offset, idx1, 0)
+    # type 2: an excess child, linked from its parent
+    do2 = (plan.alloc_type == 2) & has_block & has_excess
+    cidx = torch.where(do2, params.n_buckets + excess_slot, E)
+    entry_pos = scatter_drop(entry_pos, cidx, plan.block_coords)
+    entry_ptr = scatter_drop(entry_ptr, cidx, new_block)
+    entry_offset = scatter_drop(entry_offset, cidx, 0)
+    entry_offset = scatter_drop(entry_offset, torch.where(do2, iota, E), excess_slot + 1)
+    visible_type = scatter_drop(visible_type, cidx, VT_VISIBLE)
+
+    new_vol = vol._replace(
+        entry_pos=entry_pos,
+        entry_ptr=entry_ptr,
+        entry_offset=entry_offset,
+        last_free_block=vol.last_free_block - (do1 | do2).sum(dtype=torch.int32),
+        last_free_excess=vol.last_free_excess - do2.sum(dtype=torch.int32),
+    )
+    return new_vol, visible_type
+
+
+def build_visible_list(
+    vol: HashVolume,
+    visible_type: torch.Tensor,
+    M_d: torch.Tensor,
+    proj: torch.Tensor,
+    img_size: Tuple[int, int],
+    voxel_size: float,
+    params: VoxelBlockHashParams,
+    use_enlarged: bool = False,
+    prev_ids: Optional[torch.Tensor] = None,
+) -> RenderStateVH:
+    """Re-check the carried-over entries and compact the visible list
+    (reference buildVisibleList_device: type-3 entries get a projection
+    re-check, then a prefix-sum compaction). With `prev_ids` (last frame's
+    compact list) the re-check runs over those ≤ V rows only: type-3 entries
+    are exactly last frame's visibles. The legacy allocator's list; the
+    state it returns has no claim or epoch planes."""
+    E = params.n_entries
+    if prev_ids is not None:
+        pid_c = prev_ids.clamp(0, E - 1).long()
+        is_prev = (prev_ids >= 0) & (visible_type[pid_c] == VT_VISIBLE_PREVIOUS)
+        vis = check_block_visibility(vol.entry_pos[pid_c], M_d, proj, img_size, voxel_size, params.block_size,
+                                     enlarged=use_enlarged)
+        visible_type = scatter_drop(visible_type, torch.where(is_prev & ~vis, pid_c, E), VT_NOT_VISIBLE)
+    else:
+        vis = check_block_visibility(vol.entry_pos, M_d, proj, img_size, voxel_size, params.block_size,
+                                     enlarged=use_enlarged)
+        visible_type = torch.where((visible_type == VT_VISIBLE_PREVIOUS) & ~vis, VT_NOT_VISIBLE, visible_type)
+    ids, n = compact_by_mask(visible_type > 0, torch.arange(E, dtype=torch.int32, device=visible_type.device),
+                             params.max_visible_blocks, fill=-1)
+    return RenderStateVH(visible_type=visible_type, visible_ids=ids, n_visible=n)
+
+
+def set_previous_visible(render_state: RenderStateVH) -> torch.Tensor:
+    """Start of a frame: last frame's visible entries demoted to type 3
+    (reference setToType3), the rest of the [E] plane cleared."""
+    ids = render_state.visible_ids
+    E = render_state.visible_type.shape[0]
+    return scatter_drop(torch.zeros_like(render_state.visible_type), torch.where(ids >= 0, ids, E),
+                        VT_VISIBLE_PREVIOUS)

@@ -7,7 +7,9 @@ and the allocation ray march of ITMSceneReconstructionEngine.h:141-241).
 Also home of the two scatter forms the port uses in place of JAX's
 `.at[idx].set(v, mode="drop")` and `jnp.nonzero(size=K)`: `scatter_drop`
 and `compact_by_mask`. Neither reads a value back to the host, so both keep
-the frame loop free of device→host syncs.
+the frame loop free of device→host syncs, and both write out of place, so
+they also run under `torch.vmap` with a batched index into a buffer that
+has no batch dim.
 """
 
 from __future__ import annotations
@@ -39,9 +41,9 @@ def scatter_drop(target: torch.Tensor, idx: torch.Tensor, values, reduce: str | 
         values = torch.full(safe.shape + target.shape[1:], values, dtype=target.dtype, device=target.device)
     values = values.to(target.dtype).expand(safe.shape + target.shape[1:])
     if reduce is None:
-        ext[safe] = values
+        ext = ext.index_put((safe,), values)
     else:
-        ext.scatter_reduce_(0, safe, values, reduce=reduce, include_self=True)
+        ext = ext.scatter_reduce(0, safe, values, reduce=reduce, include_self=True)
     return ext[:n]
 
 
@@ -65,7 +67,7 @@ def compact_by_mask(
     int32 tensor; the count may exceed `size`, the overflow is dropped)."""
     pos = torch.cumsum(mask.to(torch.int32), 0) - 1
     out = torch.full((size + 1,), fill, dtype=values.dtype, device=values.device)
-    out[torch.where(mask & (pos < size), pos, size).long()] = values
+    out = out.index_put((torch.where(mask & (pos < size), pos, size).long(),), values)
     return out[:size], mask.sum(dtype=torch.int32)
 
 
@@ -147,3 +149,66 @@ def blocks_on_ray_segment_planes(
         blk = [blk[a] + torch.where(ta[a] <= t_next + 1e-9, sgn[a], 0) for a in range(3)]
         tpar = t_next
     return torch.stack(out_x), torch.stack(out_y), torch.stack(out_z), torch.stack(out_v)
+
+
+def blocks_on_ray_segment(
+    depth: torch.Tensor,  # [H, W] metric depth, −1 invalid
+    proj: torch.Tensor,  # (fx, fy, cx, cy)
+    inv_M: torch.Tensor,  # [4,4] camera→world
+    mu: float,
+    voxel_size: float,
+    block_size: int,
+    max_steps: int,
+    view_frustum_min: float,
+    view_frustum_max: float,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Candidate block coords touched by each pixel's ±mu ray-band segment
+    (reference buildHashAllocAndVisibleTypePP: the camera-frame surface
+    point offset by ±mu along the ray, both ends in block units), by the
+    exact 3-D DDA of blocks_on_ray_segment_planes over a static step count.
+    The [..., 3] layout of the legacy allocator (hash_pipeline
+    _allocate_scene_from_depth_legacy).
+
+    Returns (blocks [H, W, max_steps, 3] int32, valid [H, W, max_steps] bool)."""
+    H, W = depth.shape
+    dev = depth.device
+    fx, fy, cx, cy = proj[0], proj[1], proj[2], proj[3]
+    one_over_block = 1.0 / (voxel_size * block_size)
+
+    # reference gate: skip if d−mu < frustum_min or d+mu > frustum_max
+    valid_px = (depth > 0.0) & (depth - mu >= view_frustum_min) & (depth + mu <= view_frustum_max)
+    d = torch.where(valid_px, depth, torch.ones_like(depth))
+
+    xs = torch.arange(W, dtype=torch.float32, device=dev)[None, :].expand(H, W)
+    ys = torch.arange(H, dtype=torch.float32, device=dev)[:, None].expand(H, W)
+    dir_cam = torch.stack([(xs - cx) / fx, (ys - cy) / fy, torch.ones_like(d)], dim=-1)
+    pt_cam = dir_cam * d[..., None]
+    norm = torch.linalg.vector_norm(pt_cam, dim=-1)
+
+    def to_blocks(pc):
+        pw = torch.einsum("ij,hwj->hwi", inv_M[:3, :3], pc) + inv_M[:3, 3]
+        return pw * one_over_block
+
+    bs = to_blocks(pt_cam * (1.0 - mu / norm)[..., None])
+    be = to_blocks(pt_cam * (1.0 + mu / norm)[..., None])
+    seg = be - bs
+    flat = seg.abs() < 1e-9
+    safe_seg = torch.where(flat, torch.full_like(seg, 1e-9), seg)
+    sgn = torch.sign(seg).to(torch.int32)
+    up = (seg > 0).to(torch.int32)
+    two = torch.full_like(seg, 2.0)
+
+    blk = torch.floor(bs).to(torch.int32)  # [H, W, 3]
+    t = torch.zeros_like(d)
+    blocks_list, valid_list = [], []
+    for _ in range(max_steps):
+        blocks_list.append(blk)
+        valid_list.append(valid_px & (t <= 1.0))
+        # param t of the next boundary crossing per axis
+        t_axis = ((blk + up).to(torch.float32) - bs) / safe_seg
+        t_axis = torch.where(flat, two, t_axis)
+        t_axis = torch.where(t_axis <= t[..., None] + 1e-7, two, t_axis)  # crossed already
+        t_next = t_axis.amin(dim=-1)
+        blk = blk + torch.where(t_axis <= t_next[..., None] + 1e-9, sgn, 0)
+        t = t_next
+    return torch.stack(blocks_list, dim=2), torch.stack(valid_list, dim=2)

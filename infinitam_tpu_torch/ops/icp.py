@@ -117,9 +117,13 @@ def solve_delta(nabla: torch.Tensor, hessian: torch.Tensor, lam: torch.Tensor, m
     g = nabla[idx]
     eye = torch.eye(sub.shape[0], dtype=sub.dtype, device=sub.device)
     x = solve_psd(sub * (1.0 + lam * eye), g)
-    step = torch.zeros(6, dtype=x.dtype, device=x.device)
-    step[idx] = x
-    return step
+    # the free half of a rotation- or translation-only step is zero (built
+    # out of place, so that the step also runs under torch.vmap)
+    if mode == MODE_ROTATION:
+        return torch.cat([x, torch.zeros_like(x)])
+    if mode == MODE_TRANSLATION:
+        return torch.cat([torch.zeros_like(x), x])
+    return x
 
 
 def solve_psd(A: torch.Tensor, g: torch.Tensor) -> torch.Tensor:

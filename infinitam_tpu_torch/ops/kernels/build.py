@@ -9,6 +9,13 @@ Nothing here runs at import time: the first kernel launch builds.
 
 Every C entry point takes its pointers and the CUDA stream as `void*` and
 returns `cudaGetLastError()` after its launches; `check` raises on nonzero.
+
+Every kernel is lane-indexed: an entry point takes a lane count B and a host
+array of lane strides, one a tensor argument (the elements from one lane's
+tensor to the next; 0 for a tensor every lane shares), and one launch runs
+all B lanes. B = 1 is the unbatched call. The wrappers bind each launch to a
+`torch.library.custom_op` whose vmap rule makes that one launch for a
+`torch.vmap` batch (`LaneArg`, `lane_major`, `vmap_lanes`).
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -44,28 +52,32 @@ P = ctypes.c_void_p
 I = ctypes.c_int
 F = ctypes.c_float
 
-# argtypes of every C entry point (all return int: cudaGetLastError())
+# argtypes of every C entry point (all return int: cudaGetLastError()); each
+# ends with n_lanes, the lane strides (int64, one a tensor argument, in the
+# order the comment lists them) and the stream
 SIGNATURES = {
     # depth, weights (or null), h, w, points, normals, hs, ws, view_proj, scene_proj, inv_pose, scene_pose,
-    # dist_thresh, min_valid, n_ctas, partial, counter, out, stream
-    "itpu_icp_gh": (P, P, I, I, P, P, I, I, P, P, P, P, F, I, I, P, P, P, P),
+    # dist_thresh, min_valid, n_ctas, partial, counter, out, count, n_lanes, strides (depth, weights,
+    # points, normals, view_proj, scene_proj, inv_pose, scene_pose), stream
+    "itpu_icp_gh": (P, P, I, I, P, P, I, I, P, P, P, P, F, I, I, P, P, P, P, I, P, P),
     # vox, ids, n_rows, entry_ptr, entry_pos, n_entries, block_size, depth, h, w, pose, proj, enable,
-    # voxel_size, mu, max_w, stop_at_max_w, n_ctas, stream
-    "itpu_integrate_depth": (P, P, I, P, P, I, I, P, I, I, P, P, P, F, F, I, I, I, P),
+    # voxel_size, mu, max_w, stop_at_max_w, n_ctas, n_lanes, strides (INTEGRATE_LANES), stream
+    "itpu_integrate_depth": (P, P, I, P, P, I, I, P, I, I, P, P, P, F, F, I, I, I, I, P, P),
     # vox, vox_rgb, ids, n_rows, entry_ptr, entry_pos, n_entries, block_size, depth, h, w, rgb, rh, rw, pose,
-    # proj, M_rgb, proj_rgb, enable, voxel_size, mu, max_w, stop_at_max_w, n_ctas, stream
-    "itpu_integrate_rgbd": (P, P, P, I, P, P, I, I, P, I, I, P, I, I, P, P, P, P, P, F, F, I, I, I, P),
+    # proj, M_rgb, proj_rgb, enable, voxel_size, mu, max_w, stop_at_max_w, n_ctas, n_lanes, strides, stream
+    "itpu_integrate_rgbd": (P, P, P, I, P, P, I, I, P, I, I, P, I, I, P, P, P, P, P, F, F, I, I, I, I, P, P),
     # a, b, out, n, stream: K2's division steps on n pairs (a card test holds them to IEEE division)
     "itpu_div_step_check": (P, P, P, I, P),
     # vox, grid, gx, gy, gz, ox, oy, oz, block_shift, inv_M, proj, inv_voxel, zmin, zmax, h, w,
-    # step_scale, enable (or null), out, stream
-    "itpu_raycast": (P, P, I, I, I, I, I, I, I, P, P, F, P, P, I, I, F, P, P, P),
+    # step_scale, enable (or null), out, n_lanes, strides (RAYCAST_LANES, then vox, grid), stream
+    "itpu_raycast": (P, P, I, I, I, I, I, I, I, P, P, F, P, P, I, I, F, P, P, I, P, P),
     # vox, entry_pos, entry_ptr, entry_offset, n_buckets, hash_mask, block_shift, inv_M, proj, inv_voxel, zmin,
-    # zmax, h, w, step_scale, enable (or null), out, stream
-    "itpu_raycast_hash": (P, P, P, P, I, I, I, P, P, F, P, P, I, I, F, P, P, P),
+    # zmax, h, w, step_scale, enable (or null), out, n_lanes, strides (RAYCAST_LANES, then vox, entry_pos,
+    # entry_ptr, entry_offset), stream
+    "itpu_raycast_hash": (P, P, P, P, I, I, I, P, P, F, P, P, I, I, F, P, P, I, P, P),
     # sdf, sx, sy, sz, ox, oy, oz, block_shift, inv_M, proj, inv_voxel, zmin, zmax, h, w, step_scale,
-    # enable (or null), out, stream
-    "itpu_raycast_dense": (P, I, I, I, I, I, I, I, P, P, F, P, P, I, I, F, P, P, P),
+    # enable (or null), out, n_lanes, strides (RAYCAST_LANES, then sdf), stream
+    "itpu_raycast_dense": (P, I, I, I, I, I, I, I, P, P, F, P, P, I, I, F, P, P, I, P, P),
 }
 
 KERNELS = ("icp", "icp_weighted", "integrate", "integrate_color", "raycast", "raycast_hash", "raycast_dense")
@@ -175,3 +187,67 @@ def require_dtype(name: str, t: torch.Tensor, dtype: torch.dtype) -> None:
 
 def stream_ptr() -> int:
     return torch.cuda.current_stream().cuda_stream
+
+
+class LaneArg(NamedTuple):
+    """One tensor argument of a lane-indexed launch: with `batched`, `t`
+    holds the lanes on dim 0, each lane's tensor contiguous, `stride`
+    elements apart; else `t` is the one tensor every lane shares (stride 0)
+    or None (an absent optional argument)."""
+
+    t: Optional[torch.Tensor]
+    stride: int = 0
+    batched: bool = False
+
+    def lane(self, b: int) -> Optional[torch.Tensor]:
+        """The tensor lane b sees."""
+        return self.t[b] if self.batched else self.t
+
+    def ptr(self):
+        """Lane 0's data pointer (None when absent)."""
+        return None if self.t is None else self.t.data_ptr()
+
+
+def lane_major(t: Optional[torch.Tensor], dim: Optional[int]):
+    """(LaneArg, the view to write back into or None) of a vmap rule's
+    argument `t` with its batch dim at `dim` (None: shared by the lanes).
+    A layout whose lanes are not each contiguous is copied; a kernel that
+    writes such an argument must copy the result back (`write_back`)."""
+    if t is None or dim is None:
+        return LaneArg(t), None
+    src = t.movedim(dim, 0)
+    x = src if src[0].is_contiguous() else src.contiguous()
+    return LaneArg(x, x.stride(0), True), (None if x is src else src)
+
+
+def vmap_lanes(in_dims, args):
+    """LaneArgs of a vmap rule's arguments (tensors and None; any other
+    value passes through as is) and the write-backs of their copies."""
+    lanes, backs = [], []
+    for a, d in zip(args, in_dims):
+        if a is None or torch.is_tensor(a):
+            la, back = lane_major(a, d)
+            lanes.append(la)
+            backs.append((la, back))
+        else:
+            lanes.append(a)
+    return lanes, backs
+
+
+def write_back(backs, mutated: tuple) -> None:
+    """Copy the results of the mutated arguments (their positions among the
+    tensor arguments) back where lane_major had to copy them."""
+    for i in mutated:
+        la, back = backs[i]
+        if back is not None:
+            back.copy_(la.t)
+
+
+def lane_strides(args) -> ctypes.Array:
+    """The host array of lane strides a lane-indexed entry point takes."""
+    return (ctypes.c_longlong * len(args))(*(a.stride for a in args))
+
+
+def single(*tensors):
+    """LaneArgs of one lane's tensors (the unbatched call, B = 1)."""
+    return [LaneArg(t) for t in tensors]

@@ -11,6 +11,14 @@ card: a persistent grid whose warps each fuse whole 8³ blocks, so a call is
 one launch and no other device op. The plain twins look the rows up with
 torch ops and then run the gather → `ops/tsdf.py` update → scatter of the
 JAX package's XLA `integrate_into_scene`, also in place.
+
+Each launch is a custom op (`itpu::integrate_depth`, `itpu::integrate_rgbd`)
+that names `vox` (and `vox_rgb`) as mutated. Under `torch.vmap` its vmap
+rule launches the kernel once for all B lanes, the persistent grid split
+over the lanes (blockIdx.y the lane: each lane its own volume, list,
+entries, frame, pose and enable flag); on the CPU it runs the plain version
+lane by lane. A block's update depends on nothing but its own voxels, so a
+lane's result is bit-identical to a single-lane launch.
 """
 
 from __future__ import annotations
@@ -69,33 +77,103 @@ def integrate_depth_plain(vox, visible_ids, entry_ptr, entry_pos, depth, pose, p
     vox[rows] = torch.where(valid[:, None] & enable, hv.pack_vox(hv.sdf_to_q(sdf), w), old)
 
 
+# the lane strides' order (csrc/integrate.cu ItpuLanes)
+INTEGRATE_LANES = ("vox", "vox_rgb", "ids", "entry_ptr", "entry_pos", "depth", "rgb", "pose", "proj", "M_rgb",
+                   "proj_rgb", "enable")
+
+
+def _launch(n_lanes: int, vox, vox_rgb, visible_ids, entry_ptr, entry_pos, depth, rgb, pose, proj, M_rgb, proj_rgb,
+            enable, voxel_size: float, mu: float, max_w: int, stop_at_max_w: bool, block_size: int = 8,
+            max_rows: int = 0, n_ctas: int = 0) -> None:
+    """One launch of K2 (K2c when `vox_rgb` holds a plane) for `n_lanes`
+    lanes, each tensor argument a build.LaneArg in INTEGRATE_LANES order.
+    `n_ctas` > 0 caps a lane's persistent grid (0: the CTAs that fit on the
+    card, shared out over the lanes)."""
+    color = vox_rgb.t is not None
+    name = "integrate_color" if color else "integrate"
+    v0, ids0, ep0, epos0 = vox.lane(0), visible_ids.lane(0), entry_ptr.lane(0), entry_pos.lane(0)
+    d0 = depth.lane(0)
+    _check_rows(name, v0, ids0, ep0, epos0, block_size)
+    _check_camera(name, d0, pose.lane(0), proj.lane(0), enable.lane(0))
+    tensors = [v0, ids0, ep0, epos0, d0, pose.lane(0), proj.lane(0), enable.lane(0)]
+    if color:
+        vr0, rgb0, M0, pr0 = vox_rgb.lane(0), rgb.lane(0), M_rgb.lane(0), proj_rgb.lane(0)
+        if vr0.shape != v0.shape:
+            raise ValueError(f"{name}: vox_rgb must have the shape of vox")
+        if rgb0.dim() != 3 or rgb0.shape[2] != 3:
+            raise ValueError(f"{name}: rgb must be [H, W, 3]")
+        if M0.shape != (4, 4) or pr0.shape != (4,):
+            raise ValueError(f"{name}: M_rgb must be [4, 4] and proj_rgb (fx, fy, cx, cy)")
+        build.require_dtype(name, vr0, torch.int32)
+        for t in (rgb0, M0, pr0):
+            build.require_dtype(name, t, torch.float32)
+        tensors += [vr0, rgb0, M0, pr0]
+    build.require_cuda(name, *tensors, device=v0.device)
+    h, w = d0.shape
+    lanes = [vox, vox_rgb, visible_ids, entry_ptr, entry_pos, depth, rgb, pose, proj, M_rgb, proj_rgb, enable]
+    rows = n_rows(ids0, max_rows)
+    tail = (ctypes.c_float(voxel_size), ctypes.c_float(mu), max_w, int(stop_at_max_w), n_ctas, n_lanes,
+            build.lane_strides(lanes), build.stream_ptr())
+    if color:
+        rh, rw = rgb0.shape[:2]
+        err = build.library().itpu_integrate_rgbd(
+            vox.ptr(), vox_rgb.ptr(), visible_ids.ptr(), rows, entry_ptr.ptr(), entry_pos.ptr(), ep0.shape[0],
+            block_size, depth.ptr(), h, w, rgb.ptr(), rh, rw, pose.ptr(), proj.ptr(), M_rgb.ptr(), proj_rgb.ptr(),
+            enable.ptr(), *tail,
+        )
+    else:
+        err = build.library().itpu_integrate_depth(
+            vox.ptr(), visible_ids.ptr(), rows, entry_ptr.ptr(), entry_pos.ptr(), ep0.shape[0], block_size,
+            depth.ptr(), h, w, pose.ptr(), proj.ptr(), enable.ptr(), *tail,
+        )
+    build.check(f"itpu_{'integrate_rgbd' if color else 'integrate_depth'}", err)
+    build.count_launch(name)
+
+
 def integrate_depth_cuda(vox, visible_ids, entry_ptr, entry_pos, depth, pose, proj, enable, voxel_size: float,
                          mu: float, max_w: int, stop_at_max_w: bool, block_size: int = 8, max_rows: int = 0,
                          n_ctas: int = 0) -> None:
-    """Launch K2 without colour (in place in `vox`). `n_ctas` > 0 caps the
-    persistent grid (0: as many CTAs as fit on the card)."""
-    name = "integrate"
-    _check_rows(name, vox, visible_ids, entry_ptr, entry_pos, block_size)
-    _check_camera(name, depth, pose, proj, enable)
-    build.require_cuda(name, vox, visible_ids, entry_ptr, entry_pos, depth, pose, proj, enable, device=vox.device)
-    h, w = depth.shape
-    err = build.library().itpu_integrate_depth(
-        vox.data_ptr(), visible_ids.data_ptr(), n_rows(visible_ids, max_rows), entry_ptr.data_ptr(),
-        entry_pos.data_ptr(), entry_ptr.shape[0], block_size, depth.data_ptr(), h, w, pose.data_ptr(),
-        proj.data_ptr(), enable.data_ptr(), ctypes.c_float(voxel_size), ctypes.c_float(mu), max_w,
-        int(stop_at_max_w), n_ctas, build.stream_ptr(),
-    )
-    build.check("itpu_integrate_depth", err)
-    build.count_launch(name)
+    """Launch K2 without colour for one lane (in place in `vox`). `n_ctas`
+    > 0 caps the persistent grid (0: as many CTAs as fit on the card)."""
+    _launch(1, *build.single(vox, None, visible_ids, entry_ptr, entry_pos, depth, None, pose, proj, None, None,
+                             enable), voxel_size, mu, max_w, stop_at_max_w, block_size, max_rows, n_ctas)
+
+
+@torch.library.custom_op("itpu::integrate_depth", mutates_args=("vox",))
+def integrate_depth_op(vox: torch.Tensor, visible_ids: torch.Tensor, entry_ptr: torch.Tensor,
+                       entry_pos: torch.Tensor, depth: torch.Tensor, pose: torch.Tensor, proj: torch.Tensor,
+                       enable: torch.Tensor, voxel_size: float, mu: float, max_w: int, stop_at_max_w: bool,
+                       block_size: int, max_rows: int) -> None:
+    """One lane's depth fusion, in place in `vox`: the plain version for CPU
+    tensors, K2 for CUDA tensors."""
+    fn = integrate_depth_plain if vox.device.type == "cpu" else integrate_depth_cuda
+    fn(vox, visible_ids, entry_ptr, entry_pos, depth, pose, proj, enable, voxel_size, mu, max_w, stop_at_max_w,
+       block_size, max_rows)
+
+
+@integrate_depth_op.register_vmap
+def _integrate_depth_vmap(info, in_dims, vox, visible_ids, entry_ptr, entry_pos, depth, pose, proj, enable, *fuse):
+    """B lanes: one K2 launch on the card; the plain version lane by lane on
+    the CPU."""
+    lanes, backs = build.vmap_lanes(in_dims[:8], (vox, visible_ids, entry_ptr, entry_pos, depth, pose, proj, enable))
+    if vox.device.type == "cpu":
+        for b in range(info.batch_size):
+            integrate_depth_op(*(a.lane(b) for a in lanes), *fuse)
+    else:
+        none = build.LaneArg(None)
+        v, ids, ep, epos, d, po, pr, en = lanes
+        _launch(info.batch_size, v, none, ids, ep, epos, d, none, po, pr, none, none, en, *fuse)
+    build.write_back(backs, (0,))
+    return None, None
 
 
 def integrate_depth(vox, visible_ids, entry_ptr, entry_pos, depth, pose, proj, enable, voxel_size: float,
                     mu: float, max_w: int, stop_at_max_w: bool, block_size: int = 8, max_rows: int = 0) -> None:
     """In-place depth fusion: the plain version for CPU tensors, kernel K2
-    for CUDA tensors."""
-    fn = integrate_depth_plain if vox.device.type == "cpu" else integrate_depth_cuda
-    fn(vox, visible_ids, entry_ptr, entry_pos, depth, pose, proj, enable, voxel_size, mu, max_w, stop_at_max_w,
-       block_size, max_rows)
+    for CUDA tensors (through `itpu::integrate_depth`, so that `torch.vmap`
+    batches it into one launch)."""
+    integrate_depth_op(vox, visible_ids, entry_ptr, entry_pos, depth, pose, proj, enable, float(voxel_size),
+                       float(mu), int(max_w), bool(stop_at_max_w), int(block_size), int(max_rows))
 
 
 def integrate_rgbd_plain(vox, vox_rgb, visible_ids, entry_ptr, entry_pos, depth, rgb, pose, proj, M_rgb, proj_rgb,
@@ -120,43 +198,48 @@ def integrate_rgbd_plain(vox, vox_rgb, visible_ids, entry_ptr, entry_pos, depth,
 def integrate_rgbd_cuda(vox, vox_rgb, visible_ids, entry_ptr, entry_pos, depth, rgb, pose, proj, M_rgb, proj_rgb,
                         enable, voxel_size: float, mu: float, max_w: int, stop_at_max_w: bool, block_size: int = 8,
                         max_rows: int = 0, n_ctas: int = 0) -> None:
-    """Launch K2 with its colour half (in place in `vox` and `vox_rgb`).
-    `n_ctas` as for integrate_depth_cuda."""
-    name = "integrate_color"
-    _check_rows(name, vox, visible_ids, entry_ptr, entry_pos, block_size)
-    _check_camera(name, depth, pose, proj, enable)
-    if vox_rgb.shape != vox.shape:
-        raise ValueError(f"{name}: vox_rgb must have the shape of vox")
-    if rgb.dim() != 3 or rgb.shape[2] != 3:
-        raise ValueError(f"{name}: rgb must be [H, W, 3]")
-    if M_rgb.shape != (4, 4) or proj_rgb.shape != (4,):
-        raise ValueError(f"{name}: M_rgb must be [4, 4] and proj_rgb (fx, fy, cx, cy)")
-    build.require_dtype(name, vox_rgb, torch.int32)
-    for t in (rgb, M_rgb, proj_rgb):
-        build.require_dtype(name, t, torch.float32)
-    build.require_cuda(name, vox, vox_rgb, visible_ids, entry_ptr, entry_pos, depth, rgb, pose, proj, M_rgb,
-                       proj_rgb, enable, device=vox.device)
-    h, w = depth.shape
-    rh, rw = rgb.shape[:2]
-    err = build.library().itpu_integrate_rgbd(
-        vox.data_ptr(), vox_rgb.data_ptr(), visible_ids.data_ptr(), n_rows(visible_ids, max_rows),
-        entry_ptr.data_ptr(), entry_pos.data_ptr(), entry_ptr.shape[0], block_size, depth.data_ptr(), h, w,
-        rgb.data_ptr(), rh, rw, pose.data_ptr(), proj.data_ptr(), M_rgb.data_ptr(), proj_rgb.data_ptr(),
-        enable.data_ptr(), ctypes.c_float(voxel_size), ctypes.c_float(mu), max_w, int(stop_at_max_w), n_ctas,
-        build.stream_ptr(),
-    )
-    build.check("itpu_integrate_rgbd", err)
-    build.count_launch(name)
+    """Launch K2 with its colour half for one lane (in place in `vox` and
+    `vox_rgb`). `n_ctas` as for integrate_depth_cuda."""
+    _launch(1, *build.single(vox, vox_rgb, visible_ids, entry_ptr, entry_pos, depth, rgb, pose, proj, M_rgb,
+                             proj_rgb, enable), voxel_size, mu, max_w, stop_at_max_w, block_size, max_rows, n_ctas)
+
+
+@torch.library.custom_op("itpu::integrate_rgbd", mutates_args=("vox", "vox_rgb"))
+def integrate_rgbd_op(vox: torch.Tensor, vox_rgb: torch.Tensor, visible_ids: torch.Tensor, entry_ptr: torch.Tensor,
+                      entry_pos: torch.Tensor, depth: torch.Tensor, rgb: torch.Tensor, pose: torch.Tensor,
+                      proj: torch.Tensor, M_rgb: torch.Tensor, proj_rgb: torch.Tensor, enable: torch.Tensor,
+                      voxel_size: float, mu: float, max_w: int, stop_at_max_w: bool, block_size: int,
+                      max_rows: int) -> None:
+    """One lane's depth + colour fusion, in place in `vox` and `vox_rgb`:
+    the plain version for CPU tensors, K2c for CUDA tensors."""
+    fn = integrate_rgbd_plain if vox.device.type == "cpu" else integrate_rgbd_cuda
+    fn(vox, vox_rgb, visible_ids, entry_ptr, entry_pos, depth, rgb, pose, proj, M_rgb, proj_rgb, enable, voxel_size,
+       mu, max_w, stop_at_max_w, block_size, max_rows)
+
+
+@integrate_rgbd_op.register_vmap
+def _integrate_rgbd_vmap(info, in_dims, *args):
+    """B lanes: one K2c launch on the card; the plain version lane by lane
+    on the CPU."""
+    lanes, backs = build.vmap_lanes(in_dims[:12], args[:12])
+    if args[0].device.type == "cpu":
+        for b in range(info.batch_size):
+            integrate_rgbd_op(*(a.lane(b) for a in lanes), *args[12:])
+    else:
+        _launch(info.batch_size, *lanes, *args[12:])
+    build.write_back(backs, (0, 1))
+    return None, None
 
 
 def integrate_rgbd(vox, vox_rgb, visible_ids, entry_ptr, entry_pos, depth, rgb, pose, proj, M_rgb, proj_rgb, enable,
                    voxel_size: float, mu: float, max_w: int, stop_at_max_w: bool, block_size: int = 8,
                    max_rows: int = 0) -> None:
     """In-place depth + colour fusion: the plain version for CPU tensors,
-    kernel K2 with its colour half for CUDA tensors."""
-    fn = integrate_rgbd_plain if vox.device.type == "cpu" else integrate_rgbd_cuda
-    fn(vox, vox_rgb, visible_ids, entry_ptr, entry_pos, depth, rgb, pose, proj, M_rgb, proj_rgb, enable, voxel_size,
-       mu, max_w, stop_at_max_w, block_size, max_rows)
+    kernel K2 with its colour half for CUDA tensors (through
+    `itpu::integrate_rgbd`, batched by `torch.vmap` into one launch)."""
+    integrate_rgbd_op(vox, vox_rgb, visible_ids, entry_ptr, entry_pos, depth, rgb, pose, proj, M_rgb, proj_rgb,
+                      enable, float(voxel_size), float(mu), int(max_w), bool(stop_at_max_w), int(block_size),
+                      int(max_rows))
 
 
 def _check_rows(name: str, vox, visible_ids, entry_ptr, entry_pos, block_size: int) -> None:

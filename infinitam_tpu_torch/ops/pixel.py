@@ -51,3 +51,27 @@ def bilinear_with_holes_vec(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor)
     a, b, c, d, dx, dy = _corners(img, x, y)
     valid = (a[..., 3] >= 0) & (b[..., 3] >= 0) & (c[..., 3] >= 0) & (d[..., 3] >= 0)
     return _blend(a, b, c, d, dx[..., None], dy[..., None]), valid
+
+
+def bilinear_with_holes_scalar(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor):
+    """Hole-aware bilinear for scalar maps (negative = hole), as the
+    reference's interpolateBilinear_withHoles_single: a corner with zero
+    weight does not invalidate the sample. Returns (value, −1 where
+    invalid; valid bool)."""
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    dx = x - x0
+    dy = y - y0
+    ix, iy = x0.to(torch.int32), y0.to(torch.int32)
+    zero = torch.zeros_like(dx)
+    a = _gather2d(img, ix, iy)
+    b = torch.where(dx != 0, _gather2d(img, ix + 1, iy), zero)
+    c = torch.where(dy != 0, _gather2d(img, ix, iy + 1), zero)
+    d = torch.where((dx != 0) & (dy != 0), _gather2d(img, ix + 1, iy + 1), zero)
+    valid = (a >= 0) & (b >= 0) & (c >= 0) & (d >= 0)
+    return torch.where(valid, _blend(a, b, c, d, dx, dy), torch.full_like(dx, -1.0)), valid
+
+
+def in_bounds(x: torch.Tensor, y: torch.Tensor, width: int, height: int, margin: int = 0) -> torch.Tensor:
+    """Pixel-coordinate bounds check with an optional safety margin."""
+    return (x >= margin) & (x < width - 1 - margin) & (y >= margin) & (y < height - 1 - margin)

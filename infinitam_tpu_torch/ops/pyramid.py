@@ -30,6 +30,19 @@ def subsample_with_holes(img: torch.Tensor) -> torch.Tensor:
     return torch.where(cnt > 0, s / cnt.clamp(min=1), torch.zeros_like(s))
 
 
+def subsample_with_holes_vec(img: torch.Tensor) -> torch.Tensor:
+    """Hole-aware 2× subsample of a [H, W, 4] map (w < 0 = hole): the mean
+    of each 2×2 cell's valid pixels; all-invalid cells get w = −1
+    (reference filterSubsampleWithHoles, Vector4f)."""
+    H, W = img.shape[0], img.shape[1]
+    v = img[: H - H % 2, : W - W % 2].reshape(H // 2, 2, W // 2, 2, 4)
+    good = v[..., 3] >= 0
+    cnt = good.sum(dim=(1, 3))
+    s = torch.where(good[..., None], v, torch.zeros_like(v)).sum(dim=(1, 3))
+    out = torch.where((cnt > 0)[..., None], s / cnt.clamp(min=1)[..., None], torch.zeros_like(s))
+    return torch.cat([out[..., :3], torch.where(cnt > 0, out[..., 3], -1.0)[..., None]], dim=-1)
+
+
 def build_depth_pyramid(depth: torch.Tensor, n_levels: int) -> List[torch.Tensor]:
     """Fine→coarse hole-aware depth pyramid (level 0 = input)."""
     levels = [depth]

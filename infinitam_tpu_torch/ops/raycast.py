@@ -9,7 +9,9 @@ reader variants K3h and K3d (ops/kernels/raycast.py): the kernel builds and
 marches one ray per thread; this version marches the whole ray bundle in
 lock step and stops when no ray is active, which reads a flag back to the
 host once per step. It is the CPU path and the card's reference, never the
-main path on the card.
+main path on the card. `forward_project` / `forward_render` are the JAX
+package's incremental raycast over the same march, wired into no frame step
+of either package.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from infinitam_tpu_torch.ops.hashing import compact_by_mask, scatter_drop
 from infinitam_tpu_torch.ops.voxel_access import (
     ReadFn,
     read_color_interpolated,
@@ -90,18 +93,20 @@ def raycast_rays(
     len_end: torch.Tensor,  # [...]
     step_scale: float,  # mu / voxel_size
     block_size: int = 8,
+    active_init: Optional[torch.Tensor] = None,  # [...] bool: rays to march (None: all)
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sphere tracing along ray bundles → ([..., 4] position in voxel units
     and w = hit flag, [...] int32 march steps of each ray), the JAX oracle's
     march: step max(sdf·step_scale, 1) in allocated space, a DDA step to the
     current block's exit (clamped to [0.5, block]) through empty space, stop
     at the first sdf ≤ 0 or past len_end; then one secant step and two
-    trilinear refinement steps."""
+    trilinear refinement steps. A ray outside `active_init` takes no step
+    and misses."""
     shape = len_start.shape
     pt = pt_start
     total = len_start
     sdf = torch.ones(shape, dtype=torch.float32, device=pt.device)
-    active = torch.ones(shape, dtype=torch.bool, device=pt.device)
+    active = torch.ones(shape, dtype=torch.bool, device=pt.device) if active_init is None else active_init
     steps = torch.zeros(shape, dtype=torch.int32, device=pt.device)
     tiny = ray_dir.abs() < 1e-9
     safe_dir = torch.where(tiny, torch.full_like(ray_dir, 1e-9), ray_dir)
@@ -293,3 +298,76 @@ def render_color(raycast: RaycastResult, read_color) -> torch.Tensor:
     valid = raycast.points[..., 3] > 0
     img = torch.where(valid[..., None], rgb * 255.0, torch.zeros_like(rgb))
     return img.clamp(0, 255).to(torch.uint8)
+
+
+def se3_invert(M: torch.Tensor) -> torch.Tensor:
+    """utils/se3.py invert, under the JAX module's name."""
+    return se3.invert(M)
+
+
+def forward_project(
+    points_map_m: torch.Tensor,  # [H,W,4] metres, w>0 valid (the last raycast · voxel_size)
+    M: torch.Tensor,  # [4,4] world→camera of the NEW pose
+    proj: torch.Tensor,
+    img_size: Tuple[int, int],
+    one_over_voxel_size: float,
+) -> torch.Tensor:
+    """Scatter the last raycast into the new view (reference
+    forwardProjectPixel + forwardProject_device): [H, W, 4] voxel-unit
+    points with w = 1 where a point landed, 0 where the pixel is missing.
+    Where several points land on one pixel, one of them wins, unspecified
+    which (as XLA's scatter in the JAX package)."""
+    H, W = img_size
+    fx, fy, cx, cy = proj[0], proj[1], proj[2], proj[3]
+    valid = points_map_m[..., 3] > 0
+    pc = torch.einsum("ij,hwj->hwi", M[:3, :3], points_map_m[..., :3]) + M[:3, 3]
+    z = torch.where(pc[..., 2] <= 0, torch.ones_like(pc[..., 2]), pc[..., 2])
+    u = fx * pc[..., 0] / z + cx
+    v = fy * pc[..., 1] / z + cy
+    ok = valid & (pc[..., 2] > 0) & (u >= 0) & (u <= W - 1) & (v >= 0) & (v <= H - 1)
+    ui = (u + 0.5).to(torch.int32).clamp(0, W - 1)
+    vi = (v + 0.5).to(torch.int32).clamp(0, H - 1)
+    payload = torch.cat([points_map_m[..., :3] * one_over_voxel_size, torch.ones_like(z)[..., None]], dim=-1)
+    flat_idx = torch.where(ok, vi * W + ui, H * W)  # out of range drops
+    out = scatter_drop(torch.zeros((H * W, 4), dtype=torch.float32, device=points_map_m.device),
+                       flat_idx.reshape(-1), payload.reshape(-1, 4))
+    return out.reshape(H, W, 4)
+
+
+def forward_render(
+    read: ReadFn,
+    prev_points_map_m: torch.Tensor,  # [H,W,4] last raycast, metres, w>0 valid
+    M: torch.Tensor,  # [4,4] world→camera, NEW pose
+    proj: torch.Tensor,
+    img_size: Tuple[int, int],
+    one_over_voxel_size: float,
+    mu: float,
+    zmin: torch.Tensor,
+    zmax: torch.Tensor,
+    block_size: int = 8,
+    missing_cap_fraction: int = 4,
+) -> RaycastResult:
+    """Incremental raycast (reference ForwardRender_common,
+    ITMVisualisationEngine_CUDA.cu:314-380): the last raycast scattered into
+    the new view, then a march of only the missing pixels whose expected
+    range is not empty, compacted into a bundle of H·W / missing_cap_fraction
+    rays (missing pixels beyond it stay holes until the next full raycast).
+    The plain march reads `read` (the JAX package's XLA oracle); no kernel
+    serves it."""
+    H, W = img_size
+    dev = zmin.device
+    fwd = forward_project(prev_points_map_m, M, proj, img_size, one_over_voxel_size)
+    # missing: not forward-projected, with a non-empty range (reference
+    # findMissingPoints_device checks minmaximg x < y)
+    missing = (fwd[..., 3] <= 0) & (zmax > zmin)
+    cap = (H * W) // missing_cap_fraction
+    idx, _n = compact_by_mask(missing.reshape(-1), torch.arange(H * W, dtype=torch.int32, device=dev), cap, fill=-1)
+    valid = idx >= 0
+    idx_c = idx.clamp(0, H * W - 1).long()
+    pt_start, ray_dir, len_start, len_end = pixel_rays(se3_invert(M), proj, img_size, one_over_voxel_size, zmin,
+                                                       zmax)
+    pts, _steps = raycast_rays(read, pt_start.reshape(-1, 3)[idx_c], ray_dir.reshape(-1, 3)[idx_c],
+                               len_start.reshape(-1)[idx_c], len_end.reshape(-1)[idx_c], mu * one_over_voxel_size,
+                               block_size, active_init=valid)
+    out = scatter_drop(fwd.reshape(-1, 4), torch.where(valid, idx_c, H * W), pts)
+    return RaycastResult(points=out.reshape(H, W, 4))

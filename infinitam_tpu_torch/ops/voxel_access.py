@@ -66,3 +66,18 @@ def read_color_interpolated(read_color: Callable[[torch.Tensor], torch.Tensor], 
                 off = torch.stack([ibase[..., 0] + dx, ibase[..., 1] + dy, ibase[..., 2] + dz], dim=-1)
                 out = out + w * read_color(off)
     return out
+
+
+def compute_normal_from_sdf(read: ReadFn, pts: torch.Tensor) -> torch.Tensor:
+    """The SDF's unnormalised gradient at float voxel coords [..., 3] by
+    central differences of the trilinear field, n_i = sdf(p + e_i) −
+    sdf(p − e_i) (reference computeSingleNormalFromSDF, which shares the
+    corner reads of the same sums)."""
+    grads = []
+    for axis in range(3):
+        e = torch.zeros((3,), dtype=pts.dtype, device=pts.device)
+        e[axis] = 1.0
+        vp, _ = read_sdf_interpolated(read, pts + e)
+        vm, _ = read_sdf_interpolated(read, pts - e)
+        grads.append(vp - vm)
+    return torch.stack(grads, dim=-1)

@@ -215,3 +215,58 @@ def test_synthetic_renderer_matches_jax():
         assert both.sum() > 500
         assert np.median(np.abs(d_j[both] - d_t[both])) < 1e-6
         assert np.abs(d_j[both] - d_t[both]).max() < 1e-3
+
+
+def test_scalar_bilinear_with_holes_and_in_bounds_match_jax():
+    rng = np.random.default_rng(RNG_SEED + 5)
+    img = rng.uniform(0.5, 3.0, (12, 17)).astype(np.float32)
+    img[rng.uniform(size=img.shape) < 0.2] = -1.0
+    x = rng.uniform(-1, 17, 300).astype(np.float32)
+    y = rng.uniform(-1, 12, 300).astype(np.float32)
+    x[:40] = np.floor(x[:40])  # on a column: the right corners carry no weight
+    y[20:60] = np.floor(y[20:60])
+    v_j, ok_j = j_pixel.bilinear_with_holes_scalar(jnp.asarray(img), jnp.asarray(x), jnp.asarray(y))
+    v_t, ok_t = t_pixel.bilinear_with_holes_scalar(T(img), T(x), T(y))
+    np.testing.assert_array_equal(ok_t.numpy(), np.asarray(ok_j))
+    np.testing.assert_array_equal(v_t.numpy(), np.asarray(v_j))
+    assert 0 < int(ok_t.sum()) < 300
+    for margin in (0, 2):
+        np.testing.assert_array_equal(t_pixel.in_bounds(T(x), T(y), 17, 12, margin).numpy(),
+                                      np.asarray(j_pixel.in_bounds(jnp.asarray(x), jnp.asarray(y), 17, 12, margin)))
+
+
+def test_vec_subsample_with_holes_matches_jax():
+    rng = np.random.default_rng(RNG_SEED + 6)
+    img = rng.standard_normal((13, 18, 4)).astype(np.float32)
+    img[..., 3] = np.where(rng.uniform(size=(13, 18)) < 0.3, -1.0, 1.0)
+    img[:2, :2, 3] = -1.0  # an all-invalid cell → w = −1
+    out_j = np.asarray(j_pyr.subsample_with_holes_vec(jnp.asarray(img)))
+    out_t = t_pyr.subsample_with_holes_vec(T(img)).numpy()
+    assert out_t.shape == out_j.shape == (6, 9, 4) and out_t[0, 0, 3] == -1.0
+    # masked mean: the 2×2 sums may associate differently → 1 ulp
+    np.testing.assert_allclose(out_t, out_j, rtol=2e-7, atol=1e-7)
+
+
+def test_compute_normal_from_sdf_matches_jax():
+    """Central differences of the trilinear field over a dense array holding
+    a tilted plane's sdf, at points near the surface."""
+    from infinitam_tpu.config import PlainVoxelArrayParams
+    from infinitam_tpu.engine import volume as j_vol
+    from infinitam_tpu.ops import voxel_access as j_va
+    from infinitam_tpu_torch.engine import volume as t_vol
+    from infinitam_tpu_torch.ops import voxel_access as t_va
+
+    p = PlainVoxelArrayParams(size=(24, 20, 16), offset=(-12, -10, 0))
+    z, y, x = np.meshgrid(np.arange(16), np.arange(20) - 10, np.arange(24) - 12, indexing="ij")
+    sdf = np.clip((0.3 * x + 0.2 * y + z - 8.0) / 4.0, -1, 1).astype(np.float32)
+    vj = j_vol.create_dense(p)._replace(sdf=jnp.asarray(sdf))
+    vt = t_vol.create_dense(p, device="cpu")._replace(sdf=T(sdf))
+    rng = np.random.default_rng(RNG_SEED + 7)
+    pts = rng.uniform((-8, -6, -1), (8, 6, 1), (200, 3))
+    pts[:, 2] += 8.0 - 0.3 * pts[:, 0] - 0.2 * pts[:, 1]  # within a voxel of the plane
+    pts = pts.astype(np.float32)
+    n_j = np.asarray(j_va.compute_normal_from_sdf(j_vol.make_dense_reader(vj, p), jnp.asarray(pts)))
+    n_t = t_va.compute_normal_from_sdf(t_vol.make_dense_reader(vt, p), T(pts)).numpy()
+    np.testing.assert_allclose(n_t, n_j, rtol=0, atol=1e-6)
+    n = n_t / np.linalg.norm(n_t, axis=-1, keepdims=True)
+    assert np.abs(n @ np.array([0.3, 0.2, 1.0]) / np.linalg.norm([0.3, 0.2, 1.0]) - 1).max() < 1e-3

@@ -100,3 +100,41 @@ def test_rgb_to_depth_matches_jax():
             a, b = tc.rgb_to_depth, jc.rgb_to_depth
             assert a.dtype == b.dtype == np.float32 and a.shape == (4, 4)
             np.testing.assert_array_equal(a, b)
+
+
+# the configurations bench.py checks (its 5 mm and 1 cm settings at 640×480,
+# f = 525 px), the tiny test settings, a stride past the limit and a coarse
+# voxel that allows a wide one
+STRIDE_CASES = [
+    dict(),
+    dict(alloc_subsample=4),
+    dict(alloc_subsample=8),
+    dict(scene=j_cfg.SceneParams(voxel_size=0.01, mu=0.04)),
+    dict(scene=j_cfg.SceneParams(voxel_size=0.005, mu=0.02), alloc_subsample=3),
+    dict(scene=j_cfg.SceneParams(voxel_size=0.05, mu=0.2, view_frustum_max=2.0), alloc_subsample=20),
+]
+
+
+@pytest.mark.parametrize("case", range(len(STRIDE_CASES)))
+@pytest.mark.parametrize("focal_px", [525.0, 70.0])
+def test_alloc_stride_helpers_match_jax(case, focal_px):
+    """safe_alloc_stride returns the JAX value, and assert_alloc_stride_safe
+    raises (ValueError, the same message) exactly where the JAX one does,
+    for settings of either package."""
+    j_set = j_cfg.Settings().replace(**STRIDE_CASES[case])
+    t_set = t_cfg.Settings().replace(**{k: (t_cfg.SceneParams(**dataclasses.asdict(v)) if k == "scene" else v)
+                                        for k, v in STRIDE_CASES[case].items()})
+    want = j_cfg.safe_alloc_stride(j_set, focal_px)
+    assert t_cfg.safe_alloc_stride(t_set, focal_px) == t_cfg.safe_alloc_stride(j_set, focal_px) == want >= 1
+    try:
+        j_cfg.assert_alloc_stride_safe(j_set, focal_px)
+        j_err = None
+    except ValueError as e:
+        j_err = str(e)
+    for s in (t_set, j_set):
+        if j_err is None:
+            t_cfg.assert_alloc_stride_safe(s, focal_px)
+        else:
+            with pytest.raises(ValueError) as e:
+                t_cfg.assert_alloc_stride_safe(s, focal_px)
+            assert str(e.value) == j_err

@@ -182,19 +182,23 @@ def test_k1_wrapper_plain_path_equals_residuals_and_reduction(level):
 
 def test_k1_result_buffer_layout():
     """gh_from_buffer reads what csrc/icp.cu writes — H row-major in words
-    0-35, ∇ in 36-41, f in 42, N as int32 bits in 43 — as views of the one
-    buffer, so the wrapper issues no device op of its own."""
+    0-35, ∇ in 36-41, f in 42 of the float buffer, N in an int32 word of its
+    own — as views of those two buffers, so the wrapper issues no device op
+    of its own; buffer_from_gh writes that layout back."""
     rng = np.random.default_rng(2)
     J = rng.standard_normal((6, 6)).astype(np.float32)
     H, g = T(J @ J.T), T(rng.standard_normal(6).astype(np.float32))
     out = torch.empty(k_icp.N_OUT)
     out[:36], out[36:42], out[42] = H.reshape(-1), g, 12.5
-    out[43:].view(torch.int32)[0] = 123456
-    r = k_icp.gh_from_buffer(out)
+    count = torch.tensor(123456, dtype=torch.int32)
+    r = k_icp.gh_from_buffer(out, count)
     assert torch.equal(r.hessian, H) and torch.equal(r.nabla, g) and float(r.f) == 12.5
     assert r.f.shape == () and r.num_valid.shape == () and r.num_valid.dtype == torch.int32
     assert int(r.num_valid) == 123456
-    assert all(t.untyped_storage().data_ptr() == out.untyped_storage().data_ptr() for t in r)
+    assert all(t.untyped_storage().data_ptr() == out.untyped_storage().data_ptr() for t in r[:3])
+    assert r.num_valid is count
+    back, n = k_icp.buffer_from_gh(r)
+    assert torch.equal(back, out) and torch.equal(n, count)
 
 
 def spd(seed):

@@ -11,7 +11,12 @@ code on the CPU, and a swapping engine's round trip through the pinned
 exchange; K3's two reader variants, K3h through the hash table (also on
 blocks outside the grid's window, behind an excess link and swapped out)
 and K3d over a dense voxel array, with the dense frame loop's launches and
-its mesh on the card against the CPU's.
+its mesh on the card against the CPU's. The lane-indexed launches at B = 3
+under torch.vmap (K1 and K1w, K2 and K2c, K3, K3h and K3d, with shared and
+per-lane arguments): one launch for the three lanes, each lane equal to its
+single-lane launch (K1 and K2 bit for bit) and held to the plain twin as the
+single-lane launch is; and a batched frame step against the same frames
+stepped lane by lane.
 
 They carry the `cuda` marker and skip where no card is present. On a machine
 with a card (JAX need not be installed there), run them with:
@@ -139,7 +144,7 @@ def test_k1_is_bit_reproducible(fused):
     a, b = icp.icp_gh(*args), icp.icp_gh(*args)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
-    assert int(icp._counter(args[0].device.index, build.stream_ptr())) == 0
+    assert int(icp._counter(args[0].device.index, build.stream_ptr(), 1)) == 0
 
 
 def test_k1_on_two_streams(fused):
@@ -743,3 +748,169 @@ def test_dense_mesh_on_the_card_equals_the_cpu_mesh(dense_fused):
     on_cpu = meshing_engine.mesh_scene_dense(type(vol)(*(None if t is None else t.cpu() for t in vol)), settings)
     assert on_card.n_triangles == on_cpu.n_triangles > 1000
     np.testing.assert_allclose(on_card.triangles, on_cpu.triangles, rtol=0, atol=1e-6)
+
+
+# ---- lane-indexed launches (torch.vmap, parallel/batch.py) ----------------
+
+
+def lanes3(x, scales=(1.0, 1.001, 0.999)):
+    """Three lanes of `x` (a [B]-stacked tensor), scaled per lane."""
+    return torch.stack([x * s for s in scales])
+
+
+def perturbed_poses(pose):
+    """Three world→camera poses: `pose` and two nudged by ~1 mm / 0.06°."""
+    d = torch.tensor([[0.0] * 6, [0.001, -0.001, 0.0005, 0.001, 0.0, -0.001],
+                      [-0.0008, 0.0005, 0.001, -0.001, 0.001, 0.0]], device=pose.device)
+    return torch.stack([se3.se3_exp(v) @ pose for v in d])
+
+
+@pytest.mark.parametrize("weighted", [False, True], ids=["k1", "k1w"])
+@pytest.mark.parametrize("level", [0, 2])
+def test_lane_indexed_k1_at_b3(fused, level, weighted):
+    d, vproj, pm, nm, proj, _ip, scene_pose, thresh, min_valid = k1_args(fused, level)
+    depth = lanes3(d)
+    inv = torch.stack([se3.invert(p) for p in perturbed_poses(se3.invert(_ip))])
+    w = k1_weights(fused, level) if weighted else None
+
+    def one(dl, ip):
+        return icp.icp_gh(dl, vproj, pm, nm, proj, ip, scene_pose, thresh, min_valid, weights=w)
+
+    build.reset_launch_counts()
+    got = torch.vmap(one)(depth, inv)  # maps, intrinsics and weights shared (stride 0)
+    counts = build.launch_counts()
+    assert counts["icp_weighted" if weighted else "icp"] == 1 and sum(counts.values()) == 1
+    for b in range(3):
+        single = one(depth[b], inv[b])
+        for x, y in zip(got, single):
+            assert torch.equal(x[b], y), b
+        p = icp.icp_gh_plain(depth[b], vproj, pm, nm, proj, inv[b], scene_pose, thresh, min_valid, weights=w)
+        assert int(single.num_valid) == int(p.num_valid) > 0
+        torch.testing.assert_close(single.hessian, p.hessian, rtol=1e-4, atol=1e-4 * float(p.hessian.abs().max()))
+        torch.testing.assert_close(single.nabla, p.nabla, rtol=1e-4, atol=1e-4 * float(p.nabla.abs().max()))
+    assert not torch.equal(got.hessian[0], got.hessian[1])
+
+
+@pytest.mark.parametrize("color", [False, True], ids=["k2", "k2c"])
+def test_lane_indexed_k2_at_b3(fused, fused_rgb, device, color):
+    """Each lane fuses the frame from its own pose into its own copy of the
+    volume; the list, the entries and the intrinsics are shared."""
+    if color:
+        _s, _p, vol, _rs, st, _d, _rgb, _c = fused_rgb
+        args = list(k2c_args(fused_rgb, device, True))
+        planes = (lanes3(vol.vox, (1, 1, 1)), lanes3(vol.vox_rgb, (1, 1, 1)))
+    else:
+        _s, _p, vol, _rs, st, _d, _c = fused
+        args = list(k2_args(fused, device))
+        planes = (lanes3(vol.vox, (1, 1, 1)),)
+    poses = perturbed_poses(st.pose)
+    pose_at = 5 if color else 4
+    fn = integrate.integrate_rgbd if color else integrate.integrate_depth
+    n = len(planes)
+
+    def one(*a):
+        call = list(args)
+        call[pose_at] = a[n]
+        fn(*a[:n], *call)
+        return a[:n]
+
+    ref = [tuple(p[b].clone() for p in planes) for b in range(3)]
+    build.reset_launch_counts()
+    torch.vmap(one)(*planes, poses)
+    assert build.launch_counts()["integrate_color" if color else "integrate"] == 1
+    for b in range(3):
+        single = tuple(p.clone() for p in ref[b])
+        one(*single, poses[b])
+        plain = tuple(p.clone() for p in ref[b])
+        call = list(args)
+        call[pose_at] = poses[b]
+        (integrate.integrate_rgbd_plain if color else integrate.integrate_depth_plain)(*plain, *call)
+        for k in range(n):
+            assert torch.equal(planes[k][b], single[k]) and torch.equal(single[k], plain[k]), (b, k)
+            assert not torch.equal(single[k], ref[b][k])
+    assert not torch.equal(planes[0][1], planes[0][2])
+
+
+@pytest.mark.parametrize("reader", ["k3", "k3h", "k3d"])
+def test_lane_indexed_k3_at_b3(fused, dense_fused, device, reader):
+    """Three lanes with their own copy of the volume (lane 2's emptied), own
+    camera and own enable flag (lane 1's false: its output keeps the
+    sentinel); the intrinsics and the ranges shared."""
+    if reader == "k3d":
+        settings, proj, dvol, st, _c = dense_fused
+        vox = torch.stack([dvol.sdf, dvol.sdf, torch.ones_like(dvol.sdf)])
+    else:
+        settings, proj, vol, rs, st, _depth, _c = fused
+        vox = torch.stack([vol.vox, vol.vox, torch.full_like(vol.vox, hv.VOX_INIT)])
+    sp = settings.scene
+    zmin = torch.full(IMG, sp.view_frustum_min, device=device)
+    zmax = torch.full(IMG, sp.view_frustum_max, device=device)
+    inv = torch.stack([se3.invert(p) for p in perturbed_poses(st.pose)])
+    enable = torch.tensor([True, False, True], device=device)
+    out = torch.full((3, *IMG, 4), -7.0, device=device)
+    tail = (IMG, 1.0 / sp.voxel_size, sp.mu, zmin, zmax)
+    if reader == "k3":
+        grid = hp.hv.get_block_grid(vol, settings.block_grid)
+        kernel, plain = raycast.raycast_grid, raycast.raycast_grid_plain
+
+        def head(v):
+            return (vol._replace(vox=v), grid, settings.block_grid, settings.hashing)
+    elif reader == "k3h":
+        kernel, plain = raycast.raycast_hash_probe, raycast.raycast_hash_probe_plain
+
+        def head(v):
+            return (vol._replace(vox=v), settings.hashing)
+    else:
+        kernel, plain = raycast.raycast_dense, raycast.raycast_dense_plain
+
+        def head(v):
+            return (dvol._replace(sdf=v), settings.plain)
+
+    def one(v, im, en, o):
+        return kernel(*head(v), im, proj, *tail, enable=en, out=o).points
+
+    ref = out.clone()
+    build.reset_launch_counts()
+    torch.vmap(one)(vox, inv, enable, out)
+    counts = build.launch_counts()
+    assert sum(counts.values()) == 1
+    for b in range(3):
+        single = one(vox[b], inv[b], enable[b], ref[b].clone())
+        assert torch.equal(out[b], single), b
+        p = plain(*head(vox[b]), inv[b], proj, *tail, enable=enable[b], out=ref[b].clone()).points
+        if b == 0:
+            assert_raycast_matches_plain(single, p)
+        else:  # lane 1 switched off, lane 2 empty: no hit in either
+            assert torch.equal(single[..., 3], p[..., 3])
+    assert int((out[0][..., 3] > 0).sum()) > 0.5 * IMG[0] * IMG[1]
+    assert torch.equal(out[1], ref[1]) and int((out[2][..., 3] > 0).sum()) == 0
+
+
+def test_batched_replay_step_equals_the_unbatched_steps(device):
+    """Two lanes with their own trajectories through parallel/batch.py for 3
+    frames, against the same frames stepped lane by lane: one launch per
+    kernel call of a frame, whatever B (30 K1 … here the 3-level tracker's,
+    1 K2, 1 K3 a step), and poses that agree with the unbatched lanes'."""
+    from infinitam_tpu_torch.parallel import batch as pb
+
+    calib = default_calib(IMG[1], IMG[0])
+    proj = torch.as_tensor(calib.intrinsics_d.vector, device=device)
+    trajs = [torch.as_tensor(synth.make_trajectory(3, scale=1.0 - 0.15 * b), device=device) for b in range(2)]
+    depths = [torch.stack([synth.render_depth(trajs[b][f], proj, IMG) for b in range(2)]) for f in range(3)]
+    vol, rs, st = pb.batched_state_hash(SETTINGS, IMG, 2, device=device)
+    step = pb.make_batched_step(SETTINGS)
+    build.reset_launch_counts()
+    for d in depths:
+        vol, rs, st, metrics = step(vol, rs, st, View(depth=d), proj)
+    torch.cuda.synchronize()
+    iters = sum(TrackingParams(n_levels=3).iterations_per_level[:3])
+    assert build.launch_counts() == dict.fromkeys(build.KERNELS, 0) | {"icp": 3 * iters, "integrate": 3,
+                                                                       "raycast": 3}
+    for b in range(2):
+        v, r, s = hp.create_engine_state(SETTINGS, IMG, device=device)
+        for d in depths:
+            v, r, s, _diag = hp.process_frame_hash(v, r, s, View(depth=d[b]), proj, SETTINGS)
+        c = [np.linalg.inv(x.cpu().numpy().astype(np.float64))[:3, 3] for x in (s.pose, st.pose[b])]
+        assert np.linalg.norm(c[0] - c[1]) < 1e-4, b
+        assert int(r.n_visible) > 100
+    assert float(metrics["mean_valid"]) > 1000

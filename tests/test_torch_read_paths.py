@@ -2,14 +2,18 @@
 at 60×80: the hash-probe raycast (`use_block_grid=False`: kernel K3h's plain
 twin, the march over hash_volume.make_hash_reader), the coarse pre-pass
 (`raycast_coarse_factor`, ops/raycast.py refine_ranges_from_coarse), the Ren
-tracker and the weight image through the hash reader.
+tracker and the weight image through the hash reader; and the incremental
+raycast, `forward_project` and `forward_render` (ops/raycast.py).
 
 Tolerances: the range refinement is exact; a raycast is held to the JAX
 package's XLA march as in tests/test_torch_raycast.py (inside a jit XLA
 rounds a ray an ulp apart: ≥ 99.9% of the hit mask equal, points within
 1e-3 voxel), and on a map inside the block grid's window the hash and grid
 readers give the port identical results; replays are held to 1e-4 m and
-0.01° a frame, the bar of tests/test_torch_slice.py.
+0.01° a frame, the bar of tests/test_torch_slice.py. XLA's scatter and the
+port's pick an unspecified winner where several points land on one pixel:
+forward_project's pixels are compared as sets there (each side's point one
+of the colliding ones) and exactly (within 1e-5 voxel) elsewhere.
 """
 
 import jax.numpy as jnp
@@ -290,3 +294,91 @@ def test_weight_image_reads_through_the_hash():
     np.testing.assert_array_equal(w_t.numpy(), np.asarray(w_j))
     np.testing.assert_array_equal(f_t.numpy(), np.asarray(f_j))
     assert (w_t.numpy() > 0).mean() > 0.1
+
+
+@pytest.fixture(scope="module")
+def forward_case(scene):
+    """The JAX package's 60×80 raycast map of the scene at its last pose
+    (metres, w = ±1), a new pose and its expected-depth ranges, in both
+    packages."""
+    pose, vol, rs, vt, rt = scene
+    sp = SETTINGS.scene
+    grid = j_hv.build_block_grid(vol, SETTINGS.block_grid, SETTINGS.hashing)
+    read_j = j_hv.make_grid_reader(vol, grid, SETTINGS.block_grid, SETTINGS.hashing)
+    old = j_se3.invert(jnp.asarray(pose))  # the scene's last camera, the pose the map was cast from
+    zmin, zmax, _n = j_hp.expected_depth_ranges(vol, rs, jnp.asarray(np.linalg.inv(np.asarray(old))), jnp.asarray(PROJ),
+                                                IMG, SETTINGS)
+    cast = j_rc.generic_raycast(read_j, old, jnp.asarray(PROJ), IMG, 1.0 / sp.voxel_size, sp.mu, zmin, zmax)
+    pts = np.asarray(cast.points)
+    prev = np.concatenate([pts[..., :3] * sp.voxel_size, np.where(pts[..., 3:] > 0, 1.0, -1.0)], -1)
+    new_pose = np.asarray(j_se3.se3_exp(jnp.array([0.01, 0.005, -0.008, 0.004, -0.006, 0.003], jnp.float32))
+                          @ jnp.asarray(pose))
+    zmin_n, zmax_n, _n = j_hp.expected_depth_ranges(vol, rs, jnp.asarray(new_pose), jnp.asarray(PROJ), IMG, SETTINGS)
+    return prev.astype(np.float32), new_pose, np.asarray(zmin_n), np.asarray(zmax_n), read_j
+
+
+def collisions(prev, M, proj, one_over_voxel_size):
+    """{flat pixel: [payloads]} of the points forward_project lands on each
+    pixel (numpy, float64 projection of the same rule)."""
+    H, W = IMG
+    fx, fy, cx, cy = proj
+    pc = prev[..., :3].reshape(-1, 3).astype(np.float64) @ M[:3, :3].T.astype(np.float64) + M[:3, 3]
+    z = np.where(pc[:, 2] <= 0, 1.0, pc[:, 2])
+    u, v = fx * pc[:, 0] / z + cx, fy * pc[:, 1] / z + cy
+    ok = (prev[..., 3].reshape(-1) > 0) & (pc[:, 2] > 0) & (u >= 0) & (u <= W - 1) & (v >= 0) & (v <= H - 1)
+    out = {}
+    for i in np.nonzero(ok)[0]:
+        key = int(np.clip(int(v[i] + 0.5), 0, H - 1)) * W + int(np.clip(int(u[i] + 0.5), 0, W - 1))
+        out.setdefault(key, []).append(prev.reshape(-1, 4)[i, :3] * one_over_voxel_size)
+    return out
+
+
+@pytest.mark.parametrize("back", [0.0, 0.4], ids=["near", "stepped_back"])
+def test_forward_project_matches_jax(forward_case, back):
+    """At the new pose, and 40 cm further back, where the map shrinks in the
+    image and several points land on one pixel."""
+    prev, M, _zmin, _zmax, _read = forward_case
+    M = M.copy()
+    M[2, 3] += back
+    inv_v = 1.0 / SETTINGS.scene.voxel_size
+    ref = np.asarray(j_rc.forward_project(jnp.asarray(prev), jnp.asarray(M), jnp.asarray(PROJ), IMG, inv_v))
+    out = t_rc.forward_project(T(prev), T(M), T(PROJ), IMG, inv_v).numpy()
+    hit_j, hit_t = ref[..., 3] > 0, out[..., 3] > 0
+    assert hit_j.mean() > 0.5
+    # pixels a float32 rounding puts on either side of a pixel edge: few
+    assert (hit_j != hit_t).mean() < 0.002
+    cands = collisions(prev, M, PROJ, inv_v)
+    n_multi = 0
+    for key in np.nonzero((hit_j & hit_t).reshape(-1))[0]:
+        got, want = out.reshape(-1, 4)[key, :3], ref.reshape(-1, 4)[key, :3]
+        c = cands.get(int(key), [])
+        if len(c) > 1:
+            n_multi += 1
+            assert min(np.abs(got - x).max() for x in c) < 1e-5
+            assert min(np.abs(want - x).max() for x in c) < 1e-5
+        else:
+            assert np.abs(got - want).max() < 1e-5
+    assert (n_multi > 100) == (back > 0)  # stepped back, many pixels collide
+
+
+def test_forward_render_matches_jax(scene, forward_case):
+    _pose, _vol, _rs, vt, _rt = scene
+    prev, M, zmin, zmax, read_j = forward_case
+    sp = SETTINGS.scene
+    inv_v = 1.0 / sp.voxel_size
+    ref = np.asarray(j_rc.forward_render(read_j, jnp.asarray(prev), jnp.asarray(M), jnp.asarray(PROJ), IMG, inv_v,
+                                         sp.mu, jnp.asarray(zmin), jnp.asarray(zmax)).points)
+    read_t = t_hv.make_grid_reader(vt, t_hv.get_block_grid(vt, SETTINGS.block_grid), SETTINGS.block_grid,
+                                   SETTINGS.hashing)
+    out = t_rc.forward_render(read_t, T(prev), T(M), T(PROJ), IMG, inv_v, sp.mu, T(zmin), T(zmax)).points.numpy()
+    fwd = t_rc.forward_project(T(prev), T(M), T(PROJ), IMG, inv_v).numpy()
+    filled = fwd[..., 3] <= 0
+    assert filled.sum() > 50  # missing pixels the march filled in
+    # the marched pixels are a raycast: held to the XLA march's bar
+    assert_raycasts_agree(np.where(filled[..., None], out, 0), np.where(filled[..., None], ref, 0), min_hits=0.0)
+    assert ((out[..., 3] > 0) == (ref[..., 3] > 0)).mean() >= 0.998
+    # and the whole image covers the full raycast's hits, as tests/test_extras.py asks of JAX
+    full = t_rc.generic_raycast(read_t, t_se3.invert(T(M)), T(PROJ), IMG, inv_v, sp.mu, T(zmin), T(zmax)).points
+    f_full = full[..., 3].numpy() > 0
+    assert (out[..., 3] > 0)[f_full].mean() > 0.8
+    assert build.launch_counts()["raycast"] == 0
