@@ -61,7 +61,20 @@ unbatched config; gated per lane on ATE, rotation and counters, on exactly
 lane count, and on no host sync; printed: steps/s, frames/s summed over the
 lanes, batch_efficiency = that ÷ (B × the unbatched replay's frames/s in
 this call), lane 0's largest camera-centre difference from the unbatched
-replay, peak memory); and 10 frames at 5 mm on a render state without its
+replay, peak memory); each batched config's lanes again as 2 ranks, one
+process each (`batched_5mm_ranks`: 2 × 2 lanes, `batched_dense_5mm_ranks`:
+2 × 1; parallel/ranks.py starts them, parallel/batch.py's mesh splits the
+lanes and all-reduces the fleet metrics; on one card the ranks share it
+through gloo, which stages each all-reduce through host memory, on ≥ 2
+cards one card a rank through NCCL; gated per lane on ATE, rotation,
+counters and poses within 1e-6 m of a one-process replay of the rank's
+lanes (its difference from the B-lane replay printed), on the fleet
+metrics equal on both ranks, on exactly 30 K1, 1 K2 and 1 K3 launches a
+step in each rank (dense: 30 K1, 1 K3d), one all-reduce a step and no
+other host sync, and on no module of JAX in a rank; printed: steps/s,
+frames/s summed over the ranks, its ratio to the one-process batched
+replay's in this call, each rank's peak memory, the all-reduce calls); and
+10 frames at 5 mm on a render state without its
 claim plane (`5mm_gridless`: the legacy allocator, gated as the others; its
 final block set's symmetric difference from the compact allocator's over
 the same frames printed). Each
@@ -154,6 +167,8 @@ BATCH_LANES = 4  # lanes of batched_5mm
 DENSE_LANES = 2  # lanes of batched_dense_5mm (1 GiB of array a lane)
 N_GRIDLESS = 10  # frames of 5mm_gridless
 LANE_CHECK = 3  # lanes of the lane-indexed kernel checks
+N_RANKS = 2  # ranks of the two ranks phases
+RANK_TIMEOUT = 600.0  # seconds a ranks phase's processes may take, all together
 REPO = Path(__file__).resolve().parent
 SYNC_MSG = "called a synchronizing CUDA operation"
 
@@ -453,6 +468,91 @@ def gh_errors(a, b):
         return torch.cat([g.hessian.reshape(-1) / n, g.nabla / n, g.f.reshape(1)])
     return (max(rel(a.hessian, b.hessian), rel(a.nabla, b.nabla), rel(a.f, b.f)),
             float((system(a) - system(b)).abs().max()))
+
+
+def camera_centres(poses: np.ndarray) -> np.ndarray:
+    """The camera centres [..., 3] of world-to-camera poses [..., 4, 4]."""
+    return np.linalg.inv(poses.astype(np.float64))[..., :3, 3]
+
+
+def rank_phase(kind: str, settings, depth_file: str, proj: np.ndarray, share_card: bool) -> dict:
+    """One rank of a ranks phase, in its own process (parallel/ranks.spawn
+    sets the environment make_mesh reads). This rank's lanes of the fleet's
+    frames (an .npy file of [steps, B, H, W] depth) go through the sharded
+    batched step of `kind` ("batched" or "batched_dense"): a correctness
+    run under the sync debug mode (poses, counters, the fleet metrics of
+    every step, peak device memory, each host sync's source lines and the
+    all-reduce calls), then N_TIMED timed runs, each on fresh maps built
+    before a barrier that starts the ranks together (the first counts the
+    kernel launches). Returns numpy arrays and plain values."""
+    import torch.distributed as dist
+    from infinitam_tpu_torch.engine.view_builder import View
+    from infinitam_tpu_torch.ops.kernels import build
+    from infinitam_tpu_torch.parallel import batch
+
+    mesh = batch.make_mesh(share_card=share_card)
+    torch.cuda.set_device(mesh.device)
+    fleet = np.load(depth_file, mmap_mode="r")
+    B = fleet.shape[1]
+    lanes = mesh.lane_range(B)
+    depths = torch.from_numpy(np.ascontiguousarray(fleet[:, lanes.start:lanes.stop])).to(mesh.device)
+    proj = torch.as_tensor(proj, device=mesh.device)
+    dense = kind == "batched_dense"
+    fresh = batch.batched_state_dense if dense else batch.batched_state_hash
+    step = (batch.make_batched_step_dense if dense else batch.make_batched_step)(settings, mesh)
+    keys = ("mean_f", "mean_valid") + (() if dense else ("total_visible",))
+
+    def run(state):
+        poses, diags, metrics = [], [], []
+        for d in depths:
+            *state, m = step(*state, View(depth=d), proj)
+            poses.append(state[-1].pose)
+            diags.append(m["diag"])
+            metrics.append(m)
+        return poses, diags, metrics
+
+    torch.cuda.reset_peak_memory_stats()
+    syncs, reductions, all_reduce = [], [0], dist.all_reduce
+
+    def counted_all_reduce(*args, **kwargs):  # batch.py reaches it through the module
+        reductions[0] += 1
+        return all_reduce(*args, **kwargs)
+
+    state = fresh(settings, IMG, B, mesh=mesh)
+    torch.cuda.synchronize()
+    dist.all_reduce = counted_all_reduce
+    try:
+        with flag_syncs(syncs):
+            poses, diags, metrics = run(state)
+        torch.cuda.synchronize()
+    finally:
+        dist.all_reduce = all_reduce
+    del state
+    peak = torch.cuda.max_memory_allocated()
+    counters = {k: torch.stack([getattr(d, k) for d in diags]).amax(0).tolist() for k in COUNTERS
+                if hasattr(diags[0], k)}
+    out = dict(lanes=(lanes.start, lanes.stop), backend=dist.get_backend(), device=str(mesh.device),
+               poses=torch.stack(poses).cpu().numpy(), counters=counters, keys=keys,
+               metrics=np.array([[m[k].item() for k in keys] for m in metrics]), syncs=syncs,
+               reductions=reductions[0], peak=peak)
+    del poses, diags, metrics
+    times = []
+    for rep in range(N_TIMED):
+        state = fresh(settings, IMG, B, mesh=mesh)
+        torch.cuda.synchronize()
+        dist.barrier()
+        if rep == 0:
+            build.reset_launch_counts()
+        t0 = time.perf_counter()
+        run(state)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if rep == 0:
+            out["launches"] = build.launch_counts()
+        del state
+    out["times"] = times
+    out["jax_modules"] = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "infinitam_tpu"))
+    return out
 
 
 class Smoke:
@@ -1615,6 +1715,7 @@ class Smoke:
         errs = [trajectory_errors(P[:, b], gts[b][:n].astype(np.float64)) for b in range(B)]
         counters = {k: torch.stack([getattr(d, k) for d in diags]).amax(0).tolist() for k in COUNTERS
                     if hasattr(diags[0], k)}
+        self.poses[name] = P
         ref_name, ref_fps = single
         centre = [np.array([np.linalg.inv(p)[:3, 3] for p in x]) for x in (P[:, 0], self.poses[ref_name][:n])]
         lane0_diff = float(np.linalg.norm(centre[0] - centre[1], axis=1).max())
@@ -1680,6 +1781,101 @@ class Smoke:
                   f"{name} launches exactly {expected} a step (one launch for all {B} lanes)")
         self.gate(len(syncs) == 0, f"{name} step loop issued no host sync")
         return launches, (steps_s, fps, step_ms), efficiency
+
+    def ranks_replay(self, name, settings, frames, gts, kind, expected, one_process):
+        """The lanes of a batched replay (`kind`, `frames` and `gts` as in
+        batched_replay) as N_RANKS ranks, one process each (rank_phase):
+        with one rank a card on a machine with that many cards (NCCL), else
+        sharing card 0 (gloo: NCCL refuses two ranks on one device), said on
+        a line of its own. `one_process`: (name, frames/s summed) of the
+        one-process batched replay of the same lanes in this call. The
+        one-process step also replays each rank's lanes alone, with the
+        rank's lane count: the B-lane replay rounds otherwise where the
+        rank's count is 1 (cuBLAS and cuSOLVER take their one-matrix kernels
+        for a batch of one). Gated: each lane's ATE and rotation, its
+        counters, its poses within 1e-6 m of the one-process lane's with the
+        rank's lane count (the difference from the B-lane replay printed),
+        the fleet metrics equal on every rank,
+        `expected` launches a step in every rank, no host sync but those of
+        the all-reduce, no module of JAX in a rank. Returns (launches summed
+        over the ranks, one rank's launches, (steps/s, frames/s summed over
+        the ranks, ratio to the one-process frames/s))."""
+        from infinitam_tpu_torch.parallel import ranks
+
+        depths = frames[0]
+        n, B = len(depths), depths[0].shape[0]
+        cards = torch.cuda.device_count()
+        share = cards < N_RANKS
+        if share:
+            print(f"{name}: the multi-card run (NCCL, one rank a card) needs >= {N_RANKS} cards and this machine has "
+                  f"{cards}: the {N_RANKS} ranks share card 0 through gloo (NCCL refuses two ranks on one device)")
+        run, _fresh = self.runner(kind)
+        per_rank = B // N_RANKS
+        alone = []
+        for r in range(N_RANKS):
+            lanes = slice(r * per_rank, (r + 1) * per_rank)
+            *_state, poses, _diags = run(settings, ([d[lanes] for d in depths], frames[1]))
+            alone.append(torch.stack(poses).cpu().numpy())
+            del _state, _diags, poses
+        alone = np.concatenate(alone, axis=1)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()  # the ranks' maps come out of the same card's memory
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "depths.npy")
+            np.save(path, torch.stack(depths).cpu().numpy())
+            out = ranks.spawn(rank_phase, N_RANKS, args=(kind, settings, path, self.proj.cpu().numpy(), share),
+                              timeout=RANK_TIMEOUT)
+        wall = time.perf_counter() - t0
+        P = np.concatenate([r["poses"] for r in out], axis=1).astype(np.float64)  # [steps, B, 4, 4]
+        errs = [trajectory_errors(P[:, b], gts[b][:n].astype(np.float64)) for b in range(B)]
+        diff = np.linalg.norm(camera_centres(P) - camera_centres(alone), axis=-1).max(0)
+        diff_b = np.linalg.norm(camera_centres(P) - camera_centres(self.poses[one_process[0]][:n]), axis=-1).max(0)
+        fleet_times = np.max([r["times"] for r in out], axis=0)  # each timed run ends with its slowest rank
+        steps_s = n / float(np.median(fleet_times))
+        fps = B * steps_s
+        ratio = fps / one_process[1]
+        source = (REPO / "infinitam_tpu_torch" / "parallel" / "batch.py").read_text().splitlines()
+        reduce_site = "infinitam_tpu_torch/parallel/batch.py:" + str(
+            next(i for i, line in enumerate(source, 1) if "dist.all_reduce(" in line))
+        staged = out[0]["backend"] == "gloo"
+        print(f"{name}: {N_RANKS} ranks × {per_rank} lanes ({out[0]['backend']}, devices "
+              f"{[r['device'] for r in out]}), {steps_s:.3f} steps/s, {fps:.2f} frames/s summed over the ranks "
+              f"(median of {N_TIMED} replays, each timed to its slowest rank; ms/step "
+              + ", ".join(f"{t * 1000 / n:.2f}" for t in fleet_times)
+              + f"), ratio {ratio:.3f} to {one_process[0]}'s {one_process[1]:.2f} frames/s in this call; "
+              f"{wall:.1f} s wall for the phase, process starts included")
+        for r in out:
+            print(f"  rank lanes {r['lanes']}: peak device memory of its correctness run {r['peak'] / 2**30:.3f} GiB "
+                  f"(torch.cuda.max_memory_allocated), ms/step " + ", ".join(f"{t * 1000 / n:.2f}" for t in r["times"]))
+        for b, (ate, rot) in enumerate(errs):
+            print(f"  lane {b}: ATE RMSE {ate * 1000:.3f} mm, rotation RMSE {rot:.4f} deg, largest per-step camera-"
+                  f"centre difference from the one-process lane with {per_rank} lane(s) a step {diff[b] * 1000:.6f} mm, "
+                  f"from the {one_process[0]} lane ({B} lanes a step) {diff_b[b] * 1000:.6f} mm")
+        print(f"  counters per lane (max over steps): {[r['counters'] for r in out]}")
+        print(f"  kernel launches of each rank in its first timed replay: {[r['launches'] for r in out]}")
+        print(f"  all-reduce calls in each rank's correctness run: {[r['reductions'] for r in out]} over {n} steps"
+              + (" (gloo stages a CUDA all-reduce through host memory: each is a host wait on the card)"
+                 if staged else ""))
+        for r in out:
+            print(f"  host syncs flagged in rank {r['lanes']}'s correctness run: {len(r['syncs'])}")
+            for site in sorted(set(r["syncs"])):
+                print(f"    {r['syncs'].count(site)}× at {site}")
+        for b, (ate, rot) in enumerate(errs):
+            self.gate(ate < 0.01 and rot < 1.0, f"{name} lane {b} ATE RMSE < 1 cm and rotation RMSE < 1 deg")
+        self.gate(all(v == 0 for r in out for lanes in r["counters"].values() for v in lanes),
+                  f"{name} every counter of every lane 0")
+        self.gate(float(diff.max()) < 1e-6, f"{name} every lane within 1e-6 m of the one-process lane ({per_rank} a step)")
+        self.gate(all(np.array_equal(r["metrics"], out[0]["metrics"]) for r in out),
+                  f"{name} fleet metrics {out[0]['keys']} equal on every rank at every step")
+        want = dict.fromkeys(self.build.KERNELS, 0) | {k: v * n for k, v in expected.items()}
+        self.gate(all(r["launches"] == want for r in out), f"{name} every rank launches exactly {expected} a step")
+        self.gate(all(r["reductions"] == n for r in out), f"{name} one all-reduce a step in every rank")
+        self.gate(all(reduce_site in s for r in out for s in r["syncs"]),
+                  f"{name} no host sync in the step loop outside the all-reduce ({reduce_site})")
+        self.gate(not any(r["jax_modules"] for r in out), f"{name} no module of JAX or of the JAX package in a rank")
+        total = {k: sum(r["launches"][k] for r in out) for k in self.build.KERNELS}
+        return total, out[0]["launches"], (steps_s, fps, ratio)
 
     def lane_checks(self, settings, vol, rs, st, view, dense_settings, dvol, dst):
         """The lane-indexed launches at B = LANE_CHECK under torch.vmap, at
@@ -1974,12 +2170,20 @@ def main() -> int:
     per_frame, per_step, timing, efficiency = {}, {}, {}, {}
 
     def batched(name, settings, kind, n_lanes, expected, single):
-        """A batched replay right after the unbatched replay of its lane 0."""
+        """A batched replay right after the unbatched replay of its lane 0,
+        then the same lanes as N_RANKS ranks (`{name}_ranks`)."""
         bframes, bgts = smoke.lane_frames(frames, gt, n_lanes)
         counts, timing[name], efficiency[name] = smoke.batched_replay(name, settings, bframes, bgts, kind, expected,
                                                                       (single, timing[single][0]))
         per_step[name] = {k: n / N_FRAMES for k, n in counts.items()}
         per_frame[name] = {k: n / (N_FRAMES * n_lanes) for k, n in counts.items()}
+        for k, n in counts.items():
+            launches[k] += n
+        ranked = f"{name}_ranks"
+        counts, one_rank, timing[ranked] = smoke.ranks_replay(ranked, settings, bframes, bgts, kind, expected,
+                                                              (name, timing[name][1]))
+        per_step[ranked] = {k: n / N_FRAMES for k, n in one_rank.items()}  # a step of one rank
+        per_frame[ranked] = {k: n / (N_FRAMES * n_lanes) for k, n in counts.items()}
         for k, n in counts.items():
             launches[k] += n
 

@@ -21,6 +21,7 @@ all B lanes. B = 1 is the unbatched call. The wrappers bind each launch to a
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -133,12 +134,23 @@ def _run(cmds: list) -> list:
 
 
 def build() -> Path:
-    """Compile the sources unless a library of the same hash exists."""
-    global last_build_seconds
+    """Compile the sources unless a library of the same hash exists. The
+    build holds an exclusive lock on a file beside the library (released
+    when the process ends, whatever way), so ranks that start together run
+    one build and the others wait for it and load its library."""
     lib = _library_path()
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not lib.exists():
+            _compile(lib)
+    return lib
+
+
+def _compile(lib: Path) -> None:
+    global last_build_seconds
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
     nvcc = nvcc_path()
     objs = [tmp.with_name(f"{tmp.name}.{s}.o") for s in SOURCES]
@@ -150,7 +162,6 @@ def build() -> Path:
     os.replace(tmp, lib)
     last_build_seconds = time.perf_counter() - t0
     ptxas_report.update({s: out for s, (_cmd, out) in zip(SOURCES, compiled)})
-    return lib
 
 
 @functools.cache

@@ -1,4 +1,5 @@
-"""Batched multi-sequence SLAM: B independent RGB-D sequences in one step.
+"""Batched multi-sequence SLAM: B independent RGB-D sequences in one step,
+split over a mesh of ranks.
 
 Counterpart of infinitam_tpu/parallel/batch.py. Every state tensor gets a
 leading [B] dim and the per-frame step runs under `torch.vmap`, so each
@@ -9,28 +10,97 @@ step launches each kernel as often as an unbatched one. Fleet metrics
 (mean tracker energy and inliers, total visible blocks) reduce over the
 batch.
 
-The JAX package shards B over a device mesh; here the mesh is a list of
-CUDA devices and the batch stays on one card: a mesh of more than one card
-raises (ROADMAP Queue 1, lanes over several cards).
+The JAX package shards B over a `jax.sharding.Mesh` from one controller.
+Here a mesh is n ranks, one process each, under `torch.distributed`: rank r
+holds the contiguous lane range [r·B/n, (r+1)·B/n) on its own card, runs
+the vmapped step over those lanes, and the fleet metrics are all-reduced
+over the ranks (NCCL between cards, gloo on the CPU or when ranks share a
+card), so every rank holds the same values, as JAX's replicated outputs.
+Each rank's host issues only its own card's work. Start the ranks with
+`torchrun --nproc-per-node=N` or `parallel.ranks.spawn`; `make_mesh` reads
+the environment either sets. A one-rank mesh is the path without a mesh:
+no process group, no collective.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+import os
+from typing import NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from infinitam_tpu_torch.config import Settings
 from infinitam_tpu_torch.engine import dense_pipeline as dp
 from infinitam_tpu_torch.engine import hash_pipeline as hp
-from infinitam_tpu_torch.engine import hash_volume as hv
-from infinitam_tpu_torch.engine.tracking_state import create_tracking_state
 
 
-def make_mesh(n_devices: Optional[int] = None) -> List[torch.device]:
-    """The first `n_devices` CUDA devices (all of them when None)."""
-    n = torch.cuda.device_count()
-    return [torch.device("cuda", i) for i in range(n_devices or n)][:n]
+class Mesh(NamedTuple):
+    """n ranks over the batch's data axis, this process being `rank`, its
+    lanes on `device`; `group` is the process group the fleet metrics
+    reduce over (None for one rank)."""
+
+    n: int
+    rank: int
+    device: torch.device
+    group: Optional[object] = None
+
+    def lane_range(self, batch: int) -> range:
+        """This rank's lanes of a batch of `batch`: the contiguous range
+        [rank·batch/n, (rank+1)·batch/n). The batch must split evenly, as
+        JAX's sharding of the data axis requires."""
+        if batch % self.n:
+            raise ValueError(f"a batch of {batch} lanes does not split evenly over a mesh of {self.n} ranks")
+        k = batch // self.n
+        return range(self.rank * k, (self.rank + 1) * k)
+
+
+def make_mesh(n_devices: Optional[int] = None, *, rank: Optional[int] = None, init_method: Optional[str] = None,
+              device: torch.device | str | None = None, share_card: bool = False) -> Mesh:
+    """The mesh of this process: `n_devices` ranks (None: the process
+    group's size, else the environment's WORLD_SIZE, else 1), this one
+    `rank` (else the group's, else RANK). A mesh of more than one rank joins
+    the default process group, initialising it when needed from
+    `init_method` (default "env://": MASTER_ADDR and MASTER_PORT, as
+    torchrun and `ranks.spawn` set them). Its device is `device`, else card
+    LOCAL_RANK (default: the rank). More ranks on this machine
+    (LOCAL_WORLD_SIZE, default n) than it has cards raise, unless
+    `share_card` lets them share the cards round robin. The backend is NCCL
+    between cards and gloo on the CPU or on a shared card (NCCL refuses two
+    ranks on one device). A one-rank mesh creates no process group."""
+    env = os.environ
+    if dist.is_available() and dist.is_initialized():
+        n, rank = dist.get_world_size(), dist.get_rank()
+        if n_devices not in (None, n):
+            raise ValueError(f"a mesh of {n_devices} ranks asked for in a process group of {n}")
+    else:
+        n = n_devices or int(env.get("WORLD_SIZE", 1))
+        if rank is None:
+            if n > 1 and "RANK" not in env:
+                raise ValueError(f"a mesh of {n} ranks needs one process a rank: start them with torchrun or "
+                                 "parallel.ranks.spawn, or pass rank and init_method")
+            rank = int(env.get("RANK", 0))
+    if not 0 <= rank < n:
+        raise ValueError(f"rank {rank} outside a mesh of {n}")
+    local_rank = int(env.get("LOCAL_RANK", rank))
+    on_this_machine = int(env.get("LOCAL_WORLD_SIZE", n))
+    shared = False
+    if device is None or torch.device(device).type == "cuda":
+        cards = torch.cuda.device_count()
+        shared = on_this_machine > cards
+        if shared and not (share_card and cards > 0):
+            raise ValueError(f"{on_this_machine} ranks on this machine, which has {cards} card(s): a mesh is not "
+                             "folded onto fewer cards unless share_card=True lets ranks share one")
+        device = torch.device("cuda", local_rank % cards) if device is None else torch.device(device)
+    device = torch.device(device)
+    if n == 1:
+        return Mesh(1, 0, device)
+    if not dist.is_initialized():
+        backend = "nccl" if device.type == "cuda" and not shared else "gloo"
+        if backend == "nccl":
+            torch.cuda.set_device(device)
+        dist.init_process_group(backend, init_method=init_method or "env://", world_size=n, rank=rank)
+    return Mesh(n, rank, device, dist.group.WORLD)
 
 
 def _stack(states):
@@ -41,41 +111,43 @@ def _stack(states):
                          for k in first._fields))
 
 
+def _local_lanes(batch: int, device, mesh: Optional[Mesh]):
+    """(lanes to build, device): this rank's share of `batch` on its card
+    with a mesh, all of them on `device` without one."""
+    return (batch, device) if mesh is None else (len(mesh.lane_range(batch)), mesh.device)
+
+
 def batched_state_hash(settings: Settings, img_size: Tuple[int, int], batch: int,
-                       device: torch.device | str = "cuda"):
+                       device: torch.device | str = "cuda", mesh: Optional[Mesh] = None):
     """[B]-leading (HashVolume, RenderStateVH, TrackingState) of `batch`
-    fresh maps on `device` (the card unless the caller passes "cpu")."""
-    lanes = [hp.create_engine_state(settings, img_size, device=device) for _ in range(batch)]
+    fresh maps on `device` (the card unless the caller passes "cpu"). With
+    a mesh, only this rank's lanes, on the mesh's device."""
+    n, device = _local_lanes(batch, device, mesh)
+    lanes = [hp.create_engine_state(settings, img_size, device=device) for _ in range(n)]
     return tuple(_stack([lane[i] for lane in lanes]) for i in range(3))
 
 
 def batched_state_dense(settings: Settings, img_size: Tuple[int, int], batch: int,
-                        device: torch.device | str = "cuda"):
+                        device: torch.device | str = "cuda", mesh: Optional[Mesh] = None):
     """[B]-leading (DenseVolume, TrackingState) of `batch` fresh dense
-    arrays on `device`."""
-    lanes = [dp.create_engine_state(settings, img_size, device=device) for _ in range(batch)]
+    arrays on `device`; with a mesh only this rank's lanes (a lane at the
+    default 512³ is 1 GiB)."""
+    n, device = _local_lanes(batch, device, mesh)
+    lanes = [dp.create_engine_state(settings, img_size, device=device) for _ in range(n)]
     return tuple(_stack([lane[i] for lane in lanes]) for i in range(2))
 
 
-def _one_card(mesh: List[torch.device]) -> None:
-    """The lanes share one card: a mesh of more than one is not served yet."""
-    if len(mesh) != 1:
-        raise NotImplementedError(
-            f"a mesh of {len(mesh)} cards: the batch runs on one card (ROADMAP Queue 1: lanes over several cards)")
-
-
-def shard_batch(tree, mesh: List[torch.device]):
-    """Every tensor of `tree` (nested tuples of tensors and None) on the
-    mesh's card. The lanes share that one card: a mesh of more than one
-    card raises NotImplementedError (ROADMAP Queue 1, lanes over several
-    cards)."""
-    _one_card(mesh)
+def shard_batch(tree, mesh: Mesh):
+    """This rank's lanes of every [B]-leading tensor of `tree` (nested
+    tuples and NamedTuples of tensors and None), on the mesh's device; a
+    None stays None. B not divisible by the mesh's ranks raises ValueError."""
 
     def put(x):
         if x is None:
             return None
         if torch.is_tensor(x):
-            return x.to(mesh[0])
+            lanes = mesh.lane_range(x.shape[0])
+            return x[lanes.start:lanes.stop].to(mesh.device)
         return type(x)(*map(put, x)) if hasattr(x, "_fields") else type(x)(map(put, x))
 
     return put(tree)
@@ -88,16 +160,38 @@ def _dims(tree):
     return None if tree is None else 0
 
 
-def make_batched_step(settings: Settings, mesh: Optional[List[torch.device]] = None):
+def _fleet_metrics(mesh: Optional[Mesh], st, n_visible=None) -> dict:
+    """mean_f and mean_valid over every lane of the fleet, and total_visible
+    (their visible blocks summed) when `n_visible` is given. Over several
+    ranks the lanes' sums are all-reduced in one float64 collective, on the
+    rank's device, and divided by the fleet's B: every rank gets the same
+    values."""
+    if mesh is None or mesh.n == 1:
+        metrics = {"mean_f": st.f.mean(), "mean_valid": st.num_valid.to(torch.float32).mean()}
+        if n_visible is not None:
+            metrics["total_visible"] = n_visible.sum()
+        return metrics
+    sums = [st.f.sum(), st.num_valid.sum()] + ([] if n_visible is None else [n_visible.sum()])
+    sums = torch.stack([s.to(torch.float64) for s in sums])
+    dist.all_reduce(sums, group=mesh.group)
+    fleet = st.f.shape[0] * mesh.n
+    metrics = {"mean_f": (sums[0] / fleet).to(torch.float32), "mean_valid": (sums[1] / fleet).to(torch.float32)}
+    if n_visible is not None:
+        metrics["total_visible"] = sums[2].to(torch.int64)
+    return metrics
+
+
+def make_batched_step(settings: Settings, mesh: Optional[Mesh] = None):
     """The [B]-batched hash-pipeline frame step: `step(vol, rs, state, view,
     proj) → (vol, rs, state, metrics)`, every argument with a leading [B]
     (`proj` may also be one [4] tensor all lanes share). metrics: mean_f,
     mean_valid (means over the lanes) and total_visible (their sum), device
     scalars, and `diag`, the lanes' FrameDiagnostics ([B] fields). `vol.vox`
     is updated in place, as in process_frame_hash. `on_phase` as in
-    process_frame_hash, called once a step for all lanes."""
-    if mesh is not None:
-        _one_card(mesh)
+    process_frame_hash, called once a step for all lanes. With a mesh of
+    several ranks the arguments are this rank's lanes (shard_batch), the
+    three fleet metrics cover every rank's lanes and are equal on every
+    rank, and `diag` holds this rank's lanes only."""
 
     def step(vol, rs, st, view, proj, on_phase=hp.no_phase):
         def one_step(vol, rs, st, view, proj):
@@ -107,23 +201,15 @@ def make_batched_step(settings: Settings, mesh: Optional[List[torch.device]] = N
         vstep = torch.vmap(one_step, in_dims=(*dims, _dims(view), 0 if proj.dim() == 2 else None),
                            out_dims=(*dims, 0))
         vol, rs, st, diag = vstep(vol, rs, st, view, proj)
-        metrics = {
-            "mean_f": st.f.mean(),
-            "mean_valid": st.num_valid.to(torch.float32).mean(),
-            "total_visible": diag.n_visible.sum(),
-            "diag": diag,
-        }
-        return vol, rs, st, metrics
+        return vol, rs, st, _fleet_metrics(mesh, st, diag.n_visible) | {"diag": diag}
 
     return step
 
 
-def make_batched_step_dense(settings: Settings, mesh: Optional[List[torch.device]] = None):
+def make_batched_step_dense(settings: Settings, mesh: Optional[Mesh] = None):
     """The dense-array variant: `step(vol, state, view, proj) → (vol, state,
-    metrics)` with metrics mean_f, mean_valid and `diag`; `on_phase` as in
-    make_batched_step."""
-    if mesh is not None:
-        _one_card(mesh)
+    metrics)` with metrics mean_f, mean_valid and `diag`; `on_phase` and
+    the mesh as in make_batched_step."""
 
     def step(vol, st, view, proj, on_phase=dp.no_phase):
         def one_step(vol, st, view, proj):
@@ -133,7 +219,6 @@ def make_batched_step_dense(settings: Settings, mesh: Optional[List[torch.device
         vstep = torch.vmap(one_step, in_dims=(*dims, _dims(view), 0 if proj.dim() == 2 else None),
                            out_dims=(*dims, 0))
         vol, st, diag = vstep(vol, st, view, proj)
-        metrics = {"mean_f": st.f.mean(), "mean_valid": st.num_valid.to(torch.float32).mean(), "diag": diag}
-        return vol, st, metrics
+        return vol, st, _fleet_metrics(mesh, st) | {"diag": diag}
 
     return step

@@ -1,12 +1,15 @@
-"""ctypes bindings for the native host runtime (native/itpu_io.cpp).
+"""ctypes bindings for the port's native host runtime
+(infinitam_tpu_torch/native/itpu_io.cpp).
 
 Counterpart of infinitam_tpu/utils/native.py: image IO, a threaded dataset
 prefetcher, STL export and raw block persistence in C++ (the reference's
 FileUtils, ImageSourceEngine cache, ITMMesh::WriteSTL and
-MemoryBlockPersister). The library is built on first use with g++ from the
-source in the checkout into `build/native/` at the repository root (listed
+MemoryBlockPersister). The source is the port's copy of the JAX package's
+native/itpu_io.cpp, whose prefetcher keeps its out-of-order frames per
+prefetcher rather than per thread. The library is built on first use with
+g++ from that source into `build/native/` at the repository root (listed
 in .gitignore), named by a hash of the source and the flags, so an edited
-source rebuilds; the prebuilt `native/libitpu_io.so` is never touched. When
+source rebuilds; the JAX package's `native/` is never touched. When
 it cannot be built, `get_lib` returns None and the callers return None or
 False, as the JAX module does; this is host file IO, not a device path.
 """
@@ -23,7 +26,7 @@ from typing import Optional
 
 import numpy as np
 
-SOURCE = Path(__file__).resolve().parents[2] / "native" / "itpu_io.cpp"
+SOURCE = Path(__file__).resolve().parents[1] / "native" / "itpu_io.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
 CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-shared")
 

@@ -283,18 +283,24 @@ def test_kernel_ops_vmap_with_shared_intrinsics(fused_lanes, depths):
 
 
 def test_mesh_and_shard_batch():
-    """make_mesh lists the CUDA devices (none here); shard_batch places a
-    batched state on the mesh's one card (the CPU stands in for it here),
-    absent fields staying None; a mesh of several cards raises, in
-    shard_batch and in both step builders (ROADMAP Queue 1)."""
-    assert t_pb.make_mesh() == [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-    vol, rs, st = t_pb.batched_state_hash(SETTINGS, IMG, 2, device="cpu")
+    """make_mesh without ranks is a one-rank mesh on the device asked for
+    (the card by default: without one it raises); shard_batch keeps each
+    rank's contiguous lane range of every [B]-leading tensor on the mesh's
+    device, absent fields staying None, and a one-rank mesh keeps every
+    lane. A mesh of several ranks (parallel/ranks.py starts them;
+    tests/test_torch_batch_ranks.py runs them) splits B = 4 into 2 + 2."""
+    assert t_pb.make_mesh(device="cpu") == t_pb.Mesh(1, 0, torch.device("cpu"))
+    if not torch.cuda.is_available():
+        with pytest.raises(ValueError, match="card"):
+            t_pb.make_mesh()
+    vol, rs, st = t_pb.batched_state_hash(SETTINGS, IMG, 4, device="cpu")
     rs = rs._replace(cell_claim=None)
-    placed = t_pb.shard_batch((vol, rs, st), [torch.device("cpu")])
-    assert placed[1].cell_claim is None and placed[0].vox.shape == (2,) + vol.vox.shape[1:]
+    st = st._replace(pose=st.pose + torch.arange(4.0)[:, None, None])  # lanes told apart
+    placed = t_pb.shard_batch((vol, rs, st), t_pb.Mesh(1, 0, torch.device("cpu")))
+    assert placed[1].cell_claim is None and placed[0].vox.shape == vol.vox.shape
     assert all(torch.equal(a, b) for a, b in zip(placed[2], st))
-    two = [torch.device("cpu"), torch.device("cpu")]
-    for call in (lambda: t_pb.shard_batch((vol,), two), lambda: t_pb.make_batched_step(SETTINGS, mesh=two),
-                 lambda: t_pb.make_batched_step_dense(DENSE, mesh=two)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    for rank in range(2):
+        vol_r, rs_r, st_r = t_pb.shard_batch((vol, rs, st), t_pb.Mesh(2, rank, torch.device("cpu")))
+        assert rs_r.cell_claim is None and vol_r.vox.shape == (2,) + vol.vox.shape[1:]
+        assert all(torch.equal(a, b[2 * rank:2 * rank + 2]) for a, b in zip(st_r, st))
+        assert torch.equal(vol_r.entry_ptr, vol.entry_ptr[2 * rank:2 * rank + 2])

@@ -46,7 +46,7 @@ jax_mods = sorted(k for k in sys.modules if k == "jax" or k.startswith(("jax.", 
 assert not jax_mods, jax_mods
 ref_mods = sorted(k for k in sys.modules if k == "infinitam_tpu" or k.startswith("infinitam_tpu."))
 assert not ref_mods, ref_mods
-print(len(names))
+print(" ".join(names))
 """
 
 
@@ -57,10 +57,22 @@ def test_every_port_module_imports_without_jax():
         [sys.executable, "-c", IMPORT_ALL], cwd=REPO, env=env, capture_output=True, text=True, timeout=120
     )
     assert res.returncode == 0, res.stderr
+    names = res.stdout.split()
     # the ported modules (the façade, the CLI, the I/O copies, the mesher,
     # the Ren tracker, the swap tier, the checkpoint and the viewer among
     # them) plus packages, kernels and helpers
-    assert int(res.stdout.split()[-1]) >= 35
+    assert len(names) >= 35
+    # the rank worker: spawned ranks import it, and nothing of JAX, first
+    assert "infinitam_tpu_torch.parallel.ranks" in names
+
+
+def test_native_io_builds_the_ports_own_source():
+    """utils/native.py compiles the port's copy of the IO source, never the
+    JAX package's native/."""
+    from infinitam_tpu_torch.utils import native
+
+    assert native.SOURCE.resolve().is_relative_to(REPO / "infinitam_tpu_torch")
+    assert native.SOURCE.exists() and native.SOURCE != REPO / "native" / "itpu_io.cpp"
 
 
 def test_cpu_frame_uses_only_plain_versions():

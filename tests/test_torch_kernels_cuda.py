@@ -914,3 +914,76 @@ def test_batched_replay_step_equals_the_unbatched_steps(device):
         assert np.linalg.norm(c[0] - c[1]) < 1e-4, b
         assert int(r.n_visible) > 100
     assert float(metrics["mean_valid"]) > 1000
+
+
+@pytest.mark.parametrize("kind", ["hash", "dense"])
+@pytest.mark.parametrize("cards", ["shared", "one_a_rank"])
+def test_ranks_match_the_one_process_batched_step(device, kind, cards):
+    """Two ranks (parallel/ranks.py, each its own process) replay 3 frames of
+    B lanes (4 on the hash volume, 2 on a 128³ dense array), half a rank:
+    sharing card 0 through gloo, or one card a rank through NCCL (skips
+    with fewer than two cards), against the one-process batched step on
+    card 0. Both ranks hold equal fleet metrics, and each launches its
+    kernels as often as one unbatched frame. The dense lanes lie within
+    1e-6 m of the one-process lanes (a rank's batch of one takes cuBLAS's
+    and cuSOLVER's one-matrix kernels: ~1e-8 m apart here) and their
+    metrics within 1e-6 relative. The hash lanes are held as
+    tests/test_torch_batch.py test 1 holds lanes that may differ: within
+    5e-4 m, block sets within 4 blocks, mean_valid within 1%, mean_f within
+    5%, total_visible within 4 blocks a lane. In this small table more
+    blocks than the allocator's two insert rounds can place hash to one
+    bucket in the frame that first sees them; which of them waits a frame
+    is a race, so even two one-process runs of these frames differ (3.6e-5
+    in a pose entry after 3 frames in a run of tools/batch_size_probe.py on
+    an H100)."""
+    from infinitam_tpu_torch.parallel import batch as pb
+    from infinitam_tpu_torch.parallel import ranks
+
+    if cards == "one_a_rank" and torch.cuda.device_count() < 2:
+        pytest.skip("one card a rank needs two cards")
+    dense = kind == "dense"
+    B, n = (2, 3) if dense else (4, 3)
+    settings = SETTINGS.replace(plain=PlainVoxelArrayParams(size=(128, 128, 128), offset=(-64, -64, 0)))
+    calib = default_calib(IMG[1], IMG[0])
+    proj = torch.as_tensor(calib.intrinsics_d.vector, device=device)
+    trajs = [torch.as_tensor(synth.make_trajectory(n, scale=1.0 - 0.15 * b), device=device) for b in range(B)]
+    depths = torch.stack([torch.stack([synth.render_depth(trajs[b][f], proj, IMG) for b in range(B)])
+                          for f in range(n)])
+    if dense:
+        state, step = pb.batched_state_dense(settings, IMG, B, device=device), pb.make_batched_step_dense(settings)
+    else:
+        state, step = pb.batched_state_hash(settings, IMG, B, device=device), pb.make_batched_step(settings)
+    poses, metrics = [], []
+    for d in depths:
+        *state, m = step(*state, View(depth=d), proj)
+        poses.append(state[-1].pose.clone())
+        metrics.append(m)
+    out = ranks.spawn(ranks.replay, 2, args=(settings, depths.cpu().numpy(), proj.cpu().numpy(), dense, None, None,
+                                             cards == "shared"), timeout=300)
+    assert [r["device"] for r in out] == (["cuda:0", "cuda:0"] if cards == "shared" else ["cuda:0", "cuda:1"])
+    P = np.concatenate([r["poses"] for r in out], axis=1).astype(np.float64)
+    one = torch.stack(poses).cpu().numpy().astype(np.float64)
+    diff = np.linalg.norm(np.linalg.inv(P)[..., :3, 3] - np.linalg.inv(one)[..., :3, 3], axis=-1)
+    assert float(diff.max()) < (1e-6 if dense else 5e-4), diff
+    keys = ("mean_f", "mean_valid") if dense else ("mean_f", "mean_valid", "total_visible")
+    bars = {"mean_f": 1e-6, "mean_valid": 1e-6} if dense else {"mean_f": 0.05, "mean_valid": 0.01}
+    for k in keys:
+        assert np.array_equal(out[0][k], out[1][k]), k
+        want = np.array([float(m[k]) for m in metrics])
+        if k == "total_visible":
+            assert np.all(np.abs(out[0][k] - want) <= 4 * B), (k, out[0][k], want)
+        else:
+            assert np.all(np.abs(out[0][k] - want) <= bars[k] * np.abs(want)), (k, out[0][k], want)
+    if not dense:
+        pos, ptr = state[0].entry_pos.cpu().numpy(), state[0].entry_ptr.cpu().numpy()
+        for r in out:
+            for b in range(2):
+                lane = r["lanes"][0] + b
+                rank_set = set(map(tuple, r["state"][0]["entry_pos"][b][r["state"][0]["entry_ptr"][b] >= 0].tolist()))
+                one_set = set(map(tuple, pos[lane][ptr[lane] >= 0].tolist()))
+                assert len(rank_set ^ one_set) <= 4 and len(one_set) > 100, lane
+    iters = sum(TrackingParams(n_levels=3).iterations_per_level[:3])
+    per_frame = {"icp": iters, "raycast_dense": 1} if dense else {"icp": iters, "integrate": 1, "raycast": 1}
+    for r in out:
+        assert r["launches"] == dict.fromkeys(build.KERNELS, 0) | {k: v * n for k, v in per_frame.items()}
+    assert float(out[0]["mean_valid"][-1]) > 1000

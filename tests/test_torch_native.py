@@ -2,9 +2,13 @@
 held to the JAX package's (infinitam_tpu/utils/native.py) and to the
 pure-Python image IO (utils/image_io.py), on the CPU.
 
-The port builds native/itpu_io.cpp with g++ into build/native/ under a name
-hashed from the source and flags; it never runs `make -C native`, so the
-committed native/libitpu_io.so stays byte for byte as it was. Without a
+The port builds its own copy of the JAX package's native/itpu_io.cpp
+(infinitam_tpu_torch/native/itpu_io.cpp) with g++ into build/native/ under a
+name hashed from the source and flags; it never runs `make -C native`, so
+the committed native/libitpu_io.so stays byte for byte as it was. The copy
+keeps a prefetcher's out-of-order frames in that prefetcher (the JAX
+package's source keeps one stash a thread), so two prefetchers read in turn
+on one thread each get their own frames. Without a
 source (or a compiler) every entry point keeps the JAX contract: None or
 False, and the prefetcher raises RuntimeError. Outputs are compared exactly
 (16-bit depth and 8-bit colour, the STL's header and vertices), but for the
@@ -15,6 +19,7 @@ STL's facet normals, within 1e-6: the committed JAX library was built with
 import hashlib
 import os
 import struct
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -22,7 +27,8 @@ import pytest
 from infinitam_tpu.utils import native as j_native
 from infinitam_tpu_torch.utils import image_io, native
 
-PREBUILT = native.SOURCE.parent / "libitpu_io.so"
+REPO = Path(__file__).resolve().parents[1]
+PREBUILT = REPO / "native" / "libitpu_io.so"
 
 
 def digest(path) -> str:
@@ -99,10 +105,7 @@ def test_prefetcher_matches_jax_and_python(tmp_path, prebuilt_digest):
     for f in (pf, jpf):
         f.close()
     pf.close()  # a second close is a no-op
-    # a second prefetcher of the same library only after the first has
-    # drained: the library's stash of frames fetched out of order is one
-    # per thread, not one per prefetcher (ROADMAP Queue 3), so two read in
-    # turn on one thread can hand each other their frames
+    # a depth-only prefetcher of the same library after the first is closed
     dpf = native.NativePrefetcher(depth_paths, None, 16, 20)
     for i in (4, 0, 2, 1, 3):
         d_only, none = dpf.get(i)
@@ -110,6 +113,47 @@ def test_prefetcher_matches_jax_and_python(tmp_path, prebuilt_digest):
         assert none is None
     assert dpf.get(5) is None  # drained: nothing left in the stash
     dpf.close()
+
+
+def write_frames(directory, seed, n, with_rgb):
+    """n random 16×20 frames written as PGM (and PPM) files: (depth paths,
+    rgb paths or None, [(depth, rgb or None)])."""
+    rng = np.random.default_rng(seed)
+    depth_paths, rgb_paths, frames = [], [], []
+    for i in range(n):
+        d = rng.integers(0, 5000, (16, 20)).astype(np.uint16)
+        c = rng.integers(0, 255, (16, 20, 3)).astype(np.uint8) if with_rgb else None
+        depth_paths.append(str(directory / f"{seed}_{i:04d}.pgm"))
+        image_io.write_pgm(depth_paths[-1], d)
+        if with_rgb:
+            rgb_paths.append(str(directory / f"{seed}_{i:04d}.ppm"))
+            image_io.write_ppm(rgb_paths[-1], c)
+        frames.append((d, c))
+    return depth_paths, rgb_paths if with_rgb else None, frames
+
+
+def test_two_prefetchers_read_in_turn_on_one_thread(tmp_path, prebuilt_digest):
+    """An RGB prefetcher and a depth-only one over other files, read in turn
+    on this thread, each fetching out of order: every frame comes back
+    whole and its own (with the JAX package's source, the first fetch of
+    frame 4 leaves frames 0-3 in the thread's stash, and the depth-only
+    prefetcher's frame 0 is then the RGB one's)."""
+    n = 6
+    rgb_paths_d, rgb_paths_c, rgb_frames = write_frames(tmp_path, 3, n, with_rgb=True)
+    depth_paths, _none, depth_frames = write_frames(tmp_path, 4, n, with_rgb=False)
+    a = native.NativePrefetcher(rgb_paths_d, rgb_paths_c, 16, 20, n_threads=2)
+    b = native.NativePrefetcher(depth_paths, None, 16, 20, n_threads=2)
+    try:
+        for i, j in ((4, 0), (0, 4), (2, 5), (5, 1), (1, 2), (3, 3)):
+            (ad, ac), (bd, bc) = a.get(i), b.get(j)
+            np.testing.assert_array_equal(ad, rgb_frames[i][0])
+            np.testing.assert_array_equal(ac, rgb_frames[i][1])
+            np.testing.assert_array_equal(bd, depth_frames[j][0])
+            assert bc is None
+        assert a.get(n) is None and b.get(n) is None  # both drained
+    finally:
+        a.close()
+        b.close()
 
 
 def test_unbuildable_library_keeps_the_jax_contract(tmp_path, monkeypatch, prebuilt_digest):
