@@ -28,7 +28,13 @@ rate, with the share of the bound that the device time reaches. Bytes and
 operations are those this run's inputs need: the distinct pixels, grid
 cells, hash entries (20 B each) and voxel or sdf words the kernel touches,
 the voxels it updates and the march steps its rays take, found through its
-plain version.
+plain version. Each raycast also prints the distinct 32-byte sectors its
+loads touch, beside the bound. K3h and K3d are timed, warm and cold, beside
+the design their lookahead replaced (the lock-step march on one CTA a tile
+and, for K3h, the serial walk of a hash level), on the same inputs in the
+same call, whose points must equal theirs; both designs' registers
+(ptxas), resident CTAs per SM and waves of a frame's tiles are printed, and
+K3's.
 
 The kernels are lane-indexed (one launch serves B lanes of a torch.vmap
 batch): K1 at each level, K2, K3 and K3d are also launched for 3 lanes
@@ -78,6 +84,8 @@ replay's in this call, each rank's peak memory, the all-reduce calls); and
 claim plane (`5mm_gridless`: the legacy allocator, gated as the others; its
 final block set's symmetric difference from the compact allocator's over
 the same frames printed). Each
+replay prints, for the hash paths, the wanted blocks that no insert round
+placed in their frame (n_alloc_unplaced, not gated), and each
 replay is gated on tracking accuracy (ATE RMSE < 1 cm,
 rotation RMSE < 1°), the silent-cap counters its path has (max over the
 replay = 0; the dense path has none), every kernel of its path launched
@@ -145,6 +153,7 @@ import contextlib
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -286,6 +295,33 @@ COUNTERS = ("n_alloc_overflow", "n_render_overflow", "n_pool_overflow", "n_too_b
 COUNTER = {"icp_reduce": "icp", "icp_reduce_weighted": "icp_weighted", "integrate_depth": "integrate",
            "integrate_color": "integrate_color", "raycast_grid": "raycast", "raycast_hash_probe": "raycast_hash",
            "raycast_dense": "raycast_dense"}
+
+
+# a raycast kernel's reader in its mangled name, and the kernel of each
+# (reader, LA): the names of ops/kernels/raycast.py OCCUPANCY_KERNELS
+RAYCAST_READERS = ("ItpuHashIndexSerial", "ItpuHashIndex", "ItpuGridIndex", "ItpuDenseReader")
+RAYCAST_KERNELS = {("ItpuGridIndex", 1): "raycast", ("ItpuHashIndex", 1): "raycast_hash",
+                   ("ItpuHashIndexSerial", 1): "raycast_hash_lockstep", ("ItpuDenseReader", 2): "raycast_dense",
+                   ("ItpuDenseReader", 1): "raycast_dense_lockstep"}
+RAYCAST_TEMPLATE = re.compile(r"Lb([01])ELi(\d+)E")  # LANES, LA
+
+
+def raycast_registers(ptxas_report: dict) -> dict:
+    """{(kernel, lanes): registers} of the raycast kernels in the build's
+    ptxas output (`build.ptxas_report`), kernel as in RAYCAST_KERNELS."""
+    regs = {}
+    for report in ptxas_report.values():
+        kernel = None
+        for line in report.splitlines():
+            if "Compiling entry function" in line:
+                kernel = line.split("'")[1] if "'" in line else None
+            elif kernel and "itpu_raycast_kernel" in kernel and "Used" in line:
+                m = RAYCAST_TEMPLATE.search(kernel)
+                reader = next(r for r in RAYCAST_READERS if r in kernel)
+                key = (RAYCAST_KERNELS[reader, int(m.group(2))], bool(int(m.group(1))))
+                regs[key] = int(re.search(r"Used (\d+) registers", line).group(1))
+                kernel = None
+    return regs
 
 
 def card_line() -> str:
@@ -531,8 +567,10 @@ def rank_phase(kind: str, settings, depth_file: str, proj: np.ndarray, share_car
     peak = torch.cuda.max_memory_allocated()
     counters = {k: torch.stack([getattr(d, k) for d in diags]).amax(0).tolist() for k in COUNTERS
                 if hasattr(diags[0], k)}
+    unplaced = (torch.stack([d.n_alloc_unplaced for d in diags]).sum(0).tolist()
+                if hasattr(diags[0], "n_alloc_unplaced") else None)
     out = dict(lanes=(lanes.start, lanes.stop), backend=dist.get_backend(), device=str(mesh.device),
-               poses=torch.stack(poses).cpu().numpy(), counters=counters, keys=keys,
+               unplaced=unplaced, poses=torch.stack(poses).cpu().numpy(), counters=counters, keys=keys,
                metrics=np.array([[m[k].item() for k in keys] for m in metrics]), syncs=syncs,
                reductions=reductions[0], peak=peak)
     del poses, diags, metrics
@@ -860,7 +898,7 @@ class Smoke:
         return n_bytes, n_ops
 
     def raycast_traffic(self, settings, read, touched, tables, inv_M, zmin, zmax, decode_ops):
-        """(bytes, float32 operations, march steps by branch) of a K3 variant
+        """(bytes, float32 operations, march steps by branch, sectors) of a K3 variant
         on these inputs. The plain march runs through `read` while `touched(pts)` logs,
         for each read of integer voxel points [..., 3], the entry of each
         table the kernel loads for it ({table: index [...] or [..., k], −1
@@ -869,7 +907,9 @@ class Smoke:
         active in its first `steps` reads, each logged as [H, W]) and the two
         trilinear refinement reads of the hits (each logged as one [8, H, W]
         read of its corners). Bytes: zmin, zmax, the points out, the distinct
-        table entries loaded, inv_M's rows 0-2, proj. Operations: each ray's
+        table entries loaded, inv_M's rows 0-2, proj (and, printed beside the
+        bound, the distinct 32-byte sectors of the 4-byte word tables).
+        Operations: each ray's
         set-up, each march step by the branch its read takes ("found": a
         found voxel with sdf > 0, "empty": a voxel not found, "stop": a found
         voxel with sdf ≤ 0, which ends the march) plus `decode_ops` for
@@ -900,11 +940,15 @@ class Smoke:
                 seen[k][sel[sel >= 0].long()] = True
         n_rays = IMG[0] * IMG[1]
         assert sum(steps.values()) == int(res.steps.sum())
+        # the 32-byte sectors of the 4-byte word tables the loads touch: what
+        # the memory moves at least, where the bound counts the words
+        sectors = sum(int(torch.cat([seen[k], seen[k].new_zeros(-seen[k].numel() % 8)]).view(-1, 8).any(1).sum())
+                      for k, (_n, b) in tables.items() if b == 4)
         n_bytes = (n_rays * (4 + 4 + 16) + sum(int(seen[k].sum()) * b for k, (_n, b) in tables.items()) + 48 + 16)
         n_ops = (n_rays * RAYCAST_OPS_RAY + sum(steps.values()) * RAYCAST_OPS_READ
                  + (steps["found"] + steps["stop"]) * decode_ops + steps["found"] * RAYCAST_OPS_FOUND
                  + steps["empty"] * RAYCAST_OPS_EMPTY + int(hit.sum()) * RAYCAST_OPS_HIT)
-        return n_bytes, n_ops, steps
+        return n_bytes, n_ops, steps, sectors
 
     def grid_touched(self, settings, vol, grid):
         """K3's loads: the grid cell of the block and the voxel word."""
@@ -1061,7 +1105,7 @@ class Smoke:
         flag. Returns the numbers of the JSON entry and the points."""
         pk = kernel(*args).points
         pp = plain(*args).points
-        n_bytes, n_ops, steps = traffic
+        n_bytes, n_ops, steps, sectors = traffic
         n_steps = sum(steps.values())
         fk, fp = pk[..., 3] > 0, pp[..., 3] > 0
         n_mismatch = int((fk != fp).sum())
@@ -1083,6 +1127,10 @@ class Smoke:
         print(f"  {label} cold (L2 flushed before each call): device {fmt_ms(cold)} ({cold_per_call} kernel(s) "
               f"and {cold_others:g} other device op(s) per call), "
               + ("n/a" if cold is None else f"{100 * b['bound_ms'] / cold:.1f}%") + " of the bound")
+        sector_ms = sectors * 32 / PEAK_BYTES_PER_S * 1e3
+        print(f"  {label}: its loads touch {sectors} distinct 32-byte sectors of its word tables "
+              f"({sectors * 32 / 1e6:.2f} MB, {sector_ms * 1000:.2f} µs at the memory rate; not the bound, which "
+              "counts the words)")
         # for reading only: the bars the JAX package holds its Pallas raycast to
         print(f"  (Pallas-vs-XLA bars, not gated: agreement {1 - n_mismatch / fp.numel():.6f} > 0.93, "
               f"median offset {med:.3e} < 0.5, p95 {p95:.3e} < 2 voxels)")
@@ -1109,8 +1157,46 @@ class Smoke:
         self.gate(torch.equal(same, pk), f"{label} flag true equal to the call without a flag")
         self.gate(per_call_off == 1 and others_off == 0, f"{label} flag false: one device kernel, no other op")
         return dict(max_abs_err=err, ms=dev, cold_ms=cold, call_ms=call, plain_ms=plain_ms, library_ms=None,
-                    flag_false_ms=dev_off, march_steps=n_steps,
-                    march_steps_found=steps["found"], march_steps_empty=steps["empty"], **b), pk
+                    flag_false_ms=dev_off, march_steps=n_steps, march_steps_found=steps["found"],
+                    march_steps_empty=steps["empty"], **b), pk
+
+    def design_lines(self, kernel: str) -> tuple:
+        """(registers from ptxas, resident CTAs per SM, waves of a frame's
+        16×8 tiles) of a raycast kernel (ops/kernels/raycast.py
+        OCCUPANCY_KERNELS) at B = 1."""
+        regs = raycast_registers(self.build.ptxas_report).get((kernel, False))
+        ctas, sms = self.k_ray.occupancy(kernel)
+        tiles = ((IMG[1] + 15) // 16) * ((IMG[0] + 7) // 8)
+        return regs, ctas, tiles / max(ctas * sms, 1)
+
+    def lockstep_check(self, label, kernel, design, lockstep_fn, args, points, entry):
+        """The lock-step design the kernel replaced (LA 1 and, for K3h, the
+        serial walk of a hash level) on the main path's inputs: its points
+        must equal the main path design's (`design`, so both hold the plain
+        twin's bar), and both designs' device times, warm and cold in this
+        call, are printed with their registers, resident CTAs per SM, waves
+        and share of the bound. Adds them to `entry`."""
+        lock = lockstep_fn(*args).points
+        same = torch.equal(lock, points)
+        dev, per_call, others = device_ms(lambda: lockstep_fn(*args), 50)
+        cold, _pc, _o = device_ms(lambda: lockstep_fn(*args), 50, self.flush)
+        m_regs, m_ctas, m_waves = self.design_lines(kernel)
+        l_regs, l_ctas, l_waves = self.design_lines(kernel + "_lockstep")
+
+        def share(ms):
+            return "n/a" if ms is None else f"{100 * entry['bound_ms'] / ms:.1f}%"
+
+        print(f"  {label}, main path design ({design}): {m_regs} registers, {m_ctas} CTAs per SM, {m_waves:.2f} "
+              f"waves; device warm {fmt_ms(entry['ms'])} ({share(entry['ms'])} of the bound), cold "
+              f"{fmt_ms(entry['cold_ms'])}")
+        print(f"  {label}, the lock-step design on the same inputs: points equal to the main path design's {same}; "
+              f"{l_regs} registers, {l_ctas} CTAs per SM, {l_waves:.2f} waves; device warm {fmt_ms(dev)} "
+              f"({share(dev)} of the bound; {per_call} kernel(s), {others:g} other op(s) a call), cold "
+              f"{fmt_ms(cold)}; main path ÷ lock-step warm "
+              + ("n/a" if None in (dev, entry["ms"]) else f"{entry['ms'] / dev:.3f}"))
+        self.gate(same, f"{label}: the lock-step design's points equal the main path design's")
+        entry.update(registers=m_regs, ctas_per_sm=m_ctas, lockstep_ms=dev, lockstep_cold_ms=cold,
+                     lockstep_registers=l_regs, lockstep_ctas_per_sm=l_ctas)
 
     def k3_check(self, label, settings, vol, rs, st):
         """K3 from the last pose over the fused volume, against the plain
@@ -1127,6 +1213,9 @@ class Smoke:
         print(f"K3 raycast, {label}: {n_rows} visible blocks")
         entry, points = self.raycast_check(f"K3 {label}", self.k_ray.raycast_grid, self.k_ray.raycast_grid_plain,
                                            rargs, traffic)
+        regs, ctas, waves = self.design_lines("raycast")
+        print(f"  K3 {label}: {regs} registers, {ctas} CTAs per SM, {waves:.2f} waves of a frame's tiles")
+        entry.update(registers=regs, ctas_per_sm=ctas)
         self.k3_points = points
         return dict(name="raycast_grid", route="cuda", source="infinitam_tpu_torch/csrc/raycast.cu",
                     replaces="infinitam_tpu/ops/pallas/raycast_kernel.py:500", **entry)
@@ -1144,6 +1233,8 @@ class Smoke:
                                        RAYCAST_OPS_DECODE)
         entry, points = self.raycast_check("K3h raycast (hash probe), 5 mm", self.k_ray.raycast_hash_probe,
                                            self.k_ray.raycast_hash_probe_plain, rargs, traffic)
+        self.lockstep_check("K3h", "raycast_hash", "LA 1, a hash level in one round trip",
+                            self.k_ray.raycast_hash_probe_lockstep, rargs, points, entry)
         print(f"  K3h against K3 on the same map and ranges: equal {torch.equal(points, self.k3_points)}")
         return dict(name="raycast_hash_probe", route="cuda", source="infinitam_tpu_torch/csrc/raycast.cu",
                     replaces="infinitam_tpu/ops/pallas/raycast_kernel.py:500",
@@ -1163,8 +1254,10 @@ class Smoke:
         read = self.vol_mod.make_dense_reader(vol, settings.plain)
         traffic = self.raycast_traffic(settings, read, *self.dense_touched(settings, vol), rargs[2], zmin, zmax,
                                        0)
-        entry, _points = self.raycast_check("K3d raycast (dense 512³), 5 mm", self.k_ray.raycast_dense,
-                                            self.k_ray.raycast_dense_plain, rargs, traffic)
+        entry, points = self.raycast_check("K3d raycast (dense 512³), 5 mm", self.k_ray.raycast_dense,
+                                           self.k_ray.raycast_dense_plain, rargs, traffic)
+        self.lockstep_check("K3d", "raycast_dense", "LA 2", self.k_ray.raycast_dense_lockstep, rargs, points,
+                            entry)
         return dict(name="raycast_dense", route="cuda", source="infinitam_tpu_torch/csrc/raycast.cu",
                     replaces="infinitam_tpu/ops/pallas/raycast_kernel.py:500",
                     stands_for="infinitam_tpu/engine/dense_pipeline.py:93 (the XLA march over "
@@ -1267,6 +1360,10 @@ class Smoke:
         counters = {k: int(torch.stack([getattr(d, k) for d in diags]).max()) for k in COUNTERS
                     if hasattr(diags[0], k)}
         n_vis = int(diags[-1].n_visible) if hasattr(diags[-1], "n_visible") else "n/a"
+        # the hash paths' wanted blocks that no insert round placed in their
+        # frame (retried the next one): printed, not gated
+        unplaced = (torch.stack([d.n_alloc_unplaced for d in diags]).tolist()
+                    if hasattr(diags[0], "n_alloc_unplaced") else None)
         # frames whose maps were raycast anew (age 0), a device count read
         # after the replay
         n_full = int((torch.stack(self.ages) == 0).sum())
@@ -1323,6 +1420,9 @@ class Smoke:
               + f"), ATE RMSE {ate * 1000:.3f} mm, rotation RMSE {rot:.4f} deg, n_visible(last) {n_vis}")
         print(f"  counters (max over frames): {json.dumps(counters)}; frames with a full raycast: {n_full}; peak "
               f"device memory of the correctness run {peak / 2**30:.3f} GiB (torch.cuda.max_memory_allocated)")
+        if unplaced is not None:
+            print(f"  n_alloc_unplaced (not gated): {sum(unplaced)} over the replay, max {max(unplaced)} a frame, in "
+                  f"{sum(u > 0 for u in unplaced)} of {len(unplaced)} frames")
         print(f"  kernel launches in the timed replay: {json.dumps(launches)}; per frame: "
               + json.dumps({k: v / len(depths) for k, v in launches.items()}))
         print(f"  host syncs flagged in the phase run: {n_syncs}")
@@ -1715,6 +1815,8 @@ class Smoke:
         errs = [trajectory_errors(P[:, b], gts[b][:n].astype(np.float64)) for b in range(B)]
         counters = {k: torch.stack([getattr(d, k) for d in diags]).amax(0).tolist() for k in COUNTERS
                     if hasattr(diags[0], k)}
+        unplaced = (torch.stack([d.n_alloc_unplaced for d in diags]).sum(0).tolist()
+                    if hasattr(diags[0], "n_alloc_unplaced") else None)
         self.poses[name] = P
         ref_name, ref_fps = single
         centre = [np.array([np.linalg.inv(p)[:3, 3] for p in x]) for x in (P[:, 0], self.poses[ref_name][:n])]
@@ -1765,6 +1867,8 @@ class Smoke:
         print(f"  lane 0 against the {ref_name} replay of the same frames: largest per-frame camera-centre "
               f"difference {lane0_diff * 1000:.4f} mm")
         print(f"  counters per lane (max over steps): {json.dumps(counters)}")
+        if unplaced is not None:
+            print(f"  n_alloc_unplaced per lane, summed over the steps (not gated): {unplaced}")
         print(f"  kernel launches in the timed replay: {json.dumps(launches)}; per step: "
               + json.dumps({k: v / n for k, v in launches.items()}))
         print(f"  host syncs flagged in the phase run: {len(syncs)}")
@@ -1853,6 +1957,8 @@ class Smoke:
                   f"centre difference from the one-process lane with {per_rank} lane(s) a step {diff[b] * 1000:.6f} mm, "
                   f"from the {one_process[0]} lane ({B} lanes a step) {diff_b[b] * 1000:.6f} mm")
         print(f"  counters per lane (max over steps): {[r['counters'] for r in out]}")
+        if out[0]["unplaced"] is not None:
+            print(f"  n_alloc_unplaced per lane, summed over the steps (not gated): {[r['unplaced'] for r in out]}")
         print(f"  kernel launches of each rank in its first timed replay: {[r['launches'] for r in out]}")
         print(f"  all-reduce calls in each rank's correctness run: {[r['reductions'] for r in out]} over {n} steps"
               + (" (gloo stages a CUDA all-reduce through host memory: each is a host wait on the card)"

@@ -92,6 +92,10 @@ class FrameDiagnostics(NamedTuple):
     n_pool_overflow: torch.Tensor  # raycast blocks dropped; no pool in the CUDA raycast: 0
     n_too_big_blocks: torch.Tensor  # blocks meeting the image whose bbox exceeded the range raster tile
     n_window_clipped: torch.Tensor  # integrate window clipping; K2 has no window: 0
+    # port-only diagnostic, not a cap: the wanted blocks that no insert
+    # round placed this frame (lost their bucket's election in every round,
+    # or found no free block or excess slot); retried next frame
+    n_alloc_unplaced: torch.Tensor
 
 
 def _pad_before(x: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
@@ -119,12 +123,20 @@ def allocate_scene_from_depth(
     re-check pads the image by 1/8. `enable` (bool tensor) suppresses new
     allocations while visibility still refreshes.
 
-    Returns (vol, render_state, n_alloc_overflow). Which of several equal
-    candidates wins a claim, and so which VBA row a block gets, is
-    unspecified, as in the JAX package: compare results as sets of block
-    coordinates. A render state without its claim plane, or a volume
-    without its entry grid, takes the legacy allocator instead, as in the
-    JAX package."""
+    Returns (vol, render_state, n_alloc_overflow). Where several candidates
+    claim one cell or one bucket, the highest candidate index wins: the
+    writer the JAX package's sequential scatter keeps on the CPU, so the
+    VBA rows equal the JAX package's there and are the same in every run on
+    the card. A render state without its claim plane, or a volume without
+    its entry grid, takes the legacy allocator instead, as in the JAX
+    package."""
+    return _allocate(vol, render_state, depth, pose, proj, settings, only_update_visible, enable)[:3]
+
+
+def _allocate(vol, render_state, depth, pose, proj, settings, only_update_visible=False, enable=True):
+    """allocate_scene_from_depth, and the wanted blocks that no insert
+    round placed (FrameDiagnostics.n_alloc_unplaced): (vol, render_state,
+    n_alloc_overflow, n_alloc_unplaced)."""
     if render_state.cell_claim is None or vol.entry_grid is None:
         return _allocate_scene_from_depth_legacy(vol, render_state, depth, pose, proj, settings,
                                                  only_update_visible=only_update_visible, enable=enable)
@@ -180,7 +192,10 @@ def allocate_scene_from_depth(
 
     # --- stage 3: exact dedupe via the claim plane ------------------------
     iota2 = torch.arange(C2, **i32)
-    cell_claim = scatter_drop(render_state.cell_claim, torch.where(c2_cell < G3, c2_cell, G3), iota2)
+    # this frame's claims replace the old ones; of several on one cell the
+    # highest row wins
+    c2_at = torch.where(c2_cell < G3, c2_cell, G3)
+    cell_claim = scatter_drop(scatter_drop(render_state.cell_claim, c2_at, -1), c2_at, iota2, reduce="amax")
     win = (c2_cell < G3) & (cell_claim[c2_cell.clamp(0, G3 - 1).long()] == iota2)
     kcell, n_k_total = compact_by_mask(win, c2_cell, Vcap, fill=G3)
     k_overflow = (n_k_total - Vcap).clamp(min=0)
@@ -209,6 +224,7 @@ def allocate_scene_from_depth(
     oog_new_idx = torch.full((OOG_CAP,), E, **i32)
 
     n_alloc_overflow = novel_overflow + k_overflow
+    n_unplaced = torch.zeros((), **i32)
     if not only_update_visible:
         # allocation wants: winner cells with no entry yet
         packed0 = vol.entry_grid[kcell_c]
@@ -226,12 +242,14 @@ def allocate_scene_from_depth(
         ).to(torch.int32)
         # two rounds: same-bucket losers of round 1 insert in round 2
         # (already-inserted blocks re-probe as found and are no-ops)
-        vol, _, _ = hv.insert_blocks(vol, dummy_vt, nblocks, nv, hp, grid_params=gp)
-        vol, _, _ = hv.insert_blocks(vol, dummy_vt, nblocks, nv, hp, grid_params=gp)
+        vol, _, w1 = hv.insert_blocks(vol, dummy_vt, nblocks, nv, hp, grid_params=gp)
+        vol, _, w2 = hv.insert_blocks(vol, dummy_vt, nblocks, nv, hp, grid_params=gp)
         # out-of-grid candidates that probed as new
         vol, _, owidx = hv.insert_blocks(vol, dummy_vt, ocand, ovalid & ~ofound, hp, grid_params=gp)
         entry_epoch = scatter_drop(entry_epoch, owidx, epoch)
         oog_new_idx = torch.where(owidx < E, owidx, E)
+        n_unplaced = _unplaced(torch.cat([nblocks, ocand]), torch.cat([nv, ovalid & ~ofound]),
+                               torch.cat([(w1 < E) | (w2 < E), owidx < E]))
 
     # --- visible-list rows --------------------------------------------------
     # k-rows: winner cells that now have an entry, compact at offset 0
@@ -295,7 +313,21 @@ def allocate_scene_from_depth(
         entry_epoch=entry_epoch,
         epoch=epoch,
     )
-    return vol, new_rs, n_alloc_overflow
+    return vol, new_rs, n_alloc_overflow, n_unplaced
+
+
+def _unplaced(blocks, want, placed) -> torch.Tensor:
+    """The distinct blocks among the `want`ed candidates [N, 3] of which no
+    candidate was `placed` (written to an entry by an insert round), as an
+    int32 count. A block may stand for several candidates (the out-of-grid
+    ones are not deduplicated), and an insert places one of them, so the
+    candidates are sorted by block, a block's placed ones first, and a
+    block counts where its first is unplaced."""
+    c = blocks.long() + (1 << 19)  # 20 bits an axis
+    key = (c[:, 0] << 40) | (c[:, 1] << 20) | c[:, 2]
+    k = torch.sort(torch.where(want, key * 2 + (~placed).long(), -1)).values
+    prev = torch.cat([k.new_full((1,), -2), k[:-1]]) >> 1
+    return ((k >= 0) & ((k >> 1) != prev) & ((k & 1) == 1)).sum(dtype=torch.int32)
 
 
 def _allocate_scene_from_depth_legacy(
@@ -364,6 +396,7 @@ def _allocate_scene_from_depth_legacy(
     visible_type = scatter_drop(visible_type, torch.where(ofound, opr.entry_idx, E), torch.where(ofound, ovis, 0))
 
     n_alloc_overflow = torch.zeros((), **i32)
+    n_unplaced = torch.zeros((), **i32)
     if not only_update_visible:
         # new in-grid cells: deduped through a want plane, compacted, inserted
         want_at = torch.where(cand_valid & in_grid & (code < 0), cell, G3)
@@ -376,14 +409,16 @@ def _allocate_scene_from_depth_legacy(
                               dim=-1).to(torch.int32)
         # round 2 on the same set: same-bucket losers of round 1 insert now
         # (already-inserted blocks re-probe as found and are no-ops)
-        vol, visible_type, _ = hv.insert_blocks(vol, visible_type, nblocks, ncell >= 0, hp, grid_params=gp)
-        vol, visible_type, _ = hv.insert_blocks(vol, visible_type, nblocks, ncell >= 0, hp, grid_params=gp)
-        vol, visible_type, _ = hv.insert_blocks(vol, visible_type, ocand, ovalid & ~opr.found, hp, grid_params=gp)
+        vol, visible_type, w1 = hv.insert_blocks(vol, visible_type, nblocks, ncell >= 0, hp, grid_params=gp)
+        vol, visible_type, w2 = hv.insert_blocks(vol, visible_type, nblocks, ncell >= 0, hp, grid_params=gp)
+        vol, visible_type, ow = hv.insert_blocks(vol, visible_type, ocand, ovalid & ~opr.found, hp, grid_params=gp)
+        n_unplaced = _unplaced(torch.cat([nblocks, ocand]), torch.cat([ncell >= 0, ovalid & ~opr.found]),
+                               torch.cat([(w1 < E) | (w2 < E), ow < E]))
 
     use_swapping = settings.swapping_mode.value == SwappingMode.ENABLED.value
     new_rs = hv.build_visible_list(vol, visible_type, pose, proj, img_size, sp.voxel_size, hp,
                                    use_enlarged=use_swapping, prev_ids=render_state.visible_ids)
-    return vol, new_rs, n_alloc_overflow
+    return vol, new_rs, n_alloc_overflow, n_unplaced
 
 
 def _visible_rows(vol: HashVolume, render_state: RenderStateVH, cap: int):
@@ -674,7 +709,7 @@ def _track_fuse_impl(vol, render_state, state: TrackingState, view: View, proj, 
     """Track → divergence gate → allocate (with `swap_states`: then the
     visible swapped-out entries take blocks and the visible entries are
     marked for a swap-in check) → integrate. Returns (vol, render_state,
-    swap_states, pose, tr, n_alloc_overflow)."""
+    swap_states, pose, tr, (n_alloc_overflow, n_alloc_unplaced))."""
     tt = settings.tracker_type.value
     if tt == TrackerType.EXTERNAL.value:
         tr = track_external(state.pose, external_pose if external_pose is not None else state.pose)
@@ -725,10 +760,8 @@ def _track_fuse_impl(vol, render_state, state: TrackingState, view: View, proj, 
     fuse_enable = ~track_bad
     on_phase("track")
 
-    vol, render_state, n_alloc_overflow = allocate_scene_from_depth(
-        vol, render_state, view.depth, pose, proj, settings,
-        only_update_visible=not fusion_active, enable=fuse_enable,
-    )
+    vol, render_state, *n_alloc = _allocate(vol, render_state, view.depth, pose, proj, settings,
+                                            only_update_visible=not fusion_active, enable=fuse_enable)
     if swap_states is not None:
         vol = swapping.reallocate_swapped_out(vol, render_state.visible_type, settings,
                                               visible_ids=render_state.visible_ids)
@@ -738,7 +771,7 @@ def _track_fuse_impl(vol, render_state, state: TrackingState, view: View, proj, 
         vol = integrate_into_scene(vol, render_state, view, pose, proj, settings, proj_rgb=proj_rgb,
                                    rgb_to_depth=rgb_to_depth, enable=fuse_enable)
     on_phase("integrate")
-    return vol, render_state, swap_states, pose, tr, n_alloc_overflow
+    return vol, render_state, swap_states, pose, tr, tuple(n_alloc)
 
 
 def _prepare_impl(vol, render_state, state: TrackingState, view: View, pose, tr: TrackResult, proj,
@@ -779,8 +812,9 @@ def _prepare_impl(vol, render_state, state: TrackingState, view: View, pose, tr:
     ), n_pool
 
 
-def _frame_diag(vol, render_state, pose, proj, tr: TrackResult, settings: Settings, n_alloc_overflow,
+def _frame_diag(vol, render_state, pose, proj, tr: TrackResult, settings: Settings, n_alloc,
                 n_pool_overflow, img_size: Tuple[int, int]) -> FrameDiagnostics:
+    n_alloc_overflow, n_alloc_unplaced = n_alloc
     zero = torch.zeros((), dtype=torch.int32, device=pose.device)
     n_vis = render_state.n_visible
     n_render = (n_vis - settings.max_render_blocks).clamp(min=0) if settings.max_render_blocks else zero
@@ -796,6 +830,7 @@ def _frame_diag(vol, render_state, pose, proj, tr: TrackResult, settings: Settin
         # K2 fuses every voxel of a block with no image window, so nothing
         # clips: 0 by construction
         n_window_clipped=zero,
+        n_alloc_unplaced=n_alloc_unplaced,
     )
 
 
@@ -822,14 +857,14 @@ def process_frame_hash(
     `on_phase(name)` is called as each phase has been issued ("track",
     "alloc", "integrate", "raycast"), so a caller can record a CUDA event
     there to time the phases; it must not sync."""
-    vol, render_state, _sw, pose, tr, n_alloc_overflow = _track_fuse_impl(
+    vol, render_state, _sw, pose, tr, n_alloc = _track_fuse_impl(
         vol, render_state, state, view, proj, settings, fusion_active, proj_rgb, rgb_to_depth, external_pose,
         on_phase,
     )
     new_state, n_pool = _prepare_impl(vol, render_state, state, view, pose, tr, proj, settings, proj_rgb,
                                       rgb_to_depth)
     on_phase("raycast")
-    diag = _frame_diag(vol, render_state, pose, proj, tr, settings, n_alloc_overflow, n_pool,
+    diag = _frame_diag(vol, render_state, pose, proj, tr, settings, n_alloc, n_pool,
                        tuple(view.depth.shape))
     return vol, render_state, new_state, diag
 
@@ -841,12 +876,12 @@ def step_track_fuse_swap(vol, render_state, state: TrackingState, swap_states, v
     tracker, divergence gate and fusion as process_frame_hash, with the
     swap-protocol hooks (reference ITMDenseMapper.cpp:51-65). Returns (vol,
     render_state, swap_states, pose, tr, diag)."""
-    vol, render_state, swap_states, pose, tr, n_alloc_overflow = _track_fuse_impl(
+    vol, render_state, swap_states, pose, tr, n_alloc = _track_fuse_impl(
         vol, render_state, state, view, proj, settings, fusion_active, proj_rgb, rgb_to_depth, external_pose,
         on_phase, swap_states=swap_states,
     )
     zero = torch.zeros((), dtype=torch.int32, device=proj.device)
-    diag = _frame_diag(vol, render_state, pose, proj, tr, settings, n_alloc_overflow, zero,
+    diag = _frame_diag(vol, render_state, pose, proj, tr, settings, n_alloc, zero,
                        tuple(view.depth.shape))
     return vol, render_state, swap_states, pose, tr, diag
 
@@ -876,7 +911,7 @@ def step_frame_swap(vol, render_state, state: TrackingState, swap_states, view: 
     if merge_slab is not None:
         vol, swap_states = swapping.merge_data_slab(vol, swap_states, merge_slab, settings,
                                                     with_color=settings.use_color and vol.vox_rgb is not None)
-    vol, render_state, swap_states, pose, tr, n_alloc_overflow = _track_fuse_impl(
+    vol, render_state, swap_states, pose, tr, n_alloc = _track_fuse_impl(
         vol, render_state, state, view, proj, settings, fusion_active, proj_rgb, rgb_to_depth, external_pose,
         on_phase, swap_states=swap_states,
     )
@@ -889,7 +924,7 @@ def step_frame_swap(vol, render_state, state: TrackingState, swap_states, view: 
     new_state, n_pool = _prepare_impl(vol, render_state, state, view, pose, tr, proj, settings, proj_rgb,
                                       rgb_to_depth)
     on_phase("raycast")
-    diag = _frame_diag(vol, render_state, pose, proj, tr, settings, n_alloc_overflow, n_pool,
+    diag = _frame_diag(vol, render_state, pose, proj, tr, settings, n_alloc, n_pool,
                        tuple(view.depth.shape))
     in_meta = torch.cat([in_ids, in_n[None]])
     ev_meta = torch.cat([ev_ids, ev_n[None]])

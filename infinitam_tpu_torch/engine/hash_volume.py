@@ -274,8 +274,9 @@ def insert_blocks(
     grid_params=None,
 ) -> Tuple[HashVolume, torch.Tensor, torch.Tensor]:
     """Candidate-space hash insertion: probe → one winner per contended
-    bucket/chain tail (duplicate-index scatter, unspecified winner; losers
-    retry) → free-list pops → entry writes (reference
+    bucket/chain tail (the highest candidate index, the writer the JAX
+    package's sequential scatter keeps on the CPU; losers retry) →
+    free-list pops → entry writes (reference
     allocateVoxelBlocksList_device). Returns (vol, visible_type, widx) with
     widx[N] the entry each candidate was written to, or E."""
     E = params.n_entries
@@ -287,7 +288,7 @@ def insert_blocks(
     tidx = torch.where(need, pr.tail_idx, E)
 
     iota = torch.arange(N, dtype=torch.int32, device=dev)
-    claim = scatter_drop(torch.full((E + 1,), -1, dtype=torch.int32, device=dev), tidx, iota)
+    claim = scatter_drop(torch.full((E + 1,), -1, dtype=torch.int32, device=dev), tidx, iota, reduce="amax")
     win = need & (claim[tidx.clamp(0, E).long()] == iota)
 
     # rank only candidates that take a resource, so the stack pointers stay
@@ -495,9 +496,10 @@ def plan_allocations(
 ) -> AllocationPlan:
     """Mark entries to allocate and the visibility of touched entries
     (reference buildHashAllocAndVisibleTypePP, its scatter phase). A
-    contended bucket keeps ONE winner per frame (duplicate-index scatter,
-    unspecified winner, as the reference's last-writer-wins race); losers
-    retry on a later frame."""
+    contended bucket keeps ONE winner per frame (the reference's
+    last-writer-wins race; here the highest candidate index, the writer the
+    JAX package's sequential scatter keeps on the CPU); losers retry on a
+    later frame."""
     E = params.n_entries
     pr = probe(vol, cand_blocks, params, include_swapped=True, packed=packed)
     # visibility marks for found entries: 2 if swapped out, 1 otherwise
@@ -507,9 +509,12 @@ def plan_allocations(
     need = cand_valid & ~pr.found
     a_type = torch.where(pr.ordered_empty, 1, 2)
     tidx = torch.where(need, pr.tail_idx, E)
+    iota = torch.arange(tidx.shape[0], dtype=torch.int32, device=tidx.device)
+    claim = scatter_drop(torch.full((E + 1,), -1, dtype=torch.int32, device=tidx.device), tidx, iota, reduce="amax")
+    widx = torch.where(need & (claim[tidx.long()] == iota), tidx, E)
     zeros = torch.zeros_like(vol.entry_ptr)
-    alloc_type = scatter_drop(zeros, tidx, torch.where(need, a_type, 0))
-    block_coords = scatter_drop(torch.zeros_like(vol.entry_pos), tidx, cand_blocks)
+    alloc_type = scatter_drop(zeros, widx, a_type)
+    block_coords = scatter_drop(torch.zeros_like(vol.entry_pos), widx, cand_blocks)
     # new ordered entries are visible at once (reference: the planning sets
     # entriesVisibleType[hashIdx] = 1 for !isExcess)
     visible_type = scatter_drop(visible_type, torch.where(need & (a_type == 1), pr.tail_idx, E), VT_VISIBLE)

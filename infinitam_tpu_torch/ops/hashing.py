@@ -32,7 +32,9 @@ def scatter_drop(target: torch.Tensor, idx: torch.Tensor, values, reduce: str | 
     Dropped writes land in a sink row appended for the call and sliced off,
     so the index tensor never has to be filtered (a boolean filter would sync
     with the host). Duplicate in-range indices keep one unspecified writer,
-    as in JAX. `reduce` = "amin" / "amax" gives `.at[].min/.max`."""
+    as in JAX (on the card it varies from run to run), so a caller whose
+    duplicates carry different values elects a winner first: `reduce` =
+    "amin" / "amax" gives `.at[].min/.max`."""
     n = target.shape[0]
     ok = (idx >= 0) & (idx < n)
     ext = torch.cat([target, target[:1]])

@@ -79,6 +79,11 @@ SIGNATURES = {
     # sdf, sx, sy, sz, ox, oy, oz, block_shift, inv_M, proj, inv_voxel, zmin, zmax, h, w, step_scale,
     # enable (or null), out, n_lanes, strides (RAYCAST_LANES, then sdf), stream
     "itpu_raycast_dense": (P, I, I, I, I, I, I, I, P, P, F, P, P, I, I, F, P, P, I, P, P),
+    # K3h and K3d in the lock-step design they replaced: the same arguments
+    "itpu_raycast_hash_lockstep": (P, P, P, P, I, I, I, P, P, F, P, P, I, I, F, P, P, I, P, P),
+    "itpu_raycast_dense_lockstep": (P, I, I, I, I, I, I, I, P, P, F, P, P, I, I, F, P, P, I, P, P),
+    # kernel (0 K3, 1 K3h, 2 K3d, 3 K3h and 4 K3d lock-step), n_lanes, ctas_per_sm out, sms out
+    "itpu_raycast_occupancy": (I, I, P, P),
 }
 
 KERNELS = ("icp", "icp_weighted", "integrate", "integrate_color", "raycast", "raycast_hash", "raycast_dense")

@@ -20,6 +20,13 @@ over the same reader, and its own launch counter. A device bool `enable`
 switches the march off without a host read (the approximate raycast), as
 K2's `enable` does; `out` receives the points.
 
+K3d marches with a lookahead (csrc/raycast.cu): two reads in flight a
+ray, committed only where they are the lock-step march's; K3h walks a hash
+level in one round trip. The lock-step design they replaced launches
+through `raycast_hash_probe_lockstep` and `raycast_dense_lockstep`, for
+comparisons only: those launches are not counted, and the main path never
+makes them. `occupancy` reads a raycast kernel's resident CTAs per SM.
+
 Each launch is a custom op (`itpu::raycast_grid`, `itpu::raycast_hash`,
 `itpu::raycast_dense`) that names `out` as mutated. Under `torch.vmap` its
 vmap rule launches the kernel once for all B lanes (the tiles × B grid,
@@ -117,9 +124,27 @@ def _launch_grid(n_lanes, vox, grid, inv_M, proj, zmin, zmax, enable, out, gx: i
     build.count_launch("raycast")
 
 
+# occupancy's kernels, as csrc/raycast.cu itpu_raycast_occupancy numbers them
+OCCUPANCY_KERNELS = {"raycast": 0, "raycast_hash": 1, "raycast_dense": 2, "raycast_hash_lockstep": 3,
+                     "raycast_dense_lockstep": 4}
+
+
+def occupancy(kernel: str, n_lanes: int = 1) -> tuple:
+    """(resident CTAs of 128 threads per SM, the card's SMs) of a raycast
+    kernel (a key of OCCUPANCY_KERNELS) launched for `n_lanes` lanes, from
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor on the current card."""
+    ctas, sms = ctypes.c_int(), ctypes.c_int()
+    err = build.library().itpu_raycast_occupancy(OCCUPANCY_KERNELS[kernel], n_lanes, ctypes.byref(ctas),
+                                                 ctypes.byref(sms))
+    build.check("itpu_raycast_occupancy", err)
+    return ctas.value, sms.value
+
+
 def _launch_hash(n_lanes, vox, entry_pos, entry_ptr, entry_offset, inv_M, proj, zmin, zmax, enable, out,
-                 n_buckets: int, hash_mask: int, block_size: int, one_over_voxel_size: float, mu: float) -> None:
-    """One K3h launch for `n_lanes` lanes (build.LaneArgs)."""
+                 n_buckets: int, hash_mask: int, block_size: int, one_over_voxel_size: float, mu: float,
+                 lockstep: bool = False) -> None:
+    """One K3h launch for `n_lanes` lanes (build.LaneArgs); in the
+    `lockstep` design, not counted."""
     shift = _block_shift_of("raycast_hash", vox.lane(0), block_size)
     ep0, pt0, of0 = entry_pos.lane(0), entry_ptr.lane(0), entry_offset.lane(0)
     E = pt0.shape[0]
@@ -129,30 +154,33 @@ def _launch_hash(n_lanes, vox, entry_pos, entry_ptr, entry_offset, inv_M, proj, 
         build.require_dtype("raycast_hash", t, torch.int32)
     tensors = _checked_lanes("raycast_hash", inv_M, proj, zmin, zmax, enable, out)
     build.require_cuda("raycast_hash", vox.lane(0), ep0, pt0, of0, *tensors, device=vox.lane(0).device)
-    err = build.library().itpu_raycast_hash(
-        vox.ptr(), entry_pos.ptr(), entry_ptr.ptr(), entry_offset.ptr(), n_buckets, hash_mask, shift,
-        *_launch_tail(n_lanes, inv_M, proj, one_over_voxel_size, zmin, zmax, mu, enable, out,
-                      (vox, entry_pos, entry_ptr, entry_offset)),
-    )
-    build.check("itpu_raycast_hash", err)
+    args = (vox.ptr(), entry_pos.ptr(), entry_ptr.ptr(), entry_offset.ptr(), n_buckets, hash_mask, shift,
+            *_launch_tail(n_lanes, inv_M, proj, one_over_voxel_size, zmin, zmax, mu, enable, out,
+                          (vox, entry_pos, entry_ptr, entry_offset)))
+    if lockstep:
+        build.check("itpu_raycast_hash_lockstep", build.library().itpu_raycast_hash_lockstep(*args))
+        return
+    build.check("itpu_raycast_hash", build.library().itpu_raycast_hash(*args))
     build.count_launch("raycast_hash")
 
 
 def _launch_dense(n_lanes, sdf, inv_M, proj, zmin, zmax, enable, out, X: int, Y: int, Z: int, ox: int, oy: int,
-                  oz: int, one_over_voxel_size: float, mu: float) -> None:
+                  oz: int, one_over_voxel_size: float, mu: float, lockstep: bool = False) -> None:
     """One K3d launch for `n_lanes` lanes (build.LaneArgs) over the array of
-    X × Y × Z voxels at voxel offset (ox, oy, oz)."""
+    X × Y × Z voxels at voxel offset (ox, oy, oz); in the `lockstep` design,
+    not counted."""
     s0 = sdf.lane(0)
     if s0.shape != (Z, Y, X):
         raise ValueError("raycast_dense: sdf must be [Z, Y, X] of plain_params.size")
     build.require_dtype("raycast_dense", s0, torch.float32)
     tensors = _checked_lanes("raycast_dense", inv_M, proj, zmin, zmax, enable, out)
     build.require_cuda("raycast_dense", s0, *tensors, device=s0.device)
-    err = build.library().itpu_raycast_dense(
-        sdf.ptr(), X, Y, Z, ox, oy, oz, vol_mod.VIRTUAL_BLOCK.bit_length() - 1,
-        *_launch_tail(n_lanes, inv_M, proj, one_over_voxel_size, zmin, zmax, mu, enable, out, (sdf,)),
-    )
-    build.check("itpu_raycast_dense", err)
+    args = (sdf.ptr(), X, Y, Z, ox, oy, oz, vol_mod.VIRTUAL_BLOCK.bit_length() - 1,
+            *_launch_tail(n_lanes, inv_M, proj, one_over_voxel_size, zmin, zmax, mu, enable, out, (sdf,)))
+    if lockstep:
+        build.check("itpu_raycast_dense_lockstep", build.library().itpu_raycast_dense_lockstep(*args))
+        return
+    build.check("itpu_raycast_dense", build.library().itpu_raycast_dense(*args))
     build.count_launch("raycast_dense")
 
 
@@ -304,6 +332,50 @@ def raycast_hash_probe(vol, params, inv_M, proj, img_size, one_over_voxel_size: 
     raycast_hash_op(vol.vox, vol.entry_pos, vol.entry_ptr, vol.entry_offset, inv_M, proj, zmin, zmax, enable, out,
                     params.n_buckets, params.hash_mask, params.block_size, float(one_over_voxel_size), float(mu))
     return rc.RaycastResult(points=out)
+
+
+def _lockstep_lanes(lanes: int, *tensors):
+    """LaneArgs of a lock-step launch: with `lanes` B > 0 every tensor holds
+    B lanes on dim 0 (None stays absent), else one lane."""
+    if not lanes:
+        return build.single(*tensors)
+    return [build.LaneArg(t) if t is None else build.LaneArg(t, t.stride(0), True) for t in tensors]
+
+
+def raycast_hash_probe_lockstep(vol, params, inv_M, proj, img_size, one_over_voxel_size: float, mu: float, zmin,
+                                zmax, enable=None, out=None, lanes: int = 0) -> rc.RaycastResult:
+    """K3h in the lock-step design it replaced (the serial walk of a hash
+    level) on CUDA tensors, for comparisons (not counted); the plain version
+    on CPU tensors. With `lanes` B > 0 one launch marches B lanes: the
+    volume's arrays, inv_M, zmin, zmax, enable and out hold the lanes on dim
+    0 (out must be given), proj is shared."""
+    if vol.vox.device.type == "cpu":
+        return raycast_hash_probe_plain(vol, params, inv_M, proj, img_size, one_over_voxel_size, mu, zmin, zmax,
+                                        enable, out)
+    out = _out(out, inv_M, img_size)
+    la = _lockstep_lanes(lanes, vol.vox, vol.entry_pos, vol.entry_ptr, vol.entry_offset, inv_M, None, zmin, zmax,
+                         enable, out)
+    la[5] = build.LaneArg(proj)
+    _launch_hash(max(lanes, 1), *la, params.n_buckets, params.hash_mask, params.block_size, one_over_voxel_size, mu,
+                 lockstep=True)
+    return rc.RaycastResult(points=out)
+
+
+def raycast_dense_lockstep(vol: vol_mod.DenseVolume, plain_params, inv_M, proj, img_size, one_over_voxel_size: float,
+                           mu: float, zmin, zmax, enable=None, out=None, lanes: int = 0) -> rc.RaycastResult:
+    """K3d in the lock-step design it replaced (LA 1) on CUDA tensors, for
+    comparisons (not counted); the plain version on CPU tensors. `lanes` as
+    in raycast_hash_probe_lockstep (vol.sdf [B, Z, Y, X])."""
+    if vol.sdf.device.type == "cpu":
+        return raycast_dense_plain(vol, plain_params, inv_M, proj, img_size, one_over_voxel_size, mu, zmin, zmax,
+                                   enable, out)
+    out = _out(out, inv_M, img_size)
+    la = _lockstep_lanes(lanes, vol.sdf, inv_M, None, zmin, zmax, enable, out)
+    la[2] = build.LaneArg(proj)
+    _launch_dense(max(lanes, 1), *la, *plain_params.size, *plain_params.offset, one_over_voxel_size, mu,
+                  lockstep=True)
+    return rc.RaycastResult(points=out)
+
 
 def raycast_dense_plain(vol: vol_mod.DenseVolume, plain_params, inv_M, proj, img_size, one_over_voxel_size: float,
                         mu: float, zmin, zmax, enable=None, out=None) -> rc.RaycastResult:

@@ -315,8 +315,9 @@ def forward_project(
     """Scatter the last raycast into the new view (reference
     forwardProjectPixel + forwardProject_device): [H, W, 4] voxel-unit
     points with w = 1 where a point landed, 0 where the pixel is missing.
-    Where several points land on one pixel, one of them wins, unspecified
-    which (as XLA's scatter in the JAX package)."""
+    Where several points land on one pixel, the one of the highest source
+    pixel wins: the writer XLA's sequential scatter keeps on the CPU in the
+    JAX package (on an accelerator its scatter picks any)."""
     H, W = img_size
     fx, fy, cx, cy = proj[0], proj[1], proj[2], proj[3]
     valid = points_map_m[..., 3] > 0
@@ -328,9 +329,13 @@ def forward_project(
     ui = (u + 0.5).to(torch.int32).clamp(0, W - 1)
     vi = (v + 0.5).to(torch.int32).clamp(0, H - 1)
     payload = torch.cat([points_map_m[..., :3] * one_over_voxel_size, torch.ones_like(z)[..., None]], dim=-1)
-    flat_idx = torch.where(ok, vi * W + ui, H * W)  # out of range drops
-    out = scatter_drop(torch.zeros((H * W, 4), dtype=torch.float32, device=points_map_m.device),
-                       flat_idx.reshape(-1), payload.reshape(-1, 4))
+    flat_idx = torch.where(ok, vi * W + ui, H * W).reshape(-1)  # out of range drops
+    src = torch.arange(flat_idx.shape[0], dtype=torch.int32, device=points_map_m.device)
+    claim = scatter_drop(torch.full((H * W + 1,), -1, dtype=torch.int32, device=src.device), flat_idx, src,
+                         reduce="amax")
+    won = torch.where(claim[flat_idx.long()] == src, flat_idx, H * W)
+    out = scatter_drop(torch.zeros((H * W, 4), dtype=torch.float32, device=points_map_m.device), won,
+                       payload.reshape(-1, 4))
     return out.reshape(H, W, 4)
 
 

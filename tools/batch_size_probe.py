@@ -11,8 +11,8 @@ On the card (the default) or the CPU:
    tests/test_torch_kernels_cuda.py's settings (a 4,096-bucket table, a
    128³ array), B = 1, 2 and 4 from fresh maps, lanes 0-1 replaying the
    same frames: each frame's largest pose difference between batch sizes,
-   and for the hash step between two runs at B = 4, with whether the
-   allocated and visible block sets agree.
+   and for the hash step between two runs at B = 1 and between two runs at
+   B = 4, with whether the allocated and visible block sets agree.
 
 It changes nothing; it prints one line a comparison.
 """
@@ -94,8 +94,9 @@ def step_lines(dev):
                     sets.append([block_sets(state[0], state[1], b) for b in range(min(B, 2))])
             return torch.stack(poses), sets
 
-        runs = {"B = 1": run(1), "B = 2": run(2), "B = 4": run(4), "B = 4 again": run(4)}
-        pairs = (("B = 1", "B = 2"), ("B = 2", "B = 4")) + (() if dense else (("B = 4", "B = 4 again"),))
+        runs = {"B = 1": run(1), "B = 1 again": run(1), "B = 2": run(2), "B = 4": run(4), "B = 4 again": run(4)}
+        pairs = (("B = 1", "B = 2"), ("B = 2", "B = 4")) + (
+            () if dense else (("B = 1", "B = 1 again"), ("B = 4", "B = 4 again")))
         for x, y in pairs:
             k = min(runs[x][0].shape[1], runs[y][0].shape[1], 2)
             diff = (runs[x][0][:, :k] - runs[y][0][:, :k]).abs().amax(dim=(1, 2, 3)).tolist()
