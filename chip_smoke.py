@@ -122,6 +122,20 @@ live raycast image to the same render of the plain raycast (≤ 1 LSB on ≥
 ImageFileReader, DeviceFrameFeed and MainEngine on the card (final pose
 within 1 cm / 1° of its recorded trajectory).
 
+Every replay runs as the port's users run it: each frame step (each step
+of a batched replay, each step of a rank) one replay of a CUDA graph
+(engine/captured.py, the port's counterpart of jax.jit; the swap configs'
+step is captured once for each set of merge inputs and each slab size, and
+the exchange's host half runs between replays). Each config also runs once op
+by op in the same call: that run is the reference its captured poses are
+gated on, bit for bit, and its phase events give the phase table (a graph
+replay has no place for them). Per config it prints the graphs captured,
+their nodes (kernels among them), capture seconds (warm-up frame included)
+and pool size; frames/s come from the captured timed replays, each from a
+fresh map written into the tensors the graph was captured with, so no
+capture falls inside a clock; a captured run under the sync debug mode is
+gated on no host sync, as the uncaptured one is.
+
 Output: the card's name and power limit, the kernel build time, the kernel
 lines, per config the accuracy, counters, frames with a full raycast, launch
 counts and launches per frame, the source line of every host sync the frame
@@ -131,10 +145,12 @@ and, last, `{"ok": true, "device": {...}}`. Any failure exits non-zero
 without those two lines. Without a CUDA device, or run from a directory
 that is not a checkout of the repository, it exits 1 at once.
 
-    python3 chip_smoke.py --profile
+    python3 chip_smoke.py --profile [CONFIG ...]
 
-runs the same gates and adds, per config, a torch.profiler window over the
-last PROFILE_FRAMES frames of a replay: device busy time per frame (the union
+runs the same gates and adds, per config (each one, or those named), a
+torch.profiler window over the
+last PROFILE_FRAMES frames of a captured replay and of an uncaptured one:
+device busy time per frame (the union
 of the intervals in which a kernel, copy or set ran on the card), device ops
 per frame, wall time per frame under the profiler, and the largest device
 consumers; for the two batched configs per step, with their device ops a
@@ -511,16 +527,33 @@ def camera_centres(poses: np.ndarray) -> np.ndarray:
     return np.linalg.inv(poses.astype(np.float64))[..., :3, 3]
 
 
+# the state tensors of a MainEngine, which its frame step writes in place
+ENGINE_STATE = ("vol", "render_state", "tracking_state")
+
+
+def refill(live, fresh) -> None:
+    """Write a fresh map (`fresh`, a state of the same structure) into the
+    tensors of `live`, in place: a captured step's graph reads and writes
+    those tensors where they lie, so a run from the refilled state replays
+    it without a new capture."""
+    from infinitam_tpu_torch.engine import captured
+
+    for a, b in zip(captured.leaves(live), captured.leaves(fresh), strict=True):
+        a.copy_(b)
+
+
 def rank_phase(kind: str, settings, depth_file: str, proj: np.ndarray, share_card: bool) -> dict:
     """One rank of a ranks phase, in its own process (parallel/ranks.spawn
     sets the environment make_mesh reads). This rank's lanes of the fleet's
     frames (an .npy file of [steps, B, H, W] depth) go through the sharded
-    batched step of `kind` ("batched" or "batched_dense"): a correctness
-    run under the sync debug mode (poses, counters, the fleet metrics of
-    every step, peak device memory, each host sync's source lines and the
-    all-reduce calls), then N_TIMED timed runs, each on fresh maps built
-    before a barrier that starts the ranks together (the first counts the
-    kernel launches). Returns numpy arrays and plain values."""
+    batched step of `kind` ("batched" or "batched_dense"), captured (the
+    all-reduce after each replay): a correctness run (poses, counters, the
+    fleet metrics of every step, peak device memory; it captures the
+    graph), a run under the sync debug mode (each host sync's source lines
+    and the all-reduce calls), then N_TIMED timed runs, each from fresh
+    maps written into the correctness run's tensors before a barrier that
+    starts the ranks together (the first counts the kernel launches).
+    Returns numpy arrays and plain values."""
     import torch.distributed as dist
     from infinitam_tpu_torch.engine.view_builder import View
     from infinitam_tpu_torch.ops.kernels import build
@@ -542,29 +575,30 @@ def rank_phase(kind: str, settings, depth_file: str, proj: np.ndarray, share_car
         poses, diags, metrics = [], [], []
         for d in depths:
             *state, m = step(*state, View(depth=d), proj)
-            poses.append(state[-1].pose)
+            poses.append(state[-1].pose.clone())
             diags.append(m["diag"])
             metrics.append(m)
-        return poses, diags, metrics
+        return state, poses, diags, metrics
 
     torch.cuda.reset_peak_memory_stats()
+    live, poses, diags, metrics = run(fresh(settings, IMG, B, mesh=mesh))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
     syncs, reductions, all_reduce = [], [0], dist.all_reduce
 
     def counted_all_reduce(*args, **kwargs):  # batch.py reaches it through the module
         reductions[0] += 1
         return all_reduce(*args, **kwargs)
 
-    state = fresh(settings, IMG, B, mesh=mesh)
+    refill(live, fresh(settings, IMG, B, mesh=mesh))
     torch.cuda.synchronize()
     dist.all_reduce = counted_all_reduce
     try:
         with flag_syncs(syncs):
-            poses, diags, metrics = run(state)
+            run(live)
         torch.cuda.synchronize()
     finally:
         dist.all_reduce = all_reduce
-    del state
-    peak = torch.cuda.max_memory_allocated()
     counters = {k: torch.stack([getattr(d, k) for d in diags]).amax(0).tolist() for k in COUNTERS
                 if hasattr(diags[0], k)}
     unplaced = (torch.stack([d.n_alloc_unplaced for d in diags]).sum(0).tolist()
@@ -576,18 +610,17 @@ def rank_phase(kind: str, settings, depth_file: str, proj: np.ndarray, share_car
     del poses, diags, metrics
     times = []
     for rep in range(N_TIMED):
-        state = fresh(settings, IMG, B, mesh=mesh)
+        refill(live, fresh(settings, IMG, B, mesh=mesh))
         torch.cuda.synchronize()
         dist.barrier()
         if rep == 0:
             build.reset_launch_counts()
         t0 = time.perf_counter()
-        run(state)
+        run(live)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         if rep == 0:
             out["launches"] = build.launch_counts()
-        del state
     out["times"] = times
     out["jax_modules"] = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "infinitam_tpu"))
     return out
@@ -596,7 +629,7 @@ def rank_phase(kind: str, settings, depth_file: str, proj: np.ndarray, share_car
 class Smoke:
     def __init__(self):
         from infinitam_tpu_torch import calib, config
-        from infinitam_tpu_torch.engine import dense_pipeline, hash_pipeline, trackers, volume
+        from infinitam_tpu_torch.engine import captured, dense_pipeline, hash_pipeline, trackers, volume
         from infinitam_tpu_torch.engine.main_engine import MainEngine
         from infinitam_tpu_torch.engine.view_builder import View, build_view_from_metric_depth
         from infinitam_tpu_torch.io import sources, synth
@@ -608,6 +641,7 @@ class Smoke:
         from infinitam_tpu_torch.utils import se3
 
         self.cfg, self.hp, self.trackers, self.synth, self.se3 = config, hash_pipeline, trackers, synth, se3
+        self.captured = captured
         self.dp, self.vol_mod, self.hashing = dense_pipeline, volume, hashing
         self.pyramid, self.icp_ops, self.raycast_ops = pyramid, icp_ops, raycast_ops
         self.build, self.k_icp, self.k_int, self.k_ray = build, icp, integrate, raycast
@@ -625,6 +659,7 @@ class Smoke:
         self.poses: dict = {}  # each replay's correctness-run poses (numpy), by name
         self.ates: dict = {}  # each replay's ATE RMSE in metres, by name
         self.k3_points = None  # K3's points in the last k3_check, for K3h's comparison
+        self.captures: dict = {}  # each replay's captured graphs (captured.graphs()), by name
 
     def gate(self, ok: bool, what: str) -> None:
         print(f"  gate {'PASS' if ok else 'FAIL'}: {what}")
@@ -641,13 +676,15 @@ class Smoke:
     def fresh_state(self, settings):
         return self.hp.create_engine_state(settings, IMG, device=self.dev)
 
-    def run_frames(self, settings, frames, state=None, on_phase=None):
+    def run_frames(self, settings, frames, state=None, on_phase=None, capture=True):
         """The port's main path: view → process_frame_hash, frame by frame,
-        from `state` (vol, render state, tracking state) or a fresh map.
-        `frames` is (depths, rgbs); the rgb frames go into the view only when
-        the settings use colour. `self.ages` keeps the tracking maps' age
-        after each frame (device tensors; 0: the maps were raycast anew)."""
-        mark = on_phase or (lambda _phase: None)
+        from `state` (vol, render state, tracking state) or a fresh map,
+        each frame a CUDA graph replay (`capture`; False: op by op, which
+        `on_phase` needs). `frames` is (depths, rgbs); the rgb frames go
+        into the view only when the settings use colour. `self.ages` keeps
+        the tracking maps' age after each frame (device tensors, copies; 0:
+        the maps were raycast anew)."""
+        mark = on_phase or self.hp.no_phase
         vol, rs, st = state or self.fresh_state(settings)
         depths, rgbs = frames
         poses, diags = [], []
@@ -658,32 +695,33 @@ class Smoke:
             mark("view")
             vol, rs, st, diag = self.hp.process_frame_hash(vol, rs, st, view, self.proj, settings,
                                                            proj_rgb=self.proj_rgb, rgb_to_depth=self.rgb_to_depth,
-                                                           on_phase=mark)
+                                                           on_phase=mark, capture=capture)
             mark("other")
-            poses.append(st.pose)
+            poses.append(st.pose.clone())
             diags.append(diag)
-            self.ages.append(st.age)
+            self.ages.append(st.age.clone())
         return vol, rs, st, poses, diags
 
     def fresh_engine(self, settings):
         return self.MainEngine(settings, self.calib, IMG, device=self.dev)
 
-    def run_engine(self, settings, frames, engine=None, on_phase=None):
+    def run_engine(self, settings, frames, engine=None, on_phase=None, capture=True):
         """The path a user calls: MainEngine.process_frame on each frame,
-        from `engine` or a fresh one. Returns (engine, poses, diagnostics),
-        device tensors all: nothing is read back in the loop. `self.ages` as
-        in run_frames."""
+        from `engine` or a fresh one (`capture` as in run_frames). Returns
+        (engine, poses, diagnostics), device tensors all: nothing is read
+        back in the loop. `self.ages` as in run_frames."""
         mark = on_phase or self.hp.no_phase
         engine = engine or self.fresh_engine(settings)
         poses, diags = [], []
         self.ages = []
         for d, rgb in zip(*frames):
             mark("start")
-            diag = engine.process_frame(metric_depth=d, rgb=rgb if settings.use_color else None, on_phase=mark)
+            diag = engine.process_frame(metric_depth=d, rgb=rgb if settings.use_color else None, on_phase=mark,
+                                        capture=capture)
             mark("other")
-            poses.append(engine.tracking_state.pose)
+            poses.append(engine.tracking_state.pose.clone())
             diags.append(diag.device)
-            self.ages.append(engine.tracking_state.age)
+            self.ages.append(engine.tracking_state.age.clone())
         return engine, poses, diags
 
     def fused(self, settings, frames):
@@ -696,11 +734,11 @@ class Smoke:
     def fresh_dense(self, settings):
         return self.dp.create_engine_state(settings, IMG, device=self.dev)
 
-    def run_dense(self, settings, frames, state=None, on_phase=None):
+    def run_dense(self, settings, frames, state=None, on_phase=None, capture=True):
         """The dense voxel array's path: view → process_frame_dense, frame by
         frame, from `state` (volume, tracking state) or a fresh 512³ volume.
-        Returns (volume, tracking state, poses, diagnostics); `self.ages` as
-        in run_frames."""
+        Returns (volume, tracking state, poses, diagnostics); `capture` and
+        `self.ages` as in run_frames."""
         mark = on_phase or self.hp.no_phase
         vol, st = state or self.fresh_dense(settings)
         poses, diags = [], []
@@ -709,11 +747,12 @@ class Smoke:
             mark("start")
             view = self.build_view(d, settings, self.calib)
             mark("view")
-            vol, st, diag = self.dp.process_frame_dense(vol, st, view, self.proj, settings, on_phase=mark)
+            vol, st, diag = self.dp.process_frame_dense(vol, st, view, self.proj, settings, on_phase=mark,
+                                                        capture=capture)
             mark("other")
-            poses.append(st.pose)
+            poses.append(st.pose.clone())
             diags.append(diag)
-            self.ages.append(st.age)
+            self.ages.append(st.age.clone())
         return vol, st, poses, diags
 
     def fresh_gridless(self, settings):
@@ -737,11 +776,11 @@ class Smoke:
     def fresh_batched_dense(self, settings, n_lanes: int = DENSE_LANES):
         return self.batch.batched_state_dense(settings, IMG, n_lanes, device=self.dev)
 
-    def run_batched(self, settings, frames, state=None, on_phase=None):
+    def run_batched(self, settings, frames, state=None, on_phase=None, capture=True):
         """B sequences through parallel/batch.py's batched hash step:
         frames[0][f] is step f's depth of every lane [B, H, W]. Returns (vol,
         rs, tracking state, poses [B, 4, 4] a step, diagnostics with [B]
-        fields a step); `self.ages` as in run_frames."""
+        fields a step); `capture` and `self.ages` as in run_frames."""
         mark = on_phase or self.hp.no_phase
         vol, rs, st = state or self.fresh_batched(settings, frames[0][0].shape[0])
         step = self.batch.make_batched_step(settings)
@@ -751,14 +790,14 @@ class Smoke:
             mark("start")
             view = self.View(depth=d)
             mark("view")
-            vol, rs, st, metrics = step(vol, rs, st, view, self.proj, on_phase=mark)
+            vol, rs, st, metrics = step(vol, rs, st, view, self.proj, on_phase=mark, capture=capture)
             mark("other")
-            poses.append(st.pose)
+            poses.append(st.pose.clone())
             diags.append(metrics["diag"])
-            self.ages.append(st.age)
+            self.ages.append(st.age.clone())
         return vol, rs, st, poses, diags
 
-    def run_batched_dense(self, settings, frames, state=None, on_phase=None):
+    def run_batched_dense(self, settings, frames, state=None, on_phase=None, capture=True):
         """B sequences through the batched dense step (as run_batched)."""
         mark = on_phase or self.hp.no_phase
         vol, st = state or self.fresh_batched_dense(settings, frames[0][0].shape[0])
@@ -769,11 +808,11 @@ class Smoke:
             mark("start")
             view = self.View(depth=d)
             mark("view")
-            vol, st, metrics = step(vol, st, view, self.proj, on_phase=mark)
+            vol, st, metrics = step(vol, st, view, self.proj, on_phase=mark, capture=capture)
             mark("other")
-            poses.append(st.pose)
+            poses.append(st.pose.clone())
             diags.append(metrics["diag"])
-            self.ages.append(st.age)
+            self.ages.append(st.age.clone())
         return vol, st, poses, diags
 
     def runner(self, kind: str):
@@ -1334,28 +1373,44 @@ class Smoke:
 
     # --- replays ------------------------------------------------------------
     def replay(self, name, settings, frames, gt, path, kind="frames", expected=None):
-        """Replay `frames` three ways, through the hash frame step, through
-        MainEngine or through the dense frame step (`kind`, see runner): a
-        correctness run (poses, counters, peak device memory), N_TIMED timed
-        runs (the first one counts kernel launches) and a phase run under the
-        sync debug mode. `expected` maps launch counters to the launches each
-        frame must make. Returns the launch counts, the correctness run's
-        final state (its engine through MainEngine, else its volume) and
-        (frames/s of the timed runs, the phase run's ms a frame).
+        """Replay `frames` through the hash frame step, through MainEngine or
+        through the dense frame step (`kind`, see runner), each frame a CUDA
+        graph replay:
+        an uncaptured run op by op (the reference), a captured correctness
+        run (poses against the reference's, counters, peak device memory,
+        the graphs it captured), N_TIMED timed runs (the first one counts
+        kernel launches), a captured run under the sync debug mode, each
+        from a fresh map written into the correctness run's tensors (the
+        graph stays), and an uncaptured phase run under the sync debug mode.
+        `expected` maps launch counters to the launches each frame must
+        make. Returns the launch counts, the correctness run's final state
+        (its engine through MainEngine, else its volume) and (frames/s of
+        the timed runs, the phase run's ms a frame).
         With swapping it prints the exchange's counts and host waits."""
         depths = frames[0]
         run, fresh = self.runner(kind)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        # 1) correctness run: poses, counters (read after the loop)
-        final, *_rest, poses, diags = run(settings, frames)
+        # 0) the uncaptured run: the reference for the captured poses
+        ref = torch.stack(run(settings, frames, fresh(settings), capture=False)[-2]).cpu().numpy()
+        self.captured.clear()  # the graphs of earlier phases: what follows counts this replay's
         torch.cuda.synchronize()
+        peak_eager = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        # 1) correctness run, captured: poses, counters (read after the loop)
+        t0 = time.perf_counter()
+        final, *rest, poses, diags = run(settings, frames, fresh(settings))
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
+        graphs = self.captured.graphs()
+        live = final if kind == "engine" else (final, *rest)
+        del rest
         swap = kind == "engine" and final.swapping
         waits = []  # the exchange's host waits in each timed run, then the phase run
-        poses_np = torch.stack(poses).cpu().numpy().astype(np.float64)
-        ate, rot = trajectory_errors(poses_np, gt.astype(np.float64))
-        self.poses[name], self.ates[name] = poses_np, ate
+        poses_np = torch.stack(poses).cpu().numpy()
+        ate, rot = trajectory_errors(poses_np.astype(np.float64), gt.astype(np.float64))
+        self.poses[name], self.ates[name] = poses_np.astype(np.float64), ate
         # the counters the path has (the dense path's diagnostics have none)
         counters = {k: int(torch.stack([getattr(d, k) for d in diags]).max()) for k in COUNTERS
                     if hasattr(diags[0], k)}
@@ -1368,12 +1423,13 @@ class Smoke:
         # after the replay
         n_full = int((torch.stack(self.ages) == 0).sum())
 
-        # 2) timed runs, each on a fresh map built before its clock starts
-        #    (host-clock times spread: the card's host is shared); the launch
-        #    counts cover exactly the first run
+        # 2) timed runs, each from a fresh map written into the correctness
+        #    run's tensors before its clock starts (host-clock times spread:
+        #    the card's host is shared); the launch counts cover exactly the
+        #    first run
         times = []
         for rep in range(N_TIMED):
-            state = fresh(settings)
+            state = self.refill(kind, live, settings)
             torch.cuda.synchronize()
             if rep == 0:
                 self.build.reset_launch_counts()
@@ -1386,10 +1442,18 @@ class Smoke:
             if swap:
                 waits.append(state.swap_exchange.n_waits)
         dt = float(np.median(times))
+        # the captured replays under torch's sync debug mode
+        captured_syncs = []
+        state = self.refill(kind, live, settings)
+        torch.cuda.synchronize()
+        with flag_syncs(captured_syncs):
+            run(settings, frames, state)
+        torch.cuda.synchronize()
 
-        # 3) phase run: a CUDA event after each phase is issued; torch's sync
-        #    debug mode reports each host sync the frame loop issues, and the
-        #    repo's source lines on the stack of each report are kept
+        # 3) phase run, op by op: a CUDA event after each phase is issued;
+        #    torch's sync debug mode reports each host sync the frame loop
+        #    issues, and the repo's source lines on the stack of each report
+        #    are kept
         events, syncs = [], []
 
         def mark(phase):
@@ -1400,10 +1464,11 @@ class Smoke:
         state = fresh(settings)
         torch.cuda.synchronize()
         with flag_syncs(syncs):
-            run(settings, frames, state, on_phase=mark)
+            run(settings, frames, state, on_phase=mark, capture=False)
         torch.cuda.synchronize()
         if swap:
             waits.append(state.swap_exchange.n_waits)
+        del state
         n_syncs = len(syncs)
         phases = {}
         prev = None
@@ -1415,22 +1480,37 @@ class Smoke:
         frame_ms = sum(table.values())
 
         fps = len(depths) / dt
-        print(f"{name}: {fps:.2f} frames/s over {len(depths)} frames (median of {N_TIMED} replays; ms/frame "
-              + ", ".join(f"{t * 1000 / len(depths):.2f}" for t in times)
+        departs = float(np.abs(poses_np.astype(np.float64) - ref.astype(np.float64)).max())
+        self.captures[name] = graphs
+        print(f"{name}: {fps:.2f} frames/s over {len(depths)} frames, captured (median of {N_TIMED} replays; "
+              "ms/frame " + ", ".join(f"{t * 1000 / len(depths):.2f}" for t in times)
               + f"), ATE RMSE {ate * 1000:.3f} mm, rotation RMSE {rot:.4f} deg, n_visible(last) {n_vis}")
         print(f"  counters (max over frames): {json.dumps(counters)}; frames with a full raycast: {n_full}; peak "
-              f"device memory of the correctness run {peak / 2**30:.3f} GiB (torch.cuda.max_memory_allocated)")
+              f"device memory of the captured correctness run {peak / 2**30:.3f} GiB, of the uncaptured run "
+              f"{peak_eager / 2**30:.3f} GiB (torch.cuda.max_memory_allocated)")
+        if graphs:
+            print(f"  graphs: {len(graphs)} captured in the correctness run (its wall {first_s:.3f} s, capture "
+                  "included); " + "; ".join(
+                      f"{g['name']}: {g['nodes']} nodes ({g['kernel_nodes']} kernels), capture {g['capture_s']:.3f} "
+                      f"s, pool {g['pool_bytes'] / 2**30:.3f} GiB, launches a replay {json.dumps(g['launches'])} "
+                      "(its hand kernel nodes)"
+                      for g in graphs))
+        else:
+            print("  graphs: none (this path runs op by op)")
+        print(f"  captured poses against the uncaptured run's: {'bit-equal' if departs == 0 else 'differ'} "
+              f"(largest element difference {departs:.3e})")
         if unplaced is not None:
             print(f"  n_alloc_unplaced (not gated): {sum(unplaced)} over the replay, max {max(unplaced)} a frame, in "
                   f"{sum(u > 0 for u in unplaced)} of {len(unplaced)} frames")
         print(f"  kernel launches in the timed replay: {json.dumps(launches)}; per frame: "
               + json.dumps({k: v / len(depths) for k, v in launches.items()}))
-        print(f"  host syncs flagged in the phase run: {n_syncs}")
-        for site in sorted(set(syncs)):
-            print(f"    {syncs.count(site)}× at {site}")
-        print("  phase table (device-stream time between phase events, ms/frame): "
+        print(f"  host syncs flagged in the captured run: {len(captured_syncs)}, in the uncaptured phase run: "
+              f"{n_syncs}")
+        for site in sorted(set(captured_syncs + syncs)):
+            print(f"    {(captured_syncs + syncs).count(site)}× at {site}")
+        print("  phase table of the uncaptured run (device-stream time between phase events, ms/frame): "
               + ", ".join(f"{k} {v:.3f} ({100 * v / frame_ms:.1f}%)" for k, v in table.items())
-              + f"; frame {frame_ms:.3f}")
+              + f"; frame {frame_ms:.3f}; the captured frame {1000 / fps:.3f} ms")
         if swap:
             ex = final.swap_exchange
             print(f"  swap exchange of the correctness run (host halves done, two frames behind): {ex.n_evicted} "
@@ -1438,10 +1518,21 @@ class Smoke:
                   f"of them merged with stored data; the store holds {int(final.global_cache.has_stored.sum())} "
                   f"blocks; host waits on a copy: {ex.n_waits} in that run, {waits[:-1]} in the timed runs, "
                   f"{waits[-1]} in the phase run")
+        if swap:
+            # captured, the host may wait for the card on a frame's copy
+            # (backpressure), at most once a frame whose host half runs
+            most = len(depths) - final.swap_exchange.PIPE_DEPTH
+            self.gate(all(w <= most for w in [final.swap_exchange.n_waits] + waits[:-1]),
+                      f"{name} host waits on the exchange ≤ {most} in each captured run (one a frame at most)")
         self.gate(ate < 0.01, f"{name} ATE RMSE < 1 cm")
         self.gate(rot < 1.0, f"{name} rotation RMSE < 1 deg")
         self.gate(all(v == 0 for v in counters.values()), f"{name} every counter of its path 0 ({len(counters)})")
         self.gate(all(launches[k] > 0 for k in path), f"{name} every kernel of its path launched: {', '.join(path)}")
+        self.gate(departs == 0, f"{name} captured poses bit-equal to the uncaptured run's")
+        self.gate(all(g["launches"] == g["tally"] for g in graphs),
+                  f"{name} each graph's hand kernel nodes equal the launches its wrappers counted in capture")
+        # the swap step: one graph for each set of merge inputs and slab rows
+        self.gate(1 <= len(graphs) <= (6 if swap else 1), f"{name} {'1-6 graphs' if swap else 'one graph'} captured")
         if "integrate_color" in path:
             self.gate(launches["integrate_color"] == len(depths), f"{name} colour kernel launched on every frame")
         if "icp_weighted" in path:
@@ -1452,8 +1543,28 @@ class Smoke:
             self.gate(launches[k] == n * len(depths), f"{name} {k} launched {n} time(s) a frame")
         if settings.use_approximate_raycast:
             self.gate(0 < n_full < len(depths), f"{name} both raycast branches ran (0 < full frames < {len(depths)})")
-        self.gate(n_syncs == 0, f"{name} frame loop issued no host sync")
+        self.gate(n_syncs == 0 and not captured_syncs, f"{name} frame loop issued no host sync, captured or not")
         return launches, final, (fps, frame_ms)
+
+    def refill(self, kind, live, settings):
+        """A fresh map for the next run of a replay of `kind`, written into
+        `live`'s tensors (the state a run ended with, or its engine), so that
+        the run replays the graphs those tensors were captured with (a
+        swapping engine also takes a fresh host store and exchange). Returns
+        the run's `state` argument."""
+        fresh = self.runner(kind)[1]
+        if kind == "engine":
+            new = fresh(settings)
+            fields = ENGINE_STATE + (("swap_states",) if live.swapping else ())
+            refill([getattr(live, k) for k in fields], [getattr(new, k) for k in fields])
+            # the host store and the exchange are the host's: a new engine's
+            live.global_cache, live.swap_exchange, live.frame_no = new.global_cache, new.swap_exchange, 0
+            return live
+        if kind.startswith("batched"):  # the lane count leads every tensor
+            refill(live, fresh(settings, self.captured.leaves(live)[0].shape[0]))
+        else:
+            refill(live, fresh(settings))
+        return live
 
     def get_image_check(self, engine, settings, frames, rgb_settings):
         """Every get_image type from a replay's last engine, a freeview
@@ -1661,15 +1772,16 @@ class Smoke:
         stale = torch.full((), -1, dtype=torch.int32, device=dev)
 
         def look_away_and_back(eng):
+            # a copy each time: a captured step writes the state's age in place
             eng.set_pose(away)
-            eng.tracking_state = eng.tracking_state._replace(age=stale)
+            eng.tracking_state = eng.tracking_state._replace(age=stale.clone())
             diags = [eng.process_frame(metric_depth=far).device]
             eng.set_pose(start)
-            eng.tracking_state = eng.tracking_state._replace(age=stale)
+            eng.tracking_state = eng.tracking_state._replace(age=stale.clone())
             poses = []
             for d in depths[:N_BACK]:
                 diags.append(eng.process_frame(metric_depth=d).device)
-                poses.append(eng.tracking_state.pose)
+                poses.append(eng.tracking_state.pose.clone())
             return poses, diags
 
         ex = engine.swap_exchange
@@ -1794,10 +1906,14 @@ class Smoke:
 
     def batched_replay(self, name, settings, frames, gts, kind, expected, single):
         """A batched replay (`kind` "batched" or "batched_dense", `frames`
-        from lane_frames): a correctness run (each lane's ATE and rotation,
-        its counters, peak device memory), N_TIMED timed runs (the first
-        counts kernel launches, which must be `expected` a step, whatever
-        the lane count) and a phase run under the sync debug mode. `single`:
+        from lane_frames): an uncaptured run (the reference), a captured
+        correctness run (each lane's ATE and rotation, its counters, peak
+        device memory, poses against the reference's, the graph), N_TIMED
+        timed runs (the first counts kernel launches, which must be
+        `expected` a step, whatever the lane count) and a captured run under
+        the sync debug mode, each from a fresh map written into the
+        correctness run's tensors, and an uncaptured phase run under the
+        sync debug mode. `single`:
         (name, frames/s) of the unbatched replay of lane 0's frames in this
         call, for lane 0's poses against it and the batch efficiency.
         Returns (launches, (steps/s, frames/s summed over the lanes, the
@@ -1805,13 +1921,18 @@ class Smoke:
         depths = frames[0]
         n, B = len(depths), depths[0].shape[0]
         run, fresh = self.runner(kind)
+        ref = torch.stack(run(settings, frames, capture=False)[-2]).cpu().numpy()
+        self.captured.clear()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        *_state, poses, diags = run(settings, frames)
+        *live, poses, diags = run(settings, frames)
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated()
-        del _state
-        P = torch.stack(poses).cpu().numpy().astype(np.float64)  # [steps, B, 4, 4]
+        graphs = self.captured.graphs()
+        self.captures[name] = graphs
+        P = torch.stack(poses).cpu().numpy()  # [steps, B, 4, 4]
+        departs = float(np.abs(P.astype(np.float64) - ref.astype(np.float64)).max())
+        P = P.astype(np.float64)
         errs = [trajectory_errors(P[:, b], gts[b][:n].astype(np.float64)) for b in range(B)]
         counters = {k: torch.stack([getattr(d, k) for d in diags]).amax(0).tolist() for k in COUNTERS
                     if hasattr(diags[0], k)}
@@ -1823,7 +1944,7 @@ class Smoke:
         lane0_diff = float(np.linalg.norm(centre[0] - centre[1], axis=1).max())
         times = []
         for rep in range(N_TIMED):
-            state = fresh(settings, B)
+            state = self.refill(kind, live, settings)
             torch.cuda.synchronize()
             if rep == 0:
                 self.build.reset_launch_counts()
@@ -1833,8 +1954,14 @@ class Smoke:
             times.append(time.perf_counter() - t0)
             if rep == 0:
                 launches = self.build.launch_counts()
-            del state
         dt = float(np.median(times))
+        captured_syncs = []
+        state = self.refill(kind, live, settings)
+        torch.cuda.synchronize()
+        with flag_syncs(captured_syncs):
+            run(settings, frames, state)
+        torch.cuda.synchronize()
+        del state, live
         events, syncs = [], []
 
         def mark(phase):
@@ -1845,7 +1972,7 @@ class Smoke:
         state = fresh(settings, B)
         torch.cuda.synchronize()
         with flag_syncs(syncs):
-            run(settings, frames, state, on_phase=mark)
+            run(settings, frames, state, on_phase=mark, capture=False)
         torch.cuda.synchronize()
         del state
         phases, prev = {}, None
@@ -1859,7 +1986,7 @@ class Smoke:
         fps = B * steps_s
         efficiency = fps / (B * ref_fps)
         print(f"{name}: {B} lanes × {n} steps, {steps_s:.3f} steps/s, {fps:.2f} frames/s summed over the lanes "
-              f"(median of {N_TIMED} replays; ms/step " + ", ".join(f"{t * 1000 / n:.2f}" for t in times)
+              f"(captured, median of {N_TIMED} replays; ms/step " + ", ".join(f"{t * 1000 / n:.2f}" for t in times)
               + f"), batch_efficiency {efficiency:.3f} (frames/s ÷ ({B} × {ref_name}'s {ref_fps:.2f} frames/s in "
               f"this call)); peak device memory of the correctness run {peak / 2**30:.3f} GiB")
         for b, (ate, rot) in enumerate(errs):
@@ -1867,23 +1994,34 @@ class Smoke:
         print(f"  lane 0 against the {ref_name} replay of the same frames: largest per-frame camera-centre "
               f"difference {lane0_diff * 1000:.4f} mm")
         print(f"  counters per lane (max over steps): {json.dumps(counters)}")
+        print("  graphs: " + "; ".join(
+            f"{g['name']}: {g['nodes']} nodes ({g['kernel_nodes']} kernels), capture {g['capture_s']:.3f} s, pool "
+            f"{g['pool_bytes'] / 2**30:.3f} GiB, launches a replay {json.dumps(g['launches'])} (its hand kernel "
+            "nodes)" for g in graphs))
+        print(f"  captured poses against the uncaptured run's: {'bit-equal' if departs == 0 else 'differ'} "
+              f"(largest element difference {departs:.3e})")
         if unplaced is not None:
             print(f"  n_alloc_unplaced per lane, summed over the steps (not gated): {unplaced}")
         print(f"  kernel launches in the timed replay: {json.dumps(launches)}; per step: "
               + json.dumps({k: v / n for k, v in launches.items()}))
-        print(f"  host syncs flagged in the phase run: {len(syncs)}")
-        for site in sorted(set(syncs)):
-            print(f"    {syncs.count(site)}× at {site}")
-        print("  phase table (device-stream time between phase events, ms/step): "
+        print(f"  host syncs flagged in the captured run: {len(captured_syncs)}, in the uncaptured phase run: "
+              f"{len(syncs)}")
+        for site in sorted(set(captured_syncs + syncs)):
+            print(f"    {(captured_syncs + syncs).count(site)}× at {site}")
+        print("  phase table of the uncaptured run (device-stream time between phase events, ms/step): "
               + ", ".join(f"{k} {v:.3f} ({100 * v / step_ms:.1f}%)" for k, v in table.items())
-              + f"; step {step_ms:.3f}")
+              + f"; step {step_ms:.3f}; the captured step {1000 / steps_s:.3f} ms")
         for b, (ate, rot) in enumerate(errs):
             self.gate(ate < 0.01 and rot < 1.0, f"{name} lane {b} ATE RMSE < 1 cm and rotation RMSE < 1 deg")
         self.gate(all(v == 0 for lanes in counters.values() for v in lanes),
                   f"{name} every counter of every lane 0 ({len(counters)} a lane)")
         self.gate(launches == dict.fromkeys(self.build.KERNELS, 0) | {k: v * n for k, v in expected.items()},
                   f"{name} launches exactly {expected} a step (one launch for all {B} lanes)")
-        self.gate(len(syncs) == 0, f"{name} step loop issued no host sync")
+        self.gate(len(syncs) == 0 and not captured_syncs, f"{name} step loop issued no host sync, captured or not")
+        self.gate(departs == 0, f"{name} captured poses bit-equal to the uncaptured run's")
+        self.gate(len(graphs) == 1, f"{name} one graph captured for the replay")
+        self.gate(all(g["launches"] == g["tally"] for g in graphs),
+                  f"{name} the graph's hand kernel nodes equal the launches its wrappers counted in capture")
         return launches, (steps_s, fps, step_ms), efficiency
 
     def ranks_replay(self, name, settings, frames, gts, kind, expected, one_process):
@@ -1960,11 +2098,11 @@ class Smoke:
         if out[0]["unplaced"] is not None:
             print(f"  n_alloc_unplaced per lane, summed over the steps (not gated): {[r['unplaced'] for r in out]}")
         print(f"  kernel launches of each rank in its first timed replay: {[r['launches'] for r in out]}")
-        print(f"  all-reduce calls in each rank's correctness run: {[r['reductions'] for r in out]} over {n} steps"
+        print(f"  all-reduce calls in each rank's sync-checked run: {[r['reductions'] for r in out]} over {n} steps"
               + (" (gloo stages a CUDA all-reduce through host memory: each is a host wait on the card)"
                  if staged else ""))
         for r in out:
-            print(f"  host syncs flagged in rank {r['lanes']}'s correctness run: {len(r['syncs'])}")
+            print(f"  host syncs flagged in rank {r['lanes']}'s sync-checked run: {len(r['syncs'])}")
             for site in sorted(set(r["syncs"])):
                 print(f"    {r['syncs'].count(site)}× at {site}")
         for b, (ate, rot) in enumerate(errs):
@@ -2128,9 +2266,10 @@ class Smoke:
         self.gate(same and ok, f"{label} at B = {B}: lanes equal to single launches, plain within its bar")
         return timed(label, lambda: torch.vmap(kernel)(*args), lambda: kernel(*(a[0] for a in args)))
 
-    def profile(self, name, settings, frames, kind="frames"):
+    def profile(self, name, settings, frames, kind="frames", capture=True):
         """torch.profiler over the last PROFILE_FRAMES frames of a replay on a
-        fresh map (the frames before them warm the map up, unprofiled)."""
+        fresh map (the frames before them warm the map up, unprofiled, and
+        capture the graph), captured or op by op (`capture`)."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity
         from torch.profiler import profile as torch_profile
@@ -2138,19 +2277,21 @@ class Smoke:
         n = PROFILE_FRAMES
         depths, rgbs = frames
         run, _fresh = self.runner(kind)
-        warm = run(settings, (depths[:-n], rgbs[:-n]))
+        warm = run(settings, (depths[:-n], rgbs[:-n]), capture=capture)
         # the state a run continues from: the engine, or the volume and states
         state = warm[0] if kind == "engine" else warm[:-2]
         torch.cuda.synchronize()
         with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            run(settings, (depths[-n:], rgbs[-n:]), state)
+            run(settings, (depths[-n:], rgbs[-n:]), state, capture=capture)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
                        if e.device_type == DeviceType.CUDA)
+        how = "captured" if capture else "uncaptured"
+        self.captured.clear()
         if not spans:
-            print(f"{name} profile: the profiler saw no device activity; device busy not measured")
+            print(f"{name} profile ({how}): the profiler saw no device activity; device busy not measured")
             return None
         busy, end, by_name = 0.0, float("-inf"), {}
         for s, e, op in spans:  # union of the intervals, in µs
@@ -2159,7 +2300,7 @@ class Smoke:
             by_name[op] = by_name.get(op, 0.0) + (e - s)
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
         unit = "step" if kind.startswith("batched") else "frame"
-        print(f"{name} profile over the last {n} of {len(depths)} {unit}s: device busy {busy / 1000 / n:.3f} "
+        print(f"{name} profile ({how}) over the last {n} of {len(depths)} {unit}s: device busy {busy / 1000 / n:.3f} "
               f"ms/{unit} (union of device intervals), {len(spans) / n:.1f} device ops/{unit}, wall "
               f"{wall * 1000 / n:.3f} ms/{unit} under the profiler, device idle {100 * (1 - busy / 1e6 / wall):.1f}% "
               "of that wall")
@@ -2168,10 +2309,44 @@ class Smoke:
         return len(spans) / n
 
 
+def smoke_configs(smoke):
+    """The replayed configurations: (name, settings, kernels of its path,
+    replay kind (Smoke.runner), launches a frame or None)."""
+    from infinitam_tpu_torch.ops.kernels import build
+
+    iters = smoke.trackers.level_iterations(smoke.cfg.TrackingParams())
+    every_frame = dict(icp=sum(iters), integrate=1, raycast=1)
+    none = dict.fromkeys(build.KERNELS, 0)
+    return [
+        ("5mm", reference_settings(smoke.cfg), DEPTH_PATH, "frames", None),
+        # each swap replay right after its config without swapping: the
+        # ratio of their frames/s compares two replays minutes apart
+        ("5mm_swap", swap_settings(reference_settings(smoke.cfg)), DEPTH_PATH, "engine", every_frame),
+        ("1cm", teddy_1cm_settings(smoke.cfg), DEPTH_PATH, "frames", None),
+        ("1cm_swap", swap_settings(teddy_1cm_settings(smoke.cfg)), DEPTH_PATH, "engine", every_frame),
+        ("1cm_rgb", color_settings(smoke.cfg), RGB_PATH, "frames", None),
+        ("5mm_wicp", wicp_settings(smoke.cfg), WICP_PATH, "engine", None),
+        # Ren's ICP pre-step stops above level 0
+        ("5mm_ren", ren_settings(smoke.cfg), DEPTH_PATH, "engine",
+         dict(icp=sum(iters[1:]), integrate=1, raycast=1)),
+        # K3 runs on every frame, marching only on the frames that refresh
+        ("5mm_approx", approx_settings(smoke.cfg), DEPTH_PATH, "frames", every_frame),
+        # the dense 512³ array: ICP and K3d, integration in torch ops (no K2)
+        ("dense_5mm", dense_settings(smoke.cfg), DENSE_PATH, "dense", none | dict(icp=sum(iters), raycast_dense=1)),
+        # the hash table instead of the block grid: K3h instead of K3
+        ("5mm_hashprobe", hashprobe_settings(smoke.cfg), HASHPROBE_PATH, "frames",
+         none | dict(icp=sum(iters), integrate=1, raycast_hash=1)),
+        # the coarse pre-pass: K3 twice a frame
+        ("5mm_coarse2", coarse_settings(smoke.cfg), DEPTH_PATH, "frames",
+         none | dict(icp=sum(iters), integrate=1, raycast=2)),
+    ]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--profile", action="store_true",
-                    help="add a torch.profiler window per config (device busy, ops, top consumers)")
+    ap.add_argument("--profile", nargs="*", metavar="CONFIG",
+                    help="add a torch.profiler window per config, captured and op by op (device busy, ops, top "
+                         "consumers), for each config or the ones named")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device — this run measures the port on an NVIDIA GPU", file=sys.stderr)
@@ -2207,30 +2382,7 @@ def main() -> int:
     frames = (depths, rgbs)
     iters = smoke.trackers.level_iterations(smoke.cfg.TrackingParams())
     every_frame = dict(icp=sum(iters), integrate=1, raycast=1)
-    none = dict.fromkeys(build.KERNELS, 0)
-    configs = [  # name, settings, kernels of its path, replay kind (Smoke.runner), launches a frame
-        ("5mm", reference_settings(smoke.cfg), DEPTH_PATH, "frames", None),
-        # each swap replay right after its config without swapping: the
-        # ratio of their frames/s compares two replays minutes apart
-        ("5mm_swap", swap_settings(reference_settings(smoke.cfg)), DEPTH_PATH, "engine", every_frame),
-        ("1cm", teddy_1cm_settings(smoke.cfg), DEPTH_PATH, "frames", None),
-        ("1cm_swap", swap_settings(teddy_1cm_settings(smoke.cfg)), DEPTH_PATH, "engine", every_frame),
-        ("1cm_rgb", color_settings(smoke.cfg), RGB_PATH, "frames", None),
-        ("5mm_wicp", wicp_settings(smoke.cfg), WICP_PATH, "engine", None),
-        # Ren's ICP pre-step stops above level 0
-        ("5mm_ren", ren_settings(smoke.cfg), DEPTH_PATH, "engine",
-         dict(icp=sum(iters[1:]), integrate=1, raycast=1)),
-        # K3 runs on every frame, marching only on the frames that refresh
-        ("5mm_approx", approx_settings(smoke.cfg), DEPTH_PATH, "frames", every_frame),
-        # the dense 512³ array: ICP and K3d, integration in torch ops (no K2)
-        ("dense_5mm", dense_settings(smoke.cfg), DENSE_PATH, "dense", none | dict(icp=sum(iters), raycast_dense=1)),
-        # the hash table instead of the block grid: K3h instead of K3
-        ("5mm_hashprobe", hashprobe_settings(smoke.cfg), HASHPROBE_PATH, "frames",
-         none | dict(icp=sum(iters), integrate=1, raycast_hash=1)),
-        # the coarse pre-pass: K3 twice a frame
-        ("5mm_coarse2", coarse_settings(smoke.cfg), DEPTH_PATH, "frames",
-         none | dict(icp=sum(iters), integrate=1, raycast=2)),
-    ]
+    configs = smoke_configs(smoke)
     by_name = {c[0]: c[1] for c in configs}
     for name, settings, *_rest in configs:  # as bench.py:96-99 checks its configs
         try:
@@ -2342,16 +2494,25 @@ def main() -> int:
               f"time with {frame_ms / frame_ms_sw:.3f} ({frame_ms:.3f} / {frame_ms_sw:.3f} ms, phase runs)")
     smoke.cli_check()
     smoke.fixture_check()
-    if args.profile:
+    if args.profile is not None:
         ops = {}
-        for name, settings, _path, kind, _expected in configs:
-            ops[name] = smoke.profile(name, settings, frames, kind)
-        ops["batched_5mm"] = smoke.profile("batched_5mm", s5, smoke.lane_frames(frames, gt, BATCH_LANES)[0],
-                                           "batched")
-        ops["batched_dense_5mm"] = smoke.profile("batched_dense_5mm", sd, smoke.lane_frames(frames, gt, DENSE_LANES)[0],
-                                                 "batched_dense")
+        bframes = {"batched_5mm": (s5, "batched", BATCH_LANES),
+                   "batched_dense_5mm": (sd, "batched_dense", DENSE_LANES)}
+        known = [c[0] for c in configs] + list(bframes)
+        wanted = set(args.profile or known)
+        smoke.gate(wanted <= set(known), f"--profile names known configs ({', '.join(sorted(wanted))})")
+        bframes = {name: (settings, smoke.lane_frames(frames, gt, n_lanes)[0], kind)
+                   for name, (settings, kind, n_lanes) in bframes.items() if name in wanted}
+        for capture in (True, False):  # the uncaptured profile gives the device ops and top consumers op by op
+            for name, settings, _path, kind, _expected in configs:
+                if name in wanted:
+                    ops[name] = smoke.profile(name, settings, frames, kind, capture)
+            for name, (settings, bf, kind) in bframes.items():
+                ops[name] = smoke.profile(name, settings, bf, kind, capture)
         for name, single in (("batched_5mm", "5mm"), ("batched_dense_5mm", "dense_5mm")):
-            if ops[name] is None or ops[single] is None:
+            if name not in ops:
+                continue
+            if ops[name] is None or ops.get(single) is None:
                 print(f"{name}: device ops per step not measured")
                 continue
             print(f"{name}: {ops[name]:.1f} device ops a step against {ops[single]:.1f} a frame of {single} "

@@ -4,7 +4,9 @@ The JAX package `infinitam_tpu` stays the reference: every module here mirrors
 its counterpart's name and function names, and `tests/test_torch_*.py` hold
 each one to it on the CPU. The three Pallas kernels of the main path are
 hand-written CUDA C++ under `csrc/`, wrapped in `ops/kernels/`; a CPU tensor
-takes each kernel's plain PyTorch version, a CUDA tensor the kernel.
+takes each kernel's plain PyTorch version, a CUDA tensor the kernel. On the
+card each frame step runs as one captured CUDA graph, the counterpart of the
+JAX package's `jax.jit` (`engine/captured.py`).
 
 The port imports nothing of the JAX package: `config` and `calib` are its
 own copies of the reference's framework-free modules, held equal to them by

@@ -19,6 +19,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from infinitam_tpu_torch.config import Settings
+from infinitam_tpu_torch.engine import captured
 from infinitam_tpu_torch.engine import volume as vol_mod
 from infinitam_tpu_torch.engine.tracking_state import TrackingState, create_tracking_state
 from infinitam_tpu_torch.engine.trackers import TrackResult, track_depth
@@ -30,8 +31,7 @@ from infinitam_tpu_torch.ops.kernels import raycast as raycast_kernel
 from infinitam_tpu_torch.utils import se3
 
 
-def no_phase(_name: str) -> None:
-    """The default `on_phase`: records nothing."""
+no_phase = captured.no_phase  # the default `on_phase`: records nothing
 
 
 class FrameDiagnostics(NamedTuple):
@@ -49,11 +49,13 @@ def integrate_frame_dense(
     rgb_to_depth: torch.Tensor | None = None,
 ) -> DenseVolume:
     """IntegrateIntoScene for the plain array: one elementwise pass over every
-    voxel (reference ITMSceneReconstructionEngine plain-array overload). With
-    `use_color` and an rgb view, colour fuses too, through `proj_rgb`
-    (default: `proj_d`) and the extrinsic `rgb_to_depth` (default:
-    identity). The voxel centres are three broadcast planes, so no
-    [Z, Y, X, 3] grid is built."""
+    voxel (reference ITMSceneReconstructionEngine plain-array overload),
+    written into `vol`'s tensors in place (as K2 writes the hash volume's
+    voxels), so no second array is made or copied back; the returned volume
+    holds the same tensors. With `use_color` and an rgb view, colour fuses
+    too, through `proj_rgb` (default: `proj_d`) and the extrinsic
+    `rgb_to_depth` (default: identity). The voxel centres are three
+    broadcast planes, so no [Z, Y, X, 3] grid is built."""
     sp = settings.scene
     pts = vol_mod.voxel_world_coords(settings.plain, sp.voxel_size, device=vol.sdf.device)
     M_rgb = None
@@ -77,6 +79,7 @@ def integrate_frame_dense(
         M_rgb=M_rgb,
         proj_rgb=proj_rgb if proj_rgb is not None else proj_d,
         rgb=rgb,
+        into=True,
     )
     return DenseVolume(sdf=sdf, w_depth=w, clr=clr if clr is not None else vol.clr,
                        w_color=wc if wc is not None else vol.w_color)
@@ -113,22 +116,9 @@ def prepare_tracking_maps(
     return rc.make_icp_maps(res, settings.scene.voxel_size, se3.invert(pose))
 
 
-def process_frame_dense(
-    vol: DenseVolume,
-    state: TrackingState,
-    view: View,
-    proj_d: torch.Tensor,
-    settings: Settings,
-    fusion_active: bool = True,
-    on_phase=no_phase,
-) -> Tuple[DenseVolume, TrackingState, FrameDiagnostics]:
-    """One frame: track → integrate → raycast the next frame's maps. On
-    frame 0 (state.age == −1) the tracker runs but its pose is not taken, as
-    in the JAX package (reference ITMTrackingController::Track gates on
-    age_pointCloud == −1), so every frame launches the same kernels and
-    nothing is read back. `on_phase(name)` is called as "track",
-    "integrate" and "raycast" have been issued (see
-    hash_pipeline.process_frame_hash)."""
+def _frame_dense(vol, state, view, proj_d, settings, fusion_active=True, on_phase=no_phase):
+    """process_frame_dense's step: new state tensors but the volume's, which
+    the integration writes in place."""
     img_size = tuple(view.depth.shape)
     tr: TrackResult = track_depth(state.pose, view.depth, proj_d, state.points_map, state.normals_map,
                                   state.pose_point_cloud, settings.tracking)
@@ -149,6 +139,37 @@ def process_frame_dense(
         num_valid=tr.num_valid,
     )
     return vol, new_state, FrameDiagnostics(f=tr.f, num_valid=tr.num_valid)
+
+
+def process_frame_dense(
+    vol: DenseVolume,
+    state: TrackingState,
+    view: View,
+    proj_d: torch.Tensor,
+    settings: Settings,
+    fusion_active: bool = True,
+    on_phase=no_phase,
+    capture: bool = True,
+) -> Tuple[DenseVolume, TrackingState, FrameDiagnostics]:
+    """One frame: track → integrate → raycast the next frame's maps. On
+    frame 0 (state.age == −1) the tracker runs but its pose is not taken, as
+    in the JAX package (reference ITMTrackingController::Track gates on
+    age_pointCloud == −1), so every frame launches the same kernels and
+    nothing is read back. `capture` and `on_phase` ("track", "integrate",
+    "raycast"; capture=False only) as in hash_pipeline.process_frame_hash:
+    captured, the caller's state tensors are written in place; op by op,
+    the volume is updated in place (the integration writes it) and the
+    tracking state is new."""
+    if not capture:
+        return _frame_dense(vol, state, view, proj_d, settings, fusion_active, on_phase)
+    captured.require_uncaptured(on_phase, capture)
+
+    def body(st, frame):
+        vol, s, diag = _frame_dense(*st, *frame, settings, fusion_active)
+        return (vol, s), diag
+
+    (vol, state), out = captured.run("dense", (settings, fusion_active), body, (vol, state), (view, proj_d))
+    return vol, state, out.read()
 
 
 def create_engine_state(settings: Settings, img_size: Tuple[int, int], device: torch.device | str = "cuda"):

@@ -21,7 +21,8 @@ volume through the hash table instead of the block grid; with
 tightens the per-pixel ranges.
 
 Every step is a fixed sequence of tensor ops and kernel launches that reads
-nothing back to the host, so frames queue on the card without a sync. Where
+nothing back to the host, so frames queue on the card without a sync, and
+on the card each step runs as one captured CUDA graph (engine/captured.py). Where
 the JAX package skips a branch with `lax.cond` (allocation inserts,
 out-of-grid probes, the large-block widening, the approximate raycast's
 refresh), the branch runs unconditionally here: with nothing to do it
@@ -39,6 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from infinitam_tpu_torch.config import Settings, SwappingMode, TrackerType
+from infinitam_tpu_torch.engine import captured
 from infinitam_tpu_torch.engine import hash_volume as hv
 from infinitam_tpu_torch.engine import swapping
 from infinitam_tpu_torch.engine.hash_volume import HashVolume, RenderStateVH
@@ -699,8 +701,7 @@ def _rgb_extrinsics(rgb_to_depth, device):
     return se3.invert(rgb_to_depth), rgb_to_depth
 
 
-def no_phase(_name: str) -> None:
-    """The default `on_phase`: records nothing."""
+no_phase = captured.no_phase  # the default `on_phase`: records nothing
 
 
 def _track_fuse_impl(vol, render_state, state: TrackingState, view: View, proj, settings: Settings,
@@ -834,6 +835,37 @@ def _frame_diag(vol, render_state, pose, proj, tr: TrackResult, settings: Settin
     )
 
 
+def _frame_hash(vol, render_state, state, view, proj, settings, fusion_active=True, proj_rgb=None,
+                rgb_to_depth=None, external_pose=None, on_phase=no_phase):
+    """process_frame_hash's step, functional: new state tensors (but
+    `vol.vox`, updated in place)."""
+    vol, render_state, _sw, pose, tr, n_alloc = _track_fuse_impl(
+        vol, render_state, state, view, proj, settings, fusion_active, proj_rgb, rgb_to_depth, external_pose,
+        on_phase,
+    )
+    new_state, n_pool = _prepare_impl(vol, render_state, state, view, pose, tr, proj, settings, proj_rgb,
+                                      rgb_to_depth)
+    on_phase("raycast")
+    diag = _frame_diag(vol, render_state, pose, proj, tr, settings, n_alloc, n_pool,
+                       tuple(view.depth.shape))
+    return vol, render_state, new_state, diag
+
+
+def _captured_frame(vol, render_state, state, view, proj, settings, fusion_active, proj_rgb, rgb_to_depth,
+                    external_pose):
+    """One frame through captured.run (one graph a key): (vol, render_state,
+    state) written in place, and the packed (pose, diag)."""
+
+    def body(st, frame):
+        view, external_pose, proj, proj_rgb, rgb_to_depth = frame
+        vol, rs, s, diag = _frame_hash(*st, view, proj, settings, fusion_active, proj_rgb, rgb_to_depth,
+                                       external_pose)
+        return (vol, rs, s), (s.pose, diag)
+
+    return captured.run("hash", (settings, fusion_active), body, (vol, render_state, state),
+                        (view, external_pose, proj, proj_rgb, rgb_to_depth))
+
+
 def process_frame_hash(
     vol: HashVolume,
     render_state: RenderStateVH,
@@ -846,27 +878,32 @@ def process_frame_hash(
     rgb_to_depth: torch.Tensor | None = None,
     external_pose: torch.Tensor | None = None,
     on_phase=no_phase,
+    capture: bool = True,
 ) -> Tuple[HashVolume, RenderStateVH, TrackingState, FrameDiagnostics]:
     """One frame on the hash volume: track → allocate + fuse → raycast.
-    `vol.vox` (and `vol.vox_rgb`) is updated in place; every other state
-    tensor is new. With colour (`use_color` or the colour tracker) the view
-    carries RGB, `proj_rgb` holds the rgb intrinsics (default: `proj`) and
-    `rgb_to_depth` the extrinsic (default: identity). The external tracker
-    takes `external_pose` [4, 4] world→camera (default: the last pose).
+    With colour (`use_color` or the colour tracker) the view carries RGB,
+    `proj_rgb` holds the rgb intrinsics (default: `proj`) and `rgb_to_depth`
+    the extrinsic (default: identity). The external tracker takes
+    `external_pose` [4, 4] world→camera (default: the last pose).
 
-    `on_phase(name)` is called as each phase has been issued ("track",
-    "alloc", "integrate", "raycast"), so a caller can record a CUDA event
-    there to time the phases; it must not sync."""
-    vol, render_state, _sw, pose, tr, n_alloc = _track_fuse_impl(
-        vol, render_state, state, view, proj, settings, fusion_active, proj_rgb, rgb_to_depth, external_pose,
-        on_phase,
-    )
-    new_state, n_pool = _prepare_impl(vol, render_state, state, view, pose, tr, proj, settings, proj_rgb,
-                                      rgb_to_depth)
-    on_phase("raycast")
-    diag = _frame_diag(vol, render_state, pose, proj, tr, settings, n_alloc, n_pool,
-                       tuple(view.depth.shape))
-    return vol, render_state, new_state, diag
+    With `capture` (the default) the frame runs as one replay of a CUDA
+    graph on the card (engine/captured.py; eagerly on the CPU) and the
+    state comes back as the caller's own tensors, written in place: keep a
+    copy of what must outlive the next frame. The diagnostics are copies.
+    With capture=False the step runs op by op and every state tensor but
+    `vol.vox` (and `vol.vox_rgb`), which is updated in place, is new.
+
+    `on_phase(name)` (capture=False only) is called as each phase has been
+    issued ("track", "alloc", "integrate", "raycast"), so a caller can
+    record a CUDA event there to time the phases; it must not sync."""
+    if not capture:
+        return _frame_hash(vol, render_state, state, view, proj, settings, fusion_active, proj_rgb, rgb_to_depth,
+                           external_pose, on_phase)
+    captured.require_uncaptured(on_phase, capture)
+    (vol, render_state, state), out = _captured_frame(vol, render_state, state, view, proj, settings,
+                                                      fusion_active, proj_rgb, rgb_to_depth, external_pose)
+    _pose, diag = out.read()
+    return vol, render_state, state, diag
 
 
 def step_track_fuse_swap(vol, render_state, state: TrackingState, swap_states, view: View, proj,
@@ -889,7 +926,7 @@ def step_track_fuse_swap(vol, render_state, state: TrackingState, swap_states, v
 def step_frame_swap(vol, render_state, state: TrackingState, swap_states, view: View, proj, settings: Settings,
                     fusion_active: bool = True, proj_rgb=None, rgb_to_depth=None, external_pose=None,
                     merge_flips: torch.Tensor | None = None, merge_slab: torch.Tensor | None = None,
-                    on_phase=no_phase):
+                    on_phase=no_phase, capture: bool = True):
     """One swap-mode frame, all of it on the device with no host read: the
     resolution of an earlier frame's needed list (`merge_flips`, that list's
     meta [Q+1]: its entries go to state 2; `merge_slab`: the blocks of it
@@ -898,10 +935,35 @@ def step_frame_swap(vol, render_state, state: TrackingState, swap_states, view: 
     the eviction of one rotating window → raycast. SwapExchange runs the
     host halves around it.
 
-    `on_phase` as in process_frame_hash, with "swap" after the list and the
+    `capture` as in process_frame_hash: one graph for each combination of
+    the merge inputs given and each row count of `merge_slab` (a multiple
+    of 64 up to the exchange quantum: at most 6), as jit compiles one
+    program for each; the outputs are copies. `on_phase` (capture=False
+    only) as in process_frame_hash, with "swap" after the list and the
     eviction. Returns (vol, render_state, tracking state, swap_states, diag,
     in_meta [Q+1] (needed ids, count), (ev_meta [Qe+1] (evicted ids, count),
     ev_sdf, ev_w, ev_clr, ev_wc))."""
+    if not capture:
+        return _frame_swap(vol, render_state, state, swap_states, view, proj, settings, fusion_active, proj_rgb,
+                           rgb_to_depth, external_pose, merge_flips, merge_slab, on_phase)
+    captured.require_uncaptured(on_phase, capture)
+
+    def body(st, frame):
+        view, external_pose, merge_flips, merge_slab, proj, proj_rgb, rgb_to_depth = frame
+        vol, rs, s, sw, diag, in_meta, ev = _frame_swap(*st, view, proj, settings, fusion_active, proj_rgb,
+                                                        rgb_to_depth, external_pose, merge_flips, merge_slab)
+        return (vol, rs, s, sw), (diag, in_meta, ev)
+
+    (vol, render_state, state, swap_states), out = captured.run(
+        "swap", (settings, fusion_active), body, (vol, render_state, state, swap_states),
+        (view, external_pose, merge_flips, merge_slab, proj, proj_rgb, rgb_to_depth))
+    diag, in_meta, ev = out.read()
+    return vol, render_state, state, swap_states, diag, in_meta, ev
+
+
+def _frame_swap(vol, render_state, state, swap_states, view, proj, settings, fusion_active=True, proj_rgb=None,
+                rgb_to_depth=None, external_pose=None, merge_flips=None, merge_slab=None, on_phase=no_phase):
+    """step_frame_swap's step, functional."""
     E = settings.hashing.n_entries
     if merge_flips is not None:
         # listed entries without stored data go straight to state 2 (the
@@ -940,21 +1002,36 @@ def step_prepare(vol, render_state, state: TrackingState, view: View, pose, tr: 
 
 def process_sequence_hash(vol, render_state, state, depths: torch.Tensor, proj, settings: Settings,
                           fusion_active: bool = True, rgbs: torch.Tensor | None = None,
-                          proj_rgb: torch.Tensor | None = None, rgb_to_depth: torch.Tensor | None = None):
+                          proj_rgb: torch.Tensor | None = None, rgb_to_depth: torch.Tensor | None = None,
+                          capture: bool = True):
     """Replay N depth frames [N, H, W] (with `rgbs` [N, H, W, 3] float 0..1
-    for the colour path) with a Python frame loop that never syncs with the
-    host. Returns (vol, render_state, state, poses [N,4,4], diags with
-    [N]-stacked fields)."""
-    poses, diags = [], []
+    for the colour path) with a frame loop that never syncs with the host:
+    on the card one frame graph (process_frame_hash's) replayed N times, each
+    frame's depth (and rgb) copied into its static input before the replay
+    and its pose and diagnostics into [N] buffers after it (capture=False:
+    the frames op by op). Returns (vol, render_state, state, poses [N,4,4],
+    diags with [N]-stacked fields)."""
+    if not capture:
+        poses, diags = [], []
+        for i, depth in enumerate(depths):
+            vol, render_state, state, diag = _frame_hash(
+                vol, render_state, state, View(depth=depth, rgb=None if rgbs is None else rgbs[i]), proj, settings,
+                fusion_active=fusion_active, proj_rgb=proj_rgb, rgb_to_depth=rgb_to_depth,
+            )
+            poses.append(state.pose)
+            diags.append(diag)
+        stacked = FrameDiagnostics(*(torch.stack(list(field)) for field in zip(*diags)))
+        return vol, render_state, state, torch.stack(poses), stacked
+    rows = None
     for i, depth in enumerate(depths):
-        vol, render_state, state, diag = process_frame_hash(
+        (vol, render_state, state), out = _captured_frame(
             vol, render_state, state, View(depth=depth, rgb=None if rgbs is None else rgbs[i]), proj, settings,
-            fusion_active=fusion_active, proj_rgb=proj_rgb, rgb_to_depth=rgb_to_depth,
-        )
-        poses.append(state.pose)
-        diags.append(diag)
-    stacked = FrameDiagnostics(*(torch.stack(list(field)) for field in zip(*diags)))
-    return vol, render_state, state, torch.stack(poses), stacked
+            fusion_active, proj_rgb, rgb_to_depth, None)
+        if rows is None:
+            rows = torch.empty((len(depths), out.buf.numel()), dtype=torch.uint8, device=out.buf.device)
+        rows[i].copy_(out.buf)
+    poses, diags = out.read(rows)
+    return vol, render_state, state, poses, diags
 
 
 def create_engine_state(settings: Settings, img_size: Tuple[int, int], device: torch.device | str = "cuda"):

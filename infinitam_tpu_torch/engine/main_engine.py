@@ -26,6 +26,7 @@ import torch
 
 from infinitam_tpu_torch.calib import RGBDCalib
 from infinitam_tpu_torch.config import Settings, SwappingMode
+from infinitam_tpu_torch.engine import captured
 from infinitam_tpu_torch.engine import hash_pipeline as hp
 from infinitam_tpu_torch.engine import hash_volume as hv
 from infinitam_tpu_torch.engine import swapping as sw
@@ -111,15 +112,20 @@ class MainEngine:
 
     # ----- per frame -----------------------------------------------------
     def process_frame(self, raw_depth=None, rgb=None, metric_depth=None, imu_rotation=None, external_pose=None,
-                      on_phase=hp.no_phase):
+                      on_phase=hp.no_phase, capture: bool = True):
         """UpdateView → Track → Fuse (→ swap) → Prepare. Frames are numpy arrays or
         tensors (moved to the engine's device); `imu_rotation` [3, 3] is a
         differential rotation applied to the pose before tracking,
-        `external_pose` [4, 4] the pose the external tracker takes.
-        `on_phase(name)` is called as each phase has been issued ("view",
-        then process_frame_hash's), so a caller can time the phases with
-        CUDA events. Returns the frame's LazyDiag ({} while main processing
-        is off)."""
+        `external_pose` [4, 4] the pose the external tracker takes. The
+        view is built op by op, as the JAX package's view builder is not
+        jitted; the frame step (process_frame_hash, or step_frame_swap with
+        swapping) runs as one CUDA graph replay on the card (`capture`) and
+        writes the engine's state tensors in place; the exchange's host
+        half runs between the replays. `on_phase(name)` (capture=False only) is
+        called as each phase has been issued ("view", then
+        process_frame_hash's), so a caller can time the phases with CUDA
+        events. Returns the frame's LazyDiag ({} while main processing is
+        off), over copies of the diagnostics."""
         if not self.main_processing:
             return {}
         dev = self.device
@@ -130,8 +136,7 @@ class MainEngine:
             view = build_view(frame_tensor(raw_depth, dev), self.calib, self.settings, rgb=rgb)
         on_phase("view")
         if imu_rotation is not None:
-            self.tracking_state = self.tracking_state._replace(
-                pose=apply_imu_rotation(self.tracking_state.pose, self._f32(imu_rotation)))
+            self._write_pose(apply_imu_rotation(self.tracking_state.pose, self._f32(imu_rotation)))
         if external_pose is not None:
             external_pose = self._f32(external_pose)
         if self.swapping:
@@ -143,13 +148,14 @@ class MainEngine:
                 self.vol, self.render_state, self.tracking_state, self.swap_states, view, self.proj, self.settings,
                 fusion_active=self.fusion_active, proj_rgb=self.proj_rgb, rgb_to_depth=self.rgb_to_depth,
                 external_pose=external_pose, merge_flips=m_flips, merge_slab=m_slab, on_phase=on_phase,
+                capture=capture,
             )
             self.swap_exchange.after_frame(in_meta, out_pack, self.global_cache)
         else:
             self.vol, self.render_state, self.tracking_state, d = hp.process_frame_hash(
                 self.vol, self.render_state, self.tracking_state, view, self.proj, self.settings,
                 fusion_active=self.fusion_active, proj_rgb=self.proj_rgb, rgb_to_depth=self.rgb_to_depth,
-                external_pose=external_pose, on_phase=on_phase,
+                external_pose=external_pose, on_phase=on_phase, capture=capture,
             )
         self.frame_no += 1
         return LazyDiag(d)
@@ -172,12 +178,20 @@ class MainEngine:
 
     # ----- outputs (reference: GetImage) ---------------------------------
     def get_pose(self) -> np.ndarray:
-        return self.tracking_state.pose.cpu().numpy()
+        """The current pose, a copy (the next frame writes the state's)."""
+        return self.tracking_state.pose.cpu().numpy().copy()
 
     def set_pose(self, pose) -> None:
         """External pose injection (reference: RosPoseSourceEngine writes
         trackingState->pose_d directly)."""
-        self.tracking_state = self.tracking_state._replace(pose=self._f32(pose))
+        self._write_pose(self._f32(pose))
+
+    def _write_pose(self, pose: torch.Tensor) -> None:
+        """Write the state's pose in place, as a captured step reads it where
+        it lies (a new tensor would mean a new graph); a pose the state
+        shares with another of its fields gets memory of its own first."""
+        self.tracking_state = captured.unalias(self.tracking_state)
+        self.tracking_state.pose.copy_(pose)
 
     def get_image(self, which: str = "raycast", pose=None, proj=None, view=None) -> np.ndarray:
         """Render an image (reference GetImage types): 'raycast' (grey

@@ -326,45 +326,51 @@ class DeviceFrameFeed(ImageSourceEngine):
     card ahead of the consumer (the JAX package's DeviceFrameFeed, a
     device-side frame ring). Each frame's depth and rgb are copied into
     pinned host buffers that a ring of `depth_frames` slots reuses, then to
-    the card with `non_blocking=True`, so the copy runs under the frames
-    before it; an event recorded after a slot's copies says when its
-    buffers may be written again (checked with `query`, waited on only
-    while the copy is still running). Frames already on the card pass
-    through; on device="cpu" every frame passes through unchanged."""
+    the card with `non_blocking=True` on the feed's own stream, so the copy
+    runs beside the frame steps (captured graph replays) before it; an
+    event recorded after a slot's copies says when its buffers may be
+    written again (checked with `query`, waited on only while the copy is
+    still running). `get_images` hands a frame out after making the
+    caller's stream wait for its copies on the device, never on the host,
+    so the step that copies it into its graph's static input runs after
+    them. Frames already on the card pass through; on device="cpu" every
+    frame passes through unchanged."""
 
     def __init__(self, inner: ImageSourceEngine, device: torch.device | str = "cuda", depth_frames: int = 3):
         self.inner = inner
         self.calib = inner.calib
         self.device = torch.device(device)
         self.depth_frames = depth_frames
-        self._q: list = []
+        self._q: list = []  # (frame, the event after its copies or None)
         self._pinned: list = [{} for _ in range(depth_frames)]  # slot → {field: pinned buffer}
         self._copied: list = [None] * depth_frames  # slot → event after its copies
         self._slot = 0
+        self._stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
 
     def _upload(self, out):
         if self.device.type != "cuda":
-            return out
+            return out, None
         slot = self._slot
         self._slot = (slot + 1) % self.depth_frames
         done = self._copied[slot]
         if done is not None and not done.query():
             done.synchronize()
         frame = []
-        for field, a in enumerate(out[:2]):
-            if a is None or (torch.is_tensor(a) and a.device.type == "cuda"):
-                frame.append(a if a is None else a.to(self.device))
-                continue
-            host = frame_tensor(a, "cpu")
-            buf = self._pinned[slot].get(field)
-            if buf is None or buf.shape != host.shape or buf.dtype != host.dtype:
-                buf = self._pinned[slot][field] = torch.empty(host.shape, dtype=host.dtype, pin_memory=True)
-            buf.copy_(host)
-            frame.append(buf.to(self.device, non_blocking=True))
-        done = torch.cuda.Event()
-        done.record()
+        with torch.cuda.stream(self._stream):
+            for field, a in enumerate(out[:2]):
+                if a is None or (torch.is_tensor(a) and a.device.type == "cuda"):
+                    frame.append(a if a is None else a.to(self.device))
+                    continue
+                host = frame_tensor(a, "cpu")
+                buf = self._pinned[slot].get(field)
+                if buf is None or buf.shape != host.shape or buf.dtype != host.dtype:
+                    buf = self._pinned[slot][field] = torch.empty(host.shape, dtype=host.dtype, pin_memory=True)
+                buf.copy_(host)
+                frame.append(buf.to(self.device, non_blocking=True))
+            done = torch.cuda.Event()
+            done.record(self._stream)
         self._copied[slot] = done
-        return tuple(frame) + tuple(out[2:])
+        return tuple(frame) + tuple(out[2:]), done
 
     def _fill(self) -> None:
         while len(self._q) < self.depth_frames and self.inner.has_more_images():
@@ -378,4 +384,14 @@ class DeviceFrameFeed(ImageSourceEngine):
         self._fill()
         if not self._q:
             raise StopIteration
-        return self._q.pop(0)
+        frame, done = self._q.pop(0)
+        if done is not None:
+            # the caller's stream waits for the copies on the device; the
+            # tensors, made on the feed's stream, are not reused before the
+            # caller's work on them has run
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(done)
+            for t in frame[:2]:
+                if t is not None:
+                    t.record_stream(stream)
+        return frame

@@ -20,11 +20,13 @@ all B lanes. B = 1 is the unbatched call. The wrappers bind each launch to a
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import fcntl
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -107,6 +109,51 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for k in _launches:
         _launches[k] = 0
+
+
+# the launch counter of each counted kernel, by the name of its __global__
+# function (mangled, or demangled) as a CUDA graph's kernel node names it
+# (engine/captured.py); the lock-step raycasts (K3h's serial walk, K3d at
+# LA 1) are not counted
+_SYMBOLS = tuple((re.compile(p), k) for p, k in (
+    (r"itpu_icp_kernel(ILb0E|<false>)", "icp"),
+    (r"itpu_icp_kernel(ILb1E|<true>)", "icp_weighted"),
+    (r"itpu_integrate_kernel(ILb0E|<false,)", "integrate"),
+    (r"itpu_integrate_kernel(ILb1E|<true,)", "integrate_color"),
+    (r"itpu_raycast_kernel\W*\w*ItpuBlockReader\W*\w*ItpuGridIndex(E|>)", "raycast"),
+    (r"itpu_raycast_kernel\W*\w*ItpuBlockReader\W*\w*ItpuHashIndex(E|>)", "raycast_hash"),
+    (r"itpu_raycast_kernel\W*\w*ItpuDenseReader(Lb[01]ELi2E|, (false|true), 2>)", "raycast_dense"),
+))
+
+
+def counter_of(symbol: str) -> Optional[str]:
+    """The launch counter (one of KERNELS) of the kernel function named
+    `symbol`, None for any other kernel."""
+    for pattern, kernel in _SYMBOLS:
+        if pattern.search(symbol):
+            return kernel
+    return None
+
+
+def add_launches(counts: dict) -> None:
+    """Count the launches a captured graph makes, at its replay
+    (engine/captured.py)."""
+    for k, n in counts.items():
+        _launches[k] += n
+
+
+@contextlib.contextmanager
+def tally():
+    """Yields a dict that holds, when the block ends, the launches counted
+    inside it; the counts are then left as they were before the block (a
+    capture records launches without running them)."""
+    before = dict(_launches)
+    counted: dict = {}
+    try:
+        yield counted
+    finally:
+        counted.update({k: n - before[k] for k, n in _launches.items() if n != before[k]})
+        _launches.update(before)
 
 
 def nvcc_path() -> str:

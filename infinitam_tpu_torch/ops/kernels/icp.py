@@ -20,6 +20,7 @@ the plain version lane by lane.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 from typing import Optional, Tuple
@@ -66,6 +67,38 @@ def _counter(index: int, stream: int, n_lanes: int) -> torch.Tensor:
     return torch.zeros((n_lanes,), dtype=torch.int32, device=torch.device("cuda", index))
 
 
+# K1's ticket counters inside a graph's warm-up and capture ((device, lanes) →
+# counter), set by graph_counters; None outside them
+_graph_counters: Optional[dict] = None
+
+
+@contextlib.contextmanager
+def graph_counters(counters: dict):
+    """Inside the block K1 takes its ticket counters from `counters`, a
+    captured graph's own (engine/captured.py), made in the graph's warm-up:
+    a counter made during capture would be a node of the graph, and an
+    eager launch on the capture stream would share the stream's counter
+    with the replays."""
+    global _graph_counters
+    prev, _graph_counters = _graph_counters, counters
+    try:
+        yield
+    finally:
+        _graph_counters = prev
+
+
+def _ticket_counter(index: int, stream: int, n_lanes: int) -> torch.Tensor:
+    if _graph_counters is None:
+        return _counter(index, stream, n_lanes)
+    c = _graph_counters.get((index, n_lanes))
+    if c is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("icp: a graph's ticket counters are made in its warm-up, not during capture")
+        c = _graph_counters[(index, n_lanes)] = torch.zeros((n_lanes,), dtype=torch.int32,
+                                                            device=torch.device("cuda", index))
+    return c
+
+
 @functools.cache
 def _max_ctas(index: int) -> int:
     return CTAS_PER_SM * torch.cuda.get_device_properties(index).multi_processor_count
@@ -103,7 +136,7 @@ def _launch(n_lanes: int, depth, view_proj, points_map, normals_map, scene_proj,
         depth.ptr(), weights.ptr(), h, w, points_map.ptr(), normals_map.ptr(), hs, ws,
         view_proj.ptr(), scene_proj.ptr(), approx_inv_pose.ptr(), scene_pose.ptr(),
         ctypes.c_float(dist_thresh), int(min_valid), n_ctas, partial.data_ptr(),
-        _counter(dev.index, stream, n_lanes).data_ptr(), out.data_ptr(), count.data_ptr(), n_lanes,
+        _ticket_counter(dev.index, stream, n_lanes).data_ptr(), out.data_ptr(), count.data_ptr(), n_lanes,
         build.lane_strides(args), stream,
     )
     build.check("itpu_icp_gh", err)

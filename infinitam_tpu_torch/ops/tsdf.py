@@ -17,6 +17,17 @@ from infinitam_tpu_torch.ops.pixel import bilinear
 from infinitam_tpu_torch.utils import se3
 
 
+def _select(mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor, into: bool) -> torch.Tensor:
+    """where(mask, a, b); with `into`, written into b with no new tensor
+    (under torch.vmap, which has no batching rule for `out=`, through a new
+    tensor and a copy)."""
+    if not into:
+        return torch.where(mask, a, b)
+    if torch._C._functorch.is_batchedtensor(b):
+        return b.copy_(torch.where(mask, a, b))
+    return torch.where(mask, a, b, out=b)
+
+
 class TsdfUpdate(NamedTuple):
     sdf: torch.Tensor
     w_depth: torch.Tensor
@@ -33,10 +44,13 @@ def update_voxel_depth(
     depth: torch.Tensor,  # [H, W] metric depth, −1 invalid
     mu: float,
     max_w: int,
+    keep: Optional[torch.Tensor] = None,  # bool: voxels left as they are
+    into: bool = False,
 ) -> TsdfUpdate:
     """Project each voxel centre into the depth image and fold min(1, η/μ)
     into the running average with weight 1 (capped at max_w); voxels more
-    than μ behind the surface (η < −μ) are untouched.
+    than μ behind the surface (η < −μ), and those in `keep`, are untouched.
+    With `into` the new sdf and weights are written into old_sdf and old_w.
 
     The camera transform rounds as the JAX package's einsum does
     (se3.apply_planes), and the CUDA kernel repeats every operation in the
@@ -60,12 +74,14 @@ def update_voxel_depth(
 
     eta = depth_measure - z
     do_update = valid & (eta >= -mu)
+    if keep is not None:
+        do_update = do_update & ~keep
     new_f = torch.clamp(eta / mu, max=1.0)
     merged_f = (old_w * old_sdf + new_f) / (old_w + 1)
     merged_w = torch.clamp(old_w + 1, max=max_w)
     return TsdfUpdate(
-        sdf=torch.where(do_update, merged_f, old_sdf),
-        w_depth=torch.where(do_update, merged_w, old_w),
+        sdf=_select(do_update, merged_f, old_sdf, into),
+        w_depth=_select(do_update, merged_w, old_w, into),
         eta=torch.where(valid, eta, torch.full_like(eta, -1.0)),
         updated=do_update,
     )
@@ -82,11 +98,13 @@ def update_voxel_color(
     mu: float,
     max_w: int,
     depth_updated: torch.Tensor,  # bool
+    into: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Colour running average of the voxels near the surface (|η/μ| ≤ 0.25
     and η ≤ μ, among those the depth update touched): project into the rgb
     image, take a bilinear tap inside the 1 px margin, fold it in with
-    weight 1 (capped at max_w). Returns (clr, wc)."""
+    weight 1 (capped at max_w). Returns (clr, wc), with `into` written into
+    old_clr and old_wc."""
     H, W = rgb.shape[:2]
     fx, fy, cx, cy = proj_rgb[0], proj_rgb[1], proj_rgb[2], proj_rgb[3]
     gate = depth_updated & ~((eta > mu) | (torch.abs(eta / mu) > 0.25))
@@ -98,7 +116,7 @@ def update_voxel_color(
     measure = bilinear(rgb, u, v)
     new_c = (old_clr * old_wc[..., None] + measure) / (old_wc + 1)[..., None]
     new_wc = torch.clamp(old_wc + 1, max=max_w)
-    return torch.where(gate[..., None], new_c, old_clr), torch.where(gate, new_wc, old_wc)
+    return _select(gate[..., None], new_c, old_clr, into), _select(gate, new_wc, old_wc, into)
 
 
 def integrate_dense(
@@ -116,21 +134,17 @@ def integrate_dense(
     M_rgb: Optional[torch.Tensor] = None,
     proj_rgb: Optional[torch.Tensor] = None,
     rgb: Optional[torch.Tensor] = None,
+    into: bool = False,
 ):
     """One fused elementwise pass over a set of voxels: the depth update,
     then with `vol_clr` the colour update. Voxels at max_w keep depth and
     colour when `stop_at_max_w`. Returns (sdf, w, clr, wc), the last two
-    None without colour."""
-    upd = update_voxel_depth(vol_sdf, vol_w, pt_world, M_d, proj_d, depth, mu, max_w)
-    sdf, w = upd.sdf, upd.w_depth
+    None without colour; with `into` they are vol_sdf, vol_w, vol_clr and
+    vol_wc, written in place (no new tensor of their size)."""
     frozen = vol_w >= max_w if stop_at_max_w else None
-    if frozen is not None:
-        sdf = torch.where(frozen, vol_sdf, sdf)
-        w = torch.where(frozen, vol_w, w)
+    upd = update_voxel_depth(vol_sdf, vol_w, pt_world, M_d, proj_d, depth, mu, max_w, keep=frozen, into=into)
     if vol_clr is None:
-        return sdf, w, None, None
-    clr, wc = update_voxel_color(vol_clr, vol_wc, pt_world, M_rgb, proj_rgb, rgb, upd.eta, mu, max_w, upd.updated)
-    if frozen is not None:
-        clr = torch.where(frozen[..., None], vol_clr, clr)
-        wc = torch.where(frozen, vol_wc, wc)
-    return sdf, w, clr, wc
+        return upd.sdf, upd.w_depth, None, None
+    clr, wc = update_voxel_color(vol_clr, vol_wc, pt_world, M_rgb, proj_rgb, rgb, upd.eta, mu, max_w, upd.updated,
+                                 into=into)
+    return upd.sdf, upd.w_depth, clr, wc

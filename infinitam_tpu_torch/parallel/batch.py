@@ -31,6 +31,7 @@ import torch
 import torch.distributed as dist
 
 from infinitam_tpu_torch.config import Settings
+from infinitam_tpu_torch.engine import captured
 from infinitam_tpu_torch.engine import dense_pipeline as dp
 from infinitam_tpu_torch.engine import hash_pipeline as hp
 
@@ -181,44 +182,68 @@ def _fleet_metrics(mesh: Optional[Mesh], st, n_visible=None) -> dict:
     return metrics
 
 
+def _batched(name: str, settings: Settings, mesh: Optional[Mesh], frame_step, n_state: int, fleet):
+    """The batched step over `frame_step` (an unbatched step, capture=False,
+    whose last output is the diagnostics), captured as one graph a lane
+    count (engine/captured.py): torch.vmap is traced inside the capture,
+    each kernel's vmap rule one launch for the lanes. Over several ranks
+    the fleet metrics' all-reduce runs after the replay, outside the graph
+    (gloo, on a shared card, stages through the host)."""
+    reduce_after = mesh is not None and mesh.n > 1
+
+    def step(*args, on_phase=hp.no_phase, capture=True):
+        state, view, proj = args[:n_state], args[n_state], args[n_state + 1]
+
+        def body(state, frame, on_phase=hp.no_phase):
+            view, proj = frame
+
+            def one_step(*a):
+                return frame_step(*a[:n_state], a[n_state], a[n_state + 1], settings, on_phase=on_phase,
+                                  capture=False)
+
+            dims = tuple(_dims(s) for s in state)
+            vstep = torch.vmap(one_step, in_dims=(*dims, _dims(view), 0 if proj.dim() == 2 else None),
+                               out_dims=(*dims, 0))
+            *new_state, diag = vstep(*state, view, proj)
+            metrics = {} if reduce_after else fleet(None, new_state, diag)
+            return tuple(new_state), metrics | {"diag": diag}
+
+        if not capture:
+            state, metrics = body(state, (view, proj), on_phase)
+        else:
+            captured.require_uncaptured(on_phase, capture)
+            static = (settings, state[0][0].shape[0], reduce_after)
+            state, out = captured.run(name, static, body, state, (view, proj))
+            metrics = out.read()
+        if reduce_after:
+            metrics = fleet(mesh, state, metrics["diag"]) | metrics
+        return (*state, metrics)
+
+    return step
+
+
 def make_batched_step(settings: Settings, mesh: Optional[Mesh] = None):
     """The [B]-batched hash-pipeline frame step: `step(vol, rs, state, view,
     proj) → (vol, rs, state, metrics)`, every argument with a leading [B]
     (`proj` may also be one [4] tensor all lanes share). metrics: mean_f,
     mean_valid (means over the lanes) and total_visible (their sum), device
-    scalars, and `diag`, the lanes' FrameDiagnostics ([B] fields). `vol.vox`
-    is updated in place, as in process_frame_hash. `on_phase` as in
-    process_frame_hash, called once a step for all lanes. With a mesh of
+    scalars, and `diag`, the lanes' FrameDiagnostics ([B] fields). The step
+    runs as one CUDA graph replay on the card, as process_frame_hash does:
+    the state comes back as the caller's tensors, written in place, and
+    metrics are copies; `capture=False` runs it op by op (new state tensors,
+    `vol.vox` updated in place), and only then takes `on_phase` (as in
+    process_frame_hash, called once a step for all lanes). With a mesh of
     several ranks the arguments are this rank's lanes (shard_batch), the
     three fleet metrics cover every rank's lanes and are equal on every
     rank, and `diag` holds this rank's lanes only."""
-
-    def step(vol, rs, st, view, proj, on_phase=hp.no_phase):
-        def one_step(vol, rs, st, view, proj):
-            return hp.process_frame_hash(vol, rs, st, view, proj, settings, on_phase=on_phase)
-
-        dims = (_dims(vol), _dims(rs), _dims(st))
-        vstep = torch.vmap(one_step, in_dims=(*dims, _dims(view), 0 if proj.dim() == 2 else None),
-                           out_dims=(*dims, 0))
-        vol, rs, st, diag = vstep(vol, rs, st, view, proj)
-        return vol, rs, st, _fleet_metrics(mesh, st, diag.n_visible) | {"diag": diag}
-
-    return step
+    return _batched("batched_hash", settings, mesh, hp.process_frame_hash, 3,
+                    lambda m, st, diag: _fleet_metrics(m, st[2], diag.n_visible))
 
 
 def make_batched_step_dense(settings: Settings, mesh: Optional[Mesh] = None):
     """The dense-array variant: `step(vol, state, view, proj) → (vol, state,
-    metrics)` with metrics mean_f, mean_valid and `diag`; `on_phase` and
-    the mesh as in make_batched_step."""
-
-    def step(vol, st, view, proj, on_phase=dp.no_phase):
-        def one_step(vol, st, view, proj):
-            return dp.process_frame_dense(vol, st, view, proj, settings, on_phase=on_phase)
-
-        dims = (_dims(vol), _dims(st))
-        vstep = torch.vmap(one_step, in_dims=(*dims, _dims(view), 0 if proj.dim() == 2 else None),
-                           out_dims=(*dims, 0))
-        vol, st, diag = vstep(vol, st, view, proj)
-        return vol, st, _fleet_metrics(mesh, st) | {"diag": diag}
-
-    return step
+    metrics)` with metrics mean_f, mean_valid and `diag`; `capture`,
+    `on_phase` and the mesh as in make_batched_step (op by op the volume is
+    updated in place, as process_frame_dense updates it)."""
+    return _batched("batched_dense", settings, mesh, dp.process_frame_dense, 2,
+                    lambda m, st, diag: _fleet_metrics(m, st[1]))

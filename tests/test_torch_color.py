@@ -31,6 +31,7 @@ from infinitam_tpu.engine.view_builder import View as JView
 from infinitam_tpu.io import synth as j_synth
 from infinitam_tpu.ops import tsdf as j_tsdf
 from infinitam_tpu_torch import convert
+from infinitam_tpu_torch.engine import captured
 from infinitam_tpu_torch.engine import hash_pipeline as t_hp
 from infinitam_tpu_torch.engine import hash_volume as t_hv
 from infinitam_tpu_torch.engine.view_builder import View
@@ -117,9 +118,9 @@ def replay():
                                                      SETTINGS, proj_rgb=jnp.asarray(PROJ))
         v_t, r_t, s_t, d_t = t_hp.process_frame_hash(v_t, r_t, s_t, View(depth=T(depth), rgb=T(rgb)), T(PROJ),
                                                      SETTINGS, proj_rgb=T(PROJ))
-        # the port updates its voxel planes in place: keep a copy per frame
-        out.append(((v_j, r_j, s_j), (v_t._replace(vox=v_t.vox.clone(), vox_rgb=v_t.vox_rgb.clone()), r_t, s_t),
-                    d_j, d_t))
+        # the port's step writes its state in place (captured.run): keep a
+        # copy per frame
+        out.append(((v_j, r_j, s_j), captured.tree_map(torch.clone, (v_t, r_t, s_t)), d_j, d_t))
     return frames, out
 
 

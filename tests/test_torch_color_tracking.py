@@ -26,6 +26,7 @@ from infinitam_tpu.ops import pyramid as j_pyr
 from infinitam_tpu.ops import voxel_access as j_va
 from infinitam_tpu.utils import se3 as j_se3
 from infinitam_tpu_torch import convert
+from infinitam_tpu_torch.engine import captured
 from infinitam_tpu_torch.engine import hash_pipeline as t_hp
 from infinitam_tpu_torch.engine import hash_volume as t_hv
 from infinitam_tpu_torch.engine import trackers as t_tr
@@ -84,8 +85,9 @@ def replay():
                                                      SETTINGS, proj_rgb=jnp.asarray(PROJ))
         v_t, r_t, s_t, d_t = t_hp.process_frame_hash(v_t, r_t, s_t, View(depth=T(depth), rgb=T(rgb)), T(PROJ),
                                                      SETTINGS, proj_rgb=T(PROJ))
-        out.append(((v_j, r_j, s_j, d_j), (v_t._replace(vox=v_t.vox.clone(), vox_rgb=v_t.vox_rgb.clone()), r_t, s_t,
-                                           d_t)))
+        # the port's step writes its state in place (captured.run): keep a
+        # copy per frame
+        out.append(((v_j, r_j, s_j, d_j), (*captured.tree_map(torch.clone, (v_t, r_t, s_t)), d_t)))
     return frames, out
 
 

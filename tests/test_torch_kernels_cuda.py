@@ -599,38 +599,55 @@ def test_merge_data_slab_on_the_card_equals_the_cpu(fused, fused_rgb, color):
 def test_swap_engine_round_trip_on_the_card(device):
     """MainEngine with swapping on the card: K1, K2 and K3 launched every
     frame; blocks go out on a look-away frame and merge their stored data
-    when the camera comes back; the exchange's pinned copies are always
-    ready when the host reads them two frames on (0 waits); after the flush
-    every allocated block is resident or stored."""
+    when the camera comes back; after the flush every allocated block is
+    resident or stored. Op by op (capture=False) the exchange's pinned
+    copies are always ready when the host reads them two frames on (0
+    waits); captured (the default), the host issues frames faster than the
+    card runs them, so it may wait there for the card (backpressure), but
+    at most once a frame whose host half runs (frames − PIPE_DEPTH): only
+    on that frame's own copy, never on an upload slot. The captured engine
+    ends as the op-by-op one does: equal poses, exchange counts and host
+    store."""
     from infinitam_tpu_torch.engine.main_engine import MainEngine
 
     settings = SETTINGS.replace(swapping_mode=SwappingMode.ENABLED)
     calib = default_calib(IMG[1], IMG[0])
     src = synth.SyntheticSource(calib, n_frames=6, img_size=IMG, device=device)
     frames = [src.get_images() for _ in range(6)]
-    eng = MainEngine(settings, calib, IMG, device=device)
-    build.reset_launch_counts()
-    for depth, _rgb, _gt in frames:
-        eng.process_frame(metric_depth=depth)
     iters = sum(TrackingParams(n_levels=3).iterations_per_level[:3])
-    assert build.launch_counts() == {"icp": 6 * iters, "icp_weighted": 0, "integrate": 6, "integrate_color": 0,
-                                     "raycast": 6, "raycast_hash": 0, "raycast_dense": 0}
     away = se3.se3_exp(torch.tensor([0.0, 0.0, 0.0, 0.0, float(np.pi), 0.0], device=device))
-    eng.set_pose(away)
-    eng.tracking_state = eng.tracking_state._replace(age=torch.tensor(-1, dtype=torch.int32, device=device))
-    eng.process_frame(metric_depth=synth.render_depth(away, eng.proj, IMG))
-    eng.set_pose(frames[0][2])
-    eng.tracking_state = eng.tracking_state._replace(age=torch.tensor(-1, dtype=torch.int32, device=device))
-    for depth, _rgb, _gt in frames[:5]:
-        eng.process_frame(metric_depth=depth)
-    ex = eng.swap_exchange
-    assert ex.n_waits == 0 and ex.n_evicted > 0 and ex.n_merged > 0
-    eng.flush_swap()
-    allocated = torch.nonzero(eng.vol.entry_ptr >= -1).squeeze(1)
-    resident = eng.vol.entry_ptr[allocated] >= 0
-    stored = torch.from_numpy(eng.global_cache.has_stored).to(device)[allocated]
-    assert bool((resident | stored).all())
-    assert np.isfinite(eng.get_pose()).all()
+    engines = {}
+    n_frames = len(frames) + 1 + 5
+    for capture in (False, True):
+        eng = MainEngine(settings, calib, IMG, device=device)
+        build.reset_launch_counts()
+        for depth, _rgb, _gt in frames:
+            eng.process_frame(metric_depth=depth, capture=capture)
+        assert build.launch_counts() == {"icp": 6 * iters, "icp_weighted": 0, "integrate": 6, "integrate_color": 0,
+                                         "raycast": 6, "raycast_hash": 0, "raycast_dense": 0}
+        eng.set_pose(away)
+        eng.tracking_state = eng.tracking_state._replace(age=torch.tensor(-1, dtype=torch.int32, device=device))
+        eng.process_frame(metric_depth=synth.render_depth(away, eng.proj, IMG), capture=capture)
+        eng.set_pose(frames[0][2])
+        eng.tracking_state = eng.tracking_state._replace(age=torch.tensor(-1, dtype=torch.int32, device=device))
+        for depth, _rgb, _gt in frames[:5]:
+            eng.process_frame(metric_depth=depth, capture=capture)
+        ex = eng.swap_exchange
+        assert ex.n_evicted > 0 and ex.n_merged > 0
+        assert ex.n_waits <= (n_frames - ex.PIPE_DEPTH if capture else 0)
+        eng.flush_swap()
+        allocated = torch.nonzero(eng.vol.entry_ptr >= -1).squeeze(1)
+        resident = eng.vol.entry_ptr[allocated] >= 0
+        stored = torch.from_numpy(eng.global_cache.has_stored).to(device)[allocated]
+        assert bool((resident | stored).all())
+        assert np.isfinite(eng.get_pose()).all()
+        engines[capture] = eng
+    a, b = engines[False], engines[True]
+    np.testing.assert_array_equal(a.get_pose(), b.get_pose())
+    assert (a.swap_exchange.n_evicted, a.swap_exchange.n_listed, a.swap_exchange.n_merged) == \
+        (b.swap_exchange.n_evicted, b.swap_exchange.n_listed, b.swap_exchange.n_merged)
+    np.testing.assert_array_equal(a.global_cache.has_stored, b.global_cache.has_stored)
+    assert torch.equal(a.vol.vox, b.vol.vox)
 
 
 def assert_raycast_matches_plain(k, p):
