@@ -43,6 +43,25 @@ its single launch (K1 and K2 bit for bit, K3 and K3d equal) and to the
 plain twin, with the B = 3 device time printed beside 3 × the single
 launch's.
 
+The probes' kernels P1-P6 (csrc/probes.cu, the counterparts of the 16
+`pallas_call`s of tools/probe2.py and probe6-13.py) are checked next, each
+at every site's full shape: P1's gathers (probe2's four tables and its
+take_along_axis, probe6's nine tables), P2's row updates (probe7, probe8's
+six bodies, probe9, probe10's eight attempts, probe12's `integ`, probe13's
+int8 row stores), P3 (probe9's page accumulator, probe13's raycast
+skeleton), P4 (probe11's two and probe12's three decompositions), P5
+(probe11's 2048³ bf16 product; also bit-equal on integer inputs) and P6
+(probe13's window sums), each held to its plain twin (bit-equal where no sum
+order differs; P2's taps within 1e-6, float32 P3 and P6 within 1e-5, P5
+within the float32 summation bound of the exact product, rounded to bf16,
+with the elements more than one bf16 ulp from plain counted), with device
+time warm (and cold for P2-P4), call, plain and library time (`torch.take`,
+`torch.gather`, `torch.mul`, `torch.matmul`: every device kernel of the
+call) and the bound (bytes of the distinct 32-byte sectors and rows the
+inputs touch; P5's operations over 989.4 TFLOP/s bf16). Then `python -m
+infinitam_tpu_torch.probes` runs in-process (its main(), all nine probes on
+the card), the path of P1-P6's launch counts: each must launch.
+
 Then it replays 30 synthetic 640×480 RGB-D frames, rendered on the card,
 through the port's frame loop in the three configurations of the JAX
 package's benchmark: 5 mm and 1 cm voxels with depth ICP, and the 1 cm point
@@ -201,6 +220,7 @@ SYNC_MSG = "called a synchronizing CUDA operation"
 # 3.35 TB/s, float32 outside the tensor cores at 67 TFLOP/s.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
+PEAK_BF16_PER_S = 989.4e12  # dense bf16 on the tensor cores: the probes' P5
 # float32 operations per element, counted from the kernels' sources
 ICP_OPS_PIXEL = 116  # csrc/icp.cu: back-projection, two transforms, projection, the point tap, the gate
 ICP_OPS_VALID = 121  # a valid pixel's normal tap, b, A and its 29 products and sums
@@ -310,7 +330,8 @@ HASHPROBE_PATH = ("icp", "integrate", "raycast_hash")
 COUNTERS = ("n_alloc_overflow", "n_render_overflow", "n_pool_overflow", "n_too_big_blocks", "n_window_clipped")
 COUNTER = {"icp_reduce": "icp", "icp_reduce_weighted": "icp_weighted", "integrate_depth": "integrate",
            "integrate_color": "integrate_color", "raycast_grid": "raycast", "raycast_hash_probe": "raycast_hash",
-           "raycast_dense": "raycast_dense"}
+           "raycast_dense": "raycast_dense", **{k: k for k in ("probe_gather", "probe_rows", "probe_page_sum",
+                                                                 "probe_scale", "probe_gemm", "probe_window_sums")}}
 
 
 # a raycast kernel's reader in its mangled name, and the kernel of each
@@ -369,31 +390,50 @@ class L2Flush:
 
     def __init__(self, device):
         self.buf = torch.empty(32 * 2**20, dtype=torch.int32, device=device)
+        self._names = None
 
     def __call__(self):
         self.buf.fill_(1)
 
+    def names(self) -> set:
+        """The names of the device ops a flush runs, from a profile of one
+        flush taken at the first call (after the repo's kernels are loaded)."""
+        if self._names is None:
+            from torch.autograd import DeviceType
+            from torch.profiler import ProfilerActivity
+            from torch.profiler import profile as torch_profile
 
-def device_ms(fn, reps: int, flush: L2Flush | None = None):
-    """(device ms, repo kernels, other device ops) per call of `fn`, from a
-    torch.profiler window of `reps` calls after one warm-up call: the mean
-    duration of the repo's own kernels (named itpu_*) times the kernels a
-    call launches, and the device operations of any other kind a call ran.
-    With `flush`, the L2 is flushed before each call (a cold time); the
-    flush is not counted among the call's device ops. The profiler may lose
-    an event at the window's edge, so the kernel count is rounded and the
-    time is a mean over the kernels it saw; it has also lost a whole
-    window's device events on the card. So a window in which it saw less
-    than half a kernel a call, or device ops that are not a whole number a
-    call (an event lost), is taken again, twice at most, and its counts are
-    printed; the last window counts. The device ms is None when the profiler saw none of the repo's
-    kernels."""
+            self()
+            torch.cuda.synchronize()
+            with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                self()
+                torch.cuda.synchronize()
+            self._names = {e.name for e in prof.events() if e.device_type == DeviceType.CUDA}
+        return self._names
+
+
+def device_ms(fn, reps: int, flush: L2Flush | None = None, match: str = "itpu_"):
+    """(device ms, matched kernels, other device ops) per call of `fn`, from
+    a torch.profiler window of `reps` calls after one warm-up call: the mean
+    duration of the kernels whose name holds `match` (the repo's own,
+    itpu_*, by default; "" matches every device op, as for a library call)
+    times the kernels a call launches, and the device operations of any
+    other kind a call ran. With `flush`, the L2 is flushed before each call
+    (a cold time); the flush's device ops are left out of both counts. The
+    profiler may lose an event at the window's edge, so the kernel count is
+    rounded and the time is a mean over the kernels it saw; it has also
+    lost a whole window's device events on the card. So a window in which
+    it saw less than half a kernel a call, or device ops that are not a
+    whole number a call (an event lost), is taken again, twice at most, and
+    its counts are printed; the last window counts. The device ms is None
+    when the profiler saw none of the matched kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
     fn()
     torch.cuda.synchronize()
+    skip = set() if flush is None else flush.names()
     for window in range(3):
         with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -401,24 +441,25 @@ def device_ms(fn, reps: int, flush: L2Flush | None = None):
                     flush()
                 fn()
             torch.cuda.synchronize()
-        on_device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        ours = [e for e in on_device if "itpu_" in e.name]
+        on_device = [e for e in prof.events() if e.device_type == DeviceType.CUDA and e.name not in skip]
+        ours = [e for e in on_device if match in e.name]
         per_call = round(len(ours) / reps)
         if per_call > 0 and len(ours) % reps == 0 and len(on_device) % reps == 0:
             break
-        print(f"  (profiler window {window + 1} of 3 lost events: {len(ours)} repo kernels and {len(on_device)} "
+        print(f"  (profiler window {window + 1} of 3 lost events: {len(ours)} matched kernels and {len(on_device)} "
               f"device ops over {reps} calls; " + ("taken again)" if window < 2 else "kept as the last)"))
-    others = (len(on_device) - len(ours)) / reps - (flush is not None)
+    others = (len(on_device) - len(ours)) / reps
     if per_call == 0:
         return None, per_call, others
     us = sum(e.time_range.end - e.time_range.start for e in ours)
     return us / 1000 / len(ours) * per_call, per_call, others
 
 
-def bound(n_bytes: float, n_ops: float) -> dict:
+def bound(n_bytes: float, n_ops: float, peak_ops: float = PEAK_F32_PER_S) -> dict:
     """The least time the card could take: the larger of the bytes over the
-    memory rate and the float32 operations over the float32 rate."""
-    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S * 1e3, n_ops / PEAK_F32_PER_S * 1e3
+    memory rate and the operations over their rate (float32 unless
+    `peak_ops` names another)."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S * 1e3, n_ops / peak_ops * 1e3
     return dict(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
                 bound_bytes=int(n_bytes), bound_ops=int(n_ops))
 
@@ -426,6 +467,11 @@ def bound(n_bytes: float, n_ops: float) -> dict:
 def distinct(idx: torch.Tensor) -> int:
     """How many distinct values `idx` holds."""
     return int(torch.unique(idx).numel())
+
+
+def sectors(offsets: torch.Tensor) -> int:
+    """Bytes of the distinct 32-byte sectors the byte offsets fall in."""
+    return 32 * distinct(offsets // 32)
 
 
 def bilinear_corners(u: torch.Tensor, v: torch.Tensor, width: int) -> torch.Tensor:
@@ -2266,6 +2312,289 @@ class Smoke:
         self.gate(same and ok, f"{label} at B = {B}: lanes equal to single launches, plain within its bar")
         return timed(label, lambda: torch.vmap(kernel)(*args), lambda: kernel(*(a[0] for a in args)))
 
+    # --- the probes' kernels, P1-P6 (csrc/probes.cu) -----------------------
+    def probe_site(self, counter, label, make, kernel, plain_fn, compare, traffic, library=None,
+                   peak_ops=PEAK_F32_PER_S):
+        """One probe site at its full shape: `kernel(*make())` held to
+        `plain_fn(*make())` by `compare(got, want)` → (ok, max abs error,
+        what), with the bound of `traffic` (bytes, operations) over the
+        memory rate and `peak_ops`. Timed on the device cold (the L2 flushed
+        before each call) and warm, by call, the plain version's call and,
+        with `library` (a function of the same arguments), the library
+        call's device time cold and warm (every device op it runs). The
+        share of the bound reads the cold time: most sites' working sets fit
+        the 50 MB L2, where a warm call reads them at more than the memory
+        rate the bound assumes."""
+        got, want = kernel(*make()), plain_fn(*make())
+        torch.cuda.synchronize()
+        ok, err, what = compare(got, want)
+        del got, want
+        args = make()
+        b = bound(*traffic, peak_ops)
+        cold, per_call, others = device_ms(lambda: kernel(*args), 20, self.flush)
+        warm = device_ms(lambda: kernel(*args), 50)[0]
+        call = cuda_ms(lambda: kernel(*args), 50)
+        plain = cuda_ms(lambda: plain_fn(*args), 5)
+        lib = lib_warm = None
+        if library is not None:
+            lib = device_ms(lambda: library(*args), 20, self.flush, match="")[0]
+            lib_warm = device_ms(lambda: library(*args), 50, match="")[0]
+        print(f"{counter} {label}: {what}; cold " + timing_line(cold, per_call, others, b, call, plain)
+              + f", warm {fmt_ms(warm)}"
+              + ("" if library is None else f", library cold {fmt_ms(lib)} warm {fmt_ms(lib_warm)}"))
+        self.gate(ok, f"{counter} {label}: {what}")
+        self.gate(per_call == 1 and others == 0, f"{counter} {label}: one device kernel a call, no other device op")
+        return dict(label=label, max_abs_err=err, ms=cold, cold_ms=cold, warm_ms=warm, call_ms=call,
+                    plain_ms=plain, library_ms=lib, library_warm_ms=lib_warm, **b)
+
+    def probe_checks(self) -> list:
+        """Each of the 16 probe sites of tools/ at the script's full shape,
+        its kernel (P1-P6) held to its plain twin and timed
+        (`probe_site`), each site run through its probe module's own site
+        function with the kernel's wrapper and with its plain twin; returns
+        the `kernels` entries of P1-P6, the first site of each the headline,
+        every site listed under "sites"."""
+        from infinitam_tpu_torch.ops.kernels import probes as kp
+        from infinitam_tpu_torch.probes import plain as pp
+        from infinitam_tpu_torch.probes import (probe2, probe6, probe7, probe8, probe9, probe10, probe11, probe12,
+                                                probe13)
+
+        def on(*arrays):
+            return [torch.from_numpy(np.array(a)).to(self.dev) for a in arrays]
+
+        def compare(tol=0.0, rows=None):
+            def cmp(got, want):
+                g, w = (got, want) if rows is None else (got[rows], want[rows])
+                err = float((g.float() - w.float()).abs().max())
+                where = "" if rows is None else f" on the {g.shape[0]} written rows"
+                if tol == 0.0:
+                    return torch.equal(g, w), err, f"bit-equal to plain{where} (max abs err {err:.3e})"
+                return err <= tol, err, f"within {tol:g} of plain{where} (max abs err {err:.3e})"
+            return cmp
+
+        def recorded(call, *args):
+            """The arguments a site function `call(fn, *args)` gives its
+            kernel: (positional, keyword)."""
+            seen = []
+
+            def record(*a, **kw):
+                seen.append((a, kw))
+                return a[0]
+
+            call(record, *args)
+            return seen[0]
+
+        found: dict = {c: [] for c in kp.COUNTERS.values()}
+
+        def add(counter, site, row):
+            found[counter].append(dict(row, site=site))
+
+        # P1: take and take_along_axis; library torch.take / torch.gather
+        def gather_site(site, label, tab, idx, axis=None):
+            e, i = tab.element_size(), idx.long()
+            if axis is None:
+                flat = i.reshape(-1)
+            elif axis == 0:
+                flat = i * tab.shape[1] + torch.arange(idx.shape[1], device=self.dev)[None, :]
+            else:
+                flat = torch.arange(idx.shape[0], device=self.dev)[:, None] * tab.shape[1] + i
+            traffic = (sectors(flat * e) + idx.numel() * (4 + e), 0)
+            # the library calls take int64 indices: made once, outside the timed call
+            library = ((lambda t, _x: torch.take(t, i)) if axis is None else (lambda t, _x: torch.gather(t, axis, i)))
+            add("probe_gather", site, self.probe_site(
+                "probe_gather", f"{site} {label}", lambda: (tab, idx), lambda t, x: kp.gather(t, x, axis),
+                lambda t, x: pp.gather(t, x, axis), compare(), traffic, library))
+
+        for name, n_tab, dtype, n_range in probe2.TAKES:
+            gather_site("tools/probe2.py:27", name[3:], *on(*probe2.make_take(n_tab, dtype, n_range)))
+        gather_site("tools/probe2.py:47", "take_along_axis ax0 [1024,128] by [8,128]", *on(*probe2.make_along()), 0)
+        for rows, cols, dtype, axis, name in probe6.MATRIX:
+            tab, idx = probe6.make_dg(rows, cols, dtype, axis)
+            gather_site("tools/probe6.py:42", f"dg {name} [{rows},{cols}] {dtype} axis{axis}",
+                        probe6.to_table(tab, dtype, self.dev), *on(idx), axis)
+
+        # P2: the row update; no library call computes it. `call(fn, vba)`
+        # is the site through fn (kp.row_update or pp.row_update) on rows vba.
+        def rows_site(site, label, vba, call, tol):
+            (_v, ptr), kw = recorded(call, vba)
+            nv, row_len = ptr.numel(), vba.shape[1]
+            p, steps = ptr.long(), torch.arange(nv, device=self.dev)
+            gate, tap, in_place = kw.get("gate", "none"), kw.get("tap", "none"), kw.get("in_place", True)
+            if gate == "ptr":
+                steps = steps[p >= 0]
+            elif gate == "first":
+                steps = pp.first_steps(p)
+            # the steps that change their row; in place, a step the valid gate keeps moves nothing
+            changed = steps if gate != "valid" else steps[kw["valid"].long()[steps] > 0]
+            moved = changed if in_place else steps
+            src = p[moved] if kw.get("src_ptr", True) else moved
+            dst = p[moved] if kw.get("dst_ptr", True) else moved
+            n_bytes = 4 * nv + row_len * vba.element_size() * (distinct(src) + distinct(dst))
+            n_ops = changed.numel() * row_len * (1 if tap == "none" else 3)  # · mul (int8: + 1); + tap · s, +
+            if gate == "valid":
+                n_bytes += 4 * nv
+            if tap != "none":
+                n_bytes += 8 * nv
+                wv, wu = kw["wv"].long()[changed][:, None], kw["wu"].long()[changed][:, None]
+                if tap == "sum":
+                    n_bytes += distinct(wv * 64 + wu) * pp.WIN * pp.WIN * 4
+                    n_ops += changed.numel() * pp.WIN * pp.WIN
+                else:
+                    dv = (3 * torch.arange(row_len, device=self.dev)[None, :] + changed[:, None]) % pp.WIN
+                    du, w = (7 * dv) % pp.WIN, kw["img"].shape[1]
+                    flat = ((wv * pp.WIN + dv) * w + wu * pp.WIN + du if tap == "bf16"
+                            else (wu * pp.WIN + du) * w + wv * pp.WIN + dv)
+                    n_bytes += sectors(flat * 4)
+            written = None if in_place else (p[steps] if kw.get("dst_ptr", True) else steps)
+            add("probe_rows", site, self.probe_site(
+                "probe_rows", f"{site} {label}", (lambda: (vba.clone(),)) if in_place else (lambda: (vba,)),
+                lambda v: call(kp.row_update, v), lambda v: call(pp.row_update, v), compare(tol, written),
+                (n_bytes, n_ops)))
+            if tap != "none":  # on zero rows the output is the scaled tap itself (1e-9 · tap vanishes beside a row)
+                z = torch.zeros_like(vba)
+                listed = p[steps] if kw.get("dst_ptr", True) else steps
+                got, want = call(kp.row_update, z.clone())[listed], call(pp.row_update, z.clone())[listed]
+                err, top = float((got - want).abs().max()), float(want.abs().max())
+                ok = top > 0 and (err <= 1e-5 * top if tap == "sum" else torch.equal(got, want))
+                self.gate(ok, f"probe_rows {site} {label} on zero rows: the scaled taps "
+                              + ("within 1e-5 of their largest" if tap == "sum" else "bit-equal to plain")
+                              + f" (max abs err {err:.3e}, largest {top:.3e})")
+
+        vba, depth, ptr, wv, wu, valid = on(*probe7.make(*probe7.FULL))
+        rows_site("tools/probe7.py:77", f"mini-integrate {ptr.numel()} blocks, bf16 tap, valid, in place", vba,
+                  lambda fn, v: probe7.update(fn, v, depth, ptr, wv, wu, valid), 1e-6)
+        vba, depth, ptr, wv, wu = on(*probe8.make(*probe8.FULL))
+        for name, kw, tol in probe8.ATTEMPTS:
+            rows_site("tools/probe8.py:28", name, vba,
+                      lambda fn, v, kw=kw: probe8.attempt(fn, v, depth, ptr, wv, wu, **kw), tol)
+        vba, depth_t, ptr, wv, wu, valid = on(*probe9.make(*probe9.FULL))
+        rows_site("tools/probe9.py:53", f"integrate-pattern {ptr.numel()} blocks, f32 tap, valid, in place", vba,
+                  lambda fn, v: probe9.update(fn, v, depth_t, ptr, wv, wu, valid), 1e-6)
+        vba, depth_t, ptr, seq, wv, wu = on(*probe10.make(*probe10.FULL))
+        for name, flags in probe10.ATTEMPTS:
+            rows_site("tools/probe10.py:69", name, vba,
+                      lambda fn, v, flags=flags: probe10.attempt(fn, v, depth_t, ptr, seq, wv, wu, *flags),
+                      1e-6 if flags[2] else 0.0)
+        rows_site("tools/probe12.py:105", f"dyn-row integrate {ptr.numel()} blocks, not aliased", vba,
+                  lambda fn, v: probe12.integ(fn, v, depth_t, ptr, wv, wu), 1e-6)
+        vol, _pid = on(*probe13.make_volume())
+        (rows,) = on(probe13.make_rows())
+        rows_site("tools/probe13.py:113", f"int8 +1 on {rows.numel()} listed rows ({distinct(rows)} distinct)", vol,
+                  lambda fn, v: probe13.row_stores(fn, v, rows), 0.0)
+        del vba, depth, depth_t, ptr, seq, wv, wu, valid, vol, rows
+
+        # P3: the page gather-sum; no library call computes it
+        def page_site(site, label, pages, ids, call, tol):
+            (_q, ids_2d, k, n_cols), kw = recorded(call, pages, ids)
+            hashed = kw.get("hashed", False)
+            nt, row_len, e = ids_2d.shape[0], pages.shape[1], pages.element_size()
+            c = torch.arange(n_cols, device=self.dev)[None, :]
+            sel = (17 * c + torch.arange(nt, device=self.dev)[:, None]) % row_len if hashed else c
+            flat = ids_2d[:, :k].long()[:, :, None] * row_len + sel[:, None, :]
+            traffic = (sectors(flat * e) + 4 * nt * k + 4 * nt * n_cols, nt * n_cols * (k + 1))
+            add("probe_page_sum", site, self.probe_site(
+                "probe_page_sum", f"{site} {label}", lambda: (pages, ids), lambda q, i: call(kp.page_sum, q, i),
+                lambda q, i: call(pp.page_sum, q, i), compare(tol), traffic))
+
+        vol, pid = on(*probe13.make_volume())
+        page_site("tools/probe13.py:51", f"raycast skeleton, int8, {pid.shape[0]} tiles × {probe13.KP} pages", vol,
+                  pid, probe13.raycast_skeleton, 0.0)
+        pages, p = on(*probe9.make_pages())
+        page_site("tools/probe9.py:115", f"page accumulator, f32, {p.numel() // probe9.K} tiles × {probe9.K} pages",
+                  pages, p, probe9.accumulate, 1e-5)
+        del vol, pid, pages, p
+
+        # P4: the scaled copy; library torch.mul
+        def copy_site(site, x, rows_per_cta):
+            add("probe_scale", site, self.probe_site(
+                "probe_scale", f"{site} [{x.shape[0]}, {x.shape[1]}] in {x.shape[0] // rows_per_cta} CTAs of "
+                               f"{rows_per_cta} rows", lambda: (x,), lambda y: kp.scaled_copy(y, rows_per_cta),
+                lambda y: pp.scaled_copy(y, rows_per_cta), compare(), (8 * x.numel(), x.numel()),
+                lambda y: torch.mul(y, 1.000001)))
+
+        rows, cols, ctas = probe11.COPY
+        (x,) = on(probe11.make_copy(rows, cols))
+        copy_site("tools/probe11.py:58", x, rows // ctas)
+        (x,) = on(probe11.make_copy(*probe11.TINY, seed=1))
+        copy_site("tools/probe11.py:73", x, 1)
+        (x,) = on(probe12.make_copy(seed=2))
+        for _ctas, per_cta in probe12.DECOMPOSITIONS:
+            copy_site("tools/probe12.py:59", x, per_cta)
+        del x
+
+        # P5: the bf16 product; library torch.matmul on the same bf16 inputs
+        a, b = (probe11.to_bf16(t, self.dev) for t in probe11.make_mm())
+        m, k = a.shape
+        n = b.shape[1]
+
+        def ulps(got, want):
+            kernel_bound, plain_bound = pp.bf16_product_bound(got, a, b), pp.bf16_product_bound(want, a, b)
+            g, w = got.float(), want.float()
+            far = (g - w).abs() > pp.bf16_ulp(torch.maximum(g.abs(), w.abs()))
+            exact = (a.double() @ b.double()).abs()
+            return (float(kernel_bound.max()) <= 1.0, float((g - w).abs().max()),
+                    f"within the float32 summation bound of the exact product, rounded to bf16 (max "
+                    f"{float(kernel_bound.max()):.4f} of it; plain {float(plain_bound.max()):.4f}); "
+                    f"{int(far.sum())} of {got.numel()} elements > 1 bf16 ulp from plain, all with |exact| ≤ "
+                    f"{float(exact[far].max()) if far.any() else 0.0:.3e}")
+
+        add("probe_gemm", "tools/probe11.py:31", self.probe_site(
+            "probe_gemm", f"tools/probe11.py:31 {m}×{n}×{k} bf16", lambda: (a, b), kp.gemm_bf16, pp.gemm_bf16, ulps,
+            (2 * (m * k + k * n + m * n), 2 * m * n * k), torch.matmul, peak_ops=PEAK_BF16_PER_S))
+        ai, bi = (torch.from_numpy(np.random.default_rng(s).integers(-8, 9, (2048, 2048)).astype(np.float32))
+                  .to(self.dev).to(torch.bfloat16) for s in (3, 4))
+        same = torch.equal(kp.gemm_bf16(ai, bi), pp.gemm_bf16(ai, bi))
+        self.gate(same, "probe_gemm on integer inputs in [-8, 8] (every partial sum exact in float32): bit-equal "
+                        "to plain")
+        del a, b, ai, bi
+
+        # P6: the window column sums; no library call computes them
+        img, starts = on(*probe13.make_window())
+        nt, st = starts.shape[0], starts.reshape(starts.shape[0], -1)
+        r = torch.arange(64, device=self.dev)
+        flat = ((st[:, 0].long()[:, None, None] + r[None, :, None]) * img.shape[1] + st[:, 1].long()[:, None, None]
+                + r[None, None, :])
+        add("probe_window_sums", "tools/probe13.py:85", self.probe_site(
+            "probe_window_sums", f"tools/probe13.py:85 {nt} tiles of 64×64", lambda: (img, starts),
+            lambda i, t: probe13.window_sums(kp.window_sums, i, t),
+            lambda i, t: probe13.window_sums(pp.window_sums, i, t), compare(1e-5), (sectors(flat * 4) + 32 * nt + 4 * nt * 128, nt * 64 * 64)))
+
+        kernels = []
+        for counter, rows in found.items():
+            head = rows[0]
+            sites = [site for site in kp.SITES if any(r["site"] == site for r in rows)]
+            kernels.append(dict(
+                name=counter, route="cuda", source="infinitam_tpu_torch/csrc/probes.cu", replaces=", ".join(sites),
+                max_abs_err=max(r["max_abs_err"] for r in rows), headline=head["label"],
+                **{key: head[key] for key in ("ms", "cold_ms", "warm_ms", "call_ms", "plain_ms", "library_ms",
+                                              "library_warm_ms", "bound_ms", "bound_by", "bound_bytes", "bound_ops")},
+                sites=[{key: r[key] for key in ("label", "ms", "warm_ms", "call_ms", "plain_ms", "library_ms",
+                                                "library_warm_ms", "bound_ms", "bound_by", "max_abs_err")}
+                       for r in rows]))
+        return kernels
+
+    def probes_main_path(self) -> dict:
+        """This slice's path: `python -m infinitam_tpu_torch.probes` (its
+        main(), all nine probes, on the card), with the launch counts set to 0
+        just before and read just after; each of P1-P6 must launch."""
+        from infinitam_tpu_torch.ops.kernels import probes as kp
+        from infinitam_tpu_torch.probes import __main__ as probes_main
+
+        self.build.reset_launch_counts()
+        t0 = time.perf_counter()
+        results = probes_main.main([])
+        torch.cuda.synchronize()
+        counts = {c: self.build.launch_counts()[c] for c in kp.COUNTERS.values()}
+        print(f"probes main path (python -m infinitam_tpu_torch.probes, all nine probes): "
+              f"{time.perf_counter() - t0:.1f} s, launches {counts}")
+        for c, n in counts.items():
+            self.gate(n > 0, f"{c} launched on the probes' main path ({n} launches)")
+        self.gate(all(r["ok"] for r in results["probe8"]), "probe8: every body equal to its plain twin on the card")
+        timed = [r for rs in results.values() for r in rs if r["name"].startswith("P")]
+        self.gate(all(r["device_ms"] is not None for r in timed),
+                  f"the probes' {len(timed)} kernel lines each have a device time")
+        return counts
+
     def profile(self, name, settings, frames, kind="frames", capture=True):
         """torch.profiler over the last PROFILE_FRAMES frames of a replay on a
         fresh map (the frames before them warm the map up, unprofiled, and
@@ -2421,10 +2750,14 @@ def main() -> int:
     smoke.k3_check("1 cm", s1, vol, rs, st)
     kernels.insert(3, smoke.color_kernel_check(s1, vol, rs, frames, gt))
     del vol, rs, st
+    # the probes' kernels: each site of tools/ at full shape, then the
+    # probes' entry point, the path of their launch counts
+    kernels += smoke.probe_checks()
+    probe_launches = smoke.probes_main_path()
     # launches per kernel summed over the replays' counted runs (each run's
     # counts are reset just before it and read just after), and per frame of
     # each replay
-    launches = dict.fromkeys(build.KERNELS, 0)
+    launches = dict.fromkeys(build.KERNELS, 0) | probe_launches
     per_frame, per_step, timing, efficiency = {}, {}, {}, {}
 
     def batched(name, settings, kind, n_lanes, expected, single):

@@ -10,7 +10,8 @@ Nothing here runs at import time: the first kernel launch builds.
 Every C entry point takes its pointers and the CUDA stream as `void*` and
 returns `cudaGetLastError()` after its launches; `check` raises on nonzero.
 
-Every kernel is lane-indexed: an entry point takes a lane count B and a host
+Every kernel of the package's paths is lane-indexed (the probes' P1-P6 are
+not: no batched path runs them): an entry point takes a lane count B and a host
 array of lane strides, one a tensor argument (the elements from one lane's
 tensor to the next; 0 for a tensor every lane shares), and one launch runs
 all B lanes. B = 1 is the unbatched call. The wrappers bind each launch to a
@@ -38,7 +39,7 @@ import torch
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "kernels"
-SOURCES = ("icp.cu", "integrate.cu", "raycast.cu")
+SOURCES = ("icp.cu", "integrate.cu", "raycast.cu", "probes.cu")
 HEADERS = ("common.cuh",)
 
 # -fmad=false: no multiply-add contraction, so each kernel rounds like its
@@ -86,9 +87,24 @@ SIGNATURES = {
     "itpu_raycast_dense_lockstep": (P, I, I, I, I, I, I, I, P, P, F, P, P, I, I, F, P, P, I, P, P),
     # kernel (0 K3, 1 K3h, 2 K3d, 3 K3h and 4 K3d lock-step), n_lanes, ctas_per_sm out, sms out
     "itpu_raycast_occupancy": (I, I, P, P),
+    # P1-P6, the probes' kernels (ops/kernels/probes.py; not lane-indexed: no batched path runs them)
+    # tab, idx, out, n, mode (0 take, 1 along axis 0, 2 along axis 1), elem_bytes, tab_cols, idx_cols, stream
+    "itpu_probe_gather": (P, P, P, I, I, I, I, I, P),
+    # in, out, row_len, elem_bytes, ptr, n_steps, src_ptr, dst_ptr, wv, wu, valid, img, img_w, tap, gate,
+    # tap_scale, mul, stream
+    "itpu_probe_rows": (P, P, I, I, P, I, I, I, P, P, P, P, I, I, I, F, F, P),
+    # pages, row_len, elem_bytes, ids, ids_stride, k_pages, n_tiles, out, n_cols, hashed, scale, stream
+    "itpu_probe_page_sum": (P, I, I, P, I, I, I, P, I, I, F, P),
+    # in, out, n_ctas, vec_per_cta, mul, stream
+    "itpu_probe_scale": (P, P, I, I, F, P),
+    # a, b, c, m, n, k, stream
+    "itpu_probe_gemm": (P, P, P, I, I, I, P),
+    # img, img_w, starts, starts_stride, n_tiles, win_h, win_w, out, out_w, stream
+    "itpu_probe_window_sums": (P, I, P, I, I, I, I, P, I, P),
 }
 
-KERNELS = ("icp", "icp_weighted", "integrate", "integrate_color", "raycast", "raycast_hash", "raycast_dense")
+KERNELS = ("icp", "icp_weighted", "integrate", "integrate_color", "raycast", "raycast_hash", "raycast_dense",
+           "probe_gather", "probe_rows", "probe_page_sum", "probe_scale", "probe_gemm", "probe_window_sums")
 _launches = dict.fromkeys(KERNELS, 0)
 
 # seconds the last build took in this process (0 while none ran), and what
@@ -123,6 +139,12 @@ _SYMBOLS = tuple((re.compile(p), k) for p, k in (
     (r"itpu_raycast_kernel\W*\w*ItpuBlockReader\W*\w*ItpuGridIndex(E|>)", "raycast"),
     (r"itpu_raycast_kernel\W*\w*ItpuBlockReader\W*\w*ItpuHashIndex(E|>)", "raycast_hash"),
     (r"itpu_raycast_kernel\W*\w*ItpuDenseReader(Lb[01]ELi2E|, (false|true), 2>)", "raycast_dense"),
+    (r"itpu_probe_gather_kernel", "probe_gather"),
+    (r"itpu_probe_rows_kernel", "probe_rows"),
+    (r"itpu_probe_page_sum_kernel", "probe_page_sum"),
+    (r"itpu_probe_scale_kernel", "probe_scale"),
+    (r"itpu_probe_gemm_kernel", "probe_gemm"),
+    (r"itpu_probe_window_sums_kernel", "probe_window_sums"),
 ))
 
 

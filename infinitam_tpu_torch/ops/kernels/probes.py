@@ -1,0 +1,232 @@
+"""P1-P6: the kernels of the TPU primitive probes (tools/probe2.py, probe6-13.py).
+
+Replaces the 16 `pl.pallas_call` sites of those scripts (`SITES` maps every
+`pallas_call` site of the repository to its kernel). The CUDA kernels
+(csrc/probes.cu) compute what the probes' Pallas bodies compute; their
+plain twins are `infinitam_tpu_torch/probes/plain.py`:
+
+- P1 `gather`: take / take_along_axis (probe2 kA, kB; probe6 kern);
+- P2 `row_update`: one CTA a listed step updates a row (probe7, probe8
+  k1-k5, probe9 kernel, probe10, probe12 kern, probe13 sk);
+- P3 `page_sum`: a tile's pages gathered and summed (probe9 kacc, probe13 rk);
+- P4 `scaled_copy`: x · 1.000001 in CTAs of a set number of rows (probe11
+  ck, probe12 ck);
+- P5 `gemm_bf16`: bf16 product with float32 accumulation (probe11 mk);
+- P6 `window_sums`: the column sums of a window at a tile's start (probe13 wk).
+
+Each wrapper takes the plain twin for tensors on the CPU and launches its
+kernel for CUDA tensors (built at first launch into build/kernels/, counted
+in `build.launch_counts()`); it raises where the kernel does not take its
+arguments and never falls back from one to the other. No batched path runs
+these kernels, so they are not lane-indexed.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from infinitam_tpu_torch.ops.kernels import build
+from infinitam_tpu_torch.probes import plain
+
+PROBES_CU = "infinitam_tpu_torch/csrc/probes.cu"
+
+# every pl.pallas_call site of the repository (file:line of the call) → (the
+# port's kernel, its source, the wrapper that launches it)
+SITES = {
+    "infinitam_tpu/ops/pallas/icp_kernel.py:309": ("K1", "infinitam_tpu_torch/csrc/icp.cu", "icp.icp_gh"),
+    "infinitam_tpu/ops/pallas/integrate_kernel.py:326": ("K2", "infinitam_tpu_torch/csrc/integrate.cu",
+                                                         "integrate.integrate_depth"),
+    "infinitam_tpu/ops/pallas/raycast_kernel.py:567": ("K3", "infinitam_tpu_torch/csrc/raycast.cu",
+                                                       "raycast.raycast_grid"),
+    "tools/probe2.py:27": ("P1", PROBES_CU, "probes.gather"),
+    "tools/probe2.py:47": ("P1", PROBES_CU, "probes.gather"),
+    "tools/probe6.py:42": ("P1", PROBES_CU, "probes.gather"),
+    "tools/probe7.py:77": ("P2", PROBES_CU, "probes.row_update"),
+    "tools/probe8.py:28": ("P2", PROBES_CU, "probes.row_update"),
+    "tools/probe9.py:53": ("P2", PROBES_CU, "probes.row_update"),
+    "tools/probe9.py:115": ("P3", PROBES_CU, "probes.page_sum"),
+    "tools/probe10.py:69": ("P2", PROBES_CU, "probes.row_update"),
+    "tools/probe11.py:31": ("P5", PROBES_CU, "probes.gemm_bf16"),
+    "tools/probe11.py:58": ("P4", PROBES_CU, "probes.scaled_copy"),
+    "tools/probe11.py:73": ("P4", PROBES_CU, "probes.scaled_copy"),
+    "tools/probe12.py:59": ("P4", PROBES_CU, "probes.scaled_copy"),
+    "tools/probe12.py:105": ("P2", PROBES_CU, "probes.row_update"),
+    "tools/probe13.py:51": ("P3", PROBES_CU, "probes.page_sum"),
+    "tools/probe13.py:85": ("P6", PROBES_CU, "probes.window_sums"),
+    "tools/probe13.py:113": ("P2", PROBES_CU, "probes.row_update"),
+}
+
+# each probe kernel's launch counter (build.KERNELS)
+COUNTERS = {"P1": "probe_gather", "P2": "probe_rows", "P3": "probe_page_sum", "P4": "probe_scale",
+            "P5": "probe_gemm", "P6": "probe_window_sums"}
+
+_TAP = {name: i for i, name in enumerate(plain.TAPS)}
+_GATE = {name: i for i, name in enumerate(plain.GATES)}
+MAX_PAGES = 256  # csrc/probes.cu PROBE_MAX_PAGES
+
+
+def _require(name: str, *tensors: torch.Tensor) -> None:
+    """Every tensor on the first one's CUDA device, contiguous."""
+    build.require_cuda(name, *tensors, device=tensors[0].device)
+
+
+def gather(tab: torch.Tensor, idx: torch.Tensor, axis=None) -> torch.Tensor:
+    """P1: `take` (axis None) or `take_along_axis` on axis 0 or 1 of a 2-D
+    table, for tables of 1-, 2- or 4-byte elements and int32 indices in
+    range."""
+    if tab.device.type == "cpu":
+        return plain.gather(tab, idx, axis)
+    _require("gather", tab, idx)
+    build.require_dtype("gather", idx, torch.int32)
+    if tab.element_size() not in (1, 2, 4):
+        raise ValueError(f"gather: {tab.dtype} is not a 1-, 2- or 4-byte type")
+    tab_cols = idx_cols = 0
+    if axis is not None:
+        if tab.dim() != 2 or idx.dim() != 2 or axis not in (0, 1):
+            raise ValueError("gather: take_along_axis takes a 2-D table and indices on axis 0 or 1")
+        if idx.shape[1 - axis] != tab.shape[1 - axis]:
+            raise ValueError(f"gather: indices {tuple(idx.shape)} do not match the table {tuple(tab.shape)}")
+        tab_cols, idx_cols = tab.shape[1], idx.shape[1]
+    out = torch.empty(idx.shape, dtype=tab.dtype, device=tab.device)
+    err = build.library().itpu_probe_gather(tab.data_ptr(), idx.data_ptr(), out.data_ptr(), idx.numel(),
+                                            0 if axis is None else 1 + axis, tab.element_size(), tab_cols,
+                                            idx_cols, build.stream_ptr())
+    build.check("itpu_probe_gather", err)
+    build.count_launch("probe_gather")
+    return out
+
+
+def row_update(vba: torch.Tensor, ptr: torch.Tensor, *, in_place: bool = True, src_ptr: bool = True,
+               dst_ptr: bool = True, tap: str = "none", img=None, wv=None, wu=None, gate: str = "none",
+               valid=None, tap_scale: float = 0.0, mul: float = 1.0) -> torch.Tensor:
+    """P2, one CTA a step of `ptr` (see plain.row_update): in place, or into
+    a fresh output of which only the written rows are defined. The written
+    rows must be distinct unless the gate is "first"; an update in place
+    reads and writes through the same map."""
+    kwargs = dict(in_place=in_place, src_ptr=src_ptr, dst_ptr=dst_ptr, tap=tap, img=img, wv=wv, wu=wu, gate=gate,
+                  valid=valid, tap_scale=tap_scale, mul=mul)
+    if vba.device.type == "cpu":
+        return plain.row_update(vba, ptr, **kwargs)
+    if tap not in _TAP or gate not in _GATE:
+        raise ValueError(f"row_update: tap {tap!r} or gate {gate!r} unknown")
+    if in_place and src_ptr != dst_ptr:
+        raise ValueError("row_update: an update in place reads and writes through the same map")
+    if vba.dim() != 2:
+        raise ValueError("row_update: rows must be [rows, row_len]")
+    if vba.dtype == torch.int8:
+        if tap != "none" or gate != "first":
+            raise ValueError("row_update: int8 rows take no tap and the gate 'first'")
+    elif vba.dtype != torch.float32:
+        raise ValueError(f"row_update: rows must be float32 or int8, got {vba.dtype}")
+    elif gate == "first":
+        raise ValueError("row_update: the gate 'first' is for int8 rows")
+    named = {"img": img, "wv": wv, "wu": wu} if tap != "none" else {}
+    if gate == "valid":
+        named["valid"] = valid
+    missing = [k for k, t in named.items() if t is None]
+    if missing:
+        raise ValueError(f"row_update: tap {tap!r} and gate {gate!r} need {missing}")
+    _require("row_update", vba, ptr, *named.values())
+    build.require_dtype("row_update", ptr, torch.int32)
+    for k in ("wv", "wu", "valid"):
+        if k in named:
+            build.require_dtype("row_update", named[k], torch.int32)
+    if tap != "none":
+        build.require_dtype("row_update", img, torch.float32)
+    out = vba if in_place else torch.empty_like(vba)
+
+    def ptr_of(t):
+        return None if t is None else t.data_ptr()
+
+    err = build.library().itpu_probe_rows(
+        vba.data_ptr(), out.data_ptr(), vba.shape[1], vba.element_size(), ptr.data_ptr(), ptr.numel(),
+        int(src_ptr), int(dst_ptr), ptr_of(named.get("wv")), ptr_of(named.get("wu")), ptr_of(named.get("valid")),
+        ptr_of(named.get("img")), 0 if img is None else img.shape[1], _TAP[tap], _GATE[gate],
+        ctypes.c_float(tap_scale), ctypes.c_float(mul), build.stream_ptr())
+    build.check("itpu_probe_rows", err)
+    build.count_launch("probe_rows")
+    return out
+
+
+def page_sum(pages: torch.Tensor, ids: torch.Tensor, k_pages: int, n_cols: int, scale: float = 1.0,
+             hashed: bool = False) -> torch.Tensor:
+    """P3: out [tiles, n_cols] = scale · Σ_{k<k_pages} f32(pages[ids[t, k],
+    sel(t, c)]) for float32 or int8 pages [rows, row_len] and int32 ids
+    [tiles, ≥ k_pages] (see plain.page_sum)."""
+    if pages.device.type == "cpu":
+        return plain.page_sum(pages, ids, k_pages, n_cols, scale, hashed)
+    _require("page_sum", pages, ids)
+    build.require_dtype("page_sum", ids, torch.int32)
+    if pages.dtype not in (torch.float32, torch.int8) or pages.dim() != 2 or ids.dim() != 2:
+        raise ValueError("page_sum: float32 or int8 pages [rows, row_len] and ids [tiles, pages]")
+    if not 0 <= k_pages <= min(ids.shape[1], MAX_PAGES):
+        raise ValueError(f"page_sum: {k_pages} pages a tile, at most {min(ids.shape[1], MAX_PAGES)}")
+    out = torch.empty((ids.shape[0], n_cols), dtype=torch.float32, device=pages.device)
+    err = build.library().itpu_probe_page_sum(pages.data_ptr(), pages.shape[1], pages.element_size(), ids.data_ptr(),
+                                              ids.shape[1], k_pages, ids.shape[0], out.data_ptr(), n_cols,
+                                              int(hashed), ctypes.c_float(scale), build.stream_ptr())
+    build.check("itpu_probe_page_sum", err)
+    build.count_launch("probe_page_sum")
+    return out
+
+
+def scaled_copy(x: torch.Tensor, rows_per_cta: int, mul: float = 1.000001) -> torch.Tensor:
+    """P4: x · mul for float32 x [rows, row_len], one CTA a block of
+    `rows_per_cta` rows (rows a multiple of it, row_len of 4)."""
+    if x.device.type == "cpu":
+        return plain.scaled_copy(x, rows_per_cta, mul)
+    _require("scaled_copy", x)
+    build.require_dtype("scaled_copy", x, torch.float32)
+    if x.dim() != 2 or x.shape[0] % rows_per_cta or x.shape[1] % 4 or x.data_ptr() % 16:
+        raise ValueError(f"scaled_copy: {tuple(x.shape)} in blocks of {rows_per_cta} rows, rows of 4k floats")
+    out = torch.empty_like(x)
+    err = build.library().itpu_probe_scale(x.data_ptr(), out.data_ptr(), x.shape[0] // rows_per_cta,
+                                           rows_per_cta * x.shape[1] // 4, ctypes.c_float(mul), build.stream_ptr())
+    build.check("itpu_probe_scale", err)
+    build.count_launch("probe_scale")
+    return out
+
+
+GEMM_TILE = (128, 128, 32)  # csrc/probes.cu GEMM_BM, GEMM_BN, GEMM_BK
+
+
+def gemm_bf16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """P5: bf16(a · b), float32 accumulation, for bf16 a [M, K] and b [K, N]
+    with M and N multiples of 128 and K of 32."""
+    if a.device.type == "cpu":
+        return plain.gemm_bf16(a, b)
+    _require("gemm_bf16", a, b)
+    build.require_dtype("gemm_bf16", a, torch.bfloat16)
+    build.require_dtype("gemm_bf16", b, torch.bfloat16)
+    (m, k), (k2, n) = a.shape, b.shape
+    bm, bn, bk = GEMM_TILE
+    if k != k2 or m % bm or n % bn or k % bk or a.data_ptr() % 16 or b.data_ptr() % 16:
+        raise ValueError(f"gemm_bf16: [{m}, {k}] · [{k2}, {n}] must be multiples of {GEMM_TILE}")
+    c = torch.empty((m, n), dtype=torch.bfloat16, device=a.device)
+    err = build.library().itpu_probe_gemm(a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k, build.stream_ptr())
+    build.check("itpu_probe_gemm", err)
+    build.count_launch("probe_gemm")
+    return c
+
+
+def window_sums(img: torch.Tensor, starts: torch.Tensor, win_h: int = 64, win_w: int = 64,
+                out_w: int = 128) -> torch.Tensor:
+    """P6: out [tiles, out_w], the column sums of each tile's win_h × win_w
+    window of float32 img at (starts[t, 0], starts[t, 1]), zero past win_w;
+    starts int32 [tiles, ≥ 2], windows inside the image."""
+    if img.device.type == "cpu":
+        return plain.window_sums(img, starts, win_h, win_w, out_w)
+    _require("window_sums", img, starts)
+    build.require_dtype("window_sums", img, torch.float32)
+    build.require_dtype("window_sums", starts, torch.int32)
+    if img.dim() != 2 or starts.dim() != 2 or starts.shape[1] < 2 or win_w > out_w:
+        raise ValueError("window_sums: a 2-D image, starts [tiles, ≥ 2] and win_w ≤ out_w")
+    out = torch.empty((starts.shape[0], out_w), dtype=torch.float32, device=img.device)
+    err = build.library().itpu_probe_window_sums(img.data_ptr(), img.shape[1], starts.data_ptr(), starts.shape[1],
+                                                 starts.shape[0], win_h, win_w, out.data_ptr(), out_w,
+                                                 build.stream_ptr())
+    build.check("itpu_probe_window_sums", err)
+    build.count_launch("probe_window_sums")
+    return out

@@ -340,6 +340,14 @@ KERNEL_SYMBOLS = {
     "void itpu_raycast_kernel<ItpuBlockReader<ItpuHashIndexSerial>, false, 1>(ItpuBlockReader)": None,
     "void itpu_raycast_kernel<ItpuDenseReader, false, 2>(ItpuDenseReader, int)": "raycast_dense",
     "void itpu_raycast_kernel<ItpuDenseReader, false, 1>(ItpuDenseReader, int)": None,
+    # the probes' kernels P1-P6 (csrc/probes.cu), one instantiation of each
+    "_Z24itpu_probe_gather_kernelIhLi0EEvPKT_PKiPS0_xii": "probe_gather",
+    "_Z22itpu_probe_rows_kernelIaLi0ELi3EEvPKT_PS0_iPKiiiS5_S5_S5_PKfiff": "probe_rows",
+    "_Z22itpu_probe_rows_kernelIfLi2ELi1EEvPKT_PS0_iPKiiiS5_S5_S5_PKfiff": "probe_rows",
+    "_Z26itpu_probe_page_sum_kernelIaLb1EEvPKT_iPKiiiPfif": "probe_page_sum",
+    "_Z23itpu_probe_scale_kernelPK6float4PS_if": "probe_scale",
+    "_Z22itpu_probe_gemm_kernelPK13__nv_bfloat16S1_PS_iii": "probe_gemm",
+    "_Z29itpu_probe_window_sums_kernelPKfiPKiiiiPfi": "probe_window_sums",
     # torch's own kernels and the division-step test kernel
     "_ZN2at6native29vectorized_elementwise_kernelILi4ENS0_11FillFunctorIfEESt5arrayIPcLm1EEEEviT0_T1_": None,
     "_Z20itpu_div_step_kernelPKfS0_Pfi": None,

@@ -12,6 +12,7 @@ them.
 """
 
 import ast
+import importlib
 import inspect
 import os
 import subprocess
@@ -91,7 +92,9 @@ def test_cpu_frame_uses_only_plain_versions():
     assert int(diag.num_valid) > 1000
     assert np.isfinite(st.pose.numpy()).all()
     assert build.launch_counts() == {"icp": 0, "icp_weighted": 0, "integrate": 0, "integrate_color": 0,
-                                     "raycast": 0, "raycast_hash": 0, "raycast_dense": 0}
+                                     "raycast": 0, "raycast_hash": 0, "raycast_dense": 0, "probe_gather": 0,
+                                     "probe_rows": 0, "probe_page_sum": 0, "probe_scale": 0, "probe_gemm": 0,
+                                     "probe_window_sums": 0}
     assert build.library.cache_info().currsize == 0  # no CUDA library was built or loaded
 
 
@@ -245,17 +248,50 @@ def _default_device_calls():
                                    "create_tracking_state", "SyntheticSource", "from_numpy", "MainEngine",
                                    "make_source", "DeviceFrameFeed", "swapping MainEngine", "create_swap_states",
                                    "SwapExchange", "create_dense", "dense create_engine_state",
-                                   "batched_state_hash", "batched_state_dense"])
+                                   "batched_state_hash", "batched_state_dense", "probes"])
 def test_entry_points_default_to_the_card(entry):
-    """The port runs on the card unless the caller passes device="cpu": the
-    default is "cuda", and without a card a call that names no device raises
-    instead of falling back to the CPU."""
-    fn, call = _default_device_calls()[entry]
-    assert inspect.signature(fn).parameters["device"].default == "cuda"
+    """The port runs on the card unless the caller passes device="cpu" (the
+    probes' entry point: --cpu): the default is "cuda", and without a card a
+    call that names no device raises instead of falling back to the CPU."""
+    if entry == "probes":
+        from infinitam_tpu_torch.probes import __main__ as probes_main
+
+        call = lambda: probes_main.main(["probe2"])  # noqa: E731
+    else:
+        fn, call = _default_device_calls()[entry]
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default runs there")
     with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
         call()
+
+
+def _pallas_call_sites() -> list:
+    """file:line of every `pl.pallas_call(...)` call in infinitam_tpu/ and tools/."""
+    sites = []
+    for path in sorted([*(REPO / "infinitam_tpu").rglob("*.py"), *(REPO / "tools").rglob("*.py")]):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if (isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)
+                    and node.func.attr == "pallas_call"):
+                sites.append(f"{path.relative_to(REPO)}:{node.lineno}")
+    return sites
+
+
+def test_every_pallas_call_site_has_a_kernel_of_the_port():
+    """Every TPU kernel of the repository has its hand-written counterpart:
+    each `pallas_call` site of the JAX package and of tools/ has an entry in
+    the port's kernel registry (ops/kernels/probes.py SITES: the kernel, its
+    CUDA source, its wrapper), and the registry names no site that is gone."""
+    from infinitam_tpu_torch.ops.kernels import probes
+
+    sites = _pallas_call_sites()
+    assert len(sites) == 19
+    assert sorted(sites) == sorted(probes.SITES)
+    for kernel, source, wrapper in probes.SITES.values():
+        assert (REPO / source).exists(), source
+        module, fn = wrapper.split(".")
+        assert callable(getattr(importlib.import_module(f"infinitam_tpu_torch.ops.kernels.{module}"), fn)), wrapper
+        assert kernel[0] == "K" or probes.COUNTERS[kernel] in build.KERNELS
 
 
 # Top-level public names of the JAX package that the port leaves out on

@@ -102,8 +102,9 @@ def fused_1cm(device):
 def test_main_path_launched_every_kernel(fused):
     *_rest, counts = fused
     levels = TrackingParams(n_levels=3).iterations_per_level[:3]
-    assert counts == {"icp": 3 * sum(levels), "icp_weighted": 0, "integrate": 3, "integrate_color": 0,
-                      "raycast": 3, "raycast_hash": 0, "raycast_dense": 0}
+    assert counts == dict.fromkeys(build.KERNELS, 0) | {
+        "icp": 3 * sum(levels), "icp_weighted": 0, "integrate": 3, "integrate_color": 0,
+        "raycast": 3, "raycast_hash": 0, "raycast_dense": 0}
 
 
 def k1_args(fused, level=0):
@@ -336,8 +337,9 @@ def fused_rgb(device):
 def test_color_path_launches_the_color_kernel(fused_rgb):
     *_rest, counts = fused_rgb
     levels = TrackingParams(n_levels=3).iterations_per_level[:3]
-    assert counts == {"icp": 3 * sum(levels), "icp_weighted": 0, "integrate": 0, "integrate_color": 3,
-                      "raycast": 3, "raycast_hash": 0, "raycast_dense": 0}
+    assert counts == dict.fromkeys(build.KERNELS, 0) | {
+        "icp": 3 * sum(levels), "icp_weighted": 0, "integrate": 0, "integrate_color": 3,
+        "raycast": 3, "raycast_hash": 0, "raycast_dense": 0}
 
 
 def k2c_args(fused_rgb, device, extrinsic=False, ids=None, max_rows=None):
@@ -439,8 +441,9 @@ def test_ren_and_approximate_paths_launch_their_kernels(device, case):
     _s, _p, vol, _rs, st, _d, counts = fuse_frames(SETTINGS.replace(**extra), device)
     iters = TrackingParams(n_levels=3).iterations_per_level[:3]
     icp_per_frame = sum(iters[1:]) if case == "ren" else sum(iters)
-    assert counts == {"icp": 3 * icp_per_frame, "icp_weighted": 0, "integrate": 3, "integrate_color": 0,
-                      "raycast": 3, "raycast_hash": 0, "raycast_dense": 0}
+    assert counts == dict.fromkeys(build.KERNELS, 0) | {
+        "icp": 3 * icp_per_frame, "icp_weighted": 0, "integrate": 3, "integrate_color": 0,
+        "raycast": 3, "raycast_hash": 0, "raycast_dense": 0}
     assert np.isfinite(st.pose.cpu().numpy()).all() and int((vol.entry_ptr >= 0).sum()) > 100
 
 
@@ -623,8 +626,9 @@ def test_swap_engine_round_trip_on_the_card(device):
         build.reset_launch_counts()
         for depth, _rgb, _gt in frames:
             eng.process_frame(metric_depth=depth, capture=capture)
-        assert build.launch_counts() == {"icp": 6 * iters, "icp_weighted": 0, "integrate": 6, "integrate_color": 0,
-                                         "raycast": 6, "raycast_hash": 0, "raycast_dense": 0}
+        assert build.launch_counts() == dict.fromkeys(build.KERNELS, 0) | {
+            "icp": 6 * iters, "icp_weighted": 0, "integrate": 6, "integrate_color": 0, "raycast": 6,
+            "raycast_hash": 0, "raycast_dense": 0}
         eng.set_pose(away)
         eng.tracking_state = eng.tracking_state._replace(age=torch.tensor(-1, dtype=torch.int32, device=device))
         eng.process_frame(metric_depth=synth.render_depth(away, eng.proj, IMG), capture=capture)

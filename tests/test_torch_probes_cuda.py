@@ -1,0 +1,196 @@
+"""Card-only tests of the probes' kernels P1-P6 (csrc/probes.cu,
+ops/kernels/probes.py): each kernel against its plain PyTorch twin
+(infinitam_tpu_torch/probes/plain.py) at a small size, over the variants the
+probes run, with one launch counted a call; and `python -m
+infinitam_tpu_torch.probes` run on the card, all nine probes.
+
+Bars: P1, P4, int8 P3 (probe13's `rk`) and P2's copies and int8 row stores
+bit for bit; P2's taps within 1e-6; float32 P3 and P6 within 1e-5; P5
+within the float32 summation bound of the exact product, rounded to bf16
+(plain.bf16_product_bound: two correct summation orders can differ by many
+bf16 ulps of an element near a zero of its sum), and bit for bit on integer
+inputs whose sums are exact in float32.
+
+They carry the `cuda` marker and skip where no card is present. On a machine
+with a card (JAX need not be installed there), run them with:
+
+    python -m pytest --noconftest tests/test_torch_probes_cuda.py
+
+chip_smoke.py repeats these comparisons at the probes' full sizes.
+"""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from infinitam_tpu_torch.ops.kernels import build, probes
+from infinitam_tpu_torch.probes import plain, probe6, probe8, probe9, probe10, probe13
+
+pytestmark = pytest.mark.cuda
+
+REPO = Path(__file__).resolve().parents[1]
+S3 = 512
+
+
+@pytest.fixture(scope="module")
+def device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA")
+    return torch.device("cuda", 0)
+
+
+def on(device, *arrays):
+    return [torch.from_numpy(np.array(a)).to(device) for a in arrays]
+
+
+def launched(counter, fn):
+    """fn()'s result, checked to launch `counter`'s kernel once."""
+    build.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    assert build.launch_counts() == dict.fromkeys(build.KERNELS, 0) | {counter: 1}
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32, torch.int8, torch.bfloat16])
+@pytest.mark.parametrize("axis", [None, 0, 1])
+def test_gather_equals_plain(device, dtype, axis):
+    rng = np.random.default_rng(0)
+    tab = torch.from_numpy(rng.integers(-100, 100, (96, 160)).astype(np.float32)).to(dtype).to(device)
+    n = tab.numel() if axis is None else tab.shape[axis]
+    shape = (3000,) if axis is None else ((40, 160) if axis == 0 else (96, 24))
+    (idx,) = on(device, rng.integers(0, n, shape, dtype=np.int32))
+    got = launched("probe_gather", lambda: probes.gather(tab, idx, axis))
+    assert torch.equal(got, plain.gather(tab, idx, axis))
+
+
+def test_gather_chain_equals_plain(device):
+    """probe6's chain of 32 gathers with feedback, bf16, axis 0."""
+    tab, idx = probe6.make_dg(32, 128, "bfloat16", 0)
+    tab_t, (idx_t,) = probe6.to_table(tab, "bfloat16", device), on(device, idx)
+    got = probe6.call(tab_t, idx_t, 0)
+    want = idx_t
+    for k in range(probe6.K):
+        want = (want + plain.gather(tab_t, want, 0).to(torch.int32) + k) % 32
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("name,kw,tol", probe8.ATTEMPTS)
+def test_row_update_probe8_bodies_equal_plain(device, name, kw, tol):
+    vba, depth, ptr, wv, wu = on(device, *probe8.make(512, 64))
+    got = launched("probe_rows", lambda: probe8.attempt(probes.row_update, vba.clone(), depth, ptr, wv, wu, **kw))
+    want = probe8.attempt(plain.row_update, vba.clone(), depth, ptr, wv, wu, **kw)
+    rows = ptr.long() if kw.get("in_place", True) is False else slice(None)
+    assert float((got[rows] - want[rows]).abs().max()) <= tol, name
+
+
+@pytest.mark.parametrize("attempt", range(len(probe10.ATTEMPTS)))
+def test_row_update_probe10_attempts_equal_plain(device, attempt):
+    name, flags = probe10.ATTEMPTS[attempt]
+    args = on(device, *probe10.make(512, 64))
+    got = launched("probe_rows", lambda: probe10.attempt(probes.row_update, args[0].clone(), *args[1:], *flags))
+    want = probe10.attempt(plain.row_update, args[0].clone(), *args[1:], *flags)
+    dynamic, in_place, tap = flags
+    rows = slice(None) if in_place else (args[2].long() if dynamic else slice(0, 64))
+    assert float((got[rows] - want[rows]).abs().max()) <= (1e-6 if tap else 0.0), name
+
+
+@pytest.mark.parametrize("tap,tap_scale,gate", [("bf16", 1e-3, "none"), ("f32t", 1e-9, "none"),
+                                                 ("f32t", 1e-3, "valid"), ("sum", 1e-9, "none")])
+def test_row_update_taps_on_zero_rows_equal_plain(device, tap, tap_scale, gate):
+    """On zero rows the output is the scaled tap itself (a 1e-9 tap vanishes
+    beside rows of unit size): bit for bit, the window's sum within 1e-5 of
+    the largest (its 16,384 terms summed in another order)."""
+    _vba, depth, ptr, wv, wu, valid = on(device, *probe9.make(512, 64))
+    if tap != "f32t":  # the normal window: the 512×768 image, not the transposed one
+        depth = torch.from_numpy(np.random.default_rng(2).standard_normal((512, 768)).astype(np.float32)).to(device)
+    kw = dict(tap=tap, img=depth, wv=wv, wu=wu, gate=gate, valid=valid, tap_scale=tap_scale, in_place=False)
+    zeros = torch.zeros((512, S3), device=device)
+    got = launched("probe_rows", lambda: probes.row_update(zeros, ptr, **kw))[ptr.long()]
+    want = plain.row_update(zeros, ptr, **kw)[ptr.long()]
+    assert float(want.abs().max()) > 0
+    if tap == "sum":
+        assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    else:
+        assert torch.equal(got, want)
+
+
+def test_row_update_valid_gate_equals_plain(device):
+    """probe9's update: the transposed tap, the valid gate, in place."""
+    args = on(device, *probe9.make(512, 64))
+    got = launched("probe_rows", lambda: probe9.update(probes.row_update, args[0].clone(), *args[1:]))
+    want = probe9.update(plain.row_update, args[0].clone(), *args[1:])
+    assert float((got - want).abs().max()) <= 1e-6
+
+
+def test_row_stores_add_one_once(device):
+    """probe13's int8 row stores: repeated rows gain 1 once, 127 wraps."""
+    vol = np.random.default_rng(3).integers(-128, 128, (64, S3)).astype(np.int8)
+    vol[:, 0] = 127
+    rows = probe13.make_rows(64, 256)
+    vol_t, rows_t = on(device, vol, rows)
+    got = launched("probe_rows", lambda: probe13.row_stores(probes.row_update, vol_t.clone(), rows_t))
+    assert torch.equal(got, plain.row_update(vol_t.clone(), rows_t, gate="first"))
+    assert (got[rows_t.long(), 0] == -128).all()
+
+
+@pytest.mark.parametrize("case", ["kacc", "rk"])
+def test_page_sum_equals_plain(device, case):
+    if case == "kacc":
+        pages, p = on(device, *probe9.make_pages(256, 24))
+        ids, k, cols, scale, hashed, tol = p.reshape(-1, 16), 16, S3, 1.0, False, 1e-5
+    else:
+        pages, pid = on(device, *probe13.make_volume(256, 24))
+        ids, k, cols, scale, hashed, tol = pid.reshape(24, -1), 48, 128, 1e-6, True, 0.0
+    got = launched("probe_page_sum", lambda: probes.page_sum(pages, ids, k, cols, scale, hashed))
+    assert float((got - plain.page_sum(pages, ids, k, cols, scale, hashed)).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("rows_per_cta", [1, 8, 64])
+def test_scaled_copy_equals_plain(device, rows_per_cta):
+    (x,) = on(device, np.random.default_rng(4).standard_normal((512, S3)).astype(np.float32))
+    got = launched("probe_scale", lambda: probes.scaled_copy(x, rows_per_cta))
+    assert torch.equal(got, plain.scaled_copy(x, rows_per_cta))
+
+
+@pytest.mark.parametrize("values", ["normal", "integer"])
+def test_gemm_equals_plain(device, values):
+    """[256, 96] · [96, 384]: non-square, so a swapped index shows."""
+    rng = np.random.default_rng(5)
+    shapes = ((256, 96), (96, 384))
+    if values == "normal":
+        a, b = (rng.standard_normal(s).astype(np.float32) for s in shapes)
+    else:
+        a, b = (rng.integers(-8, 9, s).astype(np.float32) for s in shapes)
+    a_t, b_t = (t.to(torch.bfloat16) for t in on(device, a, b))
+    got = launched("probe_gemm", lambda: probes.gemm_bf16(a_t, b_t))
+    want = plain.gemm_bf16(a_t, b_t)
+    if values == "integer":
+        assert torch.equal(got, want)
+    else:
+        assert float(plain.bf16_product_bound(got, a_t, b_t).max()) <= 1.0
+
+
+def test_window_sums_equal_plain(device):
+    img, starts = on(device, *probe13.make_window(64))
+    got = launched("probe_window_sums", lambda: probe13.window_sums(probes.window_sums, img, starts))
+    assert float((got - plain.window_sums(img, starts.reshape(64, -1))).abs().max()) <= 1e-5
+
+
+def test_probes_entry_point_runs_on_the_card(device):
+    """`python -m infinitam_tpu_torch.probes`: all nine probes on the card."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    res = subprocess.run([sys.executable, "-m", "infinitam_tpu_torch.probes"], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=900)
+    assert res.returncode == 0, res.stderr[-4000:]
+    out = res.stdout
+    assert f"device: {torch.cuda.get_device_name(0)}" in out
+    assert all(f"--- {name}" in out for name in ("probe2", "probe6", "probe7", "probe8", "probe9", "probe10",
+                                                  "probe11", "probe12", "probe13"))
+    assert "FAIL" not in out and "device not measured" not in out
