@@ -58,9 +58,13 @@ with the elements more than one bf16 ulp from plain counted), with device
 time warm (and cold for P2-P4), call, plain and library time (`torch.take`,
 `torch.gather`, `torch.mul`, `torch.matmul`: every device kernel of the
 call) and the bound (bytes of the distinct 32-byte sectors and rows the
-inputs touch; P5's operations over 989.4 TFLOP/s bf16). Then `python -m
-infinitam_tpu_torch.probes` runs in-process (its main(), all nine probes on
-the card), the path of P1-P6's launch counts: each must launch.
+inputs touch; P5's operations over 989.4 TFLOP/s bf16). P4 and P5 are
+also timed, cold and warm, beside the designs they replaced on the same
+inputs (`scaled_copy_simple`, `gemm_bf16_wmma`, each held to plain too),
+gated on being faster than them where the redesign is for (P5; P4 in 64
+and 96 CTAs). Then `python -m infinitam_tpu_torch.probes` runs in-process
+(its main(), all nine probes on the card), the path of P1-P6's launch
+counts: each must launch.
 
 Then it replays 30 synthetic 640×480 RGB-D frames, rendered on the card,
 through the port's frame loop in the three configurations of the JAX
@@ -221,6 +225,9 @@ SYNC_MSG = "called a synchronizing CUDA operation"
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
 PEAK_BF16_PER_S = 989.4e12  # dense bf16 on the tensor cores: the probes' P5
+# the designs a redesigned probe kernel is timed beside (probe_checks): the
+# ones P4 and P5 replaced
+DESIGNS = ("simple_", "wmma_")
 # float32 operations per element, counted from the kernels' sources
 ICP_OPS_PIXEL = 116  # csrc/icp.cu: back-projection, two transforms, projection, the point tap, the gate
 ICP_OPS_VALID = 121  # a valid pixel's normal tap, b, A and its 29 products and sums
@@ -479,6 +486,10 @@ def bilinear_corners(u: torch.Tensor, v: torch.Tensor, width: int) -> torch.Tens
     lie inside the 1 px margin, so no corner is clamped."""
     x0, y0 = torch.floor(u).long(), torch.floor(v).long()
     return torch.cat([(y0 + dy) * width + x0 + dx for dy in (0, 1) for dx in (0, 1)])
+
+
+def ratio(a, b) -> str:
+    return "n/a" if None in (a, b) else f"{a / b:.3f}"
 
 
 def fmt_ms(ms) -> str:
@@ -2504,13 +2515,42 @@ class Smoke:
                   pages, p, probe9.accumulate, 1e-5)
         del vol, pid, pages, p
 
-        # P4: the scaled copy; library torch.mul
+        def designs(entry, args, others, check):
+            """The other designs of a redesigned kernel (`others`: name →
+            function of the site's arguments) on the site's inputs in this
+            call: each held by `check(got)` → (ok, what) and timed cold and
+            warm, beside the kernel's own times; theirs join `entry` as
+            `{name}_ms` (cold) and `{name}_warm_ms`."""
+            for name, fn in others.items():
+                ok, what = check(fn(*args))
+                cold = device_ms(lambda: fn(*args), 20, self.flush)[0]
+                warm = device_ms(lambda: fn(*args), 50)[0]
+                print(f"  {entry['label']}, the {name} design on the same inputs: {what}; cold {fmt_ms(cold)}, warm "
+                      f"{fmt_ms(warm)}; the kernel's time over its, cold {ratio(entry['cold_ms'], cold)}, warm "
+                      f"{ratio(entry['warm_ms'], warm)}")
+                self.gate(ok, f"{entry['label']}: the {name} design {what}")
+                entry[f"{name}_ms"], entry[f"{name}_warm_ms"] = cold, warm
+
+        def faster(entry, name):
+            """Whether the kernel ran faster than the `name` design, cold and warm."""
+            times = (entry["cold_ms"], entry[f"{name}_ms"], entry["warm_ms"], entry[f"{name}_warm_ms"])
+            return None not in times and times[0] < times[1] and times[2] < times[3]
+
+        # P4: the scaled copy; library torch.mul; beside the design it replaced
+        # (`simple`)
         def copy_site(site, x, rows_per_cta):
-            add("probe_scale", site, self.probe_site(
-                "probe_scale", f"{site} [{x.shape[0]}, {x.shape[1]}] in {x.shape[0] // rows_per_cta} CTAs of "
-                               f"{rows_per_cta} rows", lambda: (x,), lambda y: kp.scaled_copy(y, rows_per_cta),
-                lambda y: pp.scaled_copy(y, rows_per_cta), compare(), (8 * x.numel(), x.numel()),
-                lambda y: torch.mul(y, 1.000001)))
+            n_ctas = x.shape[0] // rows_per_cta
+            row = self.probe_site(
+                "probe_scale", f"{site} [{x.shape[0]}, {x.shape[1]}] in {n_ctas} CTAs of {rows_per_cta} rows",
+                lambda: (x,), lambda y: kp.scaled_copy(y, rows_per_cta), lambda y: pp.scaled_copy(y, rows_per_cta),
+                compare(), (8 * x.numel(), x.numel()), lambda y: torch.mul(y, 1.000001))
+            want = pp.scaled_copy(x, rows_per_cta)
+            designs(row, (x,), {"simple": lambda y: kp.scaled_copy_simple(y, rows_per_cta)},
+                    lambda got: (torch.equal(got, want), "bit-equal to plain"))
+            if n_ctas <= 96:  # the decompositions of few CTAs, which the ring is for
+                self.gate(faster(row, "simple"), f"probe_scale {row['label']}: faster than the simple design, "
+                                                 f"cold and warm")
+            add("probe_scale", site, row)
 
         rows, cols, ctas = probe11.COPY
         (x,) = on(probe11.make_copy(rows, cols))
@@ -2522,7 +2562,8 @@ class Smoke:
             copy_site("tools/probe12.py:59", x, per_cta)
         del x
 
-        # P5: the bf16 product; library torch.matmul on the same bf16 inputs
+        # P5: the bf16 product; library torch.matmul on the same bf16 inputs;
+        # beside the design it replaced (`wmma`)
         a, b = (probe11.to_bf16(t, self.dev) for t in probe11.make_mm())
         m, k = a.shape
         n = b.shape[1]
@@ -2538,9 +2579,15 @@ class Smoke:
                     f"{int(far.sum())} of {got.numel()} elements > 1 bf16 ulp from plain, all with |exact| ≤ "
                     f"{float(exact[far].max()) if far.any() else 0.0:.3e}")
 
-        add("probe_gemm", "tools/probe11.py:31", self.probe_site(
+        row = self.probe_site(
             "probe_gemm", f"tools/probe11.py:31 {m}×{n}×{k} bf16", lambda: (a, b), kp.gemm_bf16, pp.gemm_bf16, ulps,
-            (2 * (m * k + k * n + m * n), 2 * m * n * k), torch.matmul, peak_ops=PEAK_BF16_PER_S))
+            (2 * (m * k + k * n + m * n), 2 * m * n * k), torch.matmul, peak_ops=PEAK_BF16_PER_S)
+        designs(row, (a, b), {"wmma": kp.gemm_bf16_wmma},
+                lambda got: (float(pp.bf16_product_bound(got, a, b).max()) <= 1.0,
+                             f"within the float32 summation bound (max "
+                             f"{float(pp.bf16_product_bound(got, a, b).max()):.4f} of it)"))
+        self.gate(faster(row, "wmma"), f"probe_gemm {row['label']}: faster than the wmma design, cold and warm")
+        add("probe_gemm", "tools/probe11.py:31", row)
         ai, bi = (torch.from_numpy(np.random.default_rng(s).integers(-8, 9, (2048, 2048)).astype(np.float32))
                   .to(self.dev).to(torch.bfloat16) for s in (3, 4))
         same = torch.equal(kp.gemm_bf16(ai, bi), pp.gemm_bf16(ai, bi))
@@ -2568,9 +2615,10 @@ class Smoke:
                 max_abs_err=max(r["max_abs_err"] for r in rows), headline=head["label"],
                 **{key: head[key] for key in ("ms", "cold_ms", "warm_ms", "call_ms", "plain_ms", "library_ms",
                                               "library_warm_ms", "bound_ms", "bound_by", "bound_bytes", "bound_ops")},
+                **{key: v for key, v in head.items() if key.startswith(DESIGNS)},
                 sites=[{key: r[key] for key in ("label", "ms", "warm_ms", "call_ms", "plain_ms", "library_ms",
                                                 "library_warm_ms", "bound_ms", "bound_by", "max_abs_err")}
-                       for r in rows]))
+                       | {key: v for key, v in r.items() if key.startswith(DESIGNS)} for r in rows]))
         return kernels
 
     def probes_main_path(self) -> dict:

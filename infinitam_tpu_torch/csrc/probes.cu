@@ -36,13 +36,26 @@
 //   (17c + t) mod row_len, one CTA a tile, the ids in shared memory, the
 //   sum in k order. Bound by bytes: the pages' touched sectors.
 // - P4 scaled copy (probe11 ck, probe12 ck): out = x · mul, a CTA per
-//   `rows_per_cta` rows (the probes' 64-, 768-, 96- and 6144-CTA
-//   decompositions), 16-byte loads and stores. Bound by bytes.
+//   `rows_per_cta` rows (the probes' 64-, 96-, 768- and 6144-CTA
+//   decompositions). Bound by bytes. In 64 or 96 CTAs on 132 SMs the
+//   memory's rate needs ~30-40 KB in flight an SM (Little's law), far more
+//   than a thread's one 16-byte load at a time gives, so a CTA streams its
+//   block through a ring of 16 KB bulk asynchronous copies in 4 stages of
+//   shared memory (cp.async.bulk, completion on an mbarrier a stage): up to
+//   48 KB of loads in flight beside the stores, the threads scaling a landed
+//   chunk in place. The design it replaced stays for comparisons
+//   (itpu_probe_scale_simple).
 // - P5 bf16 GEMM (probe11 mk): C = bf16(A · B), A [M, K], B [K, N] row-major,
-//   f32 accumulation on the tensor cores through WMMA 16×16×16 fragments, a
-//   128×128 CTA tile staged through shared memory 32 deep, 8 warps of 64×32.
-//   Bound by operations (989.4 TFLOP/s dense bf16); this simple design has
-//   no asynchronous copies and no wgmma, so it runs well below that.
+//   f32 accumulation. Bound by operations (989.4 TFLOP/s dense bf16) at
+//   2048³. wgmma m64n256k16 from shared memory on a 128×256 tile (one wave
+//   of 128 CTAs at 2048³): two consumer warpgroups of 64 rows each, and a
+//   producer warp whose TMA loads keep a 4-stage mbarrier ring of A's 128×64
+//   and B's 64×256 tiles in flight (128-byte swizzle, as the wgmma
+//   descriptors read it; B N-major through the transpose bit); the epilogue
+//   rounds in registers and stores 16 bytes a thread through a swizzled
+//   tile in the ring. TMA fills what lies past M, N or K with zeros, and the
+//   stores past M or N are cut. The WMMA design it replaced stays for
+//   comparisons (itpu_probe_gemm_wmma).
 // - P6 window column sums (probe13 wk): out[t, c] = Σ_{r<win_h} img[a_t + r,
 //   b_t + c] for c < win_w and 0 up to out_w, one CTA a tile, the sum in r
 //   order. Bound by bytes.
@@ -50,6 +63,7 @@
 // Indices must lie in range (the probes' always do); no kernel checks them.
 // Every entry point returns cudaGetLastError() after its launch.
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is reached through the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -241,10 +255,169 @@ ITPU_EXPORT int itpu_probe_page_sum(const void* pages, int row_len, int elem_byt
     return (int)cudaGetLastError();
 }
 
+// --- Hopper's asynchronous copies and barriers (P4, P5) ------------------
+
+__device__ __forceinline__ uint32_t itpu_smem(const void* p) { return (uint32_t)__cvta_generic_to_shared(p); }
+
+__device__ __forceinline__ void itpu_mbar_init(uint32_t bar, uint32_t count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+// the barriers' initialisation, seen by the asynchronous copies (then a
+// __syncthreads makes it seen by the CTA's threads)
+__device__ __forceinline__ void itpu_mbar_fence_init() {
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// one arrival that also expects `bytes` more from asynchronous copies
+__device__ __forceinline__ void itpu_mbar_expect(uint32_t bar, uint32_t bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void itpu_mbar_arrive(uint32_t bar) {
+    asm volatile("{\n .reg .b64 state;\n mbarrier.arrive.shared::cta.b64 state, [%0];\n}" ::"r"(bar) : "memory");
+}
+
+// until the barrier's phase of this parity has completed; a fault that
+// leaves a phase open traps after ~2^32 cycles (a few seconds) instead of
+// holding the card
+__device__ __forceinline__ void itpu_mbar_wait(uint32_t bar, uint32_t parity) {
+    uint32_t done = 0;
+    long long start = 0;
+    for (;;) {
+        asm volatile(
+            "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n selp.u32 %0, 1, 0, p;\n}"
+            : "=r"(done)
+            : "r"(bar), "r"(parity)
+            : "memory");
+        if (done) return;
+        if (start == 0) start = clock64();
+        else if (clock64() - start > (1ll << 32)) __trap();
+    }
+}
+
+// a box of a 2-D tensor map at (c0 innermost, c1) into shared memory,
+// completing its bytes on `bar`; out-of-bounds elements land as zeros
+__device__ __forceinline__ void itpu_tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0, int c1) {
+    asm volatile(
+        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4}], [%2];"
+        ::"r"(dst), "l"((uint64_t)map), "r"(bar), "r"(c0), "r"(c1)
+        : "memory");
+}
+
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) from global
+// into shared memory, completing on `bar`
+__device__ __forceinline__ void itpu_bulk_load(uint32_t dst, const void* src, uint32_t bytes, uint32_t bar) {
+    asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+                 ::"r"(dst), "l"((uint64_t)src), "r"(bytes), "r"(bar)
+                 : "memory");
+}
+
+// `bytes` from shared into global memory, as a bulk group of its own
+__device__ __forceinline__ void itpu_bulk_store(void* dst, uint32_t src, uint32_t bytes) {
+    asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"((uint64_t)dst), "r"(src), "r"(bytes)
+                 : "memory");
+    asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+// until at most N of this thread's bulk groups still read shared memory
+template <int N>
+__device__ __forceinline__ void itpu_bulk_wait_read() {
+    asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(N) : "memory");
+}
+
+// cudaFuncSetAttribute for `bytes` of dynamic shared memory, once a device
+static int itpu_allow_smem(const void* kernel, int bytes, unsigned long long* done) {
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess || (*done >> dev & 1)) return (int)e;
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e == cudaSuccess) *done |= 1ull << dev;
+    return (int)e;
+}
+
 // --- P4 scaled copy -----------------------------------------------------
 
-__global__ void __launch_bounds__(PROBE_THREADS)
+// A CTA's block of vec_per_cta float4 goes through a ring of up to
+// SCALE_STAGES stages of SCALE_CHUNK bytes (one stage of the whole block when
+// it is smaller): one thread keeps a bulk load in flight for every stage
+// that is not being scaled or stored, all threads scale a chunk that has
+// landed, and one thread stores it back with a bulk copy.
+#define SCALE_CHUNK 16384
+#define SCALE_STAGES 4
+#define SCALE_THREADS 256  // at most; 4 float4 a thread and chunk
+
+// the ring of a block of vec float4: (float4 a stage, chunks, stages)
+__host__ __device__ __forceinline__ void itpu_scale_ring(int vec, int& chunk, int& n_chunks, int& stages) {
+    chunk = vec < SCALE_CHUNK / 16 ? vec : SCALE_CHUNK / 16;
+    n_chunks = (vec + chunk - 1) / chunk;
+    stages = n_chunks < SCALE_STAGES ? n_chunks : SCALE_STAGES;
+}
+
+__global__ void __launch_bounds__(SCALE_THREADS)
 itpu_probe_scale_kernel(const float4* __restrict__ in, float4* __restrict__ out, int vec_per_cta, float mul) {
+    extern __shared__ __align__(128) float4 scale_ring[];
+    __shared__ __align__(8) uint64_t full[SCALE_STAGES];
+    const long long base = (long long)blockIdx.x * vec_per_cta;
+    int chunk, n_chunks, stages;
+    itpu_scale_ring(vec_per_cta, chunk, n_chunks, stages);
+    // chunk c: the block's float4 [c·chunk, min((c + 1)·chunk, vec_per_cta)), in stage c mod stages
+    auto load = [&](int c) {
+        const int n = min(chunk, vec_per_cta - c * chunk);
+        const uint32_t bar = itpu_smem(&full[c % stages]);
+        itpu_mbar_expect(bar, n * 16);
+        itpu_bulk_load(itpu_smem(scale_ring + (c % stages) * chunk), in + base + (long long)c * chunk, n * 16, bar);
+    };
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < stages; ++s) itpu_mbar_init(itpu_smem(&full[s]), 1);
+        itpu_mbar_fence_init();
+        for (int c = 0; c < stages; ++c) load(c);
+    }
+    __syncthreads();
+    for (int c = 0; c < n_chunks; ++c) {
+        const int s = c % stages, n = min(chunk, vec_per_cta - c * chunk);
+        float4* v = scale_ring + s * chunk;
+        itpu_mbar_wait(itpu_smem(&full[s]), (c / stages) & 1);
+        for (int j = threadIdx.x; j < n; j += blockDim.x) {
+            float4 x = v[j];
+            x.x = x.x * mul;
+            x.y = x.y * mul;
+            x.z = x.z * mul;
+            x.w = x.w * mul;
+            v[j] = x;
+        }
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");  // the scaled chunk, seen by the bulk store
+        __syncthreads();
+        if (threadIdx.x == 0) {
+            itpu_bulk_store(out + base + (long long)c * chunk, itpu_smem(v), n * 16);
+            // the stage of chunk c − 1 takes chunk c − 1 + stages once its store has read it
+            if (c >= 1 && c - 1 + stages < n_chunks) {
+                itpu_bulk_wait_read<1>();
+                load(c - 1 + stages);
+            }
+        }
+    }
+    if (threadIdx.x == 0) itpu_bulk_wait_read<0>();  // shared memory stays until the stores have read it
+}
+
+// n_ctas CTAs of vec_per_cta float4 each (rows_per_cta · row_len / 4)
+ITPU_EXPORT int itpu_probe_scale(const void* in, void* out, int n_ctas, int vec_per_cta, float mul, void* stream) {
+    static unsigned long long sized = 0;
+    if (n_ctas <= 0 || vec_per_cta <= 0) return (int)cudaGetLastError();
+    int chunk, n_chunks, stages;
+    itpu_scale_ring(vec_per_cta, chunk, n_chunks, stages);
+    const int err = itpu_allow_smem((const void*)itpu_probe_scale_kernel, SCALE_STAGES * SCALE_CHUNK, &sized);
+    if (err) return err;
+    const int threads = ((chunk + 3) / 4 + 31) / 32 * 32;
+    itpu_probe_scale_kernel<<<n_ctas, threads < SCALE_THREADS ? threads : SCALE_THREADS, stages * chunk * 16,
+                              (cudaStream_t)stream>>>((const float4*)in, (float4*)out, vec_per_cta, mul);
+    return (int)cudaGetLastError();
+}
+
+// The design the ring replaced, kept for comparisons (on no path): 256
+// threads, one float4 load and its store at a time.
+__global__ void __launch_bounds__(PROBE_THREADS)
+itpu_probe_scale_simple_kernel(const float4* __restrict__ in, float4* __restrict__ out, int vec_per_cta, float mul) {
     const long long base = (long long)blockIdx.x * vec_per_cta;
     for (int j = threadIdx.x; j < vec_per_cta; j += blockDim.x) {
         float4 v = in[base + j];
@@ -256,53 +429,258 @@ itpu_probe_scale_kernel(const float4* __restrict__ in, float4* __restrict__ out,
     }
 }
 
-// n_ctas CTAs of vec_per_cta float4 each (rows_per_cta · row_len / 4)
-ITPU_EXPORT int itpu_probe_scale(const void* in, void* out, int n_ctas, int vec_per_cta, float mul, void* stream) {
+ITPU_EXPORT int itpu_probe_scale_simple(const void* in, void* out, int n_ctas, int vec_per_cta, float mul,
+                                        void* stream) {
     if (n_ctas <= 0) return (int)cudaGetLastError();
-    itpu_probe_scale_kernel<<<n_ctas, PROBE_THREADS, 0, (cudaStream_t)stream>>>((const float4*)in, (float4*)out,
-                                                                               vec_per_cta, mul);
+    itpu_probe_scale_simple_kernel<<<n_ctas, PROBE_THREADS, 0, (cudaStream_t)stream>>>(
+        (const float4*)in, (float4*)out, vec_per_cta, mul);
     return (int)cudaGetLastError();
 }
 
 // --- P5 bf16 GEMM -------------------------------------------------------
 
+// A CTA computes a 128×256 tile of C. A producer warpgroup (one thread
+// issues) keeps GEMM_STAGES stages of A's 128×64 and B's 64×256 tiles in
+// flight by TMA; two consumer warpgroups, each 64 rows of the tile, run
+// wgmma m64n256k16 on each stage that has landed and hand it back when
+// their product of it has retired.
 #define GEMM_BM 128
-#define GEMM_BN 128
-#define GEMM_BK 32
-#define GEMM_PAD 8  // bf16 a shared row, so that the WMMA loads do not meet on one bank
-#define GEMM_THREADS 256
+#define GEMM_BN 256
+#define GEMM_BK 64
+#define GEMM_STAGES 4
+#define GEMM_A_BYTES (GEMM_BM * GEMM_BK * 2)  // 16 KB: 128 rows of 64 bf16 (128 bytes, one swizzle row)
+#define GEMM_B_BYTES (GEMM_BK * GEMM_BN * 2)  // 32 KB: 4 boxes of 64 k-rows × 64 columns, 8 KB each
+#define GEMM_STAGE_BYTES (GEMM_A_BYTES + GEMM_B_BYTES)
+#define GEMM_SMEM (GEMM_STAGES * GEMM_STAGE_BYTES + 1024)  // + room to align the ring to 1,024 bytes
+#define GEMM_THREADS 384
+#define GEMM_B_LBO 8192  // B's descriptor: bytes from one 64-column box to the next (N)
+#define GEMM_B_SBO 1024  // both descriptors: bytes from 8 rows (A: m, B: k) to the next 8
 
-__global__ void __launch_bounds__(GEMM_THREADS)
-itpu_probe_gemm_kernel(const __nv_bfloat16* __restrict__ A, const __nv_bfloat16* __restrict__ B,
+// a wgmma shared-memory descriptor with the 128-byte swizzle: start address,
+// leading and stride byte offsets (16-byte units)
+__device__ __forceinline__ uint64_t itpu_gemm_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+    return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)(lbo >> 4) << 16 | (uint64_t)(sbo >> 4) << 32 | 1ull << 62;
+}
+
+#define ITPU_D8(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
+                   "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d (64×256 f32, the wgmma accumulator layout) += A (64×16, K-major) ·
+// B (16×256, N-major: the transpose bit) from shared memory
+__device__ __forceinline__ void itpu_wgmma_256(float (&d)[128], uint64_t desc_a, uint64_t desc_b) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+        "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+        "}, %128, %129, p, 1, 1, 0, 1;\n}"
+        : ITPU_D8(0), ITPU_D8(8), ITPU_D8(16), ITPU_D8(24), ITPU_D8(32), ITPU_D8(40), ITPU_D8(48), ITPU_D8(56),
+          ITPU_D8(64), ITPU_D8(72), ITPU_D8(80), ITPU_D8(88), ITPU_D8(96), ITPU_D8(104), ITPU_D8(112), ITPU_D8(120)
+        : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// the accumulators, held in place across the asynchronous wgmma for the compiler
+__device__ __forceinline__ void itpu_fence_acc(float (&d)[128]) {
+#pragma unroll
+    for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__global__ void __launch_bounds__(GEMM_THREADS, 1)
+itpu_probe_gemm_kernel(__grid_constant__ const CUtensorMap map_a, __grid_constant__ const CUtensorMap map_b,
                        __nv_bfloat16* __restrict__ C, int M, int N, int K) {
+    extern __shared__ uint8_t gemm_smem[];
+    __shared__ __align__(8) uint64_t full[GEMM_STAGES], empty[GEMM_STAGES];
+    const uint32_t raw = itpu_smem(gemm_smem), ring = (raw + 1023) & ~1023u;  // the 128-byte swizzle's alignment
+    const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+    const int m0 = blockIdx.y * GEMM_BM, n0 = blockIdx.x * GEMM_BN, n_k = (K + GEMM_BK - 1) / GEMM_BK;
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < GEMM_STAGES; ++s) {
+            itpu_mbar_init(itpu_smem(&full[s]), 1);
+            itpu_mbar_init(itpu_smem(&empty[s]), 2);  // one arrival a consumer warpgroup
+        }
+        itpu_mbar_fence_init();
+    }
+    __syncthreads();
+    if (wg == 0) {  // the producer
+        asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+        if (t == 0) {
+            for (int kt = 0; kt < n_k; ++kt) {
+                const int s = kt % GEMM_STAGES;
+                if (kt >= GEMM_STAGES) itpu_mbar_wait(itpu_smem(&empty[s]), (kt / GEMM_STAGES - 1) & 1);
+                const uint32_t a = ring + s * GEMM_STAGE_BYTES, b = a + GEMM_A_BYTES, bar = itpu_smem(&full[s]);
+                itpu_mbar_expect(bar, GEMM_STAGE_BYTES);
+                itpu_tma_load_2d(a, &map_a, bar, kt * GEMM_BK, m0);
+                for (int c = 0; c < GEMM_BN / 64; ++c) itpu_tma_load_2d(b + c * 8192, &map_b, bar, n0 + 64 * c, kt * GEMM_BK);
+            }
+        }
+    } else {  // a consumer: rows 64·(wg − 1) of the tile
+        asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+        const int half = wg - 1;
+        float d[128];
+#pragma unroll
+        for (int i = 0; i < 128; ++i) d[i] = 0.f;
+        for (int kt = 0; kt < n_k; ++kt) {
+            const int s = kt % GEMM_STAGES;
+            itpu_mbar_wait(itpu_smem(&full[s]), (kt / GEMM_STAGES) & 1);
+            const uint32_t a = ring + s * GEMM_STAGE_BYTES + half * 64 * 128, b = ring + s * GEMM_STAGE_BYTES + GEMM_A_BYTES;
+            itpu_fence_acc(d);
+            asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+            for (int kk = 0; kk < GEMM_BK / 16; ++kk)  // A: 32 bytes on in the swizzled row; B: 16 k-rows on
+                itpu_wgmma_256(d, itpu_gemm_desc(a + 32 * kk, 16, GEMM_B_SBO),
+                               itpu_gemm_desc(b + 16 * 128 * kk, GEMM_B_LBO, GEMM_B_SBO));
+            asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+            asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");  // the stage before has retired
+            itpu_fence_acc(d);
+            if (kt > 0 && t == 0) itpu_mbar_arrive(itpu_smem(&empty[(kt - 1) % GEMM_STAGES]));
+        }
+        asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+        itpu_fence_acc(d);
+        // the epilogue: both consumers are done with the ring, which now holds
+        // each one's 64×256 bf16 tile, 512-byte rows with their 16-byte
+        // chunks swizzled (chunk ^ row mod 8) so that neither the stores nor
+        // the loads of a warp meet on a bank; then 16-byte stores to C
+        asm volatile("bar.sync 1, 256;" ::: "memory");
+        uint8_t* tile = gemm_smem + (ring - raw) + half * 64 * 512;
+        const int r = 16 * (t / 32) + (t % 32) / 4, q = t % 4;
+#pragma unroll
+        for (int j = 0; j < 32; ++j) {  // n8 block j: columns 8j + 2q, 8j + 2q + 1 of rows r and r + 8
+            *(__nv_bfloat162*)(tile + r * 512 + ((j ^ (r & 7)) * 16) + q * 4) =
+                __floats2bfloat162_rn(d[4 * j], d[4 * j + 1]);
+            *(__nv_bfloat162*)(tile + (r + 8) * 512 + ((j ^ (r & 7)) * 16) + q * 4) =
+                __floats2bfloat162_rn(d[4 * j + 2], d[4 * j + 3]);
+        }
+        asm volatile("bar.sync %0, 128;" ::"r"(2 + half) : "memory");
+        for (int e = t; e < 64 * 32; e += 128) {
+            const int row = e / 32, ch = e % 32, gr = m0 + 64 * half + row, gc = n0 + 8 * ch;
+            if (gr < M && gc < N)
+                *(uint4*)(C + (long long)gr * N + gc) = *(const uint4*)(tile + row * 512 + ((ch ^ (row & 7)) * 16));
+        }
+    }
+}
+
+typedef CUresult (*ItpuEncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                    CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, reached through the runtime (the library is not
+// linked against the driver); null where the driver lacks it
+static ItpuEncodeTiled itpu_encode_tiled() {
+    static ItpuEncodeTiled fn = nullptr;
+    if (fn == nullptr) {
+        void* p = nullptr;
+        cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+        const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                                               &found);
+#else
+        const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+        if (e == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = (ItpuEncodeTiled)p;
+    }
+    return fn;
+}
+
+// the tensor map of a row-major bf16 [rows, cols] matrix in boxes of
+// box_rows × 64 columns (128 bytes), with the 128-byte swizzle
+static int itpu_bf16_map(CUtensorMap* map, const void* base, int rows, int cols, int box_rows) {
+    const ItpuEncodeTiled encode = itpu_encode_tiled();
+    if (encode == nullptr) return (int)cudaErrorNotSupported;
+    const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows}, strides[1] = {(cuuint64_t)cols * 2};
+    const cuuint32_t box[2] = {64, (cuuint32_t)box_rows}, unit[2] = {1, 1};
+    const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, (void*)base, dims, strides, box, unit,
+                              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// the maps of the last few operands: encoding one takes microseconds of
+// host time, and a caller often passes the same operands again (a map
+// depends only on the address, the shape and the box)
+#define GEMM_MAP_CACHE 8
+
+static int itpu_bf16_map_cached(CUtensorMap* map, const void* base, int rows, int cols, int box_rows) {
+    struct Entry {
+        const void* base;
+        int rows, cols, box_rows;
+        CUtensorMap map;
+    };
+    static Entry cache[GEMM_MAP_CACHE] = {};
+    static int next = 0;
+    for (const Entry& e : cache)
+        if (e.base == base && e.rows == rows && e.cols == cols && e.box_rows == box_rows) {
+            *map = e.map;
+            return 0;
+        }
+    const int err = itpu_bf16_map(map, base, rows, cols, box_rows);
+    if (!err) {
+        cache[next] = {base, rows, cols, box_rows, *map};
+        next = (next + 1) % GEMM_MAP_CACHE;
+    }
+    return err;
+}
+
+// N and K multiples of 8 (the tensor maps' 16-byte rows), any M
+ITPU_EXPORT int itpu_probe_gemm(const void* a, const void* b, void* c, int m, int n, int k, void* stream) {
+    static unsigned long long sized = 0;
+    if (m < 0 || n < 0 || k < 0 || n % 8 || k % 8) return (int)cudaErrorInvalidValue;
+    if (m == 0 || n == 0) return (int)cudaGetLastError();
+    CUtensorMap map_a = {}, map_b = {};  // K = 0: no stage is loaded and the maps are not read; the tile is zeros
+    int err = k > 0 ? itpu_bf16_map_cached(&map_a, a, m, k, GEMM_BM) : 0;
+    if (!err && k > 0) err = itpu_bf16_map_cached(&map_b, b, k, n, GEMM_BK);
+    if (!err) err = itpu_allow_smem((const void*)itpu_probe_gemm_kernel, GEMM_SMEM, &sized);
+    if (err) return err;
+    itpu_probe_gemm_kernel<<<dim3((n + GEMM_BN - 1) / GEMM_BN, (m + GEMM_BM - 1) / GEMM_BM), GEMM_THREADS, GEMM_SMEM,
+                             (cudaStream_t)stream>>>(map_a, map_b, (__nv_bfloat16*)c, m, n, k);
+    return (int)cudaGetLastError();
+}
+
+// The design the wgmma ring replaced, kept for comparisons (on no path): WMMA 16×16×16
+// fragments, a 128×128 tile staged through shared memory 32 deep by the
+// threads' own loads, 8 warps of 64×32, no overlap of loads and products.
+#define WMMA_BM 128
+#define WMMA_BN 128
+#define WMMA_BK 32
+#define WMMA_PAD 8  // bf16 a shared row, so that the WMMA loads do not meet on one bank
+#define WMMA_THREADS 256
+
+__global__ void __launch_bounds__(WMMA_THREADS)
+itpu_probe_gemm_wmma_kernel(const __nv_bfloat16* __restrict__ A, const __nv_bfloat16* __restrict__ B,
+                            __nv_bfloat16* __restrict__ C, int M, int N, int K) {
     using namespace nvcuda;
-    __shared__ __align__(32) __nv_bfloat16 As[GEMM_BM][GEMM_BK + GEMM_PAD];
-    __shared__ __align__(32) __nv_bfloat16 Bs[GEMM_BK][GEMM_BN + GEMM_PAD];
-    __shared__ __align__(32) float Cs[GEMM_THREADS / 32][16 * 16];
+    __shared__ __align__(32) __nv_bfloat16 As[WMMA_BM][WMMA_BK + WMMA_PAD];
+    __shared__ __align__(32) __nv_bfloat16 Bs[WMMA_BK][WMMA_BN + WMMA_PAD];
+    __shared__ __align__(32) float Cs[WMMA_THREADS / 32][16 * 16];
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
     const int wm = warp / 4, wn = warp % 4;  // a warp's 64×32 tile of the CTA's 128×128
-    const int m0 = blockIdx.y * GEMM_BM, n0 = blockIdx.x * GEMM_BN;
+    const int m0 = blockIdx.y * WMMA_BM, n0 = blockIdx.x * WMMA_BN;
 
     wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
     for (int i = 0; i < 4; ++i)
         for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
 
-    for (int k0 = 0; k0 < K; k0 += GEMM_BK) {
+    for (int k0 = 0; k0 < K; k0 += WMMA_BK) {
         // 16 bytes (8 bf16) a thread and load: A's 128×32 tile, B's 32×128
-        for (int e = threadIdx.x; e < GEMM_BM * GEMM_BK / 8; e += GEMM_THREADS) {
-            const int r = e / (GEMM_BK / 8), c = (e % (GEMM_BK / 8)) * 8;
+        for (int e = threadIdx.x; e < WMMA_BM * WMMA_BK / 8; e += WMMA_THREADS) {
+            const int r = e / (WMMA_BK / 8), c = (e % (WMMA_BK / 8)) * 8;
             *(uint4*)&As[r][c] = *(const uint4*)&A[(long long)(m0 + r) * K + k0 + c];
         }
-        for (int e = threadIdx.x; e < GEMM_BK * GEMM_BN / 8; e += GEMM_THREADS) {
-            const int r = e / (GEMM_BN / 8), c = (e % (GEMM_BN / 8)) * 8;
+        for (int e = threadIdx.x; e < WMMA_BK * WMMA_BN / 8; e += WMMA_THREADS) {
+            const int r = e / (WMMA_BN / 8), c = (e % (WMMA_BN / 8)) * 8;
             *(uint4*)&Bs[r][c] = *(const uint4*)&B[(long long)(k0 + r) * N + n0 + c];
         }
         __syncthreads();
-        for (int kk = 0; kk < GEMM_BK; kk += 16) {
+        for (int kk = 0; kk < WMMA_BK; kk += 16) {
             wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> af[4];
             wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bf[2];
-            for (int i = 0; i < 4; ++i) wmma::load_matrix_sync(af[i], &As[wm * 64 + i * 16][kk], GEMM_BK + GEMM_PAD);
-            for (int j = 0; j < 2; ++j) wmma::load_matrix_sync(bf[j], &Bs[kk][wn * 32 + j * 16], GEMM_BN + GEMM_PAD);
+            for (int i = 0; i < 4; ++i) wmma::load_matrix_sync(af[i], &As[wm * 64 + i * 16][kk], WMMA_BK + WMMA_PAD);
+            for (int j = 0; j < 2; ++j) wmma::load_matrix_sync(bf[j], &Bs[kk][wn * 32 + j * 16], WMMA_BN + WMMA_PAD);
             for (int i = 0; i < 4; ++i)
                 for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], af[i], bf[j], acc[i][j]);
         }
@@ -323,10 +701,10 @@ itpu_probe_gemm_kernel(const __nv_bfloat16* __restrict__ A, const __nv_bfloat16*
 }
 
 // M and N multiples of 128, K of 32
-ITPU_EXPORT int itpu_probe_gemm(const void* a, const void* b, void* c, int m, int n, int k, void* stream) {
-    if (m % GEMM_BM || n % GEMM_BN || k % GEMM_BK) return (int)cudaErrorInvalidValue;
+ITPU_EXPORT int itpu_probe_gemm_wmma(const void* a, const void* b, void* c, int m, int n, int k, void* stream) {
+    if (m % WMMA_BM || n % WMMA_BN || k % WMMA_BK) return (int)cudaErrorInvalidValue;
     if (m <= 0 || n <= 0) return (int)cudaGetLastError();
-    itpu_probe_gemm_kernel<<<dim3(n / GEMM_BN, m / GEMM_BM), GEMM_THREADS, 0, (cudaStream_t)stream>>>(
+    itpu_probe_gemm_wmma_kernel<<<dim3(n / WMMA_BN, m / WMMA_BM), WMMA_THREADS, 0, (cudaStream_t)stream>>>(
         (const __nv_bfloat16*)a, (const __nv_bfloat16*)b, (__nv_bfloat16*)c, m, n, k);
     return (int)cudaGetLastError();
 }

@@ -95,10 +95,12 @@ SIGNATURES = {
     "itpu_probe_rows": (P, P, I, I, P, I, I, I, P, P, P, P, I, I, I, F, F, P),
     # pages, row_len, elem_bytes, ids, ids_stride, k_pages, n_tiles, out, n_cols, hashed, scale, stream
     "itpu_probe_page_sum": (P, I, I, P, I, I, I, P, I, I, F, P),
-    # in, out, n_ctas, vec_per_cta, mul, stream
+    # in, out, n_ctas, vec_per_cta, mul, stream; _simple: the design P4 replaced, for comparisons (uncounted)
     "itpu_probe_scale": (P, P, I, I, F, P),
-    # a, b, c, m, n, k, stream
+    "itpu_probe_scale_simple": (P, P, I, I, F, P),
+    # a, b, c, m, n, k, stream; _wmma: the design P5 replaced, for comparisons (uncounted)
     "itpu_probe_gemm": (P, P, P, I, I, I, P),
+    "itpu_probe_gemm_wmma": (P, P, P, I, I, I, P),
     # img, img_w, starts, starts_stride, n_tiles, win_h, win_w, out, out_w, stream
     "itpu_probe_window_sums": (P, I, P, I, I, I, I, P, I, P),
 }

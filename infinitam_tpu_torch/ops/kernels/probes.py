@@ -10,15 +10,19 @@ plain twins are `infinitam_tpu_torch/probes/plain.py`:
   k1-k5, probe9 kernel, probe10, probe12 kern, probe13 sk);
 - P3 `page_sum`: a tile's pages gathered and summed (probe9 kacc, probe13 rk);
 - P4 `scaled_copy`: x · 1.000001 in CTAs of a set number of rows (probe11
-  ck, probe12 ck);
-- P5 `gemm_bf16`: bf16 product with float32 accumulation (probe11 mk);
+  ck, probe12 ck), each CTA's block streamed through a ring of bulk
+  asynchronous copies;
+- P5 `gemm_bf16`: bf16 product with float32 accumulation (probe11 mk),
+  wgmma on operands a TMA ring brings into shared memory;
 - P6 `window_sums`: the column sums of a window at a tile's start (probe13 wk).
 
 Each wrapper takes the plain twin for tensors on the CPU and launches its
 kernel for CUDA tensors (built at first launch into build/kernels/, counted
 in `build.launch_counts()`); it raises where the kernel does not take its
 arguments and never falls back from one to the other. No batched path runs
-these kernels, so they are not lane-indexed.
+these kernels, so they are not lane-indexed. The designs P4 and P5 replaced
+stay as comparison entry points, on no path and not counted
+(`scaled_copy_simple`, `gemm_bf16_wmma`).
 """
 
 from __future__ import annotations
@@ -172,42 +176,86 @@ def page_sum(pages: torch.Tensor, ids: torch.Tensor, k_pages: int, n_cols: int, 
     return out
 
 
+def _scale_args(name: str, x: torch.Tensor, rows_per_cta: int) -> tuple:
+    """(CTAs, float4 a CTA) of a scaled copy of x, checked."""
+    _require(name, x)
+    build.require_dtype(name, x, torch.float32)
+    if x.dim() != 2 or x.shape[0] % rows_per_cta or x.shape[1] % 4 or x.data_ptr() % 16:
+        raise ValueError(f"{name}: {tuple(x.shape)} in blocks of {rows_per_cta} rows, rows of 4k floats")
+    return x.shape[0] // rows_per_cta, rows_per_cta * x.shape[1] // 4
+
+
 def scaled_copy(x: torch.Tensor, rows_per_cta: int, mul: float = 1.000001) -> torch.Tensor:
     """P4: x · mul for float32 x [rows, row_len], one CTA a block of
-    `rows_per_cta` rows (rows a multiple of it, row_len of 4)."""
+    `rows_per_cta` rows (rows a multiple of it, row_len of 4): the block goes
+    through a ring of bulk asynchronous copies, 16 KB chunks in 4 stages."""
     if x.device.type == "cpu":
         return plain.scaled_copy(x, rows_per_cta, mul)
-    _require("scaled_copy", x)
-    build.require_dtype("scaled_copy", x, torch.float32)
-    if x.dim() != 2 or x.shape[0] % rows_per_cta or x.shape[1] % 4 or x.data_ptr() % 16:
-        raise ValueError(f"scaled_copy: {tuple(x.shape)} in blocks of {rows_per_cta} rows, rows of 4k floats")
+    n_ctas, vec = _scale_args("scaled_copy", x, rows_per_cta)
     out = torch.empty_like(x)
-    err = build.library().itpu_probe_scale(x.data_ptr(), out.data_ptr(), x.shape[0] // rows_per_cta,
-                                           rows_per_cta * x.shape[1] // 4, ctypes.c_float(mul), build.stream_ptr())
+    err = build.library().itpu_probe_scale(x.data_ptr(), out.data_ptr(), n_ctas, vec, ctypes.c_float(mul),
+                                           build.stream_ptr())
     build.check("itpu_probe_scale", err)
     build.count_launch("probe_scale")
     return out
 
 
-GEMM_TILE = (128, 128, 32)  # csrc/probes.cu GEMM_BM, GEMM_BN, GEMM_BK
+def scaled_copy_simple(x: torch.Tensor, rows_per_cta: int, mul: float = 1.000001) -> torch.Tensor:
+    """P4 in the design it replaced (256 threads, one float4 load and its
+    store at a time), for comparisons: not counted."""
+    if x.device.type == "cpu":
+        return plain.scaled_copy(x, rows_per_cta, mul)
+    n_ctas, vec = _scale_args("scaled_copy_simple", x, rows_per_cta)
+    out = torch.empty_like(x)
+    build.check("itpu_probe_scale_simple", build.library().itpu_probe_scale_simple(
+        x.data_ptr(), out.data_ptr(), n_ctas, vec, ctypes.c_float(mul), build.stream_ptr()))
+    return out
+
+
+GEMM_TILE = (128, 256, 64)  # csrc/probes.cu GEMM_BM, GEMM_BN, GEMM_BK
+WMMA_TILE = (128, 128, 32)  # csrc/probes.cu WMMA_BM, WMMA_BN, WMMA_BK: the design P5 replaced
+
+
+def _gemm_args(name: str, a: torch.Tensor, b: torch.Tensor) -> tuple:
+    _require(name, a, b)
+    build.require_dtype(name, a, torch.bfloat16)
+    build.require_dtype(name, b, torch.bfloat16)
+    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0] or a.data_ptr() % 16 or b.data_ptr() % 16:
+        raise ValueError(f"{name}: [{tuple(a.shape)}] · [{tuple(b.shape)}] is not a matrix product")
+    (m, k), n = a.shape, b.shape[1]
+    return m, n, k
 
 
 def gemm_bf16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """P5: bf16(a · b), float32 accumulation, for bf16 a [M, K] and b [K, N]
-    with M and N multiples of 128 and K of 32."""
+    with N and K multiples of 8 (the tensor maps' rows of 16-byte
+    multiples), any M: wgmma on 128×256 tiles, fed k-slices 64 deep by a
+    4-stage TMA ring."""
     if a.device.type == "cpu":
         return plain.gemm_bf16(a, b)
-    _require("gemm_bf16", a, b)
-    build.require_dtype("gemm_bf16", a, torch.bfloat16)
-    build.require_dtype("gemm_bf16", b, torch.bfloat16)
-    (m, k), (k2, n) = a.shape, b.shape
-    bm, bn, bk = GEMM_TILE
-    if k != k2 or m % bm or n % bn or k % bk or a.data_ptr() % 16 or b.data_ptr() % 16:
-        raise ValueError(f"gemm_bf16: [{m}, {k}] · [{k2}, {n}] must be multiples of {GEMM_TILE}")
+    m, n, k = _gemm_args("gemm_bf16", a, b)
+    if n % 8 or k % 8:
+        raise ValueError(f"gemm_bf16: [{m}, {k}] · [{k}, {n}] needs N and K multiples of 8")
     c = torch.empty((m, n), dtype=torch.bfloat16, device=a.device)
     err = build.library().itpu_probe_gemm(a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k, build.stream_ptr())
     build.check("itpu_probe_gemm", err)
     build.count_launch("probe_gemm")
+    return c
+
+
+def gemm_bf16_wmma(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """P5 in the design it replaced (WMMA fragments, 128×128 tiles staged
+    through shared memory by the threads' loads), for comparisons: not
+    counted. M and N multiples of 128, K of 32."""
+    if a.device.type == "cpu":
+        return plain.gemm_bf16(a, b)
+    m, n, k = _gemm_args("gemm_bf16_wmma", a, b)
+    bm, bn, bk = WMMA_TILE
+    if m % bm or n % bn or k % bk:
+        raise ValueError(f"gemm_bf16_wmma: [{m}, {k}] · [{k}, {n}] must be multiples of {WMMA_TILE}")
+    c = torch.empty((m, n), dtype=torch.bfloat16, device=a.device)
+    build.check("itpu_probe_gemm_wmma", build.library().itpu_probe_gemm_wmma(
+        a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k, build.stream_ptr()))
     return c
 
 

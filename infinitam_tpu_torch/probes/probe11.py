@@ -45,8 +45,9 @@ def run(device, small: bool = False) -> list:
     a, b = (to_bf16(x, device) for x in make_mm(size, size, size))
     flop = 2.0 * size ** 3
     out = []
+    bm, bn, _bk = probes.GEMM_TILE
     m = timing.measure(lambda: probes.gemm_bf16(a, b), device)
-    out.append(timing.line(f"P5 matmul {size}^3 bf16 ({(size // 128) ** 2} CTAs)", m, tflops(m, flop)))
+    out.append(timing.line(f"P5 matmul {size}^3 bf16 ({-(-size // bm) * -(-size // bn)} CTAs)", m, tflops(m, flop)))
     m = timing.measure(lambda: torch.matmul(a, b), device, repo_only=False)
     out.append(timing.line(f"library torch.matmul {size}^3 bf16", m, tflops(m, flop)))
     rows, cols, ctas = COPY

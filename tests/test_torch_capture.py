@@ -346,7 +346,10 @@ KERNEL_SYMBOLS = {
     "_Z22itpu_probe_rows_kernelIfLi2ELi1EEvPKT_PS0_iPKiiiS5_S5_S5_PKfiff": "probe_rows",
     "_Z26itpu_probe_page_sum_kernelIaLb1EEvPKT_iPKiiiPfif": "probe_page_sum",
     "_Z23itpu_probe_scale_kernelPK6float4PS_if": "probe_scale",
-    "_Z22itpu_probe_gemm_kernelPK13__nv_bfloat16S1_PS_iii": "probe_gemm",
+    "_Z22itpu_probe_gemm_kernel14CUtensorMap_stS_P13__nv_bfloat16iii": "probe_gemm",
+    # the designs P4 and P5 replaced, reached only for comparisons: uncounted
+    "_Z30itpu_probe_scale_simple_kernelPK6float4PS_if": None,
+    "_Z27itpu_probe_gemm_wmma_kernelPK13__nv_bfloat16S1_PS_iii": None,
     "_Z29itpu_probe_window_sums_kernelPKfiPKiiiiPfi": "probe_window_sums",
     # torch's own kernels and the division-step test kernel
     "_ZN2at6native29vectorized_elementwise_kernelILi4ENS0_11FillFunctorIfEESt5arrayIPcLm1EEEEviT0_T1_": None,

@@ -451,6 +451,15 @@ def test_probe12_copy_matches_cp(ctas, rows):
     assert_equal(got, want)
 
 
+def test_probe11_copy_simple_design_matches_cp():
+    """P4's design its ring replaced (kept for comparisons on the card) at
+    tools/probe11.py:58, shrunk as above: on the CPU its wrapper takes the
+    plain twin, bit for bit."""
+    x = np.random.default_rng(4).standard_normal((4096, S3)).astype(np.float32)
+    ns, _ = lift("probe11.py", ["ck", "cp"], literals={65536: 4096}, X=J(x))
+    assert_equal(probes.scaled_copy_simple(T(x), 64), ns["cp"](J(x)))
+
+
 # --- P5 bf16 GEMM ------------------------------------------------------------
 
 
@@ -479,6 +488,18 @@ def test_probe11_matmul_matches_mm(values):
         a_t, b_t = T(a).to(torch.bfloat16), T(b).to(torch.bfloat16)
         assert float(plain.bf16_product_bound(got, a_t, b_t).max()) <= 1.0
         assert float(plain.bf16_product_bound(want, a_t, b_t).max()) <= 1.0
+
+
+def test_probe11_matmul_wmma_design_matches_mm():
+    """P5's design its wgmma ring replaced (kept for comparisons on the
+    card) at tools/probe11.py:31 on integer inputs at 256³: on the CPU its
+    wrapper takes the plain twin, bit for bit with the JAX output."""
+    n = 256
+    ns, _ = lift("probe11.py", ["mk", "mm"], M=n, N=n, K=n, TM=128, TN=128)
+    a, b = (np.random.default_rng(7 + i).integers(-8, 9, (n, n)).astype(np.float32) for i in range(2))
+    want = torch.from_numpy(np.asarray(ns["mm"](J(a).astype(jnp.bfloat16), J(b).astype(jnp.bfloat16))
+                                       .astype(jnp.float32))).to(torch.bfloat16)
+    assert torch.equal(probes.gemm_bf16_wmma(T(a).to(torch.bfloat16), T(b).to(torch.bfloat16)), want)
 
 
 # --- P6 window column sums ---------------------------------------------------

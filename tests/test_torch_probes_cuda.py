@@ -176,6 +176,85 @@ def test_gemm_equals_plain(device, values):
         assert float(plain.bf16_product_bound(got, a_t, b_t).max()) <= 1.0
 
 
+@pytest.mark.parametrize("rows_per_cta,row_len", [(1, 512), (3, 512), (8, 512), (1024, 512), (9, 512), (40, 512),
+                                                  (5, 1000), (2, 4)])
+def test_scaled_copy_ring_equals_plain(device, rows_per_cta, row_len):
+    """P4's ring of 16 KB chunks in 4 stages, 7 CTAs: blocks of one chunk
+    and less (1, 3, 8 rows, 2 rows of 4 floats), a last chunk cut short (9
+    rows: 16 KB + 2 KB; 5 rows of 1,000 floats: 16 KB + 3.5 KB), chunk
+    counts that are not a multiple of the ring's depth (40 rows: 5 chunks)
+    and one that is (1,024 rows: 128 chunks); bit for bit."""
+    rng = np.random.default_rng(rows_per_cta)
+    (x,) = on(device, rng.standard_normal((7 * rows_per_cta, row_len)).astype(np.float32))
+    got = launched("probe_scale", lambda: probes.scaled_copy(x, rows_per_cta))
+    assert torch.equal(got, plain.scaled_copy(x, rows_per_cta))
+
+
+@pytest.mark.parametrize("rows_per_cta", [1, 9, 1024])
+def test_scaled_copy_simple_design_equals_plain(device, rows_per_cta):
+    """P4's design the ring replaced, kept for comparisons: bit for bit, and
+    not counted."""
+    (x,) = on(device, np.random.default_rng(8).standard_normal((3 * rows_per_cta, S3)).astype(np.float32))
+    build.reset_launch_counts()
+    got = probes.scaled_copy_simple(x, rows_per_cta)
+    torch.cuda.synchronize()
+    assert torch.equal(got, plain.scaled_copy(x, rows_per_cta))
+    assert build.launch_counts() == dict.fromkeys(build.KERNELS, 0)
+
+
+@pytest.mark.parametrize("values", ["normal", "integer"])
+@pytest.mark.parametrize("m,k,n", [(128, 64, 256), (128, 96, 384), (200, 136, 136), (384, 1000, 520)])
+def test_gemm_off_the_tile_equals_plain(device, m, k, n, values):
+    """P5's 128×256×64 tiles at shapes off them: one 128-row M, K not a
+    multiple of 64 (the TMA fills the last stage past K with zeros), N not a
+    multiple of 256 (a tile's columns past N are not stored; 136 leaves a
+    64-column box wholly past N), M not a multiple of 128."""
+    rng = np.random.default_rng(m + k + n)
+    if values == "normal":
+        a, b = (rng.standard_normal(s).astype(np.float32) for s in ((m, k), (k, n)))
+    else:
+        a, b = (rng.integers(-8, 9, s).astype(np.float32) for s in ((m, k), (k, n)))
+    a_t, b_t = (t.to(torch.bfloat16) for t in on(device, a, b))
+    got = launched("probe_gemm", lambda: probes.gemm_bf16(a_t, b_t))
+    if values == "integer":
+        assert torch.equal(got, plain.gemm_bf16(a_t, b_t))
+    else:
+        assert float(plain.bf16_product_bound(got, a_t, b_t).max()) <= 1.0
+
+
+def test_gemm_2048_on_integers_is_bit_equal(device):
+    """probe11's 2048³ on integer inputs in [-8, 8]: every partial sum is
+    exact in float32, so any order of the sum gives plain's bits."""
+    rng = np.random.default_rng(9)
+    a, b = (rng.integers(-8, 9, (2048, 2048)).astype(np.float32) for _ in range(2))
+    a_t, b_t = (t.to(torch.bfloat16) for t in on(device, a, b))
+    got = launched("probe_gemm", lambda: probes.gemm_bf16(a_t, b_t))
+    assert torch.equal(got, plain.gemm_bf16(a_t, b_t))
+
+
+def test_gemm_wmma_design_equals_plain(device):
+    """P5's design the wgmma ring replaced, kept for comparisons: bit for bit
+    on integer inputs, within the bound on normal ones, not counted."""
+    rng = np.random.default_rng(10)
+    a, b = (t.to(torch.bfloat16) for t in on(device, rng.integers(-8, 9, (256, 96)).astype(np.float32),
+                                             rng.integers(-8, 9, (96, 384)).astype(np.float32)))
+    build.reset_launch_counts()
+    assert torch.equal(probes.gemm_bf16_wmma(a, b), plain.gemm_bf16(a, b))
+    a, b = (t.to(torch.bfloat16) for t in on(device, rng.standard_normal((256, 96)).astype(np.float32),
+                                             rng.standard_normal((96, 384)).astype(np.float32)))
+    assert float(plain.bf16_product_bound(probes.gemm_bf16_wmma(a, b), a, b).max()) <= 1.0
+    assert build.launch_counts() == dict.fromkeys(build.KERNELS, 0)
+
+
+def test_gemm_refuses_rows_the_tensor_maps_cannot_take(device):
+    """The tensor maps need rows of 16-byte multiples: N and K multiples of 8."""
+    a = torch.zeros((128, 100), dtype=torch.bfloat16, device=device)
+    with pytest.raises(ValueError):
+        probes.gemm_bf16(a, torch.zeros((100, 128), dtype=torch.bfloat16, device=device))
+    with pytest.raises(ValueError):
+        probes.gemm_bf16(a[:, :96].contiguous(), torch.zeros((96, 100), dtype=torch.bfloat16, device=device))
+
+
 def test_window_sums_equal_plain(device):
     img, starts = on(device, *probe13.make_window(64))
     got = launched("probe_window_sums", lambda: probe13.window_sums(probes.window_sums, img, starts))
