@@ -226,7 +226,7 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
 PEAK_BF16_PER_S = 989.4e12  # dense bf16 on the tensor cores: the probes' P5
 # the designs a redesigned probe kernel is timed beside (probe_checks): the
-# ones P4 and P5 replaced
+# ones P2, P4 and P5 replaced
 DESIGNS = ("simple_", "wmma_")
 # float32 operations per element, counted from the kernels' sources
 ICP_OPS_PIXEL = 116  # csrc/icp.cu: back-projection, two transforms, projection, the point tap, the gate
@@ -2400,6 +2400,29 @@ class Smoke:
         def add(counter, site, row):
             found[counter].append(dict(row, site=site))
 
+        def designs(entry, make, others, check):
+            """The other designs of a redesigned kernel (`others`: name →
+            function of the site's arguments) on the site's inputs in this
+            call (`make()`: fresh ones, as an update in place changes them):
+            each held by `check(got)` → (ok, what) and timed cold and warm,
+            beside the kernel's own times; theirs join `entry` as
+            `{name}_ms` (cold) and `{name}_warm_ms`."""
+            for name, fn in others.items():
+                args = make()
+                ok, what = check(fn(*args))
+                cold = device_ms(lambda: fn(*args), 20, self.flush)[0]
+                warm = device_ms(lambda: fn(*args), 50)[0]
+                print(f"  {entry['label']}, the {name} design on the same inputs: {what}; cold {fmt_ms(cold)}, warm "
+                      f"{fmt_ms(warm)}; the kernel's time over its, cold {ratio(entry['cold_ms'], cold)}, warm "
+                      f"{ratio(entry['warm_ms'], warm)}")
+                self.gate(ok, f"{entry['label']}: the {name} design {what}")
+                entry[f"{name}_ms"], entry[f"{name}_warm_ms"] = cold, warm
+
+        def faster(entry, name):
+            """Whether the kernel ran faster than the `name` design, cold and warm."""
+            times = (entry["cold_ms"], entry[f"{name}_ms"], entry["warm_ms"], entry[f"{name}_warm_ms"])
+            return None not in times and times[0] < times[1] and times[2] < times[3]
+
         # P1: take and take_along_axis; library torch.take / torch.gather
         def gather_site(site, label, tab, idx, axis=None):
             e, i = tab.element_size(), idx.long()
@@ -2419,14 +2442,21 @@ class Smoke:
         for name, n_tab, dtype, n_range in probe2.TAKES:
             gather_site("tools/probe2.py:27", name[3:], *on(*probe2.make_take(n_tab, dtype, n_range)))
         gather_site("tools/probe2.py:47", "take_along_axis ax0 [1024,128] by [8,128]", *on(*probe2.make_along()), 0)
+        # a table past the 50 MB L2: probe 6's take of 307 k from the 134 MB
+        # int32 table (its XLA menu, which P1 runs on the probes' path)
+        n_tab, n_idx, name = probe6.TAKES[1]
+        gather_site("tools/probe6.py:42", f"take {n_idx // 1000}k from {name} int32 (the table past the L2)",
+                    *on(*probe6.make_take(n_tab, n_idx)))
         for rows, cols, dtype, axis, name in probe6.MATRIX:
             tab, idx = probe6.make_dg(rows, cols, dtype, axis)
             gather_site("tools/probe6.py:42", f"dg {name} [{rows},{cols}] {dtype} axis{axis}",
                         probe6.to_table(tab, dtype, self.dev), *on(idx), axis)
 
-        # P2: the row update; no library call computes it. `call(fn, vba)`
-        # is the site through fn (kp.row_update or pp.row_update) on rows vba.
-        def rows_site(site, label, vba, call, tol):
+        # P2: the row update; one library call computes it only at probe 10's
+        # static-map copies (`library`). `call(fn, vba)` is the site through
+        # fn (kp.row_update or pp.row_update) on rows vba. Beside the design
+        # it replaced (`simple`), gated on being faster at the headline sites.
+        def rows_site(site, label, vba, call, tol, library=None, headline=False):
             (_v, ptr), kw = recorded(call, vba)
             nv, row_len = ptr.numel(), vba.shape[1]
             p, steps = ptr.long(), torch.arange(nv, device=self.dev)
@@ -2457,10 +2487,17 @@ class Smoke:
                             else (wu * pp.WIN + du) * w + wv * pp.WIN + dv)
                     n_bytes += sectors(flat * 4)
             written = None if in_place else (p[steps] if kw.get("dst_ptr", True) else steps)
-            add("probe_rows", site, self.probe_site(
-                "probe_rows", f"{site} {label}", (lambda: (vba.clone(),)) if in_place else (lambda: (vba,)),
-                lambda v: call(kp.row_update, v), lambda v: call(pp.row_update, v), compare(tol, written),
-                (n_bytes, n_ops)))
+            make = (lambda: (vba.clone(),)) if in_place else (lambda: (vba,))
+            row = self.probe_site(
+                "probe_rows", f"{site} {label}", make, lambda v: call(kp.row_update, v),
+                lambda v: call(pp.row_update, v), compare(tol, written), (n_bytes, n_ops), library)
+            want = call(pp.row_update, vba.clone())
+            designs(row, make, {"simple": lambda v: call(kp.row_update_simple, v)},
+                    lambda got: (lambda ok, _err, what: (ok, what))(*compare(tol, written)(got, want)))
+            if headline:
+                self.gate(faster(row, "simple"), f"probe_rows {row['label']}: faster than the simple design, "
+                                                 f"cold and warm")
+            add("probe_rows", site, row)
             if tap != "none":  # on zero rows the output is the scaled tap itself (1e-9 · tap vanishes beside a row)
                 z = torch.zeros_like(vba)
                 listed = p[steps] if kw.get("dst_ptr", True) else steps
@@ -2473,25 +2510,28 @@ class Smoke:
 
         vba, depth, ptr, wv, wu, valid = on(*probe7.make(*probe7.FULL))
         rows_site("tools/probe7.py:77", f"mini-integrate {ptr.numel()} blocks, bf16 tap, valid, in place", vba,
-                  lambda fn, v: probe7.update(fn, v, depth, ptr, wv, wu, valid), 1e-6)
+                  lambda fn, v: probe7.update(fn, v, depth, ptr, wv, wu, valid), 1e-6, headline=True)
         vba, depth, ptr, wv, wu = on(*probe8.make(*probe8.FULL))
         for name, kw, tol in probe8.ATTEMPTS:
             rows_site("tools/probe8.py:28", name, vba,
-                      lambda fn, v, kw=kw: probe8.attempt(fn, v, depth, ptr, wv, wu, **kw), tol)
+                      lambda fn, v, kw=kw: probe8.attempt(fn, v, depth, ptr, wv, wu, **kw), tol,
+                      headline=kw.get("tap") == "sum")
         vba, depth_t, ptr, wv, wu, valid = on(*probe9.make(*probe9.FULL))
         rows_site("tools/probe9.py:53", f"integrate-pattern {ptr.numel()} blocks, f32 tap, valid, in place", vba,
                   lambda fn, v: probe9.update(fn, v, depth_t, ptr, wv, wu, valid), 1e-6)
         vba, depth_t, ptr, seq, wv, wu = on(*probe10.make(*probe10.FULL))
         for name, flags in probe10.ATTEMPTS:
+            library = probe10.LIBRARY.get(name)
             rows_site("tools/probe10.py:69", name, vba,
                       lambda fn, v, flags=flags: probe10.attempt(fn, v, depth_t, ptr, seq, wv, wu, *flags),
-                      1e-6 if flags[2] else 0.0)
+                      1e-6 if flags[2] else 0.0, library and (lambda v, f=library: f(v, ptr.numel())),
+                      headline=name == "copy dyn-in dyn-out alias")
         rows_site("tools/probe12.py:105", f"dyn-row integrate {ptr.numel()} blocks, not aliased", vba,
                   lambda fn, v: probe12.integ(fn, v, depth_t, ptr, wv, wu), 1e-6)
         vol, _pid = on(*probe13.make_volume())
         (rows,) = on(probe13.make_rows())
         rows_site("tools/probe13.py:113", f"int8 +1 on {rows.numel()} listed rows ({distinct(rows)} distinct)", vol,
-                  lambda fn, v: probe13.row_stores(fn, v, rows), 0.0)
+                  lambda fn, v: probe13.row_stores(fn, v, rows), 0.0, headline=True)
         del vba, depth, depth_t, ptr, seq, wv, wu, valid, vol, rows
 
         # P3: the page gather-sum; no library call computes it
@@ -2515,27 +2555,6 @@ class Smoke:
                   pages, p, probe9.accumulate, 1e-5)
         del vol, pid, pages, p
 
-        def designs(entry, args, others, check):
-            """The other designs of a redesigned kernel (`others`: name →
-            function of the site's arguments) on the site's inputs in this
-            call: each held by `check(got)` → (ok, what) and timed cold and
-            warm, beside the kernel's own times; theirs join `entry` as
-            `{name}_ms` (cold) and `{name}_warm_ms`."""
-            for name, fn in others.items():
-                ok, what = check(fn(*args))
-                cold = device_ms(lambda: fn(*args), 20, self.flush)[0]
-                warm = device_ms(lambda: fn(*args), 50)[0]
-                print(f"  {entry['label']}, the {name} design on the same inputs: {what}; cold {fmt_ms(cold)}, warm "
-                      f"{fmt_ms(warm)}; the kernel's time over its, cold {ratio(entry['cold_ms'], cold)}, warm "
-                      f"{ratio(entry['warm_ms'], warm)}")
-                self.gate(ok, f"{entry['label']}: the {name} design {what}")
-                entry[f"{name}_ms"], entry[f"{name}_warm_ms"] = cold, warm
-
-        def faster(entry, name):
-            """Whether the kernel ran faster than the `name` design, cold and warm."""
-            times = (entry["cold_ms"], entry[f"{name}_ms"], entry["warm_ms"], entry[f"{name}_warm_ms"])
-            return None not in times and times[0] < times[1] and times[2] < times[3]
-
         # P4: the scaled copy; library torch.mul; beside the design it replaced
         # (`simple`)
         def copy_site(site, x, rows_per_cta):
@@ -2545,7 +2564,7 @@ class Smoke:
                 lambda: (x,), lambda y: kp.scaled_copy(y, rows_per_cta), lambda y: pp.scaled_copy(y, rows_per_cta),
                 compare(), (8 * x.numel(), x.numel()), lambda y: torch.mul(y, 1.000001))
             want = pp.scaled_copy(x, rows_per_cta)
-            designs(row, (x,), {"simple": lambda y: kp.scaled_copy_simple(y, rows_per_cta)},
+            designs(row, lambda: (x,), {"simple": lambda y: kp.scaled_copy_simple(y, rows_per_cta)},
                     lambda got: (torch.equal(got, want), "bit-equal to plain"))
             if n_ctas <= 96:  # the decompositions of few CTAs, which the ring is for
                 self.gate(faster(row, "simple"), f"probe_scale {row['label']}: faster than the simple design, "
@@ -2582,7 +2601,7 @@ class Smoke:
         row = self.probe_site(
             "probe_gemm", f"tools/probe11.py:31 {m}×{n}×{k} bf16", lambda: (a, b), kp.gemm_bf16, pp.gemm_bf16, ulps,
             (2 * (m * k + k * n + m * n), 2 * m * n * k), torch.matmul, peak_ops=PEAK_BF16_PER_S)
-        designs(row, (a, b), {"wmma": kp.gemm_bf16_wmma},
+        designs(row, lambda: (a, b), {"wmma": kp.gemm_bf16_wmma},
                 lambda got: (float(pp.bf16_product_bound(got, a, b).max()) <= 1.0,
                              f"within the float32 summation bound (max "
                              f"{float(pp.bf16_product_bound(got, a, b).max()):.4f} of it)"))

@@ -9,13 +9,22 @@
 // - P1 gather (probe2 kA/kB, probe6 kern): `take` (1-D) and
 //   `take_along_axis` on axis 0 or 1 of a 2-D table, one thread an output
 //   element, templated on the element's size (1, 2 or 4 bytes: int8, bf16,
-//   f32 and int32). Bound by bytes: the index, the output and the table's
-//   touched 32-byte sectors.
+//   f32 and int32). The bound counts bytes (the index, the output and the
+//   table's touched 32-byte sectors), but every tap is a sector request of
+//   its own, and on a table the L2 holds the L2's sector rate sets the
+//   time: the probes' 256 k taps move 8.4 MB of sectors, ~2 µs beside a
+//   launch's ~1.2, where this design already sits. Measured against it and
+//   dropped (PERF.md §6): 4, 8 or 16 outputs a thread with 16-byte index
+//   loads over the grid the card holds at once (4 tied on probe 2's takes
+//   and lost 0.1-0.5 µs on the small tables; 8 and 16 lost more), and one
+//   thread an output with 32-bit index math, an L2 prefetch of a table no
+//   larger than the indices and two outputs a thread past 32 MB (0.91-1.06×
+//   this design's time where the L2 holds the table; past it 0.82× warm,
+//   1.00× cold).
 // - P2 row update (probe7 kernel, probe8 k1-k5, probe9 kernel, probe10 kern,
-//   probe12 kern, probe13 sk): one CTA a listed step, as the TPU grid had
-//   one step a block. Step i reads row src(i) and writes row dst(i), each
-//   ptr[i] or i; in place (out == in) or into a fresh output, where only the
-//   visited rows are written. Element k of the row:
+//   probe12 kern, probe13 sk): step i reads row src(i) and writes row dst(i),
+//   each ptr[i] or i; in place (out == in) or into a fresh output, where only
+//   the visited rows are written. Element k of the row:
 //   out = gate ? (row + tap_k · tap_scale) · mul : row, with the tap at
 //   dv = (3k + i) mod 128, du = 7·dv mod 128 of the step's 128×128 window:
 //   none; img[wv·128 + dv, wu·128 + du] rounded to bf16 (round to nearest
@@ -23,14 +32,33 @@
 //   transposed window); or the window's sum. Gates: none, valid[i] > 0
 //   (in place, a step with valid[i] ≤ 0 touches nothing; into a fresh
 //   output it copies its row), ptr[i] ≥ 0 (a step with ptr[i] < 0 touches
-//   nothing), and, for probe13's
-//   int8 row +1, "first": a row listed by several steps is updated by the
-//   first of them only, so it gains 1 once, as the TPU body (which reads the
-//   input, not the output) gives. Precondition of the other gates: the
-//   written rows are distinct (the probes' ptr are a permutation), else two
-//   CTAs race on a row. Bound by bytes: the rows a step changes (or, into
-//   a fresh output, copies), read and written once, and the window's
-//   touched sectors.
+//   nothing), and, for probe13's int8 row +1, "first": a row listed by
+//   several steps is updated by the first of them only, so it gains 1 once,
+//   as the TPU body (which reads the input, not the output) gives.
+//   Precondition of the other gates: the written rows are distinct (the
+//   probes' ptr are a permutation), else two steps race on a row. Bound by
+//   bytes: the rows a step changes (or, into a fresh output, copies), read
+//   and written once, and the window's touched sectors. A step waits on the
+//   chain ptr → row → store, so a CTA of 8 warps takes a chunk of steps (the
+//   grid is what the card holds at once) and loads the chunk's ptr (only
+//   where a map or the gate reads it), valid, wv and wu at once into shared
+//   memory; then a warp takes a live step: each lane holds 16-byte pieces of
+//   the row (2 KB a warp) and the step's 4 distinct taps (element k and
+//   k + 128 read one tap), loaded with the row through the read-only path,
+//   and the warp loads its next step before it stores the current one. The
+//   window sum is the whole CTA's, 16 16-byte loads in flight a thread,
+//   summed in a fixed order. The "first" gate puts the chunk's rows in an
+//   open-addressed table in shared memory and looks up every step up to the
+//   chunk's end there (16-byte loads of ptr); a row's slot keeps the
+//   earliest step that lists it. Rows not in 16-byte pieces go element by
+//   element, a warp a step, in the same kernel. Measured against it and
+//   dropped (PERF.md §6): a ring of bulk asynchronous row copies through
+//   shared memory, as P4 streams: 3-13% slower on the copies and 1.7-1.8×
+//   (2.1× warm) with taps, as a CTA walks its rows in order behind a
+//   barrier each and each row's taps wait for its turn. The design it
+//   replaced, one CTA a step with each thread's loads and stores in turn and
+//   the "first" gate rescanning the steps before its own, stays for
+//   comparisons (itpu_probe_rows_simple).
 // - P3 page gather-sum (probe9 kacc, probe13 rk): out[t, c] =
 //   scale · Σ_{k<K} f32(pages[ids[t, k], sel(t, c)]), sel = c or
 //   (17c + t) mod row_len, one CTA a tile, the ids in shared memory, the
@@ -120,9 +148,354 @@ ITPU_EXPORT int itpu_probe_gather(const void* tab, const void* idx, void* out, i
 enum { PROBE_TAP_NONE = 0, PROBE_TAP_BF16 = 1, PROBE_TAP_F32T = 2, PROBE_TAP_SUM = 3 };
 enum { PROBE_GATE_NONE = 0, PROBE_GATE_VALID = 1, PROBE_GATE_PTR = 2, PROBE_GATE_FIRST = 3 };
 
+#define ROWS_THREADS 256  // 8 warps; a CTA takes at most this many steps
+#define ROWS_WARPS (ROWS_THREADS / 32)
+#define ROWS_VEC 4        // 16-byte pieces a lane holds of a step: a warp holds 2 KB of a row at a time
+#define ROWS_HASH 512     // slots of the "first" gate's table (twice a CTA's steps)
+#define ROWS_HASH_BITS 9
+#define ROWS_EMPTY ((int)0x80000000)
+
+// A CTA's chunk of steps s0 …: each step's ptr, wv, wu by its place in the
+// chunk; the live steps (those a gate lets write) in step order with their
+// kind (1 update, 2 copy unchanged) and window sum
+struct ItpuRowsChunk {
+    int ptr[ROWS_THREADS], wv[ROWS_THREADS], wu[ROWS_THREADS];
+    int step[ROWS_THREADS], kind[ROWS_THREADS];
+    float sum[ROWS_THREADS];
+    int count[ROWS_WARPS];
+    float part[ROWS_WARPS];
+    int hkey[ROWS_HASH], hmin[ROWS_HASH];
+};
+
+// a live step as a warp needs it
+struct ItpuRowsItem {
+    long long src, dst;
+    int i, kind, wv, wu;
+    float sum;
+};
+
+template <int TAP>
+__device__ __forceinline__ ItpuRowsItem itpu_rows_item(const ItpuRowsChunk& sh, int s0, int j, int src_ptr,
+                                                       int dst_ptr) {
+    const int place = sh.step[j], i = s0 + place, p = sh.ptr[place];
+    ItpuRowsItem s = {src_ptr ? p : i, dst_ptr ? p : i, i, sh.kind[j], 0, 0, 0.f};
+    if (TAP != PROBE_TAP_NONE) {
+        s.wv = sh.wv[place];
+        s.wu = sh.wu[place];
+    }
+    if (TAP == PROBE_TAP_SUM) s.sum = sh.sum[j];
+    return s;
+}
+
+// the tap of element k of step s (k mod 128 decides it)
+template <int TAP>
+__device__ __forceinline__ float itpu_rows_tap(const float* __restrict__ img, int img_w, const ItpuRowsItem& s,
+                                               int k) {
+    const int dv = (3 * k + s.i) & (PROBE_WIN - 1), du = (7 * dv) & (PROBE_WIN - 1);
+    if (TAP == PROBE_TAP_BF16)
+        return __bfloat162float(__float2bfloat16_rn(
+            __ldg(img + (long long)(s.wv * PROBE_WIN + dv) * img_w + s.wu * PROBE_WIN + du)));
+    if (TAP == PROBE_TAP_F32T) return __ldg(img + (long long)(s.wu * PROBE_WIN + du) * img_w + s.wv * PROBE_WIN + dv);
+    return s.sum;
+}
+
+template <int TAP>
+__device__ __forceinline__ float itpu_rows_f32(float x, float tap, float tap_scale, float mul) {
+    const float y = TAP == PROBE_TAP_NONE ? x : x + tap * tap_scale;
+    return y * mul;
+}
+
+// 16 bytes of a row updated: 4 floats with their taps, or 16 int8 + 1 with
+// wrap-around
+template <typename T, int TAP>
+__device__ __forceinline__ uint4 itpu_rows_update(uint4 w, const float (&tap)[4], float tap_scale, float mul) {
+    if constexpr (sizeof(T) == 1) {
+        return make_uint4(__vadd4(w.x, 0x01010101u), __vadd4(w.y, 0x01010101u), __vadd4(w.z, 0x01010101u),
+                          __vadd4(w.w, 0x01010101u));
+    } else {
+        w.x = __float_as_uint(itpu_rows_f32<TAP>(__uint_as_float(w.x), tap[0], tap_scale, mul));
+        w.y = __float_as_uint(itpu_rows_f32<TAP>(__uint_as_float(w.y), tap[1], tap_scale, mul));
+        w.z = __float_as_uint(itpu_rows_f32<TAP>(__uint_as_float(w.z), tap[2], tap_scale, mul));
+        w.w = __float_as_uint(itpu_rows_f32<TAP>(__uint_as_float(w.w), tap[3], tap_scale, mul));
+        return w;
+    }
+}
+
+// the sum of the 128×128 window img[v0 + a, u0 + b], the same value in every
+// thread of the CTA and in every call: each thread sums its 16 pieces of 4
+// in order, then the warps' shuffle tree, then the warps in order
+__device__ float itpu_rows_window_sum(const float* __restrict__ img, int img_w, int v0, int u0, int vec_img,
+                                      float* part) {
+    const int t = threadIdx.x;
+    float s = 0.f;
+    if (vec_img) {  // piece t + 256·r: window row t / 32 + 8r, columns 4 (t mod 32) …
+        const float4* p = reinterpret_cast<const float4*>(img + (long long)(v0 + (t >> 5)) * img_w + u0) + (t & 31);
+        const long long rows8 = 2ll * img_w;  // 8 image rows in float4
+        float4 x[16];
+#pragma unroll
+        for (int r = 0; r < 16; ++r) x[r] = __ldg(p + r * rows8);
+#pragma unroll
+        for (int r = 0; r < 16; ++r) s += (x[r].x + x[r].y) + (x[r].z + x[r].w);
+    } else {
+        for (int e = t; e < PROBE_WIN * PROBE_WIN; e += ROWS_THREADS)
+            s += __ldg(img + (long long)(v0 + (e >> 7)) * img_w + u0 + (e & (PROBE_WIN - 1)));
+    }
+    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+    if ((t & 31) == 0) part[t >> 5] = s;
+    __syncthreads();
+    float total = 0.f;
+    for (int w = 0; w < ROWS_WARPS; ++w) total += part[w];
+    __syncthreads();  // part is free again
+    return total;
+}
+
+__device__ __forceinline__ int itpu_rows_hash(int v) {
+    return (int)(((unsigned)v * 2654435761u) >> (32 - ROWS_HASH_BITS));
+}
+
+// The "first" gate: whether step s0 + t (t < n) lists its row before any
+// other step. The chunk's rows go into an open-addressed table; every step
+// up to the chunk's end is looked up there, and a row's slot keeps the
+// earliest step that lists it.
+__device__ int itpu_rows_first(ItpuRowsChunk& sh, const int* __restrict__ ptr, int s0, int n) {
+    const int t = threadIdx.x;
+    for (int s = t; s < ROWS_HASH; s += ROWS_THREADS) {
+        sh.hkey[s] = ROWS_EMPTY;
+        sh.hmin[s] = 0x7fffffff;
+    }
+    __syncthreads();
+    int slot = 0;
+    if (t < n) {
+        const int v = sh.ptr[t];
+        for (slot = itpu_rows_hash(v);; slot = (slot + 1) & (ROWS_HASH - 1)) {
+            const int old = atomicCAS(&sh.hkey[slot], ROWS_EMPTY, v);
+            if (old == ROWS_EMPTY || old == v) break;
+        }
+    }
+    __syncthreads();
+    auto look = [&](int j, int v) {
+        for (int s = itpu_rows_hash(v);; s = (s + 1) & (ROWS_HASH - 1)) {
+            const int key = sh.hkey[s];
+            if (key == v) {
+                atomicMin(&sh.hmin[s], j);
+                return;
+            }
+            if (key == ROWS_EMPTY) return;
+        }
+    };
+    const int end = s0 + n;
+    const int to_boundary = (int)((16 - (uintptr_t)ptr % 16) % 16 / 4);
+    const int head = end < to_boundary ? end : to_boundary;
+    if (t < head) look(t, __ldg(ptr + t));
+    for (int j = head + 4 * t; j < end; j += 4 * ROWS_THREADS) {
+        if (j + 4 <= end) {
+            const int4 q = __ldg(reinterpret_cast<const int4*>(ptr + j));
+            look(j, q.x);
+            look(j + 1, q.y);
+            look(j + 2, q.z);
+            look(j + 3, q.w);
+        } else {
+            for (int e = j; e < end; ++e) look(e, __ldg(ptr + e));
+        }
+    }
+    __syncthreads();
+    return t < n && sh.hmin[slot] == s0 + t;
+}
+
+// The chunk's steps into shared memory, their gates decided, the live ones
+// listed in step order, and (the sum tap) each live step's window sum;
+// returns the number of live steps. ptr is read only where a map or the
+// gate reads it: with static maps a row's address waits on nothing.
+template <int TAP, int GATE>
+__device__ int itpu_rows_chunk(ItpuRowsChunk& sh, int s0, int n, const int* __restrict__ ptr, bool maps,
+                               bool in_place, const int* __restrict__ wv, const int* __restrict__ wu,
+                               const int* __restrict__ valid, const float* __restrict__ img, int img_w,
+                               int vec_img) {
+    const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+    int kind = 0;
+    if (t < n) {
+        const int i = s0 + t;
+        const int p = maps || GATE == PROBE_GATE_PTR || GATE == PROBE_GATE_FIRST ? __ldg(ptr + i) : i;
+        sh.ptr[t] = p;
+        if (TAP != PROBE_TAP_NONE) {
+            sh.wv[t] = __ldg(wv + i);
+            sh.wu[t] = __ldg(wu + i);
+        }
+        kind = 1;
+        if (GATE == PROBE_GATE_PTR && p < 0) kind = 0;
+        if (GATE == PROBE_GATE_VALID && __ldg(valid + i) <= 0) kind = in_place ? 0 : 2;
+    }
+    if (GATE == PROBE_GATE_FIRST) {
+        __syncthreads();  // sh.ptr
+        kind = itpu_rows_first(sh, ptr, s0, n);
+    }
+    const unsigned live = __ballot_sync(0xffffffffu, kind != 0);
+    if (lane == 0) sh.count[warp] = __popc(live);
+    __syncthreads();
+    int at = __popc(live & ((1u << lane) - 1u)), n_live = 0;
+    for (int w = 0; w < ROWS_WARPS; ++w) {
+        if (w < warp) at += sh.count[w];
+        n_live += sh.count[w];
+    }
+    if (kind != 0) {
+        sh.step[at] = t;
+        sh.kind[at] = kind;
+    }
+    __syncthreads();
+    if (TAP == PROBE_TAP_SUM) {
+        for (int j = 0; j < n_live; ++j) {
+            if (sh.kind[j] != 1) continue;
+            const int place = sh.step[j];
+            const float s = itpu_rows_window_sum(img, img_w, sh.wv[place] * PROBE_WIN, sh.wu[place] * PROBE_WIN,
+                                                 vec_img, sh.part);
+            if (t == 0) sh.sum[j] = s;
+        }
+        __syncthreads();
+    }
+    return n_live;
+}
+
+// A live step element by element, a warp (rows not in 16-byte pieces)
+template <typename T, int TAP>
+__device__ __forceinline__ void itpu_rows_scalar(const T* in, T* out, int row_len, const ItpuRowsItem& s,
+                                                 const float* __restrict__ img, int img_w, float tap_scale,
+                                                 float mul) {
+    const T* row = in + s.src * row_len;
+    T* o = out + s.dst * row_len;
+    for (int k = threadIdx.x & 31; k < row_len; k += 32) {
+        const T x = row[k];
+        T y = x;
+        if (s.kind == 1) {
+            if constexpr (sizeof(T) == 1) y = (T)((int)x + 1);
+            else y = itpu_rows_f32<TAP>(x, itpu_rows_tap<TAP>(img, img_w, s, k), tap_scale, mul);
+        }
+        o[k] = y;
+    }
+}
+
+// T float: the affine body; T int8_t: row + 1 with int8 wrap-around (probe13
+// sk). vec_rows: in, out and the rows on 16-byte boundaries. A CTA takes
+// steps [chunk·blockIdx.x, + chunk), a warp a live step at a time.
+template <typename T, int TAP, int GATE>
+__global__ void __launch_bounds__(ROWS_THREADS)
+itpu_probe_rows_kernel(const void* in_rows, void* out_rows, int row_len, const int* __restrict__ ptr, int n_steps,
+                       int chunk, int src_ptr, int dst_ptr, const int* __restrict__ wv, const int* __restrict__ wu,
+                       const int* __restrict__ valid, const float* __restrict__ img, int img_w, float tap_scale,
+                       float mul, int vec_rows, int vec_img) {
+    __shared__ ItpuRowsChunk sh;
+    const T* in = (const T*)in_rows;
+    T* out = (T*)out_rows;
+    const int s0 = blockIdx.x * chunk, n = min(chunk, n_steps - s0);
+    const int n_live = itpu_rows_chunk<TAP, GATE>(sh, s0, n, ptr, src_ptr || dst_ptr, in == out, wv, wu, valid, img,
+                                                     img_w, vec_img);
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    if (!vec_rows) {
+        for (int j = warp; j < n_live; j += ROWS_WARPS)
+            itpu_rows_scalar<T, TAP>(in, out, row_len, itpu_rows_item<TAP>(sh, s0, j, src_ptr, dst_ptr), img, img_w,
+                                     tap_scale, mul);
+        return;
+    }
+    constexpr bool TAPS = sizeof(T) == 4 && (TAP == PROBE_TAP_BF16 || TAP == PROBE_TAP_F32T);
+    const int row_vec = row_len * (int)sizeof(T) / 16, seg_vec = 32 * ROWS_VEC;
+    const int n_seg = (row_vec + seg_vec - 1) / seg_vec;
+    struct Held {
+        uint4 v[ROWS_VEC];
+        float tap[4];
+    };
+    // piece seg·seg_vec + 32c + lane of the row; the lane's taps are those
+    // of elements 4·lane … 4·lane + 3 (every piece of a lane has the same k mod 128)
+    auto load = [&](int j, int seg, Held& h) {
+        const ItpuRowsItem s = itpu_rows_item<TAP>(sh, s0, j, src_ptr, dst_ptr);
+        const uint4* row = reinterpret_cast<const uint4*>(in + s.src * row_len) + seg * seg_vec + lane;
+        const int left = row_vec - seg * seg_vec - lane;
+#pragma unroll
+        for (int c = 0; c < ROWS_VEC; ++c)
+            if (32 * c < left) h.v[c] = row[32 * c];
+        if (TAPS && s.kind == 1) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) h.tap[e] = itpu_rows_tap<TAP>(img, img_w, s, 4 * lane + e);
+        }
+        if (TAP == PROBE_TAP_SUM) h.tap[0] = h.tap[1] = h.tap[2] = h.tap[3] = s.sum;
+    };
+    auto store = [&](int j, int seg, const Held& h) {
+        const ItpuRowsItem s = itpu_rows_item<TAP>(sh, s0, j, src_ptr, dst_ptr);
+        uint4* row = reinterpret_cast<uint4*>(out + s.dst * row_len) + seg * seg_vec + lane;
+        const int left = row_vec - seg * seg_vec - lane;
+#pragma unroll
+        for (int c = 0; c < ROWS_VEC; ++c)
+            if (32 * c < left)
+                row[32 * c] = s.kind == 1 ? itpu_rows_update<T, TAP>(h.v[c], h.tap, tap_scale, mul) : h.v[c];
+    };
+    // the warp's live steps j = warp, warp + 8, …, each in n_seg pieces of
+    // 2 KB; the next one's loads go out before the current one's stores
+    Held a, b;
+    int j = warp, seg = 0;
+    if (j < n_live) load(j, seg, a);
+    while (j < n_live) {
+        int jn = j, sn = seg + 1;
+        if (sn == n_seg) {
+            sn = 0;
+            jn += ROWS_WARPS;
+        }
+        if (jn < n_live) load(jn, sn, b);
+        store(j, seg, a);
+        a = b;
+        j = jn;
+        seg = sn;
+    }
+}
+
+typedef void (*ItpuProbeRowsKernel)(const void*, void*, int, const int*, int, int, int, int, const int*, const int*,
+                                    const int*, const float*, int, float, float, int, int);
+
+template <int TAP>
+static ItpuProbeRowsKernel itpu_probe_rows_f32(int gate) {
+    return gate == PROBE_GATE_NONE ? itpu_probe_rows_kernel<float, TAP, PROBE_GATE_NONE>
+         : gate == PROBE_GATE_VALID ? itpu_probe_rows_kernel<float, TAP, PROBE_GATE_VALID>
+         : gate == PROBE_GATE_PTR ? itpu_probe_rows_kernel<float, TAP, PROBE_GATE_PTR> : nullptr;
+}
+
+// elem_bytes 4: f32 rows, any tap, gate none, valid or ptr; elem_bytes 1:
+// int8 rows +1, tap none, gate first
+ITPU_EXPORT int itpu_probe_rows(const void* in, void* out, int row_len, int elem_bytes, const void* ptr, int n_steps,
+                                int src_ptr, int dst_ptr, const void* wv, const void* wu, const void* valid,
+                                const void* img, int img_w, int tap, int gate, float tap_scale, float mul,
+                                void* stream) {
+    ItpuProbeRowsKernel kernel = nullptr;
+    if (elem_bytes == 1 && tap == PROBE_TAP_NONE && gate == PROBE_GATE_FIRST)
+        kernel = itpu_probe_rows_kernel<int8_t, PROBE_TAP_NONE, PROBE_GATE_FIRST>;
+    if (elem_bytes == 4)
+        kernel = tap == PROBE_TAP_NONE ? itpu_probe_rows_f32<PROBE_TAP_NONE>(gate)
+               : tap == PROBE_TAP_BF16 ? itpu_probe_rows_f32<PROBE_TAP_BF16>(gate)
+               : tap == PROBE_TAP_F32T ? itpu_probe_rows_f32<PROBE_TAP_F32T>(gate)
+               : tap == PROBE_TAP_SUM ? itpu_probe_rows_f32<PROBE_TAP_SUM>(gate) : nullptr;
+    if (kernel == nullptr || (uintptr_t)ptr % 4) return (int)cudaErrorInvalidValue;
+    if (n_steps <= 0) return (int)cudaGetLastError();
+    const long long row_bytes = (long long)row_len * elem_bytes;
+    const int vec_rows = (uintptr_t)in % 16 == 0 && (uintptr_t)out % 16 == 0 && row_bytes % 16 == 0;
+    const int vec_img = img != nullptr && (uintptr_t)img % 16 == 0 && img_w % 4 == 0;
+    // the steps over the CTAs the card holds at once, at most ROWS_THREADS a CTA
+    int dev = 0, per_sm = 0, sms = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, ROWS_THREADS, 0);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+    const int resident = per_sm * sms > 0 ? per_sm * sms : 1;
+    int chunk = (n_steps + resident - 1) / resident;
+    if (chunk > ROWS_THREADS) chunk = ROWS_THREADS;
+    kernel<<<(n_steps + chunk - 1) / chunk, ROWS_THREADS, 0, (cudaStream_t)stream>>>(
+        in, out, row_len, (const int*)ptr, n_steps, chunk, src_ptr, dst_ptr, (const int*)wv, (const int*)wu,
+        (const int*)valid, (const float*)img, img_w, tap_scale, mul, vec_rows, vec_img);
+    return (int)cudaGetLastError();
+}
+
+// The design the chunks replaced, kept for comparisons (on no path): one
+// CTA of 128 threads a step, each thread's loads and stores in turn, the
+// "first" gate rescanning the steps before its own.
+
 // the sum of the step's 128×128 window img[wv·128 + a, wu·128 + b], the
 // same value in every thread of the CTA
-__device__ float itpu_probe_window_sum(const float* img, int img_w, int v0, int u0) {
+__device__ float itpu_probe_window_sum_simple(const float* img, int img_w, int v0, int u0) {
     __shared__ float part[PROBE_ROW_THREADS / 32];
     float s = 0.f;
     for (int e = threadIdx.x; e < PROBE_WIN * PROBE_WIN; e += blockDim.x)
@@ -135,12 +508,12 @@ __device__ float itpu_probe_window_sum(const float* img, int img_w, int v0, int 
     return total;
 }
 
-// T float: the affine body; T int8_t: row + 1 with int8 wrap-around (probe13 sk)
 template <typename T, int TAP, int GATE>
 __global__ void __launch_bounds__(PROBE_ROW_THREADS)
-itpu_probe_rows_kernel(const T* in, T* out, int row_len, const int* __restrict__ ptr, int src_ptr, int dst_ptr,
-                       const int* __restrict__ wv, const int* __restrict__ wu, const int* __restrict__ valid,
-                       const float* __restrict__ img, int img_w, float tap_scale, float mul) {
+itpu_probe_rows_simple_kernel(const T* in, T* out, int row_len, const int* __restrict__ ptr, int src_ptr,
+                              int dst_ptr, const int* __restrict__ wv, const int* __restrict__ wu,
+                              const int* __restrict__ valid, const float* __restrict__ img, int img_w,
+                              float tap_scale, float mul) {
     const int i = blockIdx.x;
     const int p = ptr[i];
     if (GATE == PROBE_GATE_PTR && p < 0) return;
@@ -155,7 +528,7 @@ itpu_probe_rows_kernel(const T* in, T* out, int row_len, const int* __restrict__
     const T* row = in + src * row_len;
     T* o = out + dst * row_len;
     float wsum = 0.f;
-    if (TAP == PROBE_TAP_SUM) wsum = itpu_probe_window_sum(img, img_w, wv[i] * PROBE_WIN, wu[i] * PROBE_WIN);
+    if (TAP == PROBE_TAP_SUM) wsum = itpu_probe_window_sum_simple(img, img_w, wv[i] * PROBE_WIN, wu[i] * PROBE_WIN);
     for (int k = threadIdx.x; k < row_len; k += blockDim.x) {
         if constexpr (sizeof(T) == 1) {
             o[k] = (T)((int)row[k] + 1);
@@ -184,32 +557,30 @@ typedef void (*ItpuProbeRowsF32)(const float*, float*, int, const int*, int, int
                                  const float*, int, float, float);
 
 template <int TAP>
-static ItpuProbeRowsF32 itpu_probe_rows_f32(int gate) {
-    return gate == PROBE_GATE_NONE ? itpu_probe_rows_kernel<float, TAP, PROBE_GATE_NONE>
-         : gate == PROBE_GATE_VALID ? itpu_probe_rows_kernel<float, TAP, PROBE_GATE_VALID>
-         : gate == PROBE_GATE_PTR ? itpu_probe_rows_kernel<float, TAP, PROBE_GATE_PTR> : nullptr;
+static ItpuProbeRowsF32 itpu_probe_rows_simple_f32(int gate) {
+    return gate == PROBE_GATE_NONE ? itpu_probe_rows_simple_kernel<float, TAP, PROBE_GATE_NONE>
+         : gate == PROBE_GATE_VALID ? itpu_probe_rows_simple_kernel<float, TAP, PROBE_GATE_VALID>
+         : gate == PROBE_GATE_PTR ? itpu_probe_rows_simple_kernel<float, TAP, PROBE_GATE_PTR> : nullptr;
 }
 
-// elem_bytes 4: f32 rows, any tap, gate none, valid or ptr; elem_bytes 1:
-// int8 rows +1, tap none, gate first
-ITPU_EXPORT int itpu_probe_rows(const void* in, void* out, int row_len, int elem_bytes, const void* ptr, int n_steps,
-                                int src_ptr, int dst_ptr, const void* wv, const void* wu, const void* valid,
-                                const void* img, int img_w, int tap, int gate, float tap_scale, float mul,
-                                void* stream) {
+ITPU_EXPORT int itpu_probe_rows_simple(const void* in, void* out, int row_len, int elem_bytes, const void* ptr,
+                                       int n_steps, int src_ptr, int dst_ptr, const void* wv, const void* wu,
+                                       const void* valid, const void* img, int img_w, int tap, int gate,
+                                       float tap_scale, float mul, void* stream) {
     if (n_steps <= 0) return (int)cudaGetLastError();
     cudaStream_t s = (cudaStream_t)stream;
     if (elem_bytes == 1) {
         if (tap != PROBE_TAP_NONE || gate != PROBE_GATE_FIRST) return (int)cudaErrorInvalidValue;
-        itpu_probe_rows_kernel<int8_t, PROBE_TAP_NONE, PROBE_GATE_FIRST><<<n_steps, PROBE_ROW_THREADS, 0, s>>>(
+        itpu_probe_rows_simple_kernel<int8_t, PROBE_TAP_NONE, PROBE_GATE_FIRST><<<n_steps, PROBE_ROW_THREADS, 0, s>>>(
             (const int8_t*)in, (int8_t*)out, row_len, (const int*)ptr, src_ptr, dst_ptr, (const int*)wv,
             (const int*)wu, (const int*)valid, (const float*)img, img_w, tap_scale, mul);
         return (int)cudaGetLastError();
     }
     if (elem_bytes != 4) return (int)cudaErrorInvalidValue;
-    ItpuProbeRowsF32 kernel = tap == PROBE_TAP_NONE ? itpu_probe_rows_f32<PROBE_TAP_NONE>(gate)
-                            : tap == PROBE_TAP_BF16 ? itpu_probe_rows_f32<PROBE_TAP_BF16>(gate)
-                            : tap == PROBE_TAP_F32T ? itpu_probe_rows_f32<PROBE_TAP_F32T>(gate)
-                            : tap == PROBE_TAP_SUM ? itpu_probe_rows_f32<PROBE_TAP_SUM>(gate) : nullptr;
+    ItpuProbeRowsF32 kernel = tap == PROBE_TAP_NONE ? itpu_probe_rows_simple_f32<PROBE_TAP_NONE>(gate)
+                            : tap == PROBE_TAP_BF16 ? itpu_probe_rows_simple_f32<PROBE_TAP_BF16>(gate)
+                            : tap == PROBE_TAP_F32T ? itpu_probe_rows_simple_f32<PROBE_TAP_F32T>(gate)
+                            : tap == PROBE_TAP_SUM ? itpu_probe_rows_simple_f32<PROBE_TAP_SUM>(gate) : nullptr;
     if (kernel == nullptr) return (int)cudaErrorInvalidValue;
     kernel<<<n_steps, PROBE_ROW_THREADS, 0, s>>>((const float*)in, (float*)out, row_len, (const int*)ptr, src_ptr,
                                                   dst_ptr, (const int*)wv, (const int*)wu, (const int*)valid,
@@ -254,6 +625,7 @@ ITPU_EXPORT int itpu_probe_page_sum(const void* pages, int row_len, int elem_byt
     }
     return (int)cudaGetLastError();
 }
+
 
 // --- Hopper's asynchronous copies and barriers (P4, P5) ------------------
 
@@ -731,3 +1103,4 @@ ITPU_EXPORT int itpu_probe_window_sums(const void* img, int img_w, const void* s
         (const float*)img, img_w, (const int*)starts, starts_stride, win_h, win_w, (float*)out, out_w);
     return (int)cudaGetLastError();
 }
+

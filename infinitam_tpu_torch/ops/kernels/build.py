@@ -91,8 +91,9 @@ SIGNATURES = {
     # tab, idx, out, n, mode (0 take, 1 along axis 0, 2 along axis 1), elem_bytes, tab_cols, idx_cols, stream
     "itpu_probe_gather": (P, P, P, I, I, I, I, I, P),
     # in, out, row_len, elem_bytes, ptr, n_steps, src_ptr, dst_ptr, wv, wu, valid, img, img_w, tap, gate,
-    # tap_scale, mul, stream
+    # tap_scale, mul, stream; _simple: the design P2 replaced (uncounted)
     "itpu_probe_rows": (P, P, I, I, P, I, I, I, P, P, P, P, I, I, I, F, F, P),
+    "itpu_probe_rows_simple": (P, P, I, I, P, I, I, I, P, P, P, P, I, I, I, F, F, P),
     # pages, row_len, elem_bytes, ids, ids_stride, k_pages, n_tiles, out, n_cols, hashed, scale, stream
     "itpu_probe_page_sum": (P, I, I, P, I, I, I, P, I, I, F, P),
     # in, out, n_ctas, vec_per_cta, mul, stream; _simple: the design P4 replaced, for comparisons (uncounted)
@@ -132,7 +133,8 @@ def reset_launch_counts() -> None:
 # the launch counter of each counted kernel, by the name of its __global__
 # function (mangled, or demangled) as a CUDA graph's kernel node names it
 # (engine/captured.py); the lock-step raycasts (K3h's serial walk, K3d at
-# LA 1) are not counted
+# LA 1) and the designs P2, P4 and P5 replaced (`itpu_probe_*_simple_kernel`,
+# `itpu_probe_gemm_wmma_kernel`) are not counted
 _SYMBOLS = tuple((re.compile(p), k) for p, k in (
     (r"itpu_icp_kernel(ILb0E|<false>)", "icp"),
     (r"itpu_icp_kernel(ILb1E|<true>)", "icp_weighted"),

@@ -6,7 +6,8 @@ Replaces the 16 `pl.pallas_call` sites of those scripts (`SITES` maps every
 plain twins are `infinitam_tpu_torch/probes/plain.py`:
 
 - P1 `gather`: take / take_along_axis (probe2 kA, kB; probe6 kern);
-- P2 `row_update`: one CTA a listed step updates a row (probe7, probe8
+- P2 `row_update`: a CTA takes a chunk of steps, a warp a step, each warp
+  loading its next step before it stores the current one (probe7, probe8
   k1-k5, probe9 kernel, probe10, probe12 kern, probe13 sk);
 - P3 `page_sum`: a tile's pages gathered and summed (probe9 kacc, probe13 rk);
 - P4 `scaled_copy`: x · 1.000001 in CTAs of a set number of rows (probe11
@@ -20,9 +21,9 @@ Each wrapper takes the plain twin for tensors on the CPU and launches its
 kernel for CUDA tensors (built at first launch into build/kernels/, counted
 in `build.launch_counts()`); it raises where the kernel does not take its
 arguments and never falls back from one to the other. No batched path runs
-these kernels, so they are not lane-indexed. The designs P4 and P5 replaced
-stay as comparison entry points, on no path and not counted
-(`scaled_copy_simple`, `gemm_bf16_wmma`).
+these kernels, so they are not lane-indexed. The designs P2, P4 and P5
+replaced stay as comparison entry points, on no path and not counted
+(`row_update_simple`, `scaled_copy_simple`, `gemm_bf16_wmma`).
 """
 
 from __future__ import annotations
@@ -102,56 +103,76 @@ def gather(tab: torch.Tensor, idx: torch.Tensor, axis=None) -> torch.Tensor:
     return out
 
 
-def row_update(vba: torch.Tensor, ptr: torch.Tensor, *, in_place: bool = True, src_ptr: bool = True,
-               dst_ptr: bool = True, tap: str = "none", img=None, wv=None, wu=None, gate: str = "none",
-               valid=None, tap_scale: float = 0.0, mul: float = 1.0) -> torch.Tensor:
-    """P2, one CTA a step of `ptr` (see plain.row_update): in place, or into
-    a fresh output of which only the written rows are defined. The written
-    rows must be distinct unless the gate is "first"; an update in place
-    reads and writes through the same map."""
-    kwargs = dict(in_place=in_place, src_ptr=src_ptr, dst_ptr=dst_ptr, tap=tap, img=img, wv=wv, wu=wu, gate=gate,
-                  valid=valid, tap_scale=tap_scale, mul=mul)
-    if vba.device.type == "cpu":
-        return plain.row_update(vba, ptr, **kwargs)
+_ROW_DEFAULTS = dict(in_place=True, src_ptr=True, dst_ptr=True, tap="none", img=None, wv=None, wu=None, gate="none",
+                     valid=None, tap_scale=0.0, mul=1.0)
+
+
+def _rows(name: str, vba: torch.Tensor, ptr: torch.Tensor, *, in_place: bool, src_ptr: bool, dst_ptr: bool,
+          tap: str, img, wv, wu, gate: str, valid, tap_scale: float, mul: float) -> torch.Tensor:
+    """A row update launched through the C entry point `name`, its
+    arguments checked."""
     if tap not in _TAP or gate not in _GATE:
-        raise ValueError(f"row_update: tap {tap!r} or gate {gate!r} unknown")
+        raise ValueError(f"{name}: tap {tap!r} or gate {gate!r} unknown")
     if in_place and src_ptr != dst_ptr:
-        raise ValueError("row_update: an update in place reads and writes through the same map")
+        raise ValueError(f"{name}: an update in place reads and writes through the same map")
     if vba.dim() != 2:
-        raise ValueError("row_update: rows must be [rows, row_len]")
+        raise ValueError(f"{name}: rows must be [rows, row_len]")
     if vba.dtype == torch.int8:
         if tap != "none" or gate != "first":
-            raise ValueError("row_update: int8 rows take no tap and the gate 'first'")
+            raise ValueError(f"{name}: int8 rows take no tap and the gate 'first'")
     elif vba.dtype != torch.float32:
-        raise ValueError(f"row_update: rows must be float32 or int8, got {vba.dtype}")
+        raise ValueError(f"{name}: rows must be float32 or int8, got {vba.dtype}")
     elif gate == "first":
-        raise ValueError("row_update: the gate 'first' is for int8 rows")
+        raise ValueError(f"{name}: the gate 'first' is for int8 rows")
     named = {"img": img, "wv": wv, "wu": wu} if tap != "none" else {}
     if gate == "valid":
         named["valid"] = valid
     missing = [k for k, t in named.items() if t is None]
     if missing:
-        raise ValueError(f"row_update: tap {tap!r} and gate {gate!r} need {missing}")
-    _require("row_update", vba, ptr, *named.values())
-    build.require_dtype("row_update", ptr, torch.int32)
+        raise ValueError(f"{name}: tap {tap!r} and gate {gate!r} need {missing}")
+    _require(name, vba, ptr, *named.values())
+    build.require_dtype(name, ptr, torch.int32)
     for k in ("wv", "wu", "valid"):
         if k in named:
-            build.require_dtype("row_update", named[k], torch.int32)
+            build.require_dtype(name, named[k], torch.int32)
     if tap != "none":
-        build.require_dtype("row_update", img, torch.float32)
+        build.require_dtype(name, img, torch.float32)
     out = vba if in_place else torch.empty_like(vba)
 
     def ptr_of(t):
         return None if t is None else t.data_ptr()
 
-    err = build.library().itpu_probe_rows(
+    err = getattr(build.library(), name)(
         vba.data_ptr(), out.data_ptr(), vba.shape[1], vba.element_size(), ptr.data_ptr(), ptr.numel(),
         int(src_ptr), int(dst_ptr), ptr_of(named.get("wv")), ptr_of(named.get("wu")), ptr_of(named.get("valid")),
         ptr_of(named.get("img")), 0 if img is None else img.shape[1], _TAP[tap], _GATE[gate],
         ctypes.c_float(tap_scale), ctypes.c_float(mul), build.stream_ptr())
-    build.check("itpu_probe_rows", err)
+    build.check(name, err)
+    return out
+
+
+def row_update(vba: torch.Tensor, ptr: torch.Tensor, *, in_place: bool = True, src_ptr: bool = True,
+               dst_ptr: bool = True, tap: str = "none", img=None, wv=None, wu=None, gate: str = "none",
+               valid=None, tap_scale: float = 0.0, mul: float = 1.0) -> torch.Tensor:
+    """P2 (see plain.row_update): in place, or into a fresh output of which
+    only the written rows are defined; a CTA takes a chunk of steps, a warp
+    a step. The written rows must be distinct unless the gate is "first";
+    an update in place reads and writes through the same map."""
+    kwargs = dict(in_place=in_place, src_ptr=src_ptr, dst_ptr=dst_ptr, tap=tap, img=img, wv=wv, wu=wu, gate=gate,
+                  valid=valid, tap_scale=tap_scale, mul=mul)
+    if vba.device.type == "cpu":
+        return plain.row_update(vba, ptr, **kwargs)
+    out = _rows("itpu_probe_rows", vba, ptr, **kwargs)
     build.count_launch("probe_rows")
     return out
+
+
+def row_update_simple(vba: torch.Tensor, ptr: torch.Tensor, **kwargs) -> torch.Tensor:
+    """P2 in the design it replaced (one CTA a step), for comparisons: not
+    counted; the arguments of `row_update`."""
+    if vba.device.type == "cpu":
+        return plain.row_update(vba, ptr, **kwargs)
+    return _rows("itpu_probe_rows_simple", vba, ptr, **_ROW_DEFAULTS | kwargs)
 
 
 def page_sum(pages: torch.Tensor, ids: torch.Tensor, k_pages: int, n_cols: int, scale: float = 1.0,

@@ -8,7 +8,9 @@ the script's one-hot product). The window fetch without a tap and the
 `arbitrary` dimension semantics have no counterpart on the card (a load is
 made where a tap reads; CTAs run in no order anyway): those attempts run
 the same kernel as their plain twins. The script's µs per grid step
-becomes µs per CTA-step: the device time over NV.
+becomes µs per CTA-step: the device time over NV. The two static-map copies
+are also one library call each, timed beside them: rows 0 … NV − 1 of vba
+times 1.000001, in place (`mul_`) or into a new tensor (`torch.mul`).
 """
 
 from __future__ import annotations
@@ -32,6 +34,12 @@ ATTEMPTS = (
     ("matmul+window dyn alias", (True, True, True)),
     ("matmul+window static no-alias", (False, False, True)),
 )
+
+# the library call that computes an attempt, as a function of (vba, NV)
+LIBRARY = {
+    "copy static-in static-out alias": lambda vba, nv: vba[:nv].mul_(1.000001),
+    "copy static-in static-out no-alias": lambda vba, nv: torch.mul(vba[:nv], 1.000001),
+}
 
 
 def make(rows: int, nv: int, seed: int = 0):
@@ -58,4 +66,7 @@ def run(device, small: bool = False) -> list:
         m = timing.measure(lambda: attempt(probes.row_update, *args, *flags), device)
         per_step = "" if m["device_ms"] is None else f"  ({m['device_ms'] * 1e3 / nv:7.4f} us/CTA-step)"
         out.append(timing.line(name, m, per_step))
+    for name, library in LIBRARY.items():
+        out.append(timing.line(f"library {name}", timing.measure(lambda: library(args[0], nv), device,
+                                                                 repo_only=False)))
     return out

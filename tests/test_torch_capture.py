@@ -351,6 +351,15 @@ KERNEL_SYMBOLS = {
     "_Z30itpu_probe_scale_simple_kernelPK6float4PS_if": None,
     "_Z27itpu_probe_gemm_wmma_kernelPK13__nv_bfloat16S1_PS_iii": None,
     "_Z29itpu_probe_window_sums_kernelPKfiPKiiiiPfi": "probe_window_sums",
+    # P1 at its other element sizes and modes (2 bytes along axis 0; 4 bytes along axis 1, demangled)
+    "_Z24itpu_probe_gather_kernelItLi1EEvPKT_PKiPS0_xii": "probe_gather",
+    "void itpu_probe_gather_kernel<unsigned int, 2>(unsigned int const*, int const*, unsigned int*, long long, int, "
+    "int)": "probe_gather",
+    # P2 in its chunked design, and the design it replaced (comparisons: uncounted)
+    "_Z22itpu_probe_rows_kernelIaLi0ELi3EEvPKvPviPKiiiiiS4_S4_S4_PKfiffii": "probe_rows",
+    "_Z22itpu_probe_rows_kernelIfLi1ELi1EEvPKvPviPKiiiiiS4_S4_S4_PKfiffii": "probe_rows",
+    "_Z29itpu_probe_rows_simple_kernelIaLi0ELi3EEvPKT_PS0_iPKiiiS5_S5_S5_PKfiff": None,
+    "void itpu_probe_rows_simple_kernel<float, 1, 1>(float const*, float*, int, int const*, int, int)": None,
     # torch's own kernels and the division-step test kernel
     "_ZN2at6native29vectorized_elementwise_kernelILi4ENS0_11FillFunctorIfEESt5arrayIPcLm1EEEEviT0_T1_": None,
     "_Z20itpu_div_step_kernelPKfS0_Pfi": None,

@@ -299,6 +299,35 @@ def test_probe10_attempts_match(probe10_runs):
             assert_equal(got[untouched], args[0][untouched])
 
 
+def test_probe10_library_calls_compute_the_static_copies(probe10_runs):
+    """probe10.LIBRARY: the library call beside each static-map copy
+    (`vba[:NV].mul_`, `torch.mul(vba[:NV], ·)`) computes the attempt's
+    written rows, bit for bit with the JAX output."""
+    args, outs = probe10_runs
+    for (name, _flags), want in zip(probe10.ATTEMPTS, outs):
+        if name in probe10.LIBRARY:
+            got = probe10.LIBRARY[name](T(args[0]), NV10)
+            assert got.shape == (NV10, S3), name
+            assert_equal(got, want[:NV10])
+
+
+@pytest.mark.parametrize("attempt", [0, 2, 6])
+def test_probe10_simple_design_matches(probe10_runs, attempt):
+    """P2's design its chunks replaced (kept for comparisons on the card) at
+    three of tools/probe10.py:69's attempts (static no-alias, dynamic alias,
+    the transposed tap): on the CPU its wrapper takes the plain twin, as
+    the JAX outputs."""
+    args, outs = probe10_runs
+    (name, flags), want = probe10.ATTEMPTS[attempt], outs[attempt]
+    got = probe10.attempt(probes.row_update_simple, *map(T, args), *flags)
+    dynamic, in_place, tap = flags
+    rows = np.arange(ROWS10) if in_place else (args[2] if dynamic else np.arange(NV10))
+    if tap:
+        assert_close(got[rows], want[rows], 1e-6)
+    else:
+        assert_equal(got[rows], want[rows])
+
+
 def test_probe12_integ_matches():
     """tools/probe12.py:105 (`integ`, body `kern`): not aliased, row + 1e-9 ·
     tap, compared on the written rows, ≤ 1e-6."""
@@ -331,6 +360,14 @@ def test_probe13_row_stores_match_sc():
     ns, _ = lift("probe13.py", ["sk", "sc"], NB=64, S3=S3, NVv=128)
     want = np.asarray(ns["sc"](J(vol), J(rows)))
     assert_equal(probe13.row_stores(probes.row_update, T(vol), T(rows)), want)
+
+
+def test_probe13_row_stores_simple_design_match_sc():
+    """P2's design its chunks replaced, at tools/probe13.py:113 (`sc`, body
+    `sk`): on the CPU its wrapper takes the plain twin, bit for bit."""
+    vol, rows = probe13_rows()
+    ns, _ = lift("probe13.py", ["sk", "sc"], NB=64, S3=S3, NVv=128)
+    assert_equal(probe13.row_stores(probes.row_update_simple, T(vol), T(rows)), ns["sc"](J(vol), J(rows)))
 
 
 def test_sk_adds_one_once_to_a_repeated_row_and_wraps():

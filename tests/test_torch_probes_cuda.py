@@ -5,7 +5,9 @@ probes run, with one launch counted a call; and `python -m
 infinitam_tpu_torch.probes` run on the card, all nine probes.
 
 Bars: P1, P4, int8 P3 (probe13's `rk`) and P2's copies and int8 row stores
-bit for bit; P2's taps within 1e-6; float32 P3 and P6 within 1e-5; P5
+bit for bit; P2's taps within 1e-6, and on zero rows (where the scaled tap
+is the output) bit for bit, the window sum within 1e-5 of its largest
+value; float32 P3 and P6 within 1e-5; P5
 within the float32 summation bound of the exact product, rounded to bf16
 (plain.bf16_product_bound: two correct summation orders can differ by many
 bf16 ulps of an element near a zero of its sum), and bit for bit on integer
@@ -78,6 +80,195 @@ def test_gather_chain_equals_plain(device):
     for k in range(probe6.K):
         want = (want + plain.gather(tab_t, want, 0).to(torch.int32) + k) % 32
     assert torch.equal(got, want)
+
+
+def at_offset(t: torch.Tensor, offset: int) -> torch.Tensor:
+    """A contiguous view of a copy of t that starts `offset` elements into
+    its buffer (1 and 3 put a 4-byte element off every 16-byte boundary)."""
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    view = buf[offset:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32, torch.int8, torch.bfloat16])
+@pytest.mark.parametrize("axis", [None, 0, 1])
+@pytest.mark.parametrize("offset", [0, 1, 3])
+@pytest.mark.parametrize("small", [False, True])
+def test_gather_ragged_views_equal_plain(device, dtype, axis, offset, small):
+    """P1 at ragged sizes: n and idx_cols not multiples of 8 (4,099 takes;
+    [29, 61] along axis 0; [37, 13] along axis 1), and the smallest (3
+    takes; a one-row and a one-column index), with the index and the table
+    views at `offset` elements into their buffers; bit for bit, one launch."""
+    rng = np.random.default_rng(20 + offset)
+    tab = torch.from_numpy(rng.integers(-100, 100, (37, 61)).astype(np.float32)).to(dtype).to(device)
+    n = tab.numel() if axis is None else tab.shape[axis]
+    shape = {None: (3,) if small else (4099,), 0: (1, 61) if small else (29, 61),
+             1: (37, 1) if small else (37, 13)}[axis]
+    (idx,) = on(device, rng.integers(0, n, shape, dtype=np.int32))
+    tab_v, idx_v = at_offset(tab, offset), at_offset(idx, offset)
+    got = launched("probe_gather", lambda: probes.gather(tab_v, idx_v, axis))
+    assert torch.equal(got, plain.gather(tab, idx, axis))
+
+
+def rows_inputs(device, nv: int, n_rows: int = 8192, seed: int = 0):
+    """(vba [n_rows, 512], img [512, 768], img_t [768, 512] for the
+    transposed tap, ptr (nv distinct rows), the same with every ninth -1
+    for the ptr gate to drop, wv < 4, wu < 6, valid 0 on every seventh step
+    from the fourth)."""
+    rng = np.random.default_rng(seed)
+    ptr = rng.permutation(n_rows)[:nv].astype(np.int32)
+    return on(device, rng.standard_normal((n_rows, S3)).astype(np.float32),
+              rng.standard_normal((512, 768)).astype(np.float32), rng.standard_normal((768, 512)).astype(np.float32),
+              ptr, np.where(np.arange(nv) % 9 == 5, -1, ptr).astype(np.int32),
+              rng.integers(0, 4, nv, dtype=np.int32), rng.integers(0, 6, nv, dtype=np.int32),
+              (np.arange(nv) % 7 != 3).astype(np.int32))
+
+
+# the tap × gate pairs the probes run (probe7, probe8 K1-K5, probe9, probe10,
+# probe12), in place and into a fresh output: name → (row_update keywords,
+# tolerance against plain)
+ROW_CASES = {
+    "copy": (dict(mul=1.000001), 0.0),
+    "copy fresh": (dict(mul=1.000001, in_place=False), 0.0),
+    "copy static fresh": (dict(mul=1.000001, in_place=False, src_ptr=False, dst_ptr=False), 0.0),
+    "bf16": (dict(tap="bf16", tap_scale=1e-3), 1e-6),
+    "bf16 valid": (dict(tap="bf16", tap_scale=1e-3, gate="valid"), 1e-6),
+    "f32t valid": (dict(tap="f32t", tap_scale=1e-3, gate="valid"), 1e-6),
+    "f32t valid fresh": (dict(tap="f32t", tap_scale=1e-3, gate="valid", in_place=False), 1e-6),
+    "f32t": (dict(tap="f32t", tap_scale=1e-3, mul=1.000001), 1e-6),
+    "f32t fresh": (dict(tap="f32t", tap_scale=1e-9, in_place=False), 1e-6),
+    "sum": (dict(tap="sum", tap_scale=1e-9), 1e-6),
+    "ptr": (dict(gate="ptr", mul=1.000001), 0.0),
+}
+
+
+def row_case(device, nv, case, fn, zero=False):
+    """(fn's output, plain's, the rows to compare, tolerance) of ROW_CASES[case],
+    on zero rows where `zero`."""
+    vba, img, img_t, ptr, ptr_gated, wv, wu, valid = rows_inputs(device, nv)
+    if zero:
+        vba = torch.zeros_like(vba)
+    kw, tol = ROW_CASES[case]
+    p = ptr_gated if kw.get("gate") == "ptr" else ptr
+    taps = dict(img=img_t if kw.get("tap") == "f32t" else img, wv=wv, wu=wu, valid=valid)
+    got = fn(vba.clone(), p, **taps, **kw)
+    want = plain.row_update(vba.clone(), p, **taps, **kw)
+    if kw.get("in_place", True):
+        rows = slice(None)
+    else:
+        rows = p.long() if kw.get("dst_ptr", True) else torch.arange(nv, device=device)
+    return got, want, rows, tol
+
+
+def assert_taps_on_zero_rows(got, want, tap):
+    """On zero rows the output is the scaled tap itself (a tap of 1e-9 would
+    vanish beside a row): the window sum within 1e-5 of the largest value,
+    the other taps bit for bit, as chip_smoke.py holds them."""
+    err, top = float((got - want).abs().max()), float(want.abs().max())
+    assert top > 0
+    assert err <= 1e-5 * top if tap == "sum" else torch.equal(got, want)
+
+
+def assert_row_case(device, nv, case, fn):
+    """ROW_CASES[case] through fn against plain within its tolerance, and a
+    tap's case again on zero rows."""
+    got, want, rows, tol = row_case(device, nv, case, fn)
+    assert float((got[rows] - want[rows]).abs().max()) <= tol
+    tap = ROW_CASES[case][0].get("tap")
+    if tap:
+        got, want, rows, _ = row_case(device, nv, case, fn, zero=True)
+        assert_taps_on_zero_rows(got[rows], want[rows], tap)
+
+
+@pytest.mark.parametrize("case", list(ROW_CASES))
+@pytest.mark.parametrize("nv", [1, 37, 6001])
+def test_row_update_chunks_equal_plain(device, case, nv):
+    """P2 at step counts below a warp a step (1, 37) and one whose last
+    CTA's chunk is part full (6,001 of 8,192 rows), over the probes'
+    tap × gate pairs: copies bit for bit, taps within 1e-6 and on zero rows
+    as assert_taps_on_zero_rows, one launch."""
+    assert_row_case(device, nv, case, lambda *a, **k: launched("probe_rows", lambda: probes.row_update(*a, **k)))
+
+
+@pytest.mark.parametrize("case", list(ROW_CASES))
+def test_row_update_simple_design_equals_plain(device, case):
+    """P2's design it replaced (one CTA a step), at 6,001 steps: as the
+    kernel's bars, not counted."""
+    build.reset_launch_counts()
+    assert_row_case(device, 6001, case, probes.row_update_simple)
+    torch.cuda.synchronize()
+    assert build.launch_counts() == dict.fromkeys(build.KERNELS, 0)
+
+
+def first_rows(nb: int, nv: int, seed: int = 0) -> np.ndarray:
+    """nv rows < nb drawn with repeats; the list starts and ends with a
+    repeated row, and its first row is listed three times or more."""
+    rows = np.random.default_rng(seed).integers(0, nb, nv).astype(np.int32)
+    rows[1], rows[-2], rows[nv // 2] = rows[0], rows[-1], rows[0]
+    return rows
+
+
+@pytest.mark.parametrize("design", ["chunks", "simple"])
+@pytest.mark.parametrize("nb,nv", [(8, 6), (64, 300), (8192, 4096), (8192, 5003)])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_row_stores_first_gate_repeats_equal_plain(device, design, nb, nv, offset):
+    """probe13's int8 row stores through the "first" gate: a list that
+    starts and ends with a repeat and lists a row three times or more, few
+    and many rows, the list as a view off a 16-byte boundary (offset 1): a
+    repeated row gains 1 once, 127 wraps, bit for bit with plain."""
+    vol = np.random.default_rng(4).integers(-128, 128, (nb, S3)).astype(np.int8)
+    vol[:, 0] = 127
+    rows = first_rows(nb, nv)
+    assert np.bincount(rows).max() >= 3
+    vol_t, rows_t = on(device, vol, rows)
+    rows_v = at_offset(rows_t, offset)
+    fn = probes.row_update if design == "chunks" else probes.row_update_simple
+    got = fn(vol_t.clone(), rows_v, gate="first")
+    torch.cuda.synchronize()
+    assert torch.equal(got, plain.row_update(vol_t.clone(), rows_t, gate="first"))
+    assert (got[rows_t.long(), 0] == -128).all()
+
+
+@pytest.mark.parametrize("case", ["f32 bf16 valid", "f32 sum fresh", "int8 first"])
+def test_row_update_rows_off_16_bytes_equal_plain(device, case):
+    """Rows that are not whole 16-byte pieces (510 floats, 500 int8) in a
+    view one row into its buffer, and the window sum over an image whose
+    rows are off 16 bytes (766 columns): element by element in the same
+    kernel, as plain; the taps also on zero rows."""
+    rng = np.random.default_rng(6)
+    nv = 300
+    if case == "int8 first":
+        vol = at_offset(on(device, rng.integers(-128, 128, (1000, 500)).astype(np.int8))[0], 500)
+        (rows,) = on(device, first_rows(1000, nv))
+        got = launched("probe_rows", lambda: probes.row_update(vol.clone(), rows, gate="first"))
+        assert torch.equal(got, plain.row_update(vol.clone(), rows, gate="first"))
+        return
+    vba, img = on(device, rng.standard_normal((1000, 510)).astype(np.float32),
+                  rng.standard_normal((512, 766)).astype(np.float32))
+    vba = at_offset(vba, 510)
+    ptr, wv, wu, valid = on(device, rng.permutation(1000)[:nv].astype(np.int32), rng.integers(0, 4, nv, dtype=np.int32),
+                            rng.integers(0, 5, nv, dtype=np.int32), (np.arange(nv) % 7 != 3).astype(np.int32))
+    if case == "f32 bf16 valid":
+        kw, rows = dict(tap="bf16", tap_scale=1e-3, gate="valid", valid=valid), slice(None)
+    else:
+        kw, rows = dict(tap="sum", tap_scale=1e-9, in_place=False), ptr.long()
+    got = launched("probe_rows", lambda: probes.row_update(vba.clone(), ptr, img=img, wv=wv, wu=wu, **kw))
+    want = plain.row_update(vba.clone(), ptr, img=img, wv=wv, wu=wu, **kw)
+    assert float((got[rows] - want[rows]).abs().max()) <= 1e-6
+    zeros = torch.zeros_like(vba)
+    got = launched("probe_rows", lambda: probes.row_update(zeros.clone(), ptr, img=img, wv=wv, wu=wu, **kw))
+    want = plain.row_update(zeros.clone(), ptr, img=img, wv=wv, wu=wu, **kw)
+    assert_taps_on_zero_rows(got[rows], want[rows], kw["tap"])
+
+
+def test_row_update_window_sum_is_the_same_every_call(device):
+    """The sum tap's window sums run in a fixed order: two calls give equal
+    bits."""
+    vba, img, _t, ptr, _g, wv, wu, _v = rows_inputs(device, 500)
+    kw = dict(tap="sum", tap_scale=1e-3, img=img, wv=wv, wu=wu, in_place=False)
+    zeros = torch.zeros_like(vba)
+    assert torch.equal(probes.row_update(zeros, ptr, **kw)[ptr.long()], probes.row_update(zeros, ptr, **kw)[ptr.long()])
 
 
 @pytest.mark.parametrize("name,kw,tol", probe8.ATTEMPTS)
