@@ -52,19 +52,24 @@ int8 row stores), P3 (probe9's page accumulator, probe13's raycast
 skeleton), P4 (probe11's two and probe12's three decompositions), P5
 (probe11's 2048³ bf16 product; also bit-equal on integer inputs) and P6
 (probe13's window sums), each held to its plain twin (bit-equal where no sum
-order differs; P2's taps within 1e-6, float32 P3 and P6 within 1e-5, P5
-within the float32 summation bound of the exact product, rounded to bf16,
-with the elements more than one bf16 ulp from plain counted), with device
-time warm (and cold for P2-P4), call, plain and library time (`torch.take`,
-`torch.gather`, `torch.mul`, `torch.matmul`: every device kernel of the
-call) and the bound (bytes of the distinct 32-byte sectors and rows the
-inputs touch; P5's operations over 989.4 TFLOP/s bf16). P4 and P5 are
-also timed, cold and warm, beside the designs they replaced on the same
-inputs (`scaled_copy_simple`, `gemm_bf16_wmma`, each held to plain too),
-gated on being faster than them where the redesign is for (P5; P4 in 64
-and 96 CTAs). Then `python -m infinitam_tpu_torch.probes` runs in-process
-(its main(), all nine probes on the card), the path of P1-P6's launch
-counts: each must launch.
+order differs, and P3 and P6, whose sums run in plain's order or are exact
+integers; P2's taps within 1e-6, P5 within the float32 summation bound of
+the exact product, rounded to bf16, with the elements more than one bf16
+ulp from plain counted), with device time cold (the L2 flushed) and warm,
+call, plain and library time (`torch.take`, `torch.gather`, `torch.mul`,
+`torch.matmul`, `F.embedding_bag` at probe9's page accumulator: every
+device kernel of the call) and the bound (bytes of the distinct 32-byte
+sectors and rows the inputs touch; P5's operations over 989.4 TFLOP/s
+bf16); P3 and P6 also beside an L2 floor (the warm time of a plain read,
+`l2_read`, of an L2-resident buffer as large as their 32-byte sector
+requests, de-duplicated only within a page or window row; a warm
+`torch.sum` of it beside, for reference). P2-P6 are also timed, cold and
+warm, beside the designs they replaced on the same inputs
+(`row_update_simple`, `page_sum_simple`, `scaled_copy_simple`,
+`gemm_bf16_wmma`, `window_sums_simple`, each held to plain too), gated on
+being faster than them where the redesign is for. Then `python -m infinitam_tpu_torch.probes` runs in-process (its
+main(), all nine probes on the card), the path of P1-P6's launch counts:
+each must launch.
 
 Then it replays 30 synthetic 640×480 RGB-D frames, rendered on the card,
 through the port's frame loop in the three configurations of the JAX
@@ -226,8 +231,11 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
 PEAK_BF16_PER_S = 989.4e12  # dense bf16 on the tensor cores: the probes' P5
 # the designs a redesigned probe kernel is timed beside (probe_checks): the
-# ones P2, P4 and P5 replaced
+# ones P2-P6 replaced
 DESIGNS = ("simple_", "wmma_")
+# the other keys of a probe site carried into the kernels line: P3's and
+# P6's L2 floor
+EXTRAS = ("l2_",)
 # float32 operations per element, counted from the kernels' sources
 ICP_OPS_PIXEL = 116  # csrc/icp.cu: back-projection, two transforms, projection, the point tap, the gate
 ICP_OPS_VALID = 121  # a valid pixel's normal tap, b, A and its 29 products and sums
@@ -479,6 +487,14 @@ def distinct(idx: torch.Tensor) -> int:
 def sectors(offsets: torch.Tensor) -> int:
     """Bytes of the distinct 32-byte sectors the byte offsets fall in."""
     return 32 * distinct(offsets // 32)
+
+
+def row_sectors(offsets: torch.Tensor) -> int:
+    """Bytes of the 32-byte sector requests of a kernel that reads each row
+    of `offsets` [rows, n] (byte offsets) once: the distinct sectors of each
+    row, summed over the rows (a sector two rows share counts twice)."""
+    s = torch.sort(offsets // 32, dim=1).values
+    return 32 * int(s.shape[0] + (s[:, 1:] != s[:, :-1]).sum())
 
 
 def bilinear_corners(u: torch.Tensor, v: torch.Tensor, width: int) -> torch.Tensor:
@@ -2324,8 +2340,37 @@ class Smoke:
         return timed(label, lambda: torch.vmap(kernel)(*args), lambda: kernel(*(a[0] for a in args)))
 
     # --- the probes' kernels, P1-P6 (csrc/probes.cu) -----------------------
+    def l2_floor(self, l2_bytes: int) -> dict:
+        """The L2 floor of a site that requests `l2_bytes` of sectors: the
+        warm time of a plain read of an L2-resident float32 buffer of as many
+        bytes, to 4 KB (`kp.l2_read`, 8 float4 loads in flight a thread, launch
+        included), the least over 1, 2, 4 and 8 CTAs an SM; its sums are gated
+        exact. Beside it, for reference, a warm `torch.sum` of the same
+        buffer (the faster of the whole sum and sums of rows of 1,024; every
+        device op of the call), whose reduction reads the L2 more slowly."""
+        from infinitam_tpu_torch.ops.kernels import probes as kp
+
+        if l2_bytes > 40e6:
+            raise ValueError(f"{l2_bytes} bytes do not stay in the 50 MB L2")
+        buf = torch.ones(l2_bytes // 4096 * 1024, dtype=torch.float32, device=self.dev)  # rows of 1,024
+        sms = torch.cuda.get_device_properties(self.dev).multi_processor_count
+        reads = {}
+        for n_ctas in (sms, 2 * sms, 4 * sms, 8 * sms):
+            self.gate(float(kp.l2_read(buf, n_ctas).double().sum()) == buf.numel(),
+                      f"l2_read in {n_ctas} CTAs: its sums add up to the buffer's")
+            reads[n_ctas] = device_ms(lambda: kp.l2_read(buf, n_ctas), 50)[0]
+        read = min(t for t in reads.values() if t is not None)
+        ref = min(device_ms(lambda: torch.sum(buf), 50, match="")[0],
+                  device_ms(lambda: torch.sum(buf.view(-1, 1024), 1), 50, match="")[0])
+        n = 4 * buf.numel()
+        print(f"  L2 read of {n / 1e6:.2f} MB: " + ", ".join(
+            f"{c} CTAs {fmt_ms(t)} ({n / (t * 1e9):.2f} TB/s)" for c, t in reads.items())
+              + f"; torch.sum {fmt_ms(ref)} ({n / (ref * 1e9):.2f} TB/s)")
+        return dict(l2_bytes=int(l2_bytes), l2_floor_ms=read * l2_bytes / n, l2_rate_tbps=n / (read * 1e9),
+                    l2_sum_ms=ref * l2_bytes / n, l2_sum_tbps=n / (ref * 1e9))
+
     def probe_site(self, counter, label, make, kernel, plain_fn, compare, traffic, library=None,
-                   peak_ops=PEAK_F32_PER_S):
+                   peak_ops=PEAK_F32_PER_S, l2_bytes=None):
         """One probe site at its full shape: `kernel(*make())` held to
         `plain_fn(*make())` by `compare(got, want)` → (ok, max abs error,
         what), with the bound of `traffic` (bytes, operations) over the
@@ -2335,7 +2380,8 @@ class Smoke:
         call's device time cold and warm (every device op it runs). The
         share of the bound reads the cold time: most sites' working sets fit
         the 50 MB L2, where a warm call reads them at more than the memory
-        rate the bound assumes."""
+        rate the bound assumes. With `l2_bytes` (the sector requests the
+        site makes), also its L2 floor (`l2_floor`) and the share of it."""
         got, want = kernel(*make()), plain_fn(*make())
         torch.cuda.synchronize()
         ok, err, what = compare(got, want)
@@ -2350,13 +2396,19 @@ class Smoke:
         if library is not None:
             lib = device_ms(lambda: library(*args), 20, self.flush, match="")[0]
             lib_warm = device_ms(lambda: library(*args), 50, match="")[0]
+        l2 = {} if l2_bytes is None else self.l2_floor(l2_bytes)
         print(f"{counter} {label}: {what}; cold " + timing_line(cold, per_call, others, b, call, plain)
               + f", warm {fmt_ms(warm)}"
-              + ("" if library is None else f", library cold {fmt_ms(lib)} warm {fmt_ms(lib_warm)}"))
+              + ("" if library is None else f", library cold {fmt_ms(lib)} warm {fmt_ms(lib_warm)}")
+              + ("" if not l2 else
+                 f"; L2 floor {l2['l2_floor_ms'] * 1000:.2f} µs ({l2['l2_bytes'] / 1e6:.2f} MB of sector requests "
+                 f"at {l2['l2_rate_tbps']:.2f} TB/s, a plain read of as many bytes), share "
+                 f"{100 * l2['l2_floor_ms'] / cold:.1f}% cold, {100 * l2['l2_floor_ms'] / warm:.1f}% warm "
+                 f"(torch.sum of those bytes {l2['l2_sum_ms'] * 1000:.2f} µs)"))
         self.gate(ok, f"{counter} {label}: {what}")
         self.gate(per_call == 1 and others == 0, f"{counter} {label}: one device kernel a call, no other device op")
         return dict(label=label, max_abs_err=err, ms=cold, cold_ms=cold, warm_ms=warm, call_ms=call,
-                    plain_ms=plain, library_ms=lib, library_warm_ms=lib_warm, **b)
+                    plain_ms=plain, library_ms=lib, library_warm_ms=lib_warm, **b, **l2)
 
     def probe_checks(self) -> list:
         """Each of the 16 probe sites of tools/ at the script's full shape,
@@ -2400,27 +2452,41 @@ class Smoke:
         def add(counter, site, row):
             found[counter].append(dict(row, site=site))
 
-        def designs(entry, make, others, check):
+        def designs(entry, make, kernel, others, check):
             """The other designs of a redesigned kernel (`others`: name →
             function of the site's arguments) on the site's inputs in this
             call (`make()`: fresh ones, as an update in place changes them):
-            each held by `check(got)` → (ok, what) and timed cold and warm,
-            beside the kernel's own times; theirs join `entry` as
-            `{name}_ms` (cold) and `{name}_warm_ms`."""
+            each held by `check(got)` → (ok, what) and timed cold and warm in
+            turns with `kernel` (the kernel's own times, then the design
+            twice, then the kernel again, so that a drift of the card between
+            the timings cancels in the means); the design's means join
+            `entry` as `{name}_ms` (cold) and `{name}_warm_ms`, the kernel's
+            as `{name}_turns_ms` and `{name}_turns_warm_ms`."""
             for name, fn in others.items():
                 args = make()
                 ok, what = check(fn(*args))
-                cold = device_ms(lambda: fn(*args), 20, self.flush)[0]
-                warm = device_ms(lambda: fn(*args), 50)[0]
+                times = [device_ms(lambda: fn(*args), reps, flush)[0] for flush, reps in
+                         ((self.flush, 20), (None, 50), (self.flush, 20), (None, 50))]
+                again = (device_ms(lambda: kernel(*args), 20, self.flush)[0],
+                         device_ms(lambda: kernel(*args), 50)[0])
+                if None in times + list(again):
+                    cold = warm = k_cold = k_warm = None
+                else:
+                    cold, warm = (times[0] + times[2]) / 2, (times[1] + times[3]) / 2
+                    k_cold, k_warm = (entry["cold_ms"] + again[0]) / 2, (entry["warm_ms"] + again[1]) / 2
                 print(f"  {entry['label']}, the {name} design on the same inputs: {what}; cold {fmt_ms(cold)}, warm "
-                      f"{fmt_ms(warm)}; the kernel's time over its, cold {ratio(entry['cold_ms'], cold)}, warm "
-                      f"{ratio(entry['warm_ms'], warm)}")
+                      f"{fmt_ms(warm)} (means of two, between two of the kernel's: cold {fmt_ms(k_cold)}, warm "
+                      f"{fmt_ms(k_warm)}); the kernel's time over its, cold {ratio(k_cold, cold)}, warm "
+                      f"{ratio(k_warm, warm)}")
                 self.gate(ok, f"{entry['label']}: the {name} design {what}")
                 entry[f"{name}_ms"], entry[f"{name}_warm_ms"] = cold, warm
+                entry[f"{name}_turns_ms"], entry[f"{name}_turns_warm_ms"] = k_cold, k_warm
 
         def faster(entry, name):
-            """Whether the kernel ran faster than the `name` design, cold and warm."""
-            times = (entry["cold_ms"], entry[f"{name}_ms"], entry["warm_ms"], entry[f"{name}_warm_ms"])
+            """Whether the kernel ran faster than the `name` design, cold and
+            warm, in the means of their turns."""
+            times = (entry[f"{name}_turns_ms"], entry[f"{name}_ms"], entry[f"{name}_turns_warm_ms"],
+                     entry[f"{name}_warm_ms"])
             return None not in times and times[0] < times[1] and times[2] < times[3]
 
         # P1: take and take_along_axis; library torch.take / torch.gather
@@ -2492,7 +2558,7 @@ class Smoke:
                 "probe_rows", f"{site} {label}", make, lambda v: call(kp.row_update, v),
                 lambda v: call(pp.row_update, v), compare(tol, written), (n_bytes, n_ops), library)
             want = call(pp.row_update, vba.clone())
-            designs(row, make, {"simple": lambda v: call(kp.row_update_simple, v)},
+            designs(row, make, lambda v: call(kp.row_update, v), {"simple": lambda v: call(kp.row_update_simple, v)},
                     lambda got: (lambda ok, _err, what: (ok, what))(*compare(tol, written)(got, want)))
             if headline:
                 self.gate(faster(row, "simple"), f"probe_rows {row['label']}: faster than the simple design, "
@@ -2534,25 +2600,44 @@ class Smoke:
                   lambda fn, v: probe13.row_stores(fn, v, rows), 0.0, headline=True)
         del vba, depth, depth_t, ptr, seq, wv, wu, valid, vol, rows
 
-        # P3: the page gather-sum; no library call computes it
-        def page_site(site, label, pages, ids, call, tol):
+        # P3: the page gather-sum. At probe9's float32 page accumulator one
+        # library call computes it, F.embedding_bag(ids, pages, mode="sum"),
+        # held bit-equal to plain; at probe13's int8 raycast skeleton none:
+        # embedding_bag takes float weights only, and the hashed columns are
+        # a second gather. Beside the design it replaced (`simple`), gated on
+        # being faster at both sites.
+        def page_site(site, label, pages, ids, call, bag=False):
             (_q, ids_2d, k, n_cols), kw = recorded(call, pages, ids)
             hashed = kw.get("hashed", False)
             nt, row_len, e = ids_2d.shape[0], pages.shape[1], pages.element_size()
             c = torch.arange(n_cols, device=self.dev)[None, :]
             sel = (17 * c + torch.arange(nt, device=self.dev)[:, None]) % row_len if hashed else c
             flat = ids_2d[:, :k].long()[:, :, None] * row_len + sel[:, None, :]
-            traffic = (sectors(flat * e) + 4 * nt * k + 4 * nt * n_cols, nt * n_cols * (k + 1))
-            add("probe_page_sum", site, self.probe_site(
+            io = 4 * nt * k + 4 * nt * n_cols
+            traffic = (sectors(flat * e) + io, nt * n_cols * (k + 1))
+            bag_ids = ids_2d[:, :k].long()  # the library call takes int64 ids: made once, outside the timed call
+            library = (lambda q, _i: torch.nn.functional.embedding_bag(bag_ids, q, mode="sum")) if bag else None
+            row = self.probe_site(
                 "probe_page_sum", f"{site} {label}", lambda: (pages, ids), lambda q, i: call(kp.page_sum, q, i),
-                lambda q, i: call(pp.page_sum, q, i), compare(tol), traffic))
+                lambda q, i: call(pp.page_sum, q, i), compare(), traffic, library,
+                l2_bytes=row_sectors(flat.reshape(nt * k, n_cols) * e) + io)
+            want = call(pp.page_sum, pages, ids)
+            if bag:
+                self.gate(torch.equal(library(pages, ids), want),
+                          f"probe_page_sum {row['label']}: F.embedding_bag bit-equal to plain")
+            designs(row, lambda: (pages, ids), lambda q, i: call(kp.page_sum, q, i),
+                    {"simple": lambda q, i: call(kp.page_sum_simple, q, i)},
+                    lambda got: (torch.equal(got, want), "bit-equal to plain"))
+            self.gate(faster(row, "simple"), f"probe_page_sum {row['label']}: faster than the simple design, "
+                                             f"cold and warm")
+            add("probe_page_sum", site, row)
 
         vol, pid = on(*probe13.make_volume())
         page_site("tools/probe13.py:51", f"raycast skeleton, int8, {pid.shape[0]} tiles × {probe13.KP} pages", vol,
-                  pid, probe13.raycast_skeleton, 0.0)
+                  pid, probe13.raycast_skeleton)
         pages, p = on(*probe9.make_pages())
         page_site("tools/probe9.py:115", f"page accumulator, f32, {p.numel() // probe9.K} tiles × {probe9.K} pages",
-                  pages, p, probe9.accumulate, 1e-5)
+                  pages, p, probe9.accumulate, bag=True)
         del vol, pid, pages, p
 
         # P4: the scaled copy; library torch.mul; beside the design it replaced
@@ -2564,7 +2649,8 @@ class Smoke:
                 lambda: (x,), lambda y: kp.scaled_copy(y, rows_per_cta), lambda y: pp.scaled_copy(y, rows_per_cta),
                 compare(), (8 * x.numel(), x.numel()), lambda y: torch.mul(y, 1.000001))
             want = pp.scaled_copy(x, rows_per_cta)
-            designs(row, lambda: (x,), {"simple": lambda y: kp.scaled_copy_simple(y, rows_per_cta)},
+            designs(row, lambda: (x,), lambda y: kp.scaled_copy(y, rows_per_cta),
+                    {"simple": lambda y: kp.scaled_copy_simple(y, rows_per_cta)},
                     lambda got: (torch.equal(got, want), "bit-equal to plain"))
             if n_ctas <= 96:  # the decompositions of few CTAs, which the ring is for
                 self.gate(faster(row, "simple"), f"probe_scale {row['label']}: faster than the simple design, "
@@ -2601,7 +2687,7 @@ class Smoke:
         row = self.probe_site(
             "probe_gemm", f"tools/probe11.py:31 {m}×{n}×{k} bf16", lambda: (a, b), kp.gemm_bf16, pp.gemm_bf16, ulps,
             (2 * (m * k + k * n + m * n), 2 * m * n * k), torch.matmul, peak_ops=PEAK_BF16_PER_S)
-        designs(row, lambda: (a, b), {"wmma": kp.gemm_bf16_wmma},
+        designs(row, lambda: (a, b), kp.gemm_bf16, {"wmma": kp.gemm_bf16_wmma},
                 lambda got: (float(pp.bf16_product_bound(got, a, b).max()) <= 1.0,
                              f"within the float32 summation bound (max "
                              f"{float(pp.bf16_product_bound(got, a, b).max()):.4f} of it)"))
@@ -2614,16 +2700,30 @@ class Smoke:
                         "to plain")
         del a, b, ai, bi
 
-        # P6: the window column sums; no library call computes them
+        # P6: the window column sums. No library call: no one PyTorch call
+        # sums the columns of 1,200 windows at data-dependent starts without
+        # copying them out of the image (conv2d with a 64×1 filter of ones
+        # sums the windows at every start, 449×768 of them, and a second
+        # call would pick the 1,200). Beside the design it replaced
+        # (`simple`), gated on being faster.
         img, starts = on(*probe13.make_window())
         nt, st = starts.shape[0], starts.reshape(starts.shape[0], -1)
         r = torch.arange(64, device=self.dev)
         flat = ((st[:, 0].long()[:, None, None] + r[None, :, None]) * img.shape[1] + st[:, 1].long()[:, None, None]
                 + r[None, None, :])
-        add("probe_window_sums", "tools/probe13.py:85", self.probe_site(
+        io = 32 * nt + 4 * nt * 128
+        row = self.probe_site(
             "probe_window_sums", f"tools/probe13.py:85 {nt} tiles of 64×64", lambda: (img, starts),
             lambda i, t: probe13.window_sums(kp.window_sums, i, t),
-            lambda i, t: probe13.window_sums(pp.window_sums, i, t), compare(1e-5), (sectors(flat * 4) + 32 * nt + 4 * nt * 128, nt * 64 * 64)))
+            lambda i, t: probe13.window_sums(pp.window_sums, i, t), compare(), (sectors(flat * 4) + io, nt * 64 * 64),
+            l2_bytes=row_sectors(flat.reshape(nt * 64, 64) * 4) + io)
+        want = probe13.window_sums(pp.window_sums, img, starts)
+        designs(row, lambda: (img, starts), lambda i, t: probe13.window_sums(kp.window_sums, i, t),
+                {"simple": lambda i, t: probe13.window_sums(kp.window_sums_simple, i, t)},
+                lambda got: (torch.equal(got, want), "bit-equal to plain"))
+        self.gate(faster(row, "simple"), f"probe_window_sums {row['label']}: faster than the simple design, cold and "
+                                         f"warm")
+        add("probe_window_sums", "tools/probe13.py:85", row)
 
         kernels = []
         for counter, rows in found.items():
@@ -2634,10 +2734,10 @@ class Smoke:
                 max_abs_err=max(r["max_abs_err"] for r in rows), headline=head["label"],
                 **{key: head[key] for key in ("ms", "cold_ms", "warm_ms", "call_ms", "plain_ms", "library_ms",
                                               "library_warm_ms", "bound_ms", "bound_by", "bound_bytes", "bound_ops")},
-                **{key: v for key, v in head.items() if key.startswith(DESIGNS)},
+                **{key: v for key, v in head.items() if key.startswith(DESIGNS + EXTRAS)},
                 sites=[{key: r[key] for key in ("label", "ms", "warm_ms", "call_ms", "plain_ms", "library_ms",
                                                 "library_warm_ms", "bound_ms", "bound_by", "max_abs_err")}
-                       | {key: v for key, v in r.items() if key.startswith(DESIGNS)} for r in rows]))
+                       | {key: v for key, v in r.items() if key.startswith(DESIGNS + EXTRAS)} for r in rows]))
         return kernels
 
     def probes_main_path(self) -> dict:

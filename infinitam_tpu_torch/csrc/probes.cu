@@ -61,8 +61,28 @@
 //   comparisons (itpu_probe_rows_simple).
 // - P3 page gather-sum (probe9 kacc, probe13 rk): out[t, c] =
 //   scale · Σ_{k<K} f32(pages[ids[t, k], sel(t, c)]), sel = c or
-//   (17c + t) mod row_len, one CTA a tile, the ids in shared memory, the
-//   sum in k order. Bound by bytes: the pages' touched sectors.
+//   (17c + t) mod row_len. The bound counts the pages' touched sectors once
+//   (rk 5.03 MB), but every tile reads its own pages: at rk every sector of
+//   its 48 int8 rows (the 128 hashed columns fall on every 4th byte), 29.5
+//   MB of requests, at kacc 16 whole float rows a tile, 19.7 MB, which the
+//   L2 serves from the 4 and 8 MB tables. So the L2 bounds it, and a thread
+//   keeps many loads in flight: the grid is tiles × blocks of 128 columns,
+//   the tile's page ids and row offsets in shared memory (a load's address
+//   is one add). int8: a thread a column, 16 pages loaded before any is
+//   added, summed exactly in an int (|Σ| ≤ 256 · 128) and converted once;
+//   the CTA's four warps read the same 16 sectors of a page, which the L1
+//   serves after the first. float: a thread a float4 of columns, 8 pages in
+//   flight, summed in k order (plain's order); rows, views or column counts
+//   off 16 bytes, and hashed float pages, a thread a column, element by
+//   element. Measured against it and dropped (PERF.md §6): a warp a 512-byte
+//   row in 16-byte pieces with packed 16-bit sums, the rows split among the
+//   CTA's warps (slower at rk than the design it was to replace: unpacking
+//   16 columns a piece costs more than the L1 saves by merging four warps'
+//   requests), the tile's rows copied into shared memory by cp.async first,
+//   an L2 prefetch of the tile's rows, and a column's pages split among two
+//   or four threads. The design it replaced (a thread a column, a float sum,
+//   the loads as the compiler unrolled them) stays for comparisons
+//   (itpu_probe_page_sum_simple).
 // - P4 scaled copy (probe11 ck, probe12 ck): out = x · mul, a CTA per
 //   `rows_per_cta` rows (the probes' 64-, 96-, 768- and 6144-CTA
 //   decompositions). Bound by bytes. In 64 or 96 CTAs on 132 SMs the
@@ -85,8 +105,24 @@
 //   stores past M or N are cut. The WMMA design it replaced stays for
 //   comparisons (itpu_probe_gemm_wmma).
 // - P6 window column sums (probe13 wk): out[t, c] = Σ_{r<win_h} img[a_t + r,
-//   b_t + c] for c < win_w and 0 up to out_w, one CTA a tile, the sum in r
-//   order. Bound by bytes.
+//   b_t + c] for c < win_w and 0 up to out_w, the sum in r order (plain's).
+//   The bound counts the image's touched sectors once (1.51 MB); a window
+//   row of 256 bytes at an arbitrary column spans 8-9 sectors, 21.8 MB of
+//   requests for the 1,200 windows, which the L2 serves from the 1.57 MB
+//   image. A warp takes 32 columns of a tile (two a 64-column tile, four a
+//   CTA: no thread idles), a lane loads 16 rows before it adds them (the
+//   probes' 64 × 64 windows compiled with every group unrolled), and the
+//   tile's warps store its zero columns as float4. Measured against it and
+//   dropped (PERF.md §6): aligned 16-byte pieces of each row summed piece by
+//   piece and shifted into columns by shuffles (17 of 32 lanes busy; slower
+//   warm and cold), and 32 or 64 rows in flight. The design it replaced (a
+//   CTA a tile, half its threads storing zeros, the rows as the compiler
+//   unrolled them) stays for comparisons (itpu_probe_window_sums_simple).
+// - The L2's read rate, under P3 and P6 (on no path, not counted): a plain
+//   read of an L2-resident float32 buffer, a thread 8 float4 loads in flight
+//   over a grid-stride (the last group's predicated), each CTA's sum stored
+//   (so no load is dead). Its time for as many bytes as a P3 or P6 site
+//   requests is that site's L2 floor.
 //
 // Indices must lie in range (the probes' always do); no kernel checks them.
 // Every entry point returns cudaGetLastError() after its launch.
@@ -590,10 +626,112 @@ ITPU_EXPORT int itpu_probe_rows_simple(const void* in, void* out, int row_len, i
 
 // --- P3 page gather-sum -------------------------------------------------
 
+#define PAGE_THREADS 128  // a CTA: one tile, 128 columns (float32 with 16-byte pieces: 512)
+#define PAGE_LOADS_I8 16  // int8 pages a thread has in flight
+#define PAGE_LOADS_F32 8  // float4 pieces of pages a thread has in flight
+
+// The grid is tiles × column blocks. T int8_t: a thread a column, its pages
+// loaded PAGE_LOADS_I8 at a time before any is added and summed exactly in
+// an int (|Σ| ≤ 256 · 128), converted once and scaled; the CTA's four warps
+// read the same 16 sectors of a page, which the L1 serves after the first.
+// T float, vec: a thread a float4 of columns, PAGE_LOADS_F32 pages in
+// flight, summed in k order. Float pages, rows or columns that are not whole
+// 16-byte pieces (vec 0), and hashed float pages: a thread a column, element
+// by element.
+template <typename T, bool HASHED>
+__global__ void __launch_bounds__(PAGE_THREADS)
+itpu_probe_page_sum_kernel(const T* __restrict__ pages, int row_len, const int* __restrict__ ids, int ids_stride,
+                           int k_pages, float* __restrict__ out, int n_cols, float scale, int vec) {
+    __shared__ int sid[PROBE_MAX_PAGES];
+    __shared__ long long row_at[PROBE_MAX_PAGES];  // sid[k] · row_len: a load's address is one add
+    const int t = blockIdx.x, tid = threadIdx.x, c = blockIdx.y * PAGE_THREADS + tid;
+    for (int k = tid; k < k_pages; k += PAGE_THREADS) {
+        sid[k] = __ldg(ids + (long long)t * ids_stride + k);
+        row_at[k] = (long long)sid[k] * row_len;
+    }
+    __syncthreads();
+    if constexpr (sizeof(T) == 1) {
+        if (c >= n_cols) return;
+        const int8_t* p = pages + (HASHED ? (17 * c + t) % row_len : c);
+        int s = 0, k = 0;
+        for (; k + PAGE_LOADS_I8 <= k_pages; k += PAGE_LOADS_I8) {
+            int x[PAGE_LOADS_I8];
+#pragma unroll
+            for (int j = 0; j < PAGE_LOADS_I8; ++j) x[j] = __ldg(p + row_at[k + j]);
+#pragma unroll
+            for (int j = 0; j < PAGE_LOADS_I8; ++j) s += x[j];
+        }
+        for (; k < k_pages; ++k) s += __ldg(p + row_at[k]);
+        out[(long long)t * n_cols + c] = (float)s * scale;
+        return;
+    } else if (!HASHED) {
+        if (vec) {
+            if (4 * c >= n_cols) return;  // c: the thread's float4 of columns
+            const float4* rows = reinterpret_cast<const float4*>(pages);
+            const int row4 = row_len / 4;
+            float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+            int k = 0;
+            for (; k + PAGE_LOADS_F32 <= k_pages; k += PAGE_LOADS_F32) {
+                float4 v[PAGE_LOADS_F32];
+#pragma unroll
+                for (int j = 0; j < PAGE_LOADS_F32; ++j) v[j] = __ldg(rows + (long long)sid[k + j] * row4 + c);
+#pragma unroll
+                for (int j = 0; j < PAGE_LOADS_F32; ++j) {
+                    s.x += v[j].x;
+                    s.y += v[j].y;
+                    s.z += v[j].z;
+                    s.w += v[j].w;
+                }
+            }
+            for (; k < k_pages; ++k) {
+                const float4 v = __ldg(rows + (long long)sid[k] * row4 + c);
+                s.x += v.x;
+                s.y += v.y;
+                s.z += v.z;
+                s.w += v.w;
+            }
+            reinterpret_cast<float4*>(out)[(long long)t * (n_cols / 4) + c] =
+                make_float4(s.x * scale, s.y * scale, s.z * scale, s.w * scale);
+            return;
+        }
+    }
+    if (c >= n_cols) return;
+    const T* p = pages + (HASHED ? (17 * c + t) % row_len : c);
+    float s = 0.f;
+    for (int k = 0; k < k_pages; ++k) s += (float)p[row_at[k]];
+    out[(long long)t * n_cols + c] = s * scale;
+}
+
+ITPU_EXPORT int itpu_probe_page_sum(const void* pages, int row_len, int elem_bytes, const void* ids, int ids_stride,
+                                    int k_pages, int n_tiles, void* out, int n_cols, int hashed, float scale,
+                                    void* stream) {
+    if (k_pages < 0 || k_pages > PROBE_MAX_PAGES) return (int)cudaErrorInvalidValue;
+    if (n_tiles <= 0 || n_cols <= 0) return (int)cudaGetLastError();
+    cudaStream_t s = (cudaStream_t)stream;
+    if (elem_bytes == 4) {
+        const int vec = !hashed && (uintptr_t)pages % 16 == 0 && (uintptr_t)out % 16 == 0 && row_len % 4 == 0 &&
+                        n_cols % 4 == 0;
+        const dim3 grid(n_tiles, (n_cols / (vec ? 4 : 1) + PAGE_THREADS - 1) / PAGE_THREADS);
+        auto kernel = hashed ? itpu_probe_page_sum_kernel<float, true> : itpu_probe_page_sum_kernel<float, false>;
+        kernel<<<grid, PAGE_THREADS, 0, s>>>((const float*)pages, row_len, (const int*)ids, ids_stride, k_pages,
+                                             (float*)out, n_cols, scale, vec);
+    } else if (elem_bytes == 1) {
+        const dim3 grid(n_tiles, (n_cols + PAGE_THREADS - 1) / PAGE_THREADS);
+        auto kernel = hashed ? itpu_probe_page_sum_kernel<int8_t, true> : itpu_probe_page_sum_kernel<int8_t, false>;
+        kernel<<<grid, PAGE_THREADS, 0, s>>>((const int8_t*)pages, row_len, (const int*)ids, ids_stride, k_pages,
+                                             (float*)out, n_cols, scale, 0);
+    } else {
+        return (int)cudaErrorInvalidValue;
+    }
+    return (int)cudaGetLastError();
+}
+
+// The design the one above replaced, kept for comparisons (on no path): a
+// thread a column, walking the pages in k order, one element at a time.
 template <typename T, bool HASHED>
 __global__ void __launch_bounds__(PROBE_ROW_THREADS)
-itpu_probe_page_sum_kernel(const T* __restrict__ pages, int row_len, const int* __restrict__ ids, int ids_stride,
-                           int k_pages, float* __restrict__ out, int n_cols, float scale) {
+itpu_probe_page_sum_simple_kernel(const T* __restrict__ pages, int row_len, const int* __restrict__ ids,
+                                  int ids_stride, int k_pages, float* __restrict__ out, int n_cols, float scale) {
     __shared__ int sid[PROBE_MAX_PAGES];
     const int t = blockIdx.x;
     for (int k = threadIdx.x; k < k_pages; k += blockDim.x) sid[k] = ids[(long long)t * ids_stride + k];
@@ -606,18 +744,20 @@ itpu_probe_page_sum_kernel(const T* __restrict__ pages, int row_len, const int* 
     }
 }
 
-ITPU_EXPORT int itpu_probe_page_sum(const void* pages, int row_len, int elem_bytes, const void* ids, int ids_stride,
-                                    int k_pages, int n_tiles, void* out, int n_cols, int hashed, float scale,
-                                    void* stream) {
+ITPU_EXPORT int itpu_probe_page_sum_simple(const void* pages, int row_len, int elem_bytes, const void* ids,
+                                           int ids_stride, int k_pages, int n_tiles, void* out, int n_cols,
+                                           int hashed, float scale, void* stream) {
     if (k_pages < 0 || k_pages > PROBE_MAX_PAGES) return (int)cudaErrorInvalidValue;
     if (n_tiles <= 0) return (int)cudaGetLastError();
     cudaStream_t s = (cudaStream_t)stream;
     if (elem_bytes == 4) {
-        auto kernel = hashed ? itpu_probe_page_sum_kernel<float, true> : itpu_probe_page_sum_kernel<float, false>;
+        auto kernel = hashed ? itpu_probe_page_sum_simple_kernel<float, true>
+                             : itpu_probe_page_sum_simple_kernel<float, false>;
         kernel<<<n_tiles, PROBE_ROW_THREADS, 0, s>>>((const float*)pages, row_len, (const int*)ids, ids_stride,
                                                       k_pages, (float*)out, n_cols, scale);
     } else if (elem_bytes == 1) {
-        auto kernel = hashed ? itpu_probe_page_sum_kernel<int8_t, true> : itpu_probe_page_sum_kernel<int8_t, false>;
+        auto kernel = hashed ? itpu_probe_page_sum_simple_kernel<int8_t, true>
+                             : itpu_probe_page_sum_simple_kernel<int8_t, false>;
         kernel<<<n_tiles, PROBE_ROW_THREADS, 0, s>>>((const int8_t*)pages, row_len, (const int*)ids, ids_stride,
                                                       k_pages, (float*)out, n_cols, scale);
     } else {
@@ -1083,9 +1223,75 @@ ITPU_EXPORT int itpu_probe_gemm_wmma(const void* a, const void* b, void* c, int 
 
 // --- P6 window column sums ----------------------------------------------
 
-__global__ void __launch_bounds__(PROBE_ROW_THREADS)
+#define WIN_THREADS 128  // 4 warps: two 64-column tiles a CTA
+#define WIN_WARPS (WIN_THREADS / 32)
+#define WIN_LOADS 16     // rows a lane loads before it adds them
+
+// A warp takes 32 columns of a tile (item = warp of the grid: tile item /
+// warps_per_tile, columns 32 · (item mod warps_per_tile) …), a lane a
+// column, its rows summed in r order, WIN_LOADS of them loaded before any is
+// added; then the tile's warps store its zero columns [win_w, out_w), in
+// float4 where vec_out. ROWS and WPT > 0 are win_h and warps_per_tile known
+// when compiled, 0 takes them at run time. The probes' 64 × 64 windows run
+// <64, 2>: every group unrolled, so the compiler issues all 64 rows' loads
+// before the first add (at run time they took ~1 µs more cold; PERF.md §6).
+template <int ROWS, int WPT>
+__global__ void __launch_bounds__(WIN_THREADS)
 itpu_probe_window_sums_kernel(const float* __restrict__ img, int img_w, const int* __restrict__ starts,
-                              int starts_stride, int win_h, int win_w, float* __restrict__ out, int out_w) {
+                              int starts_stride, int n_tiles, int win_h, int win_w, float* __restrict__ out,
+                              int out_w, int warps_per_tile, int vec_out) {
+    const int wpt = WPT > 0 ? WPT : warps_per_tile, rows = ROWS > 0 ? ROWS : win_h;
+    const int item = blockIdx.x * WIN_WARPS + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+    const int t = item / wpt, g = item - t * wpt;
+    if (t >= n_tiles) return;
+    const int c = 32 * g + lane;
+    float* o = out + (long long)t * out_w;
+    const int a = __ldg(starts + (long long)t * starts_stride), b = __ldg(starts + (long long)t * starts_stride + 1);
+    if (c < win_w) {
+        const float* p = img + (long long)a * img_w + b + c;
+        float s = 0.f;
+        int r = 0;
+        for (; r + WIN_LOADS <= rows; r += WIN_LOADS) {
+            float x[WIN_LOADS];
+#pragma unroll
+            for (int j = 0; j < WIN_LOADS; ++j) x[j] = __ldg(p + (long long)(r + j) * img_w);
+#pragma unroll
+            for (int j = 0; j < WIN_LOADS; ++j) s += x[j];
+        }
+        for (; r < rows; ++r) s += __ldg(p + (long long)r * img_w);
+        o[c] = s;
+    }
+    const int step = 32 * wpt;
+    if (vec_out) {
+        for (int q = win_w / 4 + c; q < out_w / 4; q += step)
+            reinterpret_cast<float4*>(o)[q] = make_float4(0.f, 0.f, 0.f, 0.f);
+    } else {
+        for (int z = win_w + c; z < out_w; z += step) o[z] = 0.f;
+    }
+}
+
+ITPU_EXPORT int itpu_probe_window_sums(const void* img, int img_w, const void* starts, int starts_stride,
+                                       int n_tiles, int win_h, int win_w, void* out, int out_w, void* stream) {
+    if (win_w < 0 || win_w > out_w) return (int)cudaErrorInvalidValue;
+    if (n_tiles <= 0) return (int)cudaGetLastError();
+    const int warps_per_tile = win_w > 32 ? (win_w + 31) / 32 : 1;
+    const long long warps = (long long)n_tiles * warps_per_tile;
+    const int vec_out = (uintptr_t)out % 16 == 0 && out_w % 4 == 0 && win_w % 4 == 0;
+    const unsigned int ctas = (unsigned int)((warps + WIN_WARPS - 1) / WIN_WARPS);
+    auto kernel = win_h == 64 && warps_per_tile == 2 ? itpu_probe_window_sums_kernel<64, 2>
+                                                     : itpu_probe_window_sums_kernel<0, 0>;
+    kernel<<<ctas, WIN_THREADS, 0, (cudaStream_t)stream>>>(
+        (const float*)img, img_w, (const int*)starts, starts_stride, n_tiles, win_h, win_w, (float*)out, out_w,
+        warps_per_tile, vec_out);
+    return (int)cudaGetLastError();
+}
+
+// The design the one above replaced, kept for comparisons (on no path): one
+// CTA of 128 threads a tile, a thread a column (threads past win_w store
+// the zeros), each row a load after the last one's add.
+__global__ void __launch_bounds__(PROBE_ROW_THREADS)
+itpu_probe_window_sums_simple_kernel(const float* __restrict__ img, int img_w, const int* __restrict__ starts,
+                                     int starts_stride, int win_h, int win_w, float* __restrict__ out, int out_w) {
     const int t = blockIdx.x;
     const int a = starts[(long long)t * starts_stride], b = starts[(long long)t * starts_stride + 1];
     for (int c = threadIdx.x; c < out_w; c += blockDim.x) {
@@ -1096,11 +1302,49 @@ itpu_probe_window_sums_kernel(const float* __restrict__ img, int img_w, const in
     }
 }
 
-ITPU_EXPORT int itpu_probe_window_sums(const void* img, int img_w, const void* starts, int starts_stride,
-                                       int n_tiles, int win_h, int win_w, void* out, int out_w, void* stream) {
+ITPU_EXPORT int itpu_probe_window_sums_simple(const void* img, int img_w, const void* starts, int starts_stride,
+                                              int n_tiles, int win_h, int win_w, void* out, int out_w,
+                                              void* stream) {
     if (n_tiles <= 0) return (int)cudaGetLastError();
-    itpu_probe_window_sums_kernel<<<n_tiles, PROBE_ROW_THREADS, 0, (cudaStream_t)stream>>>(
+    itpu_probe_window_sums_simple_kernel<<<n_tiles, PROBE_ROW_THREADS, 0, (cudaStream_t)stream>>>(
         (const float*)img, img_w, (const int*)starts, starts_stride, win_h, win_w, (float*)out, out_w);
     return (int)cudaGetLastError();
 }
 
+// --- the L2's read rate -------------------------------------------------
+
+#define L2_READ_THREADS 256
+#define L2_READ_LOADS 8  // float4 loads a thread has in flight
+
+// out[cta] = the sum of the float4 at i ≡ cta · L2_READ_THREADS + tid
+// (mod gridDim.x · L2_READ_THREADS), read L2_READ_LOADS strides at a time,
+// the loads past n predicated off (so a thread's last group is in flight too)
+__global__ void __launch_bounds__(L2_READ_THREADS)
+itpu_l2_read_kernel(const float4* __restrict__ buf, int n, float* __restrict__ out) {
+    __shared__ float part[L2_READ_THREADS / 32];
+    const long long stride = (long long)gridDim.x * L2_READ_THREADS;
+    float s = 0.f;
+    for (long long i = (long long)blockIdx.x * L2_READ_THREADS + threadIdx.x; i < n; i += L2_READ_LOADS * stride) {
+        float4 v[L2_READ_LOADS];
+#pragma unroll
+        for (int j = 0; j < L2_READ_LOADS; ++j)
+            v[j] = i + j * stride < n ? __ldg(buf + i + j * stride) : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+        for (int j = 0; j < L2_READ_LOADS; ++j) s += (v[j].x + v[j].y) + (v[j].z + v[j].w);
+    }
+    for (int d = 16; d > 0; d >>= 1) s += __shfl_down_sync(0xffffffffu, s, d);
+    if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = s;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        float total = 0.f;
+        for (int w = 0; w < L2_READ_THREADS / 32; ++w) total += part[w];
+        out[blockIdx.x] = total;
+    }
+}
+
+ITPU_EXPORT int itpu_l2_read(const void* buf, int n_vec4, int n_ctas, void* out, void* stream) {
+    if (n_vec4 < 0 || n_ctas <= 0 || (uintptr_t)buf % 16) return (int)cudaErrorInvalidValue;
+    itpu_l2_read_kernel<<<n_ctas, L2_READ_THREADS, 0, (cudaStream_t)stream>>>((const float4*)buf, n_vec4,
+                                                                             (float*)out);
+    return (int)cudaGetLastError();
+}

@@ -94,16 +94,23 @@ SIGNATURES = {
     # tap_scale, mul, stream; _simple: the design P2 replaced (uncounted)
     "itpu_probe_rows": (P, P, I, I, P, I, I, I, P, P, P, P, I, I, I, F, F, P),
     "itpu_probe_rows_simple": (P, P, I, I, P, I, I, I, P, P, P, P, I, I, I, F, F, P),
-    # pages, row_len, elem_bytes, ids, ids_stride, k_pages, n_tiles, out, n_cols, hashed, scale, stream
+    # pages, row_len, elem_bytes, ids, ids_stride, k_pages, n_tiles, out, n_cols, hashed, scale, stream;
+    # _simple: the design P3 replaced, for comparisons (uncounted)
     "itpu_probe_page_sum": (P, I, I, P, I, I, I, P, I, I, F, P),
+    "itpu_probe_page_sum_simple": (P, I, I, P, I, I, I, P, I, I, F, P),
     # in, out, n_ctas, vec_per_cta, mul, stream; _simple: the design P4 replaced, for comparisons (uncounted)
     "itpu_probe_scale": (P, P, I, I, F, P),
     "itpu_probe_scale_simple": (P, P, I, I, F, P),
     # a, b, c, m, n, k, stream; _wmma: the design P5 replaced, for comparisons (uncounted)
     "itpu_probe_gemm": (P, P, P, I, I, I, P),
     "itpu_probe_gemm_wmma": (P, P, P, I, I, I, P),
-    # img, img_w, starts, starts_stride, n_tiles, win_h, win_w, out, out_w, stream
+    # img, img_w, starts, starts_stride, n_tiles, win_h, win_w, out, out_w, stream; _simple: the design P6
+    # replaced, for comparisons (uncounted)
     "itpu_probe_window_sums": (P, I, P, I, I, I, I, P, I, P),
+    "itpu_probe_window_sums_simple": (P, I, P, I, I, I, I, P, I, P),
+    # buf, n_vec4, n_ctas, out, stream: a plain read of an L2-resident buffer, each CTA's sum in out (the
+    # L2's read rate under P3 and P6, for the smoke's L2 floor; uncounted)
+    "itpu_l2_read": (P, I, I, P, P),
 }
 
 KERNELS = ("icp", "icp_weighted", "integrate", "integrate_color", "raycast", "raycast_hash", "raycast_dense",
@@ -133,7 +140,7 @@ def reset_launch_counts() -> None:
 # the launch counter of each counted kernel, by the name of its __global__
 # function (mangled, or demangled) as a CUDA graph's kernel node names it
 # (engine/captured.py); the lock-step raycasts (K3h's serial walk, K3d at
-# LA 1) and the designs P2, P4 and P5 replaced (`itpu_probe_*_simple_kernel`,
+# LA 1) and the designs P2-P6 replaced (`itpu_probe_*_simple_kernel`,
 # `itpu_probe_gemm_wmma_kernel`) are not counted
 _SYMBOLS = tuple((re.compile(p), k) for p, k in (
     (r"itpu_icp_kernel(ILb0E|<false>)", "icp"),

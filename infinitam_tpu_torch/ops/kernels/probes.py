@@ -9,21 +9,30 @@ plain twins are `infinitam_tpu_torch/probes/plain.py`:
 - P2 `row_update`: a CTA takes a chunk of steps, a warp a step, each warp
   loading its next step before it stores the current one (probe7, probe8
   k1-k5, probe9 kernel, probe10, probe12 kern, probe13 sk);
-- P3 `page_sum`: a tile's pages gathered and summed (probe9 kacc, probe13 rk);
+- P3 `page_sum`: a tile's pages gathered and summed (probe9 kacc, probe13
+  rk), a thread a column (int8, summed exactly) or a float4 of columns
+  (float32, in k order) with its pages' loads in flight: the L2 bounds it,
+  each tile requesting every sector of its rows (29.5 MB at rk, 19.7 MB at
+  kacc);
 - P4 `scaled_copy`: x · 1.000001 in CTAs of a set number of rows (probe11
   ck, probe12 ck), each CTA's block streamed through a ring of bulk
   asynchronous copies;
 - P5 `gemm_bf16`: bf16 product with float32 accumulation (probe11 mk),
   wgmma on operands a TMA ring brings into shared memory;
-- P6 `window_sums`: the column sums of a window at a tile's start (probe13 wk).
+- P6 `window_sums`: the column sums of a window at a tile's start (probe13
+  wk), a warp 32 columns of a tile, 16 rows in flight a lane: the L2 bounds
+  it (a window row spans 8-9 sectors, 21.8 MB of requests at wk).
 
 Each wrapper takes the plain twin for tensors on the CPU and launches its
 kernel for CUDA tensors (built at first launch into build/kernels/, counted
 in `build.launch_counts()`); it raises where the kernel does not take its
 arguments and never falls back from one to the other. No batched path runs
-these kernels, so they are not lane-indexed. The designs P2, P4 and P5
-replaced stay as comparison entry points, on no path and not counted
-(`row_update_simple`, `scaled_copy_simple`, `gemm_bf16_wmma`).
+these kernels, so they are not lane-indexed. The designs P2-P6 replaced
+stay as comparison entry points, on no path and not counted
+(`row_update_simple`, `page_sum_simple`, `scaled_copy_simple`,
+`gemm_bf16_wmma`, `window_sums_simple`). `l2_read`, on no path and not
+counted either, reads an L2-resident buffer at the L2's rate: the smoke's L2
+floor under P3 and P6.
 """
 
 from __future__ import annotations
@@ -70,6 +79,7 @@ COUNTERS = {"P1": "probe_gather", "P2": "probe_rows", "P3": "probe_page_sum", "P
 _TAP = {name: i for i, name in enumerate(plain.TAPS)}
 _GATE = {name: i for i, name in enumerate(plain.GATES)}
 MAX_PAGES = 256  # csrc/probes.cu PROBE_MAX_PAGES
+L2_READ_THREADS = 256  # csrc/probes.cu L2_READ_THREADS
 
 
 def _require(name: str, *tensors: torch.Tensor) -> None:
@@ -175,26 +185,47 @@ def row_update_simple(vba: torch.Tensor, ptr: torch.Tensor, **kwargs) -> torch.T
     return _rows("itpu_probe_rows_simple", vba, ptr, **_ROW_DEFAULTS | kwargs)
 
 
+def _page_sum(name: str, pages: torch.Tensor, ids: torch.Tensor, k_pages: int, n_cols: int, scale: float,
+              hashed: bool) -> torch.Tensor:
+    """A page sum launched through the C entry point `name`, its arguments
+    checked."""
+    _require(name, pages, ids)
+    build.require_dtype(name, ids, torch.int32)
+    if pages.dtype not in (torch.float32, torch.int8) or pages.dim() != 2 or ids.dim() != 2:
+        raise ValueError(f"{name}: float32 or int8 pages [rows, row_len] and ids [tiles, pages]")
+    if not 0 <= k_pages <= min(ids.shape[1], MAX_PAGES):
+        raise ValueError(f"{name}: {k_pages} pages a tile, at most {min(ids.shape[1], MAX_PAGES)}")
+    if not hashed and n_cols > pages.shape[1]:
+        raise ValueError(f"{name}: {n_cols} columns of rows of {pages.shape[1]}")
+    out = torch.empty((ids.shape[0], n_cols), dtype=torch.float32, device=pages.device)
+    err = getattr(build.library(), name)(pages.data_ptr(), pages.shape[1], pages.element_size(), ids.data_ptr(),
+                                         ids.shape[1], k_pages, ids.shape[0], out.data_ptr(), n_cols, int(hashed),
+                                         ctypes.c_float(scale), build.stream_ptr())
+    build.check(name, err)
+    return out
+
+
 def page_sum(pages: torch.Tensor, ids: torch.Tensor, k_pages: int, n_cols: int, scale: float = 1.0,
              hashed: bool = False) -> torch.Tensor:
     """P3: out [tiles, n_cols] = scale · Σ_{k<k_pages} f32(pages[ids[t, k],
     sel(t, c)]) for float32 or int8 pages [rows, row_len] and int32 ids
-    [tiles, ≥ k_pages] (see plain.page_sum)."""
+    [tiles, ≥ k_pages] (see plain.page_sum), a CTA a tile and 128 columns:
+    int8 a thread a column, 16 pages loaded before any is added, summed
+    exactly in an int; float32 a thread a float4 of columns, in k order."""
     if pages.device.type == "cpu":
         return plain.page_sum(pages, ids, k_pages, n_cols, scale, hashed)
-    _require("page_sum", pages, ids)
-    build.require_dtype("page_sum", ids, torch.int32)
-    if pages.dtype not in (torch.float32, torch.int8) or pages.dim() != 2 or ids.dim() != 2:
-        raise ValueError("page_sum: float32 or int8 pages [rows, row_len] and ids [tiles, pages]")
-    if not 0 <= k_pages <= min(ids.shape[1], MAX_PAGES):
-        raise ValueError(f"page_sum: {k_pages} pages a tile, at most {min(ids.shape[1], MAX_PAGES)}")
-    out = torch.empty((ids.shape[0], n_cols), dtype=torch.float32, device=pages.device)
-    err = build.library().itpu_probe_page_sum(pages.data_ptr(), pages.shape[1], pages.element_size(), ids.data_ptr(),
-                                              ids.shape[1], k_pages, ids.shape[0], out.data_ptr(), n_cols,
-                                              int(hashed), ctypes.c_float(scale), build.stream_ptr())
-    build.check("itpu_probe_page_sum", err)
+    out = _page_sum("itpu_probe_page_sum", pages, ids, k_pages, n_cols, scale, hashed)
     build.count_launch("probe_page_sum")
     return out
+
+
+def page_sum_simple(pages: torch.Tensor, ids: torch.Tensor, k_pages: int, n_cols: int, scale: float = 1.0,
+                    hashed: bool = False) -> torch.Tensor:
+    """P3 in the design it replaced (a thread a column, one element at a
+    time), for comparisons: not counted; the arguments of `page_sum`."""
+    if pages.device.type == "cpu":
+        return plain.page_sum(pages, ids, k_pages, n_cols, scale, hashed)
+    return _page_sum("itpu_probe_page_sum_simple", pages, ids, k_pages, n_cols, scale, hashed)
 
 
 def _scale_args(name: str, x: torch.Tensor, rows_per_cta: int) -> tuple:
@@ -280,22 +311,57 @@ def gemm_bf16_wmma(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return c
 
 
+def _window_sums(name: str, img: torch.Tensor, starts: torch.Tensor, win_h: int, win_w: int,
+                 out_w: int) -> torch.Tensor:
+    """Window sums launched through the C entry point `name`, the arguments
+    checked."""
+    _require(name, img, starts)
+    build.require_dtype(name, img, torch.float32)
+    build.require_dtype(name, starts, torch.int32)
+    if img.dim() != 2 or starts.dim() != 2 or starts.shape[1] < 2 or not 0 <= win_w <= out_w:
+        raise ValueError(f"{name}: a 2-D image, starts [tiles, ≥ 2] and 0 ≤ win_w ≤ out_w")
+    out = torch.empty((starts.shape[0], out_w), dtype=torch.float32, device=img.device)
+    err = getattr(build.library(), name)(img.data_ptr(), img.shape[1], starts.data_ptr(), starts.shape[1],
+                                         starts.shape[0], win_h, win_w, out.data_ptr(), out_w, build.stream_ptr())
+    build.check(name, err)
+    return out
+
+
 def window_sums(img: torch.Tensor, starts: torch.Tensor, win_h: int = 64, win_w: int = 64,
                 out_w: int = 128) -> torch.Tensor:
     """P6: out [tiles, out_w], the column sums of each tile's win_h × win_w
     window of float32 img at (starts[t, 0], starts[t, 1]), zero past win_w;
-    starts int32 [tiles, ≥ 2], windows inside the image."""
+    starts int32 [tiles, ≥ 2], windows inside the image. A warp takes 32
+    columns of a tile, 16 rows in flight a lane, summed in r order."""
     if img.device.type == "cpu":
         return plain.window_sums(img, starts, win_h, win_w, out_w)
-    _require("window_sums", img, starts)
-    build.require_dtype("window_sums", img, torch.float32)
-    build.require_dtype("window_sums", starts, torch.int32)
-    if img.dim() != 2 or starts.dim() != 2 or starts.shape[1] < 2 or win_w > out_w:
-        raise ValueError("window_sums: a 2-D image, starts [tiles, ≥ 2] and win_w ≤ out_w")
-    out = torch.empty((starts.shape[0], out_w), dtype=torch.float32, device=img.device)
-    err = build.library().itpu_probe_window_sums(img.data_ptr(), img.shape[1], starts.data_ptr(), starts.shape[1],
-                                                 starts.shape[0], win_h, win_w, out.data_ptr(), out_w,
-                                                 build.stream_ptr())
-    build.check("itpu_probe_window_sums", err)
+    out = _window_sums("itpu_probe_window_sums", img, starts, win_h, win_w, out_w)
     build.count_launch("probe_window_sums")
+    return out
+
+
+def window_sums_simple(img: torch.Tensor, starts: torch.Tensor, win_h: int = 64, win_w: int = 64,
+                       out_w: int = 128) -> torch.Tensor:
+    """P6 in the design it replaced (one CTA a tile, a thread a column),
+    for comparisons: not counted; the arguments of `window_sums`."""
+    if img.device.type == "cpu":
+        return plain.window_sums(img, starts, win_h, win_w, out_w)
+    return _window_sums("itpu_probe_window_sums_simple", img, starts, win_h, win_w, out_w)
+
+
+def l2_read(buf: torch.Tensor, n_ctas: int) -> torch.Tensor:
+    """A plain read of float32 `buf` (on no path, not counted; the L2's
+    read rate under P3 and P6): out [n_ctas], the sum of the float4 pieces
+    i of buf with i // L2_READ_THREADS ≡ cta (mod n_ctas)."""
+    if buf.dim() != 1 or buf.numel() % 4 or buf.numel() // 4 >= 2**31 or n_ctas <= 0:
+        raise ValueError("l2_read: a 1-D buffer of whole float4 pieces and at least one CTA")
+    if buf.device.type == "cpu":
+        pieces = buf.reshape(-1, 4).sum(1)
+        cta = torch.arange(pieces.numel()) // L2_READ_THREADS % n_ctas
+        return torch.zeros(n_ctas, dtype=torch.float32).index_add_(0, cta, pieces)
+    _require("l2_read", buf)
+    build.require_dtype("l2_read", buf, torch.float32)
+    out = torch.empty(n_ctas, dtype=torch.float32, device=buf.device)
+    build.check("itpu_l2_read", build.library().itpu_l2_read(buf.data_ptr(), buf.numel() // 4, n_ctas,
+                                                             out.data_ptr(), build.stream_ptr()))
     return out

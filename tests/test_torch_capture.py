@@ -360,6 +360,19 @@ KERNEL_SYMBOLS = {
     "_Z22itpu_probe_rows_kernelIfLi1ELi1EEvPKvPviPKiiiiiS4_S4_S4_PKfiffii": "probe_rows",
     "_Z29itpu_probe_rows_simple_kernelIaLi0ELi3EEvPKT_PS0_iPKiiiS5_S5_S5_PKfiff": None,
     "void itpu_probe_rows_simple_kernel<float, 1, 1>(float const*, float*, int, int const*, int, int)": None,
+    # P3 and P6 in their redesigned kernels, and the designs they replaced (comparisons: uncounted)
+    "_Z26itpu_probe_page_sum_kernelIaLb1EEvPKT_iPKiiiPfifi": "probe_page_sum",
+    "_Z26itpu_probe_page_sum_kernelIfLb0EEvPKT_iPKiiiPfifi": "probe_page_sum",
+    "void itpu_probe_page_sum_kernel<float, true>(float const*, int, int const*, int, int, float*, int, float, int)":
+        "probe_page_sum",
+    "_Z29itpu_probe_window_sums_kernelILi64ELi2EEvPKfiPKiiiiiPfiii": "probe_window_sums",
+    "void itpu_probe_window_sums_kernel<0, 0>(float const*, int, int const*, int, int, int, int, float*, int, int, "
+    "int)": "probe_window_sums",
+    "_Z33itpu_probe_page_sum_simple_kernelIaLb1EEvPKT_iPKiiiPfif": None,
+    "void itpu_probe_page_sum_simple_kernel<float, false>(float const*, int, int const*, int, int, float*, int, "
+    "float)": None,
+    "_Z36itpu_probe_window_sums_simple_kernelPKfiPKiiiiPfi": None,
+    "itpu_probe_window_sums_simple_kernel(float const*, int, int const*, int, int, int, float*, int)": None,
     # torch's own kernels and the division-step test kernel
     "_ZN2at6native29vectorized_elementwise_kernelILi4ENS0_11FillFunctorIfEESt5arrayIPcLm1EEEEviT0_T1_": None,
     "_Z20itpu_div_step_kernelPKfS0_Pfi": None,

@@ -438,6 +438,16 @@ def test_probe9_page_accumulator_matches_kacc():
     assert_close(probe9.accumulate(probes.page_sum, T(pages), T(p)), want, 1e-5)
 
 
+def test_embedding_bag_sum_is_the_page_accumulator():
+    """The library call the smoke times beside P3 at `kacc`:
+    F.embedding_bag(ids, pages, mode="sum") sums each tile's pages in k
+    order, bit for bit the plain twin at probe9's layout."""
+    pages, p = (T(a) for a in probe9.make_pages(256, 24))
+    ids = p.reshape(-1, probe9.K)
+    got = torch.nn.functional.embedding_bag(ids.long(), pages, mode="sum")
+    assert torch.equal(got, plain.page_sum(pages, ids, probe9.K, S3))
+
+
 def test_probe9_run_acc_fails_under_this_jax():
     """The reference fault the port does not copy: the script's own call
     passes scratch_shapes beside a grid_spec, which jax refuses."""

@@ -4,10 +4,11 @@ ops/kernels/probes.py): each kernel against its plain PyTorch twin
 probes run, with one launch counted a call; and `python -m
 infinitam_tpu_torch.probes` run on the card, all nine probes.
 
-Bars: P1, P4, int8 P3 (probe13's `rk`) and P2's copies and int8 row stores
-bit for bit; P2's taps within 1e-6, and on zero rows (where the scaled tap
-is the output) bit for bit, the window sum within 1e-5 of its largest
-value; float32 P3 and P6 within 1e-5; P5
+Bars: P1, P4 and P2's copies and int8 row stores bit for bit; P2's taps
+within 1e-6, and on zero rows (where the scaled tap is the output) bit for
+bit, the window sum within 1e-5 of its largest
+value; P3 and P6 bit for bit (their sums run in plain's order, or are
+exact integers); P5
 within the float32 summation bound of the exact product, rounded to bf16
 (plain.bf16_product_bound: two correct summation orders can differ by many
 bf16 ulps of an element near a zero of its sum), and bit for bit on integer
@@ -334,12 +335,62 @@ def test_row_stores_add_one_once(device):
 def test_page_sum_equals_plain(device, case):
     if case == "kacc":
         pages, p = on(device, *probe9.make_pages(256, 24))
-        ids, k, cols, scale, hashed, tol = p.reshape(-1, 16), 16, S3, 1.0, False, 1e-5
+        ids, k, cols, scale, hashed = p.reshape(-1, 16), 16, S3, 1.0, False
     else:
         pages, pid = on(device, *probe13.make_volume(256, 24))
-        ids, k, cols, scale, hashed, tol = pid.reshape(24, -1), 48, 128, 1e-6, True, 0.0
+        ids, k, cols, scale, hashed = pid.reshape(24, -1), 48, 128, 1e-6, True
     got = launched("probe_page_sum", lambda: probes.page_sum(pages, ids, k, cols, scale, hashed))
-    assert float((got - plain.page_sum(pages, ids, k, cols, scale, hashed)).abs().max()) <= tol
+    assert torch.equal(got, plain.page_sum(pages, ids, k, cols, scale, hashed))
+
+
+# (dtype, row_len, buffer offset in elements, pages a tile read, ids' columns, columns, hashed): the float4
+# path at page counts 1, 10 of 16 and 256; int8 at 1, 47 of 64 and 256 pages, rows of 1,024 and 500 bytes and
+# a view off 16 bytes; the float32 element path for rows that are not whole 16-byte pieces, views off 16
+# bytes and hashed rows
+PAGE_CASES = {
+    "f32 k=1": (torch.float32, 512, 0, 1, 16, 512, False),
+    "f32 k=10 of 16": (torch.float32, 512, 0, 10, 16, 512, False),
+    "f32 k=256": (torch.float32, 512, 0, 256, 256, 512, False),
+    "f32 260 of 512 columns": (torch.float32, 512, 0, 16, 16, 260, False),
+    "f32 rows of 510": (torch.float32, 510, 0, 16, 16, 510, False),
+    "f32 view off 16 bytes": (torch.float32, 512, 1, 16, 16, 512, False),
+    "f32 hashed": (torch.float32, 512, 0, 48, 64, 128, True),
+    "int8 k=1": (torch.int8, 512, 0, 1, 64, 128, True),
+    "int8 k=47 of 64": (torch.int8, 512, 0, 47, 64, 128, True),
+    "int8 k=256": (torch.int8, 512, 0, 256, 256, 128, True),
+    "int8 rows of 1024": (torch.int8, 1024, 0, 48, 64, 700, True),
+    "int8 not hashed": (torch.int8, 512, 0, 48, 64, 512, False),
+    "int8 rows of 500": (torch.int8, 500, 0, 48, 64, 128, True),
+    "int8 view off 16 bytes": (torch.int8, 512, 3, 48, 64, 128, True),
+}
+
+
+@pytest.mark.parametrize("design", ["columns", "simple"])
+@pytest.mark.parametrize("case", list(PAGE_CASES))
+def test_page_sum_paths_equal_plain(device, case, design):
+    """P3 over its 16-byte and element paths, page counts 1 to 256 and
+    ids with more columns than pages read; int8 pages in [-128, 128) at
+    256 pages a tile (the widest integer sums): bit for bit with plain, one
+    launch counted (the simple design none)."""
+    dtype, row_len, offset, k, id_cols, cols, hashed = PAGE_CASES[case]
+    rng = np.random.default_rng(8)
+    rows = 300
+    if dtype == torch.int8:
+        pages = rng.integers(-128, 128, (rows, row_len)).astype(np.int8)
+    else:
+        pages = rng.standard_normal((rows, row_len)).astype(np.float32)
+    pages_t, ids = on(device, pages, rng.integers(0, rows, (40, id_cols), dtype=np.int32))
+    pages_v = at_offset(pages_t, offset)
+    scale = 1e-6 if hashed else 1.0
+    want = plain.page_sum(pages_t, ids, k, cols, scale, hashed)
+    if design == "columns":
+        got = launched("probe_page_sum", lambda: probes.page_sum(pages_v, ids, k, cols, scale, hashed))
+    else:
+        build.reset_launch_counts()
+        got = probes.page_sum_simple(pages_v, ids, k, cols, scale, hashed)
+        torch.cuda.synchronize()
+        assert build.launch_counts() == dict.fromkeys(build.KERNELS, 0)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("rows_per_cta", [1, 8, 64])
@@ -449,7 +500,62 @@ def test_gemm_refuses_rows_the_tensor_maps_cannot_take(device):
 def test_window_sums_equal_plain(device):
     img, starts = on(device, *probe13.make_window(64))
     got = launched("probe_window_sums", lambda: probe13.window_sums(probes.window_sums, img, starts))
-    assert float((got - plain.window_sums(img, starts.reshape(64, -1))).abs().max()) <= 1e-5
+    assert torch.equal(got, plain.window_sums(img, starts.reshape(64, -1)))
+
+
+def test_page_sum_refuses_more_columns_than_a_row(device):
+    """Unhashed columns must lie in the row: plain would index past it."""
+    pages = torch.zeros((4, 16), dtype=torch.float32, device=device)
+    ids = torch.zeros((2, 3), dtype=torch.int32, device=device)
+    with pytest.raises(ValueError):
+        probes.page_sum(pages, ids, 3, 17)
+
+
+# (image, window rows, window columns, output columns): probe13's shape; windows of a width that is not a
+# whole number of warps or 16-byte pieces, with scalar zero columns; one of no columns
+WINDOW_CASES = {
+    "probe13": ((512, 768), 64, 64, 128),
+    "37x50 into 61": ((100, 90), 37, 50, 61),
+    "20x200 into 256": ((300, 300), 20, 200, 256),
+    "5x0 into 8": ((100, 90), 5, 0, 8),
+}
+
+
+@pytest.mark.parametrize("design", ["warps", "simple"])
+@pytest.mark.parametrize("case", list(WINDOW_CASES))
+def test_window_sums_at_the_last_start_equal_plain(device, case, design):
+    """P6 with windows at the image's last legal start (rows, columns or
+    both) and at random ones, over starts with a third column: bit for bit
+    with plain, zero past win_w, one launch counted (the simple design
+    none)."""
+    (h, w), win_h, win_w, out_w = WINDOW_CASES[case]
+    rng = np.random.default_rng(9)
+    nt = 40
+    a = rng.integers(0, h - win_h + 1, nt)
+    b = rng.integers(0, w - win_w + 1, nt)
+    a[::2], b[::3], a[1], b[1] = h - win_h, w - win_w, 0, 0
+    img, starts = on(device, rng.standard_normal((h, w)).astype(np.float32),
+                     np.stack([a, b, np.full(nt, 99)], axis=1).astype(np.int32))
+    want = plain.window_sums(img, starts, win_h, win_w, out_w)
+    if design == "warps":
+        got = launched("probe_window_sums", lambda: probes.window_sums(img, starts, win_h, win_w, out_w))
+    else:
+        build.reset_launch_counts()
+        got = probes.window_sums_simple(img, starts, win_h, win_w, out_w)
+        torch.cuda.synchronize()
+        assert build.launch_counts() == dict.fromkeys(build.KERNELS, 0)
+    assert torch.equal(got, want)
+    assert (got[:, win_w:] == 0).all()
+
+
+@pytest.mark.parametrize("n_ctas", [1, 132, 1056])
+def test_l2_read_sums_each_ctas_share(device, n_ctas):
+    """The plain read under the smoke's L2 floor: each CTA's sum of its
+    float4 pieces, on integers (exact in any order), as the plain version
+    strides them; a buffer not a whole number of strides."""
+    rng = np.random.default_rng(10)
+    (buf,) = on(device, rng.integers(-8, 8, 4 * 300_001).astype(np.float32))
+    assert torch.equal(probes.l2_read(buf, n_ctas).cpu(), probes.l2_read(buf.cpu(), n_ctas))
 
 
 def test_probes_entry_point_runs_on_the_card(device):
