@@ -144,7 +144,16 @@ printed); and `apps/viewer.py` renders a 4-image orbit of the snapshot
 engine it renders every `get_image` type, a freeview image from behind the
 scene among them, and the colour image of a `1cm_rgb` engine, and holds the
 live raycast image to the same render of the plain raycast (≤ 1 LSB on ≥
-99.9% of the pixels). Last, the headless runner (`apps/cli.py`) runs in-process on
+99.9% of the pixels). Then the port's bench (infinitam_tpu_torch/bench.py,
+the counterpart of the JAX package's bench.py): run_config in process at
+5 mm, which raises on a graph captured inside its timed replay or on poses
+that differ from its correctness replay's, gated on K1, K2 and K3 launched
+on every frame; then `python -m
+infinitam_tpu_torch.bench` in two subprocesses, the default mode and
+ITPU_BENCH_CONFIG=replay, their JSON lines gated on bench.py's keys, value
+> 0, ATE < 1 cm, rotation < 1°, every max_* counter of the diag lines 0, a
+finite swap ratio, and each frames/s within [0.5, 2]× the smoke's own
+captured replay of the same config (printed beside it). Last, the headless runner (`apps/cli.py`) runs in-process on
 30 synthetic frames with its raycast dumps and `--out-mesh` (an STL of 84 +
 50·T bytes), and the committed PGM fixture replays through the port's
 ImageFileReader, DeviceFrameFeed and MainEngine on the card (final pose
@@ -222,6 +231,12 @@ N_GRIDLESS = 10  # frames of 5mm_gridless
 LANE_CHECK = 3  # lanes of the lane-indexed kernel checks
 N_RANKS = 2  # ranks of the two ranks phases
 RANK_TIMEOUT = 600.0  # seconds a ranks phase's processes may take, all together
+BENCH_TIMEOUT = 400.0  # seconds a `python -m infinitam_tpu_torch.bench` process may take
+# the keys of the JSON line of the JAX package's bench.py, in order: the
+# default mode's and the `replay` mode's
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "ate_rmse_m", "rot_rmse_deg", "fps_1cm_voxel",
+              "ate_rmse_1cm_m", "rot_rmse_1cm_deg", "fps_1cm_rgb_fusion", "ate_rmse_rgb_m", "swap_fps_ratio")
+REPLAY_KEYS = ("metric", "value", "unit", "vs_baseline", "t_err_mm", "frames")
 REPO = Path(__file__).resolve().parent
 SYNC_MSG = "called a synchronizing CUDA operation"
 
@@ -604,17 +619,6 @@ def camera_centres(poses: np.ndarray) -> np.ndarray:
 ENGINE_STATE = ("vol", "render_state", "tracking_state")
 
 
-def refill(live, fresh) -> None:
-    """Write a fresh map (`fresh`, a state of the same structure) into the
-    tensors of `live`, in place: a captured step's graph reads and writes
-    those tensors where they lie, so a run from the refilled state replays
-    it without a new capture."""
-    from infinitam_tpu_torch.engine import captured
-
-    for a, b in zip(captured.leaves(live), captured.leaves(fresh), strict=True):
-        a.copy_(b)
-
-
 def rank_phase(kind: str, settings, depth_file: str, proj: np.ndarray, share_card: bool) -> dict:
     """One rank of a ranks phase, in its own process (parallel/ranks.spawn
     sets the environment make_mesh reads). This rank's lanes of the fleet's
@@ -628,6 +632,7 @@ def rank_phase(kind: str, settings, depth_file: str, proj: np.ndarray, share_car
     starts the ranks together (the first counts the kernel launches).
     Returns numpy arrays and plain values."""
     import torch.distributed as dist
+    from infinitam_tpu_torch.engine import captured
     from infinitam_tpu_torch.engine.view_builder import View
     from infinitam_tpu_torch.ops.kernels import build
     from infinitam_tpu_torch.parallel import batch
@@ -663,7 +668,7 @@ def rank_phase(kind: str, settings, depth_file: str, proj: np.ndarray, share_car
         reductions[0] += 1
         return all_reduce(*args, **kwargs)
 
-    refill(live, fresh(settings, IMG, B, mesh=mesh))
+    captured.refill(live, fresh(settings, IMG, B, mesh=mesh))
     torch.cuda.synchronize()
     dist.all_reduce = counted_all_reduce
     try:
@@ -683,7 +688,7 @@ def rank_phase(kind: str, settings, depth_file: str, proj: np.ndarray, share_car
     del poses, diags, metrics
     times = []
     for rep in range(N_TIMED):
-        refill(live, fresh(settings, IMG, B, mesh=mesh))
+        captured.refill(live, fresh(settings, IMG, B, mesh=mesh))
         torch.cuda.synchronize()
         dist.barrier()
         if rep == 0:
@@ -1629,14 +1634,14 @@ class Smoke:
         if kind == "engine":
             new = fresh(settings)
             fields = ENGINE_STATE + (("swap_states",) if live.swapping else ())
-            refill([getattr(live, k) for k in fields], [getattr(new, k) for k in fields])
+            self.captured.refill([getattr(live, k) for k in fields], [getattr(new, k) for k in fields])
             # the host store and the exchange are the host's: a new engine's
             live.global_cache, live.swap_exchange, live.frame_no = new.global_cache, new.swap_exchange, 0
             return live
         if kind.startswith("batched"):  # the lane count leads every tensor
-            refill(live, fresh(settings, self.captured.leaves(live)[0].shape[0]))
+            self.captured.refill(live, fresh(settings, self.captured.leaves(live)[0].shape[0]))
         else:
-            refill(live, fresh(settings))
+            self.captured.refill(live, fresh(settings))
         return live
 
     def get_image_check(self, engine, settings, frames, rgb_settings):
@@ -1826,6 +1831,88 @@ class Smoke:
               f"{r_err[0]:.4f} deg from the recorded trajectory")
         self.gate(n == gt.shape[0] and on_card, "PGM fixture: every frame uploaded to the card as raw depth")
         self.gate(t_err[0] < 0.01 and r_err[0] < 1.0, "PGM fixture final pose within 1 cm and 1 deg")
+
+    def bench_check(self, timing: dict, card: str) -> dict:
+        """The port's bench (infinitam_tpu_torch/bench.py). In process:
+        run_config at 5 mm, which raises if a graph was captured inside its
+        timed replay or that replay's poses differ from its correctness
+        replay's, gated on exact launches of K1, K2 and K3 and on its
+        accuracy and counters. Then `python -m infinitam_tpu_torch.bench`,
+        the default mode and ITPU_BENCH_CONFIG=replay, in subprocesses:
+        their last lines gated on bench.py's keys, accuracy and counters,
+        each frames/s within [0.5, 2]× the smoke's captured replay of the
+        same config in this call (`timing`). Returns the in-process run's
+        launch counts."""
+        from infinitam_tpu_torch import bench
+
+        self.captured.clear()  # the replays' graphs and their pools
+        iters = sum(self.trackers.level_iterations(self.cfg.TrackingParams()))
+        self.build.reset_launch_counts()
+        try:
+            fps, ate, rot, diag = bench.run_config(reference_settings(self.cfg), device=self.dev)
+            error = None
+        except RuntimeError as e:
+            fps, ate, rot, diag, error = 0.0, 1.0, 180.0, "", e
+        launches = self.build.launch_counts()
+        self.captured.clear()
+        print(f"bench.run_config(5mm) in process ({card}): {fps:.2f} frames/s against the smoke's captured "
+              f"{timing['5mm'][0]:.2f} ({fps / timing['5mm'][0]:.3f}×), ATE RMSE {ate * 1000:.3f} mm, rotation RMSE "
+              f"{rot:.4f} deg, {diag}; launches {json.dumps({k: n for k, n in launches.items() if n})}"
+              + (f"; raised: {error}" if error else ""))
+        self.gate(error is None, "bench 5mm: run_config's timed replay captured no graph and gave the correctness "
+                                 "replay's poses bit for bit")
+        per_frame = dict(icp=iters, integrate=1, integrate_color=0, raycast=1)
+        self.gate(all(launches[k] == 2 * bench.N_FRAMES * n for k, n in per_frame.items()),
+                  f"bench 5mm: {', '.join(DEPTH_PATH)} launched on each of the 2 × {bench.N_FRAMES} frames "
+                  f"({json.dumps(per_frame)} a frame)")
+        self.gate(ate < 0.01 and rot < 1.0 and all(c.endswith("=0") for c in diag.split()[1:]),
+                  "bench 5mm: ATE < 1 cm, rotation < 1 deg, every counter 0")
+
+        for mode, keys in (("", BENCH_KEYS), ("replay", REPLAY_KEYS)):
+            env = {k: v for k, v in os.environ.items() if k != "ITPU_BENCH_CONFIG"}
+            if mode:
+                env["ITPU_BENCH_CONFIG"] = mode
+            t0 = time.perf_counter()
+            res = subprocess.run([sys.executable, "-m", "infinitam_tpu_torch.bench"], cwd=REPO, env=env,
+                                 capture_output=True, text=True, timeout=BENCH_TIMEOUT)
+            label = f"python -m infinitam_tpu_torch.bench ({'ITPU_BENCH_CONFIG=' + mode if mode else 'default'})"
+            print(f"{label}: exit {res.returncode} in {time.perf_counter() - t0:.1f} s")
+            err = res.stderr.splitlines()
+            for e in err[-40:]:
+                print(f"  stderr: {e}")
+            out = res.stdout.strip().splitlines()
+            print(f"  last line: {out[-1] if out else '(none)'}")
+            try:
+                line = json.loads(out[-1])
+            except (IndexError, json.JSONDecodeError):
+                line = {}
+            self.gate(res.returncode == 0 and list(line) == list(keys), f"{label}: exit 0, bench.py's keys")
+            first_number = next((i for i, e in enumerate(err) if e.startswith(("diag(", "swap("))), len(err))
+            self.gate(any(e.startswith("card: ") for e in err[:first_number]),
+                      f"{label}: the card's line before any number on stderr")
+            self.gate(line.get("value", 0) > 0, f"{label}: value > 0")
+            if mode == "replay":
+                self.gate(line.get("frames") == 10 and line.get("t_err_mm", 1e9) < 10,
+                          f"{label}: 10 frames, final pose within 1 cm of the recorded trajectory")
+                continue
+            diags = [e for e in err if e.startswith("diag(")]
+            maxima = [int(v) for d in diags for v in re.findall(r"max_\w+=(-?\d+)", d)]
+            self.gate(len(diags) == 3 and len(maxima) == 15 and not any(maxima),
+                      f"{label}: three diag lines, every max_* counter 0")
+            self.gate(all(line.get(k, 1.0) < 0.01 for k in ("ate_rmse_m", "ate_rmse_1cm_m", "ate_rmse_rgb_m"))
+                      and line.get("rot_rmse_deg", 9.0) < 1.0 and line.get("rot_rmse_1cm_deg", 9.0) < 1.0,
+                      f"{label}: every ATE RMSE < 1 cm, every rotation RMSE < 1 deg")
+            self.gate(np.isfinite(line.get("swap_fps_ratio", np.nan)), f"{label}: a finite swap_fps_ratio")
+            for key, config in (("value", "5mm"), ("fps_1cm_voxel", "1cm"), ("fps_1cm_rgb_fusion", "1cm_rgb")):
+                smoke_fps = timing[config][0]
+                ratio_ = line.get(key, 0.0) / smoke_fps
+                print(f"  {key} {line.get(key)} frames/s against the smoke's captured {config} replay "
+                      f"{smoke_fps:.2f} frames/s in this call ({card}): {ratio_:.3f}×")
+                self.gate(0.5 <= ratio_ <= 2.0, f"{label}: {key} within [0.5, 2]× the smoke's {config} frames/s")
+            smoke_ratio = timing["1cm_swap"][0] / timing["1cm"][0]
+            print(f"  swap_fps_ratio {line.get('swap_fps_ratio')} against the smoke's 1cm_swap / 1cm "
+                  f"{smoke_ratio:.3f} (not gated)")
+        return launches
 
     def swap_return_check(self, settings, engine, frames, gt, noswap_settings):
         """The swapping engine after its replay looks away for one frame (the
@@ -2992,6 +3079,8 @@ def main() -> int:
         print(f"swap ratio, {size}_swap against {size} ({card}): frames/s with swapping over frames/s without "
               f"{fps_sw / fps:.3f} ({fps_sw:.2f} / {fps:.2f}, timed replays); frame time without over frame "
               f"time with {frame_ms / frame_ms_sw:.3f} ({frame_ms:.3f} / {frame_ms_sw:.3f} ms, phase runs)")
+    for k, n in smoke.bench_check(timing, card).items():
+        launches[k] += n
     smoke.cli_check()
     smoke.fixture_check()
     if args.profile is not None:

@@ -85,6 +85,15 @@ def leaves(tree) -> list:
     return out
 
 
+def refill(live, fresh) -> None:
+    """Write a fresh map (`fresh`, a state of the same structure) into the
+    tensors of `live`, in place: a graph's key holds the addresses of the
+    state tensors it was captured with, so a run from the refilled state
+    replays that graph without a new capture."""
+    for a, b in zip(leaves(live), leaves(fresh), strict=True):
+        a.copy_(b)
+
+
 def _structure(tree, leaf_key: Callable):
     """A hashable description of `tree`: its containers, None and other
     values as they are, and leaf_key(t) for each tensor."""

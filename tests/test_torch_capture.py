@@ -20,7 +20,8 @@ body runs eagerly with no graph.
 4. The pieces: packed outputs read back bit for bit with and without
    leading dims, the state un-aliased once and then stable, a copy-back
    whose step passes one field on as another or wrote a field in place,
-   on_phase refused with capture, the launch tally, the names of the hand
+   a fresh state written into the live state's tensors (refill), on_phase
+   refused with capture, the launch tally, the names of the hand
    kernels' functions mapped to their launch counters (how a graph's own
    kernel nodes are counted).
 5. The dense integration written into the array in place equals the
@@ -308,6 +309,20 @@ def test_copy_back_skips_a_field_written_in_place():
     captured.copy_back(state, (state[0].view(2, 3), state[1] + 5))
     assert torch.equal(state[0], torch.arange(1.0, 7.0).reshape(2, 3)) and torch.equal(state[1], torch.full((2,), 5.0))
     assert [t.data_ptr() for t in state] == ids
+
+
+def test_refill_writes_a_fresh_state_in_place():
+    """refill copies a fresh state into the live state's own tensors, leaf
+    by leaf, so that a graph keyed on their addresses replays from it; a
+    state of another structure raises."""
+    live = {"a": (torch.arange(4.0), torch.ones(2, dtype=torch.int32)), "b": [torch.full((3,), 7.0)]}
+    ids = [t.data_ptr() for t in captured.leaves(live)]
+    fresh = {"a": (torch.zeros(4), torch.zeros(2, dtype=torch.int32)), "b": [torch.zeros(3)]}
+    captured.refill(live, fresh)
+    assert [t.data_ptr() for t in captured.leaves(live)] == ids
+    assert all(torch.equal(a, b) for a, b in zip(captured.leaves(live), captured.leaves(fresh), strict=True))
+    with pytest.raises(ValueError):
+        captured.refill(live, {"a": (torch.zeros(4), torch.zeros(2, dtype=torch.int32)), "b": []})
 
 
 # the hand kernels' functions as nvcc (Itanium ABI) names them, per launch

@@ -248,15 +248,19 @@ def _default_device_calls():
                                    "create_tracking_state", "SyntheticSource", "from_numpy", "MainEngine",
                                    "make_source", "DeviceFrameFeed", "swapping MainEngine", "create_swap_states",
                                    "SwapExchange", "create_dense", "dense create_engine_state",
-                                   "batched_state_hash", "batched_state_dense", "probes"])
+                                   "batched_state_hash", "batched_state_dense", "probes", "cold_start"])
 def test_entry_points_default_to_the_card(entry):
     """The port runs on the card unless the caller passes device="cpu" (the
-    probes' entry point: --cpu): the default is "cuda", and without a card a
+    probes' entry point: --cpu; the cold start's: --device cpu): the default is "cuda", and without a card a
     call that names no device raises instead of falling back to the CPU."""
     if entry == "probes":
         from infinitam_tpu_torch.probes import __main__ as probes_main
 
         call = lambda: probes_main.main(["probe2"])  # noqa: E731
+    elif entry == "cold_start":
+        from infinitam_tpu_torch import cold_start
+
+        call = lambda: cold_start.main([])  # noqa: E731
     else:
         fn, call = _default_device_calls()[entry]
         assert inspect.signature(fn).parameters["device"].default == "cuda"
@@ -351,21 +355,25 @@ def _bound_names(path: Path) -> set:
 JAX_MODULES = sorted(str(p.relative_to(REPO / "infinitam_tpu"))
                      for p in (REPO / "infinitam_tpu").rglob("*.py")
                      if p.relative_to(REPO / "infinitam_tpu").parts[:2] != ("ops", "pallas"))
+# the JAX side's modules outside its package, by the port's module path
+ROOT_MODULES = {"bench.py": REPO / "bench.py"}
 
 
-@pytest.mark.parametrize("module", JAX_MODULES)
+@pytest.mark.parametrize("module", JAX_MODULES + list(ROOT_MODULES))
 def test_every_jax_name_has_a_counterpart(module):
     """The port does all the JAX package does: each top-level public
     function, class and constant of every module of infinitam_tpu/ (but
     ops/pallas/, the TPU kernels, which csrc/ replaces) has a same-named
     counterpart in the port's module of the same path, or an entry with its
-    reason in NOT_PORTED."""
+    reason in NOT_PORTED; so has the repo's bench.py in
+    infinitam_tpu_torch/bench.py."""
     ported = REPO / "infinitam_tpu_torch" / module
     assert ported.exists(), f"infinitam_tpu_torch/{module} is missing"
     skipped = NOT_PORTED.get(module, {})
     assert all(reason.strip() for reason in skipped.values())
     have = _bound_names(ported)
-    missing = [n for n in _public_names(REPO / "infinitam_tpu" / module) if n not in have and n not in skipped]
+    source = ROOT_MODULES.get(module, REPO / "infinitam_tpu" / module)
+    missing = [n for n in _public_names(source) if n not in have and n not in skipped]
     assert not missing, f"infinitam_tpu_torch/{module} lacks {missing}"
     stale = [n for n in skipped if n in have]
     assert not stale, f"NOT_PORTED lists names the port has: {stale}"
