@@ -165,8 +165,9 @@ of a batched replay, each step of a rank) one replay of a CUDA graph
 step is captured once for each set of merge inputs and each slab size, and
 the exchange's host half runs between replays). Each config also runs once op
 by op in the same call: that run is the reference its captured poses are
-gated on, bit for bit, and its phase events give the phase table (a graph
-replay has no place for them). Per config it prints the graphs captured,
+gated on, bit for bit. The phase table reads the phase marks inside the
+captured frame (engine/spans.py: a one-thread kernel node at each phase
+boundary of the graph), from a captured run with the spans on. Per config it prints the graphs captured,
 their nodes (kernels among them), capture seconds (warm-up frame included)
 and pool size; frames/s come from the captured timed replays, each from a
 fresh map written into the tensors the graph was captured with, so no
@@ -707,7 +708,7 @@ def rank_phase(kind: str, settings, depth_file: str, proj: np.ndarray, share_car
 class Smoke:
     def __init__(self):
         from infinitam_tpu_torch import calib, config
-        from infinitam_tpu_torch.engine import captured, dense_pipeline, hash_pipeline, trackers, volume
+        from infinitam_tpu_torch.engine import captured, dense_pipeline, hash_pipeline, spans, trackers, volume
         from infinitam_tpu_torch.engine.main_engine import MainEngine
         from infinitam_tpu_torch.engine.view_builder import View, build_view_from_metric_depth
         from infinitam_tpu_torch.io import sources, synth
@@ -719,7 +720,7 @@ class Smoke:
         from infinitam_tpu_torch.utils import se3
 
         self.cfg, self.hp, self.trackers, self.synth, self.se3 = config, hash_pipeline, trackers, synth, se3
-        self.captured = captured
+        self.captured, self.spans = captured, spans
         self.dp, self.vol_mod, self.hashing = dense_pipeline, volume, hashing
         self.pyramid, self.icp_ops, self.raycast_ops = pyramid, icp_ops, raycast_ops
         self.build, self.k_icp, self.k_int, self.k_ray = build, icp, integrate, raycast
@@ -754,27 +755,23 @@ class Smoke:
     def fresh_state(self, settings):
         return self.hp.create_engine_state(settings, IMG, device=self.dev)
 
-    def run_frames(self, settings, frames, state=None, on_phase=None, capture=True):
+    def run_frames(self, settings, frames, state=None, capture=True):
         """The port's main path: view → process_frame_hash, frame by frame,
         from `state` (vol, render state, tracking state) or a fresh map,
-        each frame a CUDA graph replay (`capture`; False: op by op, which
-        `on_phase` needs). `frames` is (depths, rgbs); the rgb frames go
+        each frame a CUDA graph replay (`capture`; False: op by op). `frames`
+        is (depths, rgbs); the rgb frames go
         into the view only when the settings use colour. `self.ages` keeps
         the tracking maps' age after each frame (device tensors, copies; 0:
         the maps were raycast anew)."""
-        mark = on_phase or self.hp.no_phase
         vol, rs, st = state or self.fresh_state(settings)
         depths, rgbs = frames
         poses, diags = [], []
         self.ages = []
         for d, rgb in zip(depths, rgbs):
-            mark("start")
             view = self.build_view(d, settings, self.calib, rgb=rgb if settings.use_color else None)
-            mark("view")
             vol, rs, st, diag = self.hp.process_frame_hash(vol, rs, st, view, self.proj, settings,
                                                            proj_rgb=self.proj_rgb, rgb_to_depth=self.rgb_to_depth,
-                                                           on_phase=mark, capture=capture)
-            mark("other")
+                                                           capture=capture)
             poses.append(st.pose.clone())
             diags.append(diag)
             self.ages.append(st.age.clone())
@@ -783,20 +780,16 @@ class Smoke:
     def fresh_engine(self, settings):
         return self.MainEngine(settings, self.calib, IMG, device=self.dev)
 
-    def run_engine(self, settings, frames, engine=None, on_phase=None, capture=True):
+    def run_engine(self, settings, frames, engine=None, capture=True):
         """The path a user calls: MainEngine.process_frame on each frame,
         from `engine` or a fresh one (`capture` as in run_frames). Returns
         (engine, poses, diagnostics), device tensors all: nothing is read
         back in the loop. `self.ages` as in run_frames."""
-        mark = on_phase or self.hp.no_phase
         engine = engine or self.fresh_engine(settings)
         poses, diags = [], []
         self.ages = []
         for d, rgb in zip(*frames):
-            mark("start")
-            diag = engine.process_frame(metric_depth=d, rgb=rgb if settings.use_color else None, on_phase=mark,
-                                        capture=capture)
-            mark("other")
+            diag = engine.process_frame(metric_depth=d, rgb=rgb if settings.use_color else None, capture=capture)
             poses.append(engine.tracking_state.pose.clone())
             diags.append(diag.device)
             self.ages.append(engine.tracking_state.age.clone())
@@ -812,22 +805,17 @@ class Smoke:
     def fresh_dense(self, settings):
         return self.dp.create_engine_state(settings, IMG, device=self.dev)
 
-    def run_dense(self, settings, frames, state=None, on_phase=None, capture=True):
+    def run_dense(self, settings, frames, state=None, capture=True):
         """The dense voxel array's path: view → process_frame_dense, frame by
         frame, from `state` (volume, tracking state) or a fresh 512³ volume.
         Returns (volume, tracking state, poses, diagnostics); `capture` and
         `self.ages` as in run_frames."""
-        mark = on_phase or self.hp.no_phase
         vol, st = state or self.fresh_dense(settings)
         poses, diags = [], []
         self.ages = []
         for d in frames[0]:
-            mark("start")
             view = self.build_view(d, settings, self.calib)
-            mark("view")
-            vol, st, diag = self.dp.process_frame_dense(vol, st, view, self.proj, settings, on_phase=mark,
-                                                        capture=capture)
-            mark("other")
+            vol, st, diag = self.dp.process_frame_dense(vol, st, view, self.proj, settings, capture=capture)
             poses.append(st.pose.clone())
             diags.append(diag)
             self.ages.append(st.age.clone())
@@ -854,40 +842,30 @@ class Smoke:
     def fresh_batched_dense(self, settings, n_lanes: int = DENSE_LANES):
         return self.batch.batched_state_dense(settings, IMG, n_lanes, device=self.dev)
 
-    def run_batched(self, settings, frames, state=None, on_phase=None, capture=True):
+    def run_batched(self, settings, frames, state=None, capture=True):
         """B sequences through parallel/batch.py's batched hash step:
         frames[0][f] is step f's depth of every lane [B, H, W]. Returns (vol,
         rs, tracking state, poses [B, 4, 4] a step, diagnostics with [B]
         fields a step); `capture` and `self.ages` as in run_frames."""
-        mark = on_phase or self.hp.no_phase
         vol, rs, st = state or self.fresh_batched(settings, frames[0][0].shape[0])
         step = self.batch.make_batched_step(settings)
         poses, diags = [], []
         self.ages = []
         for d in frames[0]:
-            mark("start")
-            view = self.View(depth=d)
-            mark("view")
-            vol, rs, st, metrics = step(vol, rs, st, view, self.proj, on_phase=mark, capture=capture)
-            mark("other")
+            vol, rs, st, metrics = step(vol, rs, st, self.View(depth=d), self.proj, capture=capture)
             poses.append(st.pose.clone())
             diags.append(metrics["diag"])
             self.ages.append(st.age.clone())
         return vol, rs, st, poses, diags
 
-    def run_batched_dense(self, settings, frames, state=None, on_phase=None, capture=True):
+    def run_batched_dense(self, settings, frames, state=None, capture=True):
         """B sequences through the batched dense step (as run_batched)."""
-        mark = on_phase or self.hp.no_phase
         vol, st = state or self.fresh_batched_dense(settings, frames[0][0].shape[0])
         step = self.batch.make_batched_step_dense(settings)
         poses, diags = [], []
         self.ages = []
         for d in frames[0]:
-            mark("start")
-            view = self.View(depth=d)
-            mark("view")
-            vol, st, metrics = step(vol, st, view, self.proj, on_phase=mark, capture=capture)
-            mark("other")
+            vol, st, metrics = step(vol, st, self.View(depth=d), self.proj, capture=capture)
             poses.append(st.pose.clone())
             diags.append(metrics["diag"])
             self.ages.append(st.age.clone())
@@ -1459,11 +1437,12 @@ class Smoke:
         the graphs it captured), N_TIMED timed runs (the first one counts
         kernel launches), a captured run under the sync debug mode, each
         from a fresh map written into the correctness run's tensors (the
-        graph stays), and an uncaptured phase run under the sync debug mode.
+        graph stays), an uncaptured run under the sync debug mode, and the
+        phase table from two captured runs with the spans on (phase_table).
         `expected` maps launch counters to the launches each frame must
         make. Returns the launch counts, the correctness run's final state
         (its engine through MainEngine, else its volume) and (frames/s of
-        the timed runs, the phase run's ms a frame).
+        the timed runs, the marked replays' begin-to-end ms a frame).
         With swapping it prints the exchange's counts and host waits."""
         depths = frames[0]
         run, fresh = self.runner(kind)
@@ -1485,7 +1464,7 @@ class Smoke:
         live = final if kind == "engine" else (final, *rest)
         del rest
         swap = kind == "engine" and final.swapping
-        waits = []  # the exchange's host waits in each timed run, then the phase run
+        waits = []  # the exchange's host waits in each timed run, then the uncaptured run
         poses_np = torch.stack(poses).cpu().numpy()
         ate, rot = trajectory_errors(poses_np.astype(np.float64), gt.astype(np.float64))
         self.poses[name], self.ates[name] = poses_np.astype(np.float64), ate
@@ -1528,34 +1507,21 @@ class Smoke:
             run(settings, frames, state)
         torch.cuda.synchronize()
 
-        # 3) phase run, op by op: a CUDA event after each phase is issued;
-        #    torch's sync debug mode reports each host sync the frame loop
-        #    issues, and the repo's source lines on the stack of each report
-        #    are kept
-        events, syncs = [], []
-
-        def mark(phase):
-            e = torch.cuda.Event(enable_timing=True)
-            e.record()
-            events.append((phase, e))
-
+        # 3) the uncaptured run under the sync debug mode: torch reports each
+        #    host sync the frame loop issues, and the repo's source lines on
+        #    the stack of each report are kept
+        syncs = []
         state = fresh(settings)
         torch.cuda.synchronize()
         with flag_syncs(syncs):
-            run(settings, frames, state, on_phase=mark, capture=False)
+            run(settings, frames, state, capture=False)
         torch.cuda.synchronize()
         if swap:
             waits.append(state.swap_exchange.n_waits)
         del state
         n_syncs = len(syncs)
-        phases = {}
-        prev = None
-        for phase, e in events:
-            if phase != "start":
-                phases[phase] = phases.get(phase, 0.0) + prev.elapsed_time(e)
-            prev = e
-        table = {k: v / len(depths) for k, v in phases.items()}
-        frame_ms = sum(table.values())
+        # 4) the phase table, from the marks of a captured run with the spans on
+        table, frame_ms, dropped = self.phase_table(kind, live, settings, frames)
 
         fps = len(depths) / dt
         departs = float(np.abs(poses_np.astype(np.float64) - ref.astype(np.float64)).max())
@@ -1582,20 +1548,19 @@ class Smoke:
                   f"{sum(u > 0 for u in unplaced)} of {len(unplaced)} frames")
         print(f"  kernel launches in the timed replay: {json.dumps(launches)}; per frame: "
               + json.dumps({k: v / len(depths) for k, v in launches.items()}))
-        print(f"  host syncs flagged in the captured run: {len(captured_syncs)}, in the uncaptured phase run: "
-              f"{n_syncs}")
+        print(f"  host syncs flagged in the captured run: {len(captured_syncs)}, in the uncaptured run: {n_syncs}")
         for site in sorted(set(captured_syncs + syncs)):
             print(f"    {(captured_syncs + syncs).count(site)}× at {site}")
-        print("  phase table of the uncaptured run (device-stream time between phase events, ms/frame): "
+        print("  phase table of the captured frame (device time between the spans' marks, ms/frame): "
               + ", ".join(f"{k} {v:.3f} ({100 * v / frame_ms:.1f}%)" for k, v in table.items())
-              + f"; frame {frame_ms:.3f}; the captured frame {1000 / fps:.3f} ms")
+              + f"; begin to end {frame_ms:.3f}; the timed frame {1000 / fps:.3f} ms; marks dropped {dropped}")
         if swap:
             ex = final.swap_exchange
             print(f"  swap exchange of the correctness run (host halves done, two frames behind): {ex.n_evicted} "
                   f"blocks evicted to the host store, {ex.n_listed} needed-list entries resolved, {ex.n_merged} "
                   f"of them merged with stored data; the store holds {int(final.global_cache.has_stored.sum())} "
                   f"blocks; host waits on a copy: {ex.n_waits} in that run, {waits[:-1]} in the timed runs, "
-                  f"{waits[-1]} in the phase run")
+                  f"{waits[-1]} in the uncaptured run")
         if swap:
             # captured, the host may wait for the card on a frame's copy
             # (backpressure), at most once a frame whose host half runs
@@ -1622,7 +1587,34 @@ class Smoke:
         if settings.use_approximate_raycast:
             self.gate(0 < n_full < len(depths), f"{name} both raycast branches ran (0 < full frames < {len(depths)})")
         self.gate(n_syncs == 0 and not captured_syncs, f"{name} frame loop issued no host sync, captured or not")
+        self.gate(dropped == 0 and frame_ms > 0, f"{name} phase marks: none dropped, each replay timed")
         return launches, final, (fps, frame_ms)
+
+    def phase_table(self, kind, live, settings, frames):
+        """({phase: device ms a step}, begin to end ms a step, marks
+        dropped) of a captured run of `kind` from a fresh map written into
+        `live`, read from the phase marks (engine/spans.py): a first run
+        with the spans on captures the graphs with marks, a second one
+        replays them. A capture's warm-up frame runs with the marks paused,
+        so every frame the ring holds is a replay. MainEngine's `view` mark
+        lies outside the frame graph and is left out."""
+        self.spans.enable(self.dev)
+        try:
+            run = self.runner(kind)[0]
+            run(settings, frames, self.refill(kind, live, settings))
+            self.spans.reset()
+            run(settings, frames, self.refill(kind, live, settings))
+            torch.cuda.synchronize()
+            s = self.spans.summary()
+        finally:
+            self.spans.disable()
+        steps = max(len(s["frames"]), 1)
+        table = {}
+        for f in s["frames"]:
+            for k, ns in f["phases"].items():
+                table[k] = table.get(k, 0.0) + ns * 1e-6 / steps
+        frame_ms = sum(f["end_ns"] - f["begin_ns"] for f in s["frames"]) * 1e-6 / steps
+        return table, frame_ms, s["dropped"] + (0 if len(s["frames"]) == len(frames[0]) else 1)
 
     def refill(self, kind, live, settings):
         """A fresh map for the next run of a replay of `kind`, written into
@@ -2072,12 +2064,12 @@ class Smoke:
         timed runs (the first counts kernel launches, which must be
         `expected` a step, whatever the lane count) and a captured run under
         the sync debug mode, each from a fresh map written into the
-        correctness run's tensors, and an uncaptured phase run under the
-        sync debug mode. `single`:
+        correctness run's tensors, the phase table (phase_table) and an
+        uncaptured run under the sync debug mode. `single`:
         (name, frames/s) of the unbatched replay of lane 0's frames in this
         call, for lane 0's poses against it and the batch efficiency.
         Returns (launches, (steps/s, frames/s summed over the lanes, the
-        phase run's ms a step))."""
+        marked replays' begin-to-end ms a step))."""
         depths = frames[0]
         n, B = len(depths), depths[0].shape[0]
         run, fresh = self.runner(kind)
@@ -2121,27 +2113,15 @@ class Smoke:
         with flag_syncs(captured_syncs):
             run(settings, frames, state)
         torch.cuda.synchronize()
+        table, step_ms, dropped = self.phase_table(kind, live, settings, frames)
         del state, live
-        events, syncs = [], []
-
-        def mark(phase):
-            e = torch.cuda.Event(enable_timing=True)
-            e.record()
-            events.append((phase, e))
-
+        syncs = []
         state = fresh(settings, B)
         torch.cuda.synchronize()
         with flag_syncs(syncs):
-            run(settings, frames, state, on_phase=mark, capture=False)
+            run(settings, frames, state, capture=False)
         torch.cuda.synchronize()
         del state
-        phases, prev = {}, None
-        for phase, e in events:
-            if phase != "start":
-                phases[phase] = phases.get(phase, 0.0) + prev.elapsed_time(e)
-            prev = e
-        table = {k: v / n for k, v in phases.items()}
-        step_ms = sum(table.values())
         steps_s = n / dt
         fps = B * steps_s
         efficiency = fps / (B * ref_fps)
@@ -2164,13 +2144,13 @@ class Smoke:
             print(f"  n_alloc_unplaced per lane, summed over the steps (not gated): {unplaced}")
         print(f"  kernel launches in the timed replay: {json.dumps(launches)}; per step: "
               + json.dumps({k: v / n for k, v in launches.items()}))
-        print(f"  host syncs flagged in the captured run: {len(captured_syncs)}, in the uncaptured phase run: "
+        print(f"  host syncs flagged in the captured run: {len(captured_syncs)}, in the uncaptured run: "
               f"{len(syncs)}")
         for site in sorted(set(captured_syncs + syncs)):
             print(f"    {(captured_syncs + syncs).count(site)}× at {site}")
-        print("  phase table of the uncaptured run (device-stream time between phase events, ms/step): "
+        print("  phase table of the captured step (device time between the spans' marks, ms/step): "
               + ", ".join(f"{k} {v:.3f} ({100 * v / step_ms:.1f}%)" for k, v in table.items())
-              + f"; step {step_ms:.3f}; the captured step {1000 / steps_s:.3f} ms")
+              + f"; begin to end {step_ms:.3f}; the timed step {1000 / steps_s:.3f} ms; marks dropped {dropped}")
         for b, (ate, rot) in enumerate(errs):
             self.gate(ate < 0.01 and rot < 1.0, f"{name} lane {b} ATE RMSE < 1 cm and rotation RMSE < 1 deg")
         self.gate(all(v == 0 for lanes in counters.values() for v in lanes),
@@ -2178,6 +2158,7 @@ class Smoke:
         self.gate(launches == dict.fromkeys(self.build.KERNELS, 0) | {k: v * n for k, v in expected.items()},
                   f"{name} launches exactly {expected} a step (one launch for all {B} lanes)")
         self.gate(len(syncs) == 0 and not captured_syncs, f"{name} step loop issued no host sync, captured or not")
+        self.gate(dropped == 0 and step_ms > 0, f"{name} phase marks: none dropped, each replay timed")
         self.gate(departs == 0, f"{name} captured poses bit-equal to the uncaptured run's")
         self.gate(len(graphs) == 1, f"{name} one graph captured for the replay")
         self.gate(all(g["launches"] == g["tally"] for g in graphs),
@@ -3078,7 +3059,8 @@ def main() -> int:
         (fps, frame_ms), (fps_sw, frame_ms_sw) = timing[size], timing[f"{size}_swap"]
         print(f"swap ratio, {size}_swap against {size} ({card}): frames/s with swapping over frames/s without "
               f"{fps_sw / fps:.3f} ({fps_sw:.2f} / {fps:.2f}, timed replays); frame time without over frame "
-              f"time with {frame_ms / frame_ms_sw:.3f} ({frame_ms:.3f} / {frame_ms_sw:.3f} ms, phase runs)")
+              f"time with {frame_ms / frame_ms_sw:.3f} ({frame_ms:.3f} / {frame_ms_sw:.3f} ms, begin to end of the "
+              "marked replays)")
     for k, n in smoke.bench_check(timing, card).items():
         launches[k] += n
     smoke.cli_check()

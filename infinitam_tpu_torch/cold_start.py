@@ -7,9 +7,10 @@ infinitam_tpu_torch.bench` runs it, with each step timed alone.
 
 Steps, each ended by a device sync: the CUDA context; the kernel library
 (built by nvcc when this checkout has none yet, else loaded); the engine;
-frame 0 op by op, its phases (the view, then process_frame_hash's: track,
-alloc, integrate, raycast, then the rest) timed alone, so it holds the
-first use of every op; frame 1 op by op; frame 2 captured (a warm-up
+frame 0 op by op, so it holds the first use of every op, and its phases
+(the view, then process_frame_hash's: track, alloc, integrate, raycast,
+then the rest up to the sync) from the host issue times of the spans'
+phase calls (engine/spans.py); frame 1 op by op; frame 2 captured (a warm-up
 frame, the capture and one replay; the capture's own seconds are the
 graph's); frame 3, a replay.
 The bench's replay mode captures on its first frame, so its first frame
@@ -29,7 +30,7 @@ import torch
 
 from infinitam_tpu_torch import bench
 from infinitam_tpu_torch.config import tiny_test_settings
-from infinitam_tpu_torch.engine import captured
+from infinitam_tpu_torch.engine import captured, spans
 from infinitam_tpu_torch.engine.main_engine import MainEngine
 from infinitam_tpu_torch.io.sources import ImageFileReader
 
@@ -61,10 +62,19 @@ def cold_start(device) -> dict:
     eng = MainEngine(tiny_test_settings(), src.calib, img, device=device)
     lap("engine")
     depths = [src.get_images()[0] for _ in range(4)]
+    spans.enable(device)
+    start = time.perf_counter_ns()
+    eng.process_frame(raw_depth=depths[0], capture=False)
+    if on_card:
+        torch.cuda.synchronize(device)
+    end = time.perf_counter_ns()
+    issues = spans.summary()["issues"]
+    spans.disable()
+    laps = [(name, t) for name, _step, t in issues] + [("rest", end)]
+    for (name, t), prev in zip(laps, [start] + [t for _n, t in laps]):
+        steps[f"frame0_{name}"] = (t - prev) * 1e-9
+    steps["frame0"] = (end - start) * 1e-9
     t0 = time.perf_counter()
-    eng.process_frame(raw_depth=depths[0], capture=False, on_phase=lambda name: lap(f"frame0_{name}"))
-    lap("frame0_rest")
-    steps["frame0"] = sum(s for k, s in steps.items() if k.startswith("frame0_"))
     eng.process_frame(raw_depth=depths[1], capture=False)
     lap("frame1")
     eng.process_frame(raw_depth=depths[2])

@@ -39,6 +39,14 @@ kernel nodes differ from the launches its wrappers counted raises. The
 warm-up's launches, on the clone, are not counted either: the counts are
 those of the frames the caller asked for (build.launch_counts).
 
+With spans on (engine/spans.py), a step adds a `begin` mark before its
+body and an `end` mark after the copy-back and the packing, and records
+the host spans `stage` (the frame's copies) and `replay`; a graph with
+marks is captured apart from the one without (the key holds the
+addresses of the ring the marks write, none while spans are off, and the
+graph lives no longer than the ring), and its warm-up runs with the marks
+paused.
+
 A graph lives as long as the caller's state tensors it was captured with,
 and at most MAX_GRAPHS graphs live at once (the least recently replayed
 goes first): each holds its frame's intermediates in its pool. `clear()`
@@ -56,6 +64,7 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
+from infinitam_tpu_torch.engine import spans
 from infinitam_tpu_torch.ops.kernels import build
 from infinitam_tpu_torch.ops.kernels import icp as icp_kernel
 
@@ -135,7 +144,8 @@ class Outputs(NamedTuple):
     def read(self, buf: Optional[torch.Tensor] = None):
         """The outputs as views into `buf` (default: a copy of `self.buf`,
         one device op); `buf` may carry leading dims (a row a frame), which
-        every output then carries too."""
+        every output then carries too. With spans on, the host span `read`."""
+        t = spans.start()
         buf = self.buf.clone() if buf is None else buf
         lead = tuple(buf.shape[:-1])
 
@@ -144,7 +154,9 @@ class Outputs(NamedTuple):
                 return s
             return buf[..., s.offset:s.offset + s.n_bytes].view(s.dtype).reshape(lead + s.shape)
 
-        return _map_slots(view, self.tree)
+        out = _map_slots(view, self.tree)
+        spans.host("read", t)
+        return out
 
 
 def _map_slots(fn, tree):
@@ -334,7 +346,7 @@ def _capture(name: str, body: Callable, state, frame, device: torch.device) -> _
     with icp_kernel.graph_counters(g.counters):
         # warm-up: one real frame on a clone of the state, on the capture
         # stream; its launches rehearse the graph's and are not counted
-        with build.tally(), torch.cuda.stream(stream):
+        with build.tally(), torch.cuda.stream(stream), spans.paused():
             warm = tree_map(torch.clone, state)
             new_warm, _out = body(warm, g.frame)
             copy_back(warm, new_warm)
@@ -344,10 +356,7 @@ def _capture(name: str, body: Callable, state, frame, device: torch.device) -> _
         with build.tally() as tally:
             with torch.cuda.graph(graph, stream=stream):
                 reserved = torch.cuda.memory_reserved(device)
-                new_state, out = body(state, g.frame)
-                copy_back(state, new_state)
-                g.out = pack(out)
-                del new_state, out
+                g.out = _step(body, state, g.frame)
         g.pool_bytes = torch.cuda.memory_reserved(device) - reserved
     graph.instantiate()
     g.nodes, g.kernel_nodes, g.launches = _graph_kernels(graph)
@@ -357,6 +366,17 @@ def _capture(name: str, body: Callable, state, frame, device: torch.device) -> _
                            f"counted {g.tally} launches during capture")
     g.capture_seconds = time.perf_counter() - t0
     return g
+
+
+def _step(body: Callable, state, frame) -> Outputs:
+    """The step between its begin and end marks: the body, its copy into
+    the caller's state, its packed outputs."""
+    spans.phase("begin")
+    new_state, out = body(state, frame)
+    copy_back(state, new_state)
+    packed = pack(out)
+    spans.phase("end")
+    return packed
 
 
 def run(name: str, static: tuple, body: Callable, state, frame):
@@ -369,24 +389,28 @@ def run(name: str, static: tuple, body: Callable, state, frame):
     outputs."""
     state = unalias(state)
     first = leaves(state)[0]
+    spans.step()
     if first.device.type != "cuda":
-        new_state, out = body(state, frame)
-        copy_back(state, new_state)
-        return state, pack(out)
+        return state, _step(body, state, frame)
     _drop_dead()
-    key = (name, static, _structure(state, _address), _structure(frame, _layout))
+    ring = spans.ring()
+    key = (name, static, _structure(ring, _address), _structure(state, _address), _structure(frame, _layout))
     g = _graphs.get(key)
     if g is None:
         g = _capture(name, body, state, frame, first.device)
         _graphs[key] = g
-        for t in leaves(state):
+        for t in leaves(state) + list(ring):
             _watch(t, g)
         while len(_graphs) > MAX_GRAPHS:
             _graphs.popitem(last=False)
     _graphs.move_to_end(key)
+    t = spans.start()
     for dst, src in zip(leaves(g.frame), leaves(frame)):
         dst.copy_(src, non_blocking=True)
+    spans.host("stage", t)
+    t = spans.start()
     g.graph.replay()
+    spans.host("replay", t)
     g.replays += 1
     build.add_launches(g.launches)
     return state, g.out
@@ -409,13 +433,3 @@ def _watch(t: torch.Tensor, g: _Graph) -> None:
     ref = weakref.ref(t, retire)
     _watchers[id(ref)] = ref
 
-
-def no_phase(_name: str) -> None:
-    """The default `on_phase` of the frame steps: records nothing."""
-
-
-def require_uncaptured(on_phase, capture: bool) -> None:
-    """A phase callback records events between phases as the host issues
-    them, which a graph replay has no place for: it needs capture=False."""
-    if capture and on_phase is not no_phase:
-        raise ValueError("on_phase times the phases of an uncaptured step: pass capture=False with it")

@@ -19,7 +19,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from infinitam_tpu_torch.config import Settings
-from infinitam_tpu_torch.engine import captured
+from infinitam_tpu_torch.engine import captured, spans
 from infinitam_tpu_torch.engine import volume as vol_mod
 from infinitam_tpu_torch.engine.tracking_state import TrackingState, create_tracking_state
 from infinitam_tpu_torch.engine.trackers import TrackResult, track_depth
@@ -29,9 +29,6 @@ from infinitam_tpu_torch.ops import raycast as rc
 from infinitam_tpu_torch.ops import tsdf
 from infinitam_tpu_torch.ops.kernels import raycast as raycast_kernel
 from infinitam_tpu_torch.utils import se3
-
-
-no_phase = captured.no_phase  # the default `on_phase`: records nothing
 
 
 class FrameDiagnostics(NamedTuple):
@@ -116,19 +113,19 @@ def prepare_tracking_maps(
     return rc.make_icp_maps(res, settings.scene.voxel_size, se3.invert(pose))
 
 
-def _frame_dense(vol, state, view, proj_d, settings, fusion_active=True, on_phase=no_phase):
+def _frame_dense(vol, state, view, proj_d, settings, fusion_active=True):
     """process_frame_dense's step: new state tensors but the volume's, which
     the integration writes in place."""
     img_size = tuple(view.depth.shape)
     tr: TrackResult = track_depth(state.pose, view.depth, proj_d, state.points_map, state.normals_map,
                                   state.pose_point_cloud, settings.tracking)
     pose = torch.where(state.age >= 0, tr.pose, state.pose)
-    on_phase("track")
+    spans.phase("track")
     if fusion_active:
         vol = integrate_frame_dense(vol, view, pose, proj_d, settings)
-    on_phase("integrate")
+    spans.phase("integrate")
     points_map, normals_map = prepare_tracking_maps(vol, pose, proj_d, img_size, settings)
-    on_phase("raycast")
+    spans.phase("raycast")
     new_state = TrackingState(
         pose=pose,
         points_map=points_map,
@@ -148,21 +145,20 @@ def process_frame_dense(
     proj_d: torch.Tensor,
     settings: Settings,
     fusion_active: bool = True,
-    on_phase=no_phase,
     capture: bool = True,
 ) -> Tuple[DenseVolume, TrackingState, FrameDiagnostics]:
     """One frame: track → integrate → raycast the next frame's maps. On
     frame 0 (state.age == −1) the tracker runs but its pose is not taken, as
     in the JAX package (reference ITMTrackingController::Track gates on
     age_pointCloud == −1), so every frame launches the same kernels and
-    nothing is read back. `capture` and `on_phase` ("track", "integrate",
-    "raycast"; capture=False only) as in hash_pipeline.process_frame_hash:
+    nothing is read back. `capture` and the spans' marks ("track",
+    "integrate", "raycast") as in hash_pipeline.process_frame_hash:
     captured, the caller's state tensors are written in place; op by op,
     the volume is updated in place (the integration writes it) and the
     tracking state is new."""
     if not capture:
-        return _frame_dense(vol, state, view, proj_d, settings, fusion_active, on_phase)
-    captured.require_uncaptured(on_phase, capture)
+        return _frame_dense(vol, state, view, proj_d, settings, fusion_active)
+
 
     def body(st, frame):
         vol, s, diag = _frame_dense(*st, *frame, settings, fusion_active)

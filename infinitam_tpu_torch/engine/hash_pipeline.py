@@ -42,6 +42,7 @@ import torch.nn.functional as F
 from infinitam_tpu_torch.config import Settings, SwappingMode, TrackerType
 from infinitam_tpu_torch.engine import captured
 from infinitam_tpu_torch.engine import hash_volume as hv
+from infinitam_tpu_torch.engine import spans
 from infinitam_tpu_torch.engine import swapping
 from infinitam_tpu_torch.engine.hash_volume import HashVolume, RenderStateVH
 from infinitam_tpu_torch.engine.tracking_state import TrackingState, create_tracking_state
@@ -701,12 +702,8 @@ def _rgb_extrinsics(rgb_to_depth, device):
     return se3.invert(rgb_to_depth), rgb_to_depth
 
 
-no_phase = captured.no_phase  # the default `on_phase`: records nothing
-
-
 def _track_fuse_impl(vol, render_state, state: TrackingState, view: View, proj, settings: Settings,
-                     fusion_active: bool, proj_rgb=None, rgb_to_depth=None, external_pose=None,
-                     on_phase=no_phase, swap_states=None):
+                     fusion_active: bool, proj_rgb=None, rgb_to_depth=None, external_pose=None, swap_states=None):
     """Track → divergence gate → allocate (with `swap_states`: then the
     visible swapped-out entries take blocks and the visible entries are
     marked for a swap-in check) → integrate. Returns (vol, render_state,
@@ -759,7 +756,7 @@ def _track_fuse_impl(vol, render_state, state: TrackingState, view: View, proj, 
         track_bad = torch.zeros((), dtype=torch.bool, device=proj.device)
     pose = torch.where(have_maps & ~track_bad, tr.pose, state.pose)
     fuse_enable = ~track_bad
-    on_phase("track")
+    spans.phase("track")
 
     vol, render_state, *n_alloc = _allocate(vol, render_state, view.depth, pose, proj, settings,
                                             only_update_visible=not fusion_active, enable=fuse_enable)
@@ -767,11 +764,11 @@ def _track_fuse_impl(vol, render_state, state: TrackingState, view: View, proj, 
         vol = swapping.reallocate_swapped_out(vol, render_state.visible_type, settings,
                                               visible_ids=render_state.visible_ids)
         swap_states = swapping.mark_visible_for_swap_compact(swap_states, render_state.visible_ids)
-    on_phase("alloc")
+    spans.phase("alloc")
     if fusion_active:
         vol = integrate_into_scene(vol, render_state, view, pose, proj, settings, proj_rgb=proj_rgb,
                                    rgb_to_depth=rgb_to_depth, enable=fuse_enable)
-    on_phase("integrate")
+    spans.phase("integrate")
     return vol, render_state, swap_states, pose, tr, tuple(n_alloc)
 
 
@@ -836,16 +833,15 @@ def _frame_diag(vol, render_state, pose, proj, tr: TrackResult, settings: Settin
 
 
 def _frame_hash(vol, render_state, state, view, proj, settings, fusion_active=True, proj_rgb=None,
-                rgb_to_depth=None, external_pose=None, on_phase=no_phase):
+                rgb_to_depth=None, external_pose=None):
     """process_frame_hash's step, functional: new state tensors (but
     `vol.vox`, updated in place)."""
     vol, render_state, _sw, pose, tr, n_alloc = _track_fuse_impl(
         vol, render_state, state, view, proj, settings, fusion_active, proj_rgb, rgb_to_depth, external_pose,
-        on_phase,
     )
     new_state, n_pool = _prepare_impl(vol, render_state, state, view, pose, tr, proj, settings, proj_rgb,
                                       rgb_to_depth)
-    on_phase("raycast")
+    spans.phase("raycast")
     diag = _frame_diag(vol, render_state, pose, proj, tr, settings, n_alloc, n_pool,
                        tuple(view.depth.shape))
     return vol, render_state, new_state, diag
@@ -877,7 +873,6 @@ def process_frame_hash(
     proj_rgb: torch.Tensor | None = None,
     rgb_to_depth: torch.Tensor | None = None,
     external_pose: torch.Tensor | None = None,
-    on_phase=no_phase,
     capture: bool = True,
 ) -> Tuple[HashVolume, RenderStateVH, TrackingState, FrameDiagnostics]:
     """One frame on the hash volume: track → allocate + fuse → raycast.
@@ -893,13 +888,11 @@ def process_frame_hash(
     With capture=False the step runs op by op and every state tensor but
     `vol.vox` (and `vol.vox_rgb`), which is updated in place, is new.
 
-    `on_phase(name)` (capture=False only) is called as each phase has been
-    issued ("track", "alloc", "integrate", "raycast"), so a caller can
-    record a CUDA event there to time the phases; it must not sync."""
+    With spans on (engine/spans.py), a mark as each phase has been issued:
+    "track", "alloc", "integrate", "raycast"; captured or not."""
     if not capture:
         return _frame_hash(vol, render_state, state, view, proj, settings, fusion_active, proj_rgb, rgb_to_depth,
-                           external_pose, on_phase)
-    captured.require_uncaptured(on_phase, capture)
+                           external_pose)
     (vol, render_state, state), out = _captured_frame(vol, render_state, state, view, proj, settings,
                                                       fusion_active, proj_rgb, rgb_to_depth, external_pose)
     _pose, diag = out.read()
@@ -908,14 +901,14 @@ def process_frame_hash(
 
 def step_track_fuse_swap(vol, render_state, state: TrackingState, swap_states, view: View, proj,
                          settings: Settings, fusion_active: bool = True, proj_rgb=None, rgb_to_depth=None,
-                         external_pose=None, on_phase=no_phase):
+                         external_pose=None):
     """The device half-frame before a synchronous swap exchange: the same
     tracker, divergence gate and fusion as process_frame_hash, with the
     swap-protocol hooks (reference ITMDenseMapper.cpp:51-65). Returns (vol,
     render_state, swap_states, pose, tr, diag)."""
     vol, render_state, swap_states, pose, tr, n_alloc = _track_fuse_impl(
         vol, render_state, state, view, proj, settings, fusion_active, proj_rgb, rgb_to_depth, external_pose,
-        on_phase, swap_states=swap_states,
+        swap_states=swap_states,
     )
     zero = torch.zeros((), dtype=torch.int32, device=proj.device)
     diag = _frame_diag(vol, render_state, pose, proj, tr, settings, n_alloc, zero,
@@ -926,7 +919,7 @@ def step_track_fuse_swap(vol, render_state, state: TrackingState, swap_states, v
 def step_frame_swap(vol, render_state, state: TrackingState, swap_states, view: View, proj, settings: Settings,
                     fusion_active: bool = True, proj_rgb=None, rgb_to_depth=None, external_pose=None,
                     merge_flips: torch.Tensor | None = None, merge_slab: torch.Tensor | None = None,
-                    on_phase=no_phase, capture: bool = True):
+                    capture: bool = True):
     """One swap-mode frame, all of it on the device with no host read: the
     resolution of an earlier frame's needed list (`merge_flips`, that list's
     meta [Q+1]: its entries go to state 2; `merge_slab`: the blocks of it
@@ -938,15 +931,14 @@ def step_frame_swap(vol, render_state, state: TrackingState, swap_states, view: 
     `capture` as in process_frame_hash: one graph for each combination of
     the merge inputs given and each row count of `merge_slab` (a multiple
     of 64 up to the exchange quantum: at most 6), as jit compiles one
-    program for each; the outputs are copies. `on_phase` (capture=False
-    only) as in process_frame_hash, with "swap" after the list and the
-    eviction. Returns (vol, render_state, tracking state, swap_states, diag,
+    program for each; the outputs are copies. The spans' marks as in
+    process_frame_hash, with "swap" after the list and the eviction.
+    Returns (vol, render_state, tracking state, swap_states, diag,
     in_meta [Q+1] (needed ids, count), (ev_meta [Qe+1] (evicted ids, count),
     ev_sdf, ev_w, ev_clr, ev_wc))."""
     if not capture:
         return _frame_swap(vol, render_state, state, swap_states, view, proj, settings, fusion_active, proj_rgb,
-                           rgb_to_depth, external_pose, merge_flips, merge_slab, on_phase)
-    captured.require_uncaptured(on_phase, capture)
+                           rgb_to_depth, external_pose, merge_flips, merge_slab)
 
     def body(st, frame):
         view, external_pose, merge_flips, merge_slab, proj, proj_rgb, rgb_to_depth = frame
@@ -962,7 +954,7 @@ def step_frame_swap(vol, render_state, state: TrackingState, swap_states, view: 
 
 
 def _frame_swap(vol, render_state, state, swap_states, view, proj, settings, fusion_active=True, proj_rgb=None,
-                rgb_to_depth=None, external_pose=None, merge_flips=None, merge_slab=None, on_phase=no_phase):
+                rgb_to_depth=None, external_pose=None, merge_flips=None, merge_slab=None):
     """step_frame_swap's step, functional."""
     E = settings.hashing.n_entries
     if merge_flips is not None:
@@ -975,17 +967,18 @@ def _frame_swap(vol, render_state, state, swap_states, view, proj, settings, fus
                                                     with_color=settings.use_color and vol.vox_rgb is not None)
     vol, render_state, swap_states, pose, tr, n_alloc = _track_fuse_impl(
         vol, render_state, state, view, proj, settings, fusion_active, proj_rgb, rgb_to_depth, external_pose,
-        on_phase, swap_states=swap_states,
+        swap_states=swap_states,
     )
     in_ids, in_n, swap_states = swapping.build_swap_in_list_visible(
         swap_states, render_state.visible_ids, swapping.exchange_quantum(settings))
     vol, swap_states, ev_ids, ev_sdf, ev_w, ev_clr, ev_wc, ev_n = swapping.evict_blocks_window(
         vol, swap_states, render_state.visible_type, settings, swapping.evict_quantum(settings),
         render_state.epoch)
-    on_phase("swap")
+    spans.phase("swap")
     new_state, n_pool = _prepare_impl(vol, render_state, state, view, pose, tr, proj, settings, proj_rgb,
                                       rgb_to_depth)
-    on_phase("raycast")
+    spans.phase("raycast")
+
     diag = _frame_diag(vol, render_state, pose, proj, tr, settings, n_alloc, n_pool,
                        tuple(view.depth.shape))
     in_meta = torch.cat([in_ids, in_n[None]])

@@ -26,7 +26,7 @@ import torch
 
 from infinitam_tpu_torch.calib import RGBDCalib
 from infinitam_tpu_torch.config import Settings, SwappingMode
-from infinitam_tpu_torch.engine import captured
+from infinitam_tpu_torch.engine import captured, spans
 from infinitam_tpu_torch.engine import hash_pipeline as hp
 from infinitam_tpu_torch.engine import hash_volume as hv
 from infinitam_tpu_torch.engine import swapping as sw
@@ -112,7 +112,7 @@ class MainEngine:
 
     # ----- per frame -----------------------------------------------------
     def process_frame(self, raw_depth=None, rgb=None, metric_depth=None, imu_rotation=None, external_pose=None,
-                      on_phase=hp.no_phase, capture: bool = True):
+                      capture: bool = True):
         """UpdateView → Track → Fuse (→ swap) → Prepare. Frames are numpy arrays or
         tensors (moved to the engine's device); `imu_rotation` [3, 3] is a
         differential rotation applied to the pose before tracking,
@@ -121,11 +121,10 @@ class MainEngine:
         jitted; the frame step (process_frame_hash, or step_frame_swap with
         swapping) runs as one CUDA graph replay on the card (`capture`) and
         writes the engine's state tensors in place; the exchange's host
-        half runs between the replays. `on_phase(name)` (capture=False only) is
-        called as each phase has been issued ("view", then
-        process_frame_hash's), so a caller can time the phases with CUDA
-        events. Returns the frame's LazyDiag ({} while main processing is
-        off), over copies of the diagnostics."""
+        half runs between the replays. With spans on (engine/spans.py), a
+        mark "view" once the view has been issued, then the frame step's.
+        Returns the frame's LazyDiag ({} while main processing is off), over
+        copies of the diagnostics."""
         if not self.main_processing:
             return {}
         dev = self.device
@@ -134,7 +133,7 @@ class MainEngine:
             view = build_view_from_metric_depth(frame_tensor(metric_depth, dev), self.settings, self.calib, rgb=rgb)
         else:
             view = build_view(frame_tensor(raw_depth, dev), self.calib, self.settings, rgb=rgb)
-        on_phase("view")
+        spans.phase("view")
         if imu_rotation is not None:
             self._write_pose(apply_imu_rotation(self.tracking_state.pose, self._f32(imu_rotation)))
         if external_pose is not None:
@@ -147,15 +146,15 @@ class MainEngine:
              out_pack) = hp.step_frame_swap(
                 self.vol, self.render_state, self.tracking_state, self.swap_states, view, self.proj, self.settings,
                 fusion_active=self.fusion_active, proj_rgb=self.proj_rgb, rgb_to_depth=self.rgb_to_depth,
-                external_pose=external_pose, merge_flips=m_flips, merge_slab=m_slab, on_phase=on_phase,
-                capture=capture,
+                external_pose=external_pose, merge_flips=m_flips, merge_slab=m_slab, capture=capture,
             )
             self.swap_exchange.after_frame(in_meta, out_pack, self.global_cache)
         else:
             self.vol, self.render_state, self.tracking_state, d = hp.process_frame_hash(
                 self.vol, self.render_state, self.tracking_state, view, self.proj, self.settings,
                 fusion_active=self.fusion_active, proj_rgb=self.proj_rgb, rgb_to_depth=self.rgb_to_depth,
-                external_pose=external_pose, on_phase=on_phase, capture=capture,
+                external_pose=external_pose, capture=capture,
+
             )
         self.frame_no += 1
         return LazyDiag(d)

@@ -11,7 +11,8 @@ Every C entry point takes its pointers and the CUDA stream as `void*` and
 returns `cudaGetLastError()` after its launches; `check` raises on nonzero.
 
 Every kernel of the package's paths is lane-indexed (the probes' P1-P6 are
-not: no batched path runs them): an entry point takes a lane count B and a host
+not: no batched path runs them; nor is the phase mark of engine/spans.py,
+which runs once for all lanes): an entry point takes a lane count B and a host
 array of lane strides, one a tensor argument (the elements from one lane's
 tensor to the next; 0 for a tensor every lane shares), and one launch runs
 all B lanes. B = 1 is the unbatched call. The wrappers bind each launch to a
@@ -39,7 +40,7 @@ import torch
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "kernels"
-SOURCES = ("icp.cu", "integrate.cu", "raycast.cu", "probes.cu")
+SOURCES = ("icp.cu", "integrate.cu", "raycast.cu", "probes.cu", "mark.cu")
 HEADERS = ("common.cuh",)
 
 # -fmad=false: no multiply-add contraction, so each kernel rounds like its
@@ -111,6 +112,8 @@ SIGNATURES = {
     # buf, n_vec4, n_ctas, out, stream: a plain read of an L2-resident buffer, each CTA's sum in out (the
     # L2's read rate under P3 and P6, for the smoke's L2 floor; uncounted)
     "itpu_l2_read": (P, I, I, P, P),
+    # head, rows, cap, phase id, begin, stream: engine/spans.py's phase mark (csrc/mark.cu; uncounted)
+    "itpu_mark": (P, P, I, I, I, P),
 }
 
 KERNELS = ("icp", "icp_weighted", "integrate", "integrate_color", "raycast", "raycast_hash", "raycast_dense",

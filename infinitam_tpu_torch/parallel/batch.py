@@ -191,15 +191,14 @@ def _batched(name: str, settings: Settings, mesh: Optional[Mesh], frame_step, n_
     (gloo, on a shared card, stages through the host)."""
     reduce_after = mesh is not None and mesh.n > 1
 
-    def step(*args, on_phase=hp.no_phase, capture=True):
+    def step(*args, capture=True):
         state, view, proj = args[:n_state], args[n_state], args[n_state + 1]
 
-        def body(state, frame, on_phase=hp.no_phase):
+        def body(state, frame):
             view, proj = frame
 
             def one_step(*a):
-                return frame_step(*a[:n_state], a[n_state], a[n_state + 1], settings, on_phase=on_phase,
-                                  capture=False)
+                return frame_step(*a[:n_state], a[n_state], a[n_state + 1], settings, capture=False)
 
             dims = tuple(_dims(s) for s in state)
             vstep = torch.vmap(one_step, in_dims=(*dims, _dims(view), 0 if proj.dim() == 2 else None),
@@ -209,9 +208,8 @@ def _batched(name: str, settings: Settings, mesh: Optional[Mesh], frame_step, n_
             return tuple(new_state), metrics | {"diag": diag}
 
         if not capture:
-            state, metrics = body(state, (view, proj), on_phase)
+            state, metrics = body(state, (view, proj))
         else:
-            captured.require_uncaptured(on_phase, capture)
             static = (settings, state[0][0].shape[0], reduce_after)
             state, out = captured.run(name, static, body, state, (view, proj))
             metrics = out.read()
@@ -231,8 +229,8 @@ def make_batched_step(settings: Settings, mesh: Optional[Mesh] = None):
     runs as one CUDA graph replay on the card, as process_frame_hash does:
     the state comes back as the caller's tensors, written in place, and
     metrics are copies; `capture=False` runs it op by op (new state tensors,
-    `vol.vox` updated in place), and only then takes `on_phase` (as in
-    process_frame_hash, called once a step for all lanes). With a mesh of
+    `vol.vox` updated in place); the spans' marks as in process_frame_hash,
+    once a step for all lanes (inside the torch.vmap body). With a mesh of
     several ranks the arguments are this rank's lanes (shard_batch), the
     three fleet metrics cover every rank's lanes and are equal on every
     rank, and `diag` holds this rank's lanes only."""
@@ -242,8 +240,9 @@ def make_batched_step(settings: Settings, mesh: Optional[Mesh] = None):
 
 def make_batched_step_dense(settings: Settings, mesh: Optional[Mesh] = None):
     """The dense-array variant: `step(vol, state, view, proj) → (vol, state,
-    metrics)` with metrics mean_f, mean_valid and `diag`; `capture`,
-    `on_phase` and the mesh as in make_batched_step (op by op the volume is
+    metrics)` with metrics mean_f, mean_valid and `diag`; `capture`, the
+    spans' marks and the mesh as in make_batched_step (op by op the volume is
+
     updated in place, as process_frame_dense updates it)."""
     return _batched("batched_dense", settings, mesh, dp.process_frame_dense, 2,
                     lambda m, st, diag: _fleet_metrics(m, st[1]))
