@@ -84,14 +84,14 @@ swapping; per replay it prints the blocks evicted, the needed-list entries
 resolved and those merged with stored data, the store's block count and the
 exchange's host waits, and at the end the swap ratio of frames/s); through
 the dense frame step on the reference's 512³ voxel array (`dense_5mm`: K1
-30 and K3d once a frame, integration in torch ops); at 5 mm read through
+30, K2d and K3d once a frame); at 5 mm read through
 the hash table (`5mm_hashprobe`: K3h instead of K3) and with the coarse
 320×240 raycast pre-pass (`5mm_coarse2`: K3 twice a frame); through
 parallel/batch.py's batched steps (`batched_5mm`: 4 sequences at 5 mm,
 `batched_dense_5mm`: 2 on their own 512³ arrays; lane 0 replays the smoke's
 frames, lane b make_trajectory(30, scale=1 − 0.15·b), each right after its
 unbatched config; gated per lane on ATE, rotation and counters, on exactly
-30 K1, 1 K2 and 1 K3 launches a step (dense: 30 K1, 1 K3d), whatever the
+30 K1, 1 K2 and 1 K3 launches a step (dense: 30 K1, 1 K2d, 1 K3d), whatever the
 lane count, and on no host sync; printed: steps/s, frames/s summed over the
 lanes, batch_efficiency = that ÷ (B × the unbatched replay's frames/s in
 this call), lane 0's largest camera-centre difference from the unbatched
@@ -104,7 +104,7 @@ cards one card a rank through NCCL; gated per lane on ATE, rotation,
 counters and poses within 1e-6 m of a one-process replay of the rank's
 lanes (its difference from the B-lane replay printed), on the fleet
 metrics equal on both ranks, on exactly 30 K1, 1 K2 and 1 K3 launches a
-step in each rank (dense: 30 K1, 1 K3d), one all-reduce a step and no
+step in each rank (dense: 30 K1, 1 K2d, 1 K3d), one all-reduce a step and no
 other host sync, and on no module of JAX in a rank; printed: steps/s,
 frames/s summed over the ranks, its ratio to the one-process batched
 replay's in this call, each rank's peak memory, the all-reduce calls); and
@@ -259,6 +259,7 @@ ICP_OPS_WEIGHT = 7  # the weighted variant's ω·A and ω·b
 INTEGRATE_OPS_VOXEL = 37  # csrc/integrate.cu: centre, transform, projection, depth tap, η and its gate
 INTEGRATE_OPS_UPDATE = 12  # an updated voxel's running average and quantisation
 INTEGRATE_OPS_COLOR = 100  # a colour voxel's transform, projection, bilinear tap and colour average
+INTEGRATE_OPS_DENSE_UPDATE = 8  # K2d's updated voxel: the running average, no quantisation
 RAYCAST_OPS_RAY = 80  # csrc/raycast.cu: the ray from the pixel and its two depth bounds
 # a march step of csrc/raycast.cu by its branch (a multiply-add counts 2):
 RAYCAST_OPS_READ = 10  # every step: + 0.5, floor and convert per axis, the sdf ≤ 0 test
@@ -355,14 +356,14 @@ def swap_settings(settings):
 DEPTH_PATH = ("icp", "integrate", "raycast")
 RGB_PATH = ("icp", "integrate_color", "raycast")
 WICP_PATH = ("icp_weighted", "integrate", "raycast")
-DENSE_PATH = ("icp", "raycast_dense")
+DENSE_PATH = ("icp", "integrate_dense", "raycast_dense")
 HASHPROBE_PATH = ("icp", "integrate", "raycast_hash")
 # the JSON name of each kernel → its launch counter
 COUNTERS = ("n_alloc_overflow", "n_render_overflow", "n_pool_overflow", "n_too_big_blocks", "n_window_clipped")
 COUNTER = {"icp_reduce": "icp", "icp_reduce_weighted": "icp_weighted", "integrate_depth": "integrate",
            "integrate_color": "integrate_color", "raycast_grid": "raycast", "raycast_hash_probe": "raycast_hash",
-           "raycast_dense": "raycast_dense", **{k: k for k in ("probe_gather", "probe_rows", "probe_page_sum",
-                                                                 "probe_scale", "probe_gemm", "probe_window_sums")}}
+           **{k: k for k in ("integrate_dense", "raycast_dense", "probe_gather", "probe_rows", "probe_page_sum",
+                             "probe_scale", "probe_gemm", "probe_window_sums")}}
 
 
 # a raycast kernel's reader in its mangled name, and the kernel of each
@@ -390,6 +391,24 @@ def raycast_registers(ptxas_report: dict) -> dict:
                 regs[key] = int(re.search(r"Used (\d+) registers", line).group(1))
                 kernel = None
     return regs
+
+
+def kernel_resources(ptxas_report: dict, symbol: str) -> dict:
+    """{"registers": n, "spills": ptxas's stack and spill line} of the
+    first kernel whose name holds `symbol`, from the build's ptxas output."""
+    out = {}
+    for report in ptxas_report.values():
+        kernel = None
+        for line in report.splitlines():
+            if "Compiling entry function" in line or "Function properties for" in line:
+                kernel = line.split("'")[1] if "'" in line else line.rsplit(" ", 1)[-1]
+            elif kernel and symbol in kernel and "spill" in line:
+                out["spills"] = line.strip()
+            elif kernel and symbol in kernel and "Used" in line:
+                out["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+        if out:
+            return out
+    return out
 
 
 def card_line() -> str:
@@ -991,6 +1010,86 @@ class Smoke:
             n_bytes += 64 + distinct(bilinear_corners(ur[col], vr[col], rw)) * 12 + 8 * n_col
             n_ops += n_col * INTEGRATE_OPS_COLOR
         return n_bytes, n_ops
+
+    def dense_integrate_traffic(self, settings, vol, depth, pose):
+        """(bytes, float32 operations) of K2d on these inputs, from the gates
+        of its plain version (ops/tsdf.py), a slab of z at a time: the
+        distinct depth pixels the in-frame voxels tap, each voxel that
+        passes the η gate read (sdf and weight) and, unless frozen at
+        max_w, written; the three axes, the pose's rows and the
+        intrinsics. Operations: every in-frame voxel's centre, transform,
+        projection, tap and gates, and each written voxel's average."""
+        sp, p = settings.scene, settings.plain
+        xs, ys, zs = self.vol_mod.voxel_world_coords(p, sp.voxel_size, device=self.dev)
+        h, w = depth.shape
+        fx, fy, cx, cy = self.proj
+        taps, n_in, n_pass, n_written = [], 0, 0, 0
+        for z0 in range(0, zs.shape[0], 32):
+            px, py, pz = self.se3.apply_planes(pose, xs, ys, zs[z0:z0 + 32])
+            front = pz > 0
+            zz = torch.where(front, pz, torch.ones_like(pz))
+            u, v = fx * px / zz + cx, fy * py / zz + cy
+            inside = front & (u >= 1) & (u <= w - 2) & (v >= 1) & (v <= h - 2)
+            pix = (v + 0.5).to(torch.int32).clamp(0, h - 1) * w + (u + 0.5).to(torch.int32).clamp(0, w - 1)
+            dm = depth.reshape(-1)[pix.long()]
+            upd = inside & (dm > 0) & (dm - pz >= -sp.mu)
+            written = upd & (vol.w_depth[z0:z0 + 32] < sp.max_w) if sp.stop_integrating_at_max_w else upd
+            taps.append(torch.unique(pix[inside]))
+            n_in, n_pass, n_written = n_in + int(inside.sum()), n_pass + int(upd.sum()), n_written + int(written.sum())
+        n_bytes = 4 * distinct(torch.cat(taps)) + 8 * (n_pass + n_written) + 4 * sum(p.size) + 48 + 16
+        return n_bytes, n_in * INTEGRATE_OPS_VOXEL + n_written * INTEGRATE_OPS_DENSE_UPDATE
+
+    def k2d_check(self, settings, vol, st, view):
+        """K2d on the dense 512³ array after N_CHECK_FRAMES dense frames,
+        fusing the next frame at the last pose with the arguments
+        integrate_frame_dense passes, against its plain twin run on the CPU
+        (IEEE division, as the kernel's), bit for bit; the same twin run
+        in torch ops on the card gives the plain time, and its difference
+        is printed. Timed warm and cold (the L2 flushed before each call),
+        with the share of tiles it culled."""
+        sp = settings.scene
+        axes = tuple(a.reshape(-1) for a in self.vol_mod.voxel_world_coords(settings.plain, sp.voxel_size,
+                                                                            device=self.dev))
+        kargs = (*axes, view.depth, st.pose, self.proj, sp.voxel_size, sp.mu, sp.max_w,
+                 sp.stop_integrating_at_max_w)
+        sk, wk = vol.sdf.clone(), vol.w_depth.clone()
+        culled = torch.zeros((), dtype=torch.int64, device=self.dev)
+        self.k_int.integrate_dense(sk, wk, *kargs, culled)
+        n_tiles = self.k_int.dense_tiles(settings.plain.size)
+        share = int(culled) / n_tiles
+        ps, pw = (t.to("cpu", copy=True) for t in (vol.sdf, vol.w_depth))
+        t0 = time.perf_counter()
+        self.k_int.integrate_dense_plain(ps, pw, *(a.cpu() if torch.is_tensor(a) else a for a in kargs))
+        cpu_s = time.perf_counter() - t0
+        ndiff = int((sk.cpu() != ps).sum()) + int((wk.cpu() != pw).sum())
+        changed = int((pw != vol.w_depth.cpu()).sum())
+        cs, cw = vol.sdf.clone(), vol.w_depth.clone()
+        self.k_int.integrate_dense_plain(cs, cw, *kargs)
+        card_diff = int((cs.cpu() != ps).sum()) + int((cw.cpu() != pw).sum())
+        card_err = float((cs.cpu() - ps).abs().max())
+        del ps, pw
+        b = bound(*self.dense_integrate_traffic(settings, vol, view.depth, st.pose))
+        dev, per_call, others = device_ms(lambda: self.k_int.integrate_dense(sk, wk, *kargs), 50)
+        cold, cold_per_call, cold_others = device_ms(lambda: self.k_int.integrate_dense(sk, wk, *kargs), 50,
+                                                     self.flush)
+        call = cuda_ms(lambda: self.k_int.integrate_dense(sk, wk, *kargs), 20)
+        plain = cuda_ms(lambda: self.k_int.integrate_dense_plain(cs, cw, *kargs), 5)
+        res = kernel_resources(self.build.ptxas_report, "itpu_integrate_dense_kernel")
+        print(f"K2d integrate (dense {settings.plain.size}), 5 mm: {changed} voxels' weights changed, {ndiff} "
+              f"sdf and weight words differ from the plain twin on the CPU ({cpu_s:.1f} s there); the twin in torch "
+              f"ops on the card differs in {card_diff} (max {card_err:.3g}); {int(culled)} of {n_tiles} tiles "
+              f"culled ({100 * share:.2f}%); ptxas {res}; " + timing_line(dev, per_call, others, b, call, plain))
+        print(f"  K2d cold (L2 flushed before each call): device {fmt_ms(cold)}, "
+              + ("n/a" if cold is None else f"{100 * b['bound_ms'] / cold:.1f}%") + " of the bound")
+        self.gate(changed > 1000000 and 0 < int(culled) < n_tiles,
+                  "K2d fused millions of voxels and culled some of the array's tiles, not all")
+        self.gate(ndiff == 0, "K2d bit-identical to its plain twin at 512³")
+        self.gate(per_call == 1 and others == 0 and cold_per_call == 1 and cold_others == 0,
+                  "K2d: one device kernel per call, no other device op")
+        return dict(name="integrate_dense", route="cuda", source="infinitam_tpu_torch/csrc/integrate.cu",
+                    replaces="none (the JAX package's XLA fusion, infinitam_tpu/engine/dense_pipeline.py "
+                             "integrate_frame_dense)", max_abs_err=0.0, ms=dev, cold_ms=cold, call_ms=call,
+                    plain_ms=plain, library_ms=None, culled_share=share, registers=res.get("registers"), **b)
 
     def raycast_traffic(self, settings, read, touched, tables, inv_M, zmin, zmax, decode_ops):
         """(bytes, float32 operations, march steps by branch, sectors) of a K3 variant
@@ -2895,8 +2994,9 @@ def smoke_configs(smoke):
          dict(icp=sum(iters[1:]), integrate=1, raycast=1)),
         # K3 runs on every frame, marching only on the frames that refresh
         ("5mm_approx", approx_settings(smoke.cfg), DEPTH_PATH, "frames", every_frame),
-        # the dense 512³ array: ICP and K3d, integration in torch ops (no K2)
-        ("dense_5mm", dense_settings(smoke.cfg), DENSE_PATH, "dense", none | dict(icp=sum(iters), raycast_dense=1)),
+        # the dense 512³ array: ICP, K2d and K3d (no K2)
+        ("dense_5mm", dense_settings(smoke.cfg), DENSE_PATH, "dense",
+         none | dict(icp=sum(iters), integrate_dense=1, raycast_dense=1)),
         # the hash table instead of the block grid: K3h instead of K3
         ("5mm_hashprobe", hashprobe_settings(smoke.cfg), HASHPROBE_PATH, "frames",
          none | dict(icp=sum(iters), integrate=1, raycast_hash=1)),
@@ -2970,6 +3070,7 @@ def main() -> int:
     kernels.append(smoke.k3h_check(by_name["5mm_hashprobe"], vol, rs, st))
     del wview, omega
     dvol, dst, _p, _d = smoke.run_dense(sd, (depths[:N_CHECK_FRAMES], rgbs[:N_CHECK_FRAMES]))
+    kernels.insert(3, smoke.k2d_check(sd, dvol, dst, smoke.build_view(depths[N_CHECK_FRAMES], sd, smoke.calib)))
     kernels.append(smoke.k3d_check(sd, dvol, dst))
     lanes = smoke.lane_checks(s5, vol, rs, st, view, sd, dvol, dst)
     for k in kernels:
@@ -3046,7 +3147,7 @@ def main() -> int:
             smoke.dense_mesh_check(settings, final)
             del final
             batched("batched_dense_5mm", settings, "batched_dense", DENSE_LANES,
-                    dict(icp=sum(iters), raycast_dense=1), "dense_5mm")
+                    dict(icp=sum(iters), integrate_dense=1, raycast_dense=1), "dense_5mm")
         final = None
     # expectations, printed and not gated: the map lies inside the block
     # grid's window, so both readers find the same blocks

@@ -5,11 +5,11 @@ configuration of the reference (ITMVoxelIndex = ITMPlainVoxelArray,
 ITMLibDefines.h:211; ITMMainEngine::ProcessFrame → ITMDenseMapper, whose
 plain-array branch allocates nothing and integrates the whole grid →
 ITMTrackingController::Track / Prepare). Per frame: depth ICP (kernel K1,
-30 launches at 5 levels) → integration of every voxel of the array (torch
-ops, as the JAX package leaves it to XLA outside any Pallas kernel) →
-raycast over the frustum's depth range (kernel K3d) → the next frame's
-tracking maps. Nothing is read back to the host, so frames queue on the
-card without a sync.
+30 launches at 5 levels) → integration of every voxel of the array (kernel
+K2d, one launch; with colour, torch ops, as the JAX package leaves it to
+XLA outside any Pallas kernel) → raycast over the frustum's depth range
+(kernel K3d) → the next frame's tracking maps. Nothing is read back to the
+host, so frames queue on the card without a sync.
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ from infinitam_tpu_torch.engine.view_builder import View
 from infinitam_tpu_torch.engine.volume import DenseVolume
 from infinitam_tpu_torch.ops import raycast as rc
 from infinitam_tpu_torch.ops import tsdf
+from infinitam_tpu_torch.ops.kernels import integrate as integrate_kernel
 from infinitam_tpu_torch.ops.kernels import raycast as raycast_kernel
 from infinitam_tpu_torch.utils import se3
 
@@ -49,15 +50,21 @@ def integrate_frame_dense(
     voxel (reference ITMSceneReconstructionEngine plain-array overload),
     written into `vol`'s tensors in place (as K2 writes the hash volume's
     voxels), so no second array is made or copied back; the returned volume
-    holds the same tensors. With `use_color` and an rgb view, colour fuses
-    too, through `proj_rgb` (default: `proj_d`) and the extrinsic
-    `rgb_to_depth` (default: identity). The voxel centres are three
-    broadcast planes, so no [Z, Y, X, 3] grid is built."""
+    holds the same tensors. Without `use_color` the pass is kernel K2d
+    (ops/kernels/integrate.py integrate_dense; its plain twin on the CPU).
+    With it, and an rgb view, colour fuses too, in torch ops, through
+    `proj_rgb` (default: `proj_d`) and the extrinsic `rgb_to_depth`
+    (default: identity). The voxel centres are three broadcast planes, so
+    no [Z, Y, X, 3] grid is built."""
     sp = settings.scene
     pts = vol_mod.voxel_world_coords(settings.plain, sp.voxel_size, device=vol.sdf.device)
+    if not settings.use_color:
+        integrate_kernel.integrate_dense(vol.sdf, vol.w_depth, *(p.reshape(-1) for p in pts), view.depth, pose,
+                                         proj_d, sp.voxel_size, sp.mu, sp.max_w, sp.stop_integrating_at_max_w)
+        return vol
     M_rgb = None
     rgb = None
-    if settings.use_color and view.rgb is not None:
+    if view.rgb is not None:
         # reference: M_rgb = trafo_rgb_to_depth.calib_inv · M_d
         M_rgb = se3.invert(rgb_to_depth) @ pose if rgb_to_depth is not None else pose
         rgb = view.rgb
@@ -71,15 +78,14 @@ def integrate_frame_dense(
         sp.mu,
         sp.max_w,
         stop_at_max_w=sp.stop_integrating_at_max_w,
-        vol_clr=vol.clr if settings.use_color else None,
-        vol_wc=vol.w_color if settings.use_color else None,
+        vol_clr=vol.clr,
+        vol_wc=vol.w_color,
         M_rgb=M_rgb,
         proj_rgb=proj_rgb if proj_rgb is not None else proj_d,
         rgb=rgb,
         into=True,
     )
-    return DenseVolume(sdf=sdf, w_depth=w, clr=clr if clr is not None else vol.clr,
-                       w_color=wc if wc is not None else vol.w_color)
+    return DenseVolume(sdf=sdf, w_depth=w, clr=clr, w_color=wc)
 
 
 def raycast_dense(

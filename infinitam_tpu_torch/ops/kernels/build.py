@@ -71,6 +71,9 @@ SIGNATURES = {
     # vox, vox_rgb, ids, n_rows, entry_ptr, entry_pos, n_entries, block_size, depth, h, w, rgb, rh, rw, pose,
     # proj, M_rgb, proj_rgb, enable, voxel_size, mu, max_w, stop_at_max_w, n_ctas, n_lanes, strides, stream
     "itpu_integrate_rgbd": (P, P, P, I, P, P, I, I, P, I, I, P, I, I, P, P, P, P, P, F, F, I, I, I, I, P, P),
+    # sdf, w, xs, ys, zs, sx, sy, sz, depth, h, w, pose, proj, voxel_size, mu, max_w, stop_at_max_w, culled (or
+    # null), n_lanes, strides (DENSE_LANES), stream: K2d, the dense array's fusion
+    "itpu_integrate_dense": (P, P, P, P, P, I, I, I, P, I, I, P, P, F, F, I, I, P, I, P, P),
     # a, b, out, n, stream: K2's division steps on n pairs (a card test holds them to IEEE division)
     "itpu_div_step_check": (P, P, P, I, P),
     # vox, grid, gx, gy, gz, ox, oy, oz, block_shift, inv_M, proj, inv_voxel, zmin, zmax, h, w,
@@ -116,8 +119,9 @@ SIGNATURES = {
     "itpu_mark": (P, P, I, I, I, P),
 }
 
-KERNELS = ("icp", "icp_weighted", "integrate", "integrate_color", "raycast", "raycast_hash", "raycast_dense",
-           "probe_gather", "probe_rows", "probe_page_sum", "probe_scale", "probe_gemm", "probe_window_sums")
+KERNELS = ("icp", "icp_weighted", "integrate", "integrate_color", "integrate_dense", "raycast", "raycast_hash",
+           "raycast_dense", "probe_gather", "probe_rows", "probe_page_sum", "probe_scale", "probe_gemm",
+           "probe_window_sums")
 _launches = dict.fromkeys(KERNELS, 0)
 
 # seconds the last build took in this process (0 while none ran), and what
@@ -150,6 +154,7 @@ _SYMBOLS = tuple((re.compile(p), k) for p, k in (
     (r"itpu_icp_kernel(ILb1E|<true>)", "icp_weighted"),
     (r"itpu_integrate_kernel(ILb0E|<false,)", "integrate"),
     (r"itpu_integrate_kernel(ILb1E|<true,)", "integrate_color"),
+    (r"itpu_integrate_dense_kernel", "integrate_dense"),
     (r"itpu_raycast_kernel\W*\w*ItpuBlockReader\W*\w*ItpuGridIndex(E|>)", "raycast"),
     (r"itpu_raycast_kernel\W*\w*ItpuBlockReader\W*\w*ItpuHashIndex(E|>)", "raycast_hash"),
     (r"itpu_raycast_kernel\W*\w*ItpuDenseReader(Lb[01]ELi2E|, (false|true), 2>)", "raycast_dense"),

@@ -19,11 +19,19 @@ over the lanes (blockIdx.y the lane: each lane its own volume, list,
 entries, frame, pose and enable flag); on the CPU it runs the plain version
 lane by lane. A block's update depends on nothing but its own voxels, so a
 lane's result is bit-identical to a single-lane launch.
+
+K2d (`integrate_dense`, `itpu::integrate_dense`) is the same depth update
+over every voxel of a plain voxel array (engine/volume.py DenseVolume), in
+place in its sdf and weight planes: one launch a frame, tiles outside the
+camera's frustum culled on the card. Its plain twin is ops/tsdf.py
+integrate_dense (whole-array torch ops); its vmap rule makes one launch for
+B lanes, as K2's does.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -240,6 +248,109 @@ def integrate_rgbd(vox, vox_rgb, visible_ids, entry_ptr, entry_pos, depth, rgb, 
     integrate_rgbd_op(vox, vox_rgb, visible_ids, entry_ptr, entry_pos, depth, rgb, pose, proj, M_rgb, proj_rgb,
                       enable, float(voxel_size), float(mu), int(max_w), bool(stop_at_max_w), int(block_size),
                       int(max_rows))
+
+
+# K2d's lane strides' order (csrc/integrate.cu itpu_integrate_dense)
+DENSE_LANES = ("sdf", "w", "xs", "ys", "zs", "depth", "pose", "proj")
+# a warp's tile of the array (x, y, z), the unit K2d culls and counts
+DENSE_TILE = (32, 1, 8)
+
+
+def dense_tiles(size_xyz) -> int:
+    """How many tiles of DENSE_TILE K2d splits one lane's [Z, Y, X] array
+    into: the most its `culled` counter can add a lane."""
+    X, Y, Z = size_xyz
+    tx, ty, tz = DENSE_TILE
+    return -(-X // tx) * -(-Y // ty) * -(-Z // tz)
+
+
+def integrate_dense_plain(sdf, w, xs, ys, zs, depth, pose, proj, voxel_size: float, mu: float, max_w: int,
+                          stop_at_max_w: bool, culled=None) -> None:
+    """Fuse `depth` into every voxel of the plain array, in place in `sdf`
+    [Z, Y, X] (float32) and `w` (int32): ops/tsdf.py integrate_dense over
+    the voxel centres xs [X], ys [Y], zs [Z] (engine/volume.py
+    voxel_world_coords). It culls nothing, so it leaves `culled` (the
+    kernel's tile counter) and `voxel_size` (the cull's margin) unused."""
+    pts = (xs.reshape(1, 1, -1), ys.reshape(1, -1, 1), zs.reshape(-1, 1, 1))
+    tsdf.integrate_dense(sdf, w, pts, pose, proj, depth, mu, max_w, stop_at_max_w, into=True)
+
+
+def _launch_dense(n_lanes: int, sdf, w, xs, ys, zs, depth, pose, proj, voxel_size: float, mu: float, max_w: int,
+                  stop_at_max_w: bool, culled: Optional[torch.Tensor]) -> None:
+    """One launch of K2d for `n_lanes` lanes, each tensor argument a
+    build.LaneArg in DENSE_LANES order; `culled` (shared by the lanes, or
+    None) adds up the culled tiles."""
+    name = "integrate_dense"
+    s0, w0, x0, y0, z0, d0, p0, pr0 = (a.lane(0) for a in (sdf, w, xs, ys, zs, depth, pose, proj))
+    if s0.dim() != 3 or w0.shape != s0.shape:
+        raise ValueError(f"{name}: sdf must be [Z, Y, X] and w of its shape")
+    Z, Y, X = s0.shape
+    if x0.shape != (X,) or y0.shape != (Y,) or z0.shape != (Z,):
+        raise ValueError(f"{name}: xs, ys, zs must be the array's axes [X], [Y], [Z]")
+    if d0.dim() != 2 or p0.shape != (4, 4) or pr0.shape != (4,):
+        raise ValueError(f"{name}: depth must be [H, W], pose [4, 4], proj (fx, fy, cx, cy)")
+    for t in (s0, x0, y0, z0, d0, p0, pr0):
+        build.require_dtype(name, t, torch.float32)
+    build.require_dtype(name, w0, torch.int32)
+    tensors = [s0, w0, x0, y0, z0, d0, p0, pr0]
+    if culled is not None:
+        if culled.numel() != 1:
+            raise ValueError(f"{name}: culled must be one int64 counter")
+        build.require_dtype(name, culled, torch.int64)
+        tensors.append(culled)
+    build.require_cuda(name, *tensors, device=s0.device)
+    h, wd = d0.shape
+    lanes = [sdf, w, xs, ys, zs, depth, pose, proj]
+    err = build.library().itpu_integrate_dense(
+        sdf.ptr(), w.ptr(), xs.ptr(), ys.ptr(), zs.ptr(), X, Y, Z, depth.ptr(), h, wd, pose.ptr(), proj.ptr(),
+        ctypes.c_float(voxel_size), ctypes.c_float(mu), max_w, int(stop_at_max_w),
+        None if culled is None else culled.data_ptr(), n_lanes, build.lane_strides(lanes), build.stream_ptr(),
+    )
+    build.check("itpu_integrate_dense", err)
+    build.count_launch(name)
+
+
+def integrate_dense_cuda(sdf, w, xs, ys, zs, depth, pose, proj, voxel_size: float, mu: float, max_w: int,
+                         stop_at_max_w: bool, culled=None) -> None:
+    """Launch K2d for one lane (in place in `sdf` and `w`)."""
+    _launch_dense(1, *build.single(sdf, w, xs, ys, zs, depth, pose, proj), voxel_size, mu, max_w, stop_at_max_w,
+                  culled)
+
+
+@torch.library.custom_op("itpu::integrate_dense", mutates_args=("sdf", "w", "culled"))
+def integrate_dense_op(sdf: torch.Tensor, w: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor, zs: torch.Tensor,
+                       depth: torch.Tensor, pose: torch.Tensor, proj: torch.Tensor, voxel_size: float, mu: float,
+                       max_w: int, stop_at_max_w: bool, culled: Optional[torch.Tensor]) -> None:
+    """One lane's dense fusion, in place in `sdf` and `w`: the plain version
+    for CPU tensors, K2d for CUDA tensors."""
+    fn = integrate_dense_plain if sdf.device.type == "cpu" else integrate_dense_cuda
+    fn(sdf, w, xs, ys, zs, depth, pose, proj, voxel_size, mu, max_w, stop_at_max_w, culled)
+
+
+@integrate_dense_op.register_vmap
+def _integrate_dense_vmap(info, in_dims, *args):
+    """B lanes: one K2d launch on the card; the plain version lane by lane
+    on the CPU. The `culled` counter is shared by the lanes."""
+    if in_dims[12] is not None:
+        raise ValueError("integrate_dense: the culled counter is shared by the lanes, not batched")
+    lanes, backs = build.vmap_lanes(in_dims[:8], args[:8])
+    if args[0].device.type == "cpu":
+        for b in range(info.batch_size):
+            integrate_dense_op(*(a.lane(b) for a in lanes), *args[8:])
+    else:
+        _launch_dense(info.batch_size, *lanes, *args[8:])
+    build.write_back(backs, (0, 1))
+    return None, None
+
+
+def integrate_dense(sdf, w, xs, ys, zs, depth, pose, proj, voxel_size: float, mu: float, max_w: int,
+                    stop_at_max_w: bool, culled=None) -> None:
+    """In-place fusion of `depth` into every voxel of the plain array: the
+    plain version for CPU tensors, kernel K2d for CUDA tensors (through
+    `itpu::integrate_dense`, batched by `torch.vmap` into one launch).
+    `culled`, an int64 counter on the card, adds up the tiles K2d culled."""
+    integrate_dense_op(sdf, w, xs, ys, zs, depth, pose, proj, float(voxel_size), float(mu), int(max_w),
+                       bool(stop_at_max_w), culled)
 
 
 def _check_rows(name: str, vox, visible_ids, entry_ptr, entry_pos, block_size: int) -> None:

@@ -325,6 +325,7 @@ KERNEL_SYMBOLS = {
     "_Z21itpu_integrate_kernelILb0ELb1EEvPiS0_PKiiS2_S2_iPKfiiS4_iiS4_S4_S4_S4_PKbffii9ItpuLanes": "integrate",
     "_Z21itpu_integrate_kernelILb1ELb0EEvPiS0_PKiiS2_S2_iPKfiiS4_iiS4_S4_S4_S4_PKbffii9ItpuLanes": "integrate_color",
     "_Z21itpu_integrate_kernelILb1ELb1EEvPiS0_PKiiS2_S2_iPKfiiS4_iiS4_S4_S4_S4_PKbffii9ItpuLanes": "integrate_color",
+    "_Z27itpu_integrate_dense_kernelPfPiPKfS2_S2_iiiS2_iiS2_S2_ffiiPy9ItpuLanes": "integrate_dense",
     "_Z19itpu_raycast_kernelI15ItpuBlockReaderI13ItpuGridIndexELb0ELi1EEvT_iPKfS5_fS5_S5_iifPKbPf9ItpuLanes": "raycast",
     "_Z19itpu_raycast_kernelI15ItpuBlockReaderI13ItpuGridIndexELb1ELi1EEvT_iPKfS5_fS5_S5_iifPKbPf9ItpuLanes": "raycast",
     "_Z19itpu_raycast_kernelI15ItpuBlockReaderI13ItpuHashIndexELb0ELi1EEvT_iPKfS5_fS5_S5_iifPKbPf9ItpuLanes":
@@ -344,6 +345,8 @@ KERNEL_SYMBOLS = {
 
     "void itpu_icp_kernel<true>(float const*, float const*, int, int, float4 const*)": "icp_weighted",
     "void itpu_integrate_kernel<false, true>(int*, int*, int const*, int)": "integrate",
+    "itpu_integrate_dense_kernel(float*, int*, float const*, float const*, float const*, int, int, int)":
+        "integrate_dense",
     "void itpu_raycast_kernel<ItpuBlockReader<ItpuGridIndex>, false, 1>(ItpuBlockReader<ItpuGridIndex>)": "raycast",
     "void itpu_raycast_kernel<ItpuBlockReader<ItpuHashIndex>, true, 1>(ItpuBlockReader<ItpuHashIndex>)":
         "raycast_hash",

@@ -115,7 +115,7 @@ def test_captured_dense_frames_equal_uncaptured(device, frames):
         out[capture] = (poses, diags, captured.tree_map(torch.clone, (vol, st)))
     assert_trees_equal(out[False], out[True])
     (g,) = captured.graphs()
-    assert g["launches"] == g["tally"] == {"icp": ITERS, "raycast_dense": 1}
+    assert g["launches"] == g["tally"] == {"icp": ITERS, "integrate_dense": 1, "raycast_dense": 1}
 
 
 @pytest.mark.parametrize("kind", ["hash", "dense"])
@@ -142,7 +142,8 @@ def test_captured_batched_steps_equal_uncaptured(device, frames, kind):
         torch.cuda.synchronize()
         out[capture] = (poses, metrics, captured.tree_map(torch.clone, state), build.launch_counts())
     assert_trees_equal(out[False][:3], out[True][:3])
-    per_step = {"icp": ITERS, "integrate": 1, "raycast": 1} if kind == "hash" else {"icp": ITERS, "raycast_dense": 1}
+    per_step = ({"icp": ITERS, "integrate": 1, "raycast": 1} if kind == "hash"
+                else {"icp": ITERS, "integrate_dense": 1, "raycast_dense": 1})
     assert out[True][3] == dict.fromkeys(build.KERNELS, 0) | {k: v * N for k, v in per_step.items()}
     (g,) = captured.graphs()
     assert g["launches"] == g["tally"] == per_step

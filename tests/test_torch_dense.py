@@ -44,7 +44,9 @@ from infinitam_tpu_torch.engine import dense_pipeline as t_dp
 from infinitam_tpu_torch.engine import meshing_engine as t_me
 from infinitam_tpu_torch.engine import volume as t_vol
 from infinitam_tpu_torch.engine.view_builder import View
+from infinitam_tpu_torch.ops import tsdf as t_tsdf
 from infinitam_tpu_torch.ops.kernels import build
+from infinitam_tpu_torch.ops.kernels import integrate as k_int
 from infinitam_tpu_torch.ops.kernels import raycast as k_ray
 from infinitam_tpu_torch.utils import se3 as t_se3
 
@@ -197,6 +199,94 @@ def test_integrate_frame_dense_matches_jax(replay, frame, color):
     np.testing.assert_allclose(sdf_t, sdf_j, rtol=0, atol=2.0**-23)
     # the fused-average rounding is the only difference: most voxels are equal
     assert int((sdf_t != sdf_j).sum()) < 0.01 * int((w_j > 0).sum())
+
+
+def k2d_inputs(replay, frame=3):
+    """K2d's arguments after `sdf, w` for frame `frame` of the replay, as
+    integrate_frame_dense passes them, and the array before the frame."""
+    f = replay[0][frame]
+    vol = to_port(f["before"][0])
+    sp = SETTINGS.scene
+    axes = tuple(p.reshape(-1) for p in t_vol.voxel_world_coords(SETTINGS.plain, sp.voxel_size, device="cpu"))
+    return vol, (*axes, T(f["depth"]), T(f["pose"]), T(PROJ), sp.voxel_size, sp.mu)
+
+
+@pytest.mark.parametrize("stop", [False, True], ids=["run-on", "stop-at-max-w"])
+def test_k2d_on_the_cpu_equals_tsdf_integrate_dense(replay, stop):
+    """The op on CPU tensors is its plain twin: tsdf.integrate_dense's
+    functional update bit for bit, in place in the array's tensors, with a
+    cap of 2 that frames 0-2 reached (some voxels at it stay frozen with
+    `stop`); no kernel is launched and the tile counter is left alone."""
+    vol, args = k2d_inputs(replay)
+    xs, ys, zs = args[:3]
+    pts = (xs.reshape(1, 1, -1), ys.reshape(1, -1, 1), zs.reshape(-1, 1, 1))
+    want_sdf, want_w, _c, _wc = t_tsdf.integrate_dense(vol.sdf.clone(), vol.w_depth.clone(), pts, *args[4:6], args[3],
+                                                       SETTINGS.scene.mu, 2, stop)
+    sdf, w = vol.sdf.clone(), vol.w_depth.clone()
+    planes = (sdf.data_ptr(), w.data_ptr())
+    culled = torch.zeros((), dtype=torch.int64)
+    build.reset_launch_counts()
+    k_int.integrate_dense(sdf, w, *args, 2, stop, culled)
+    assert build.launch_counts() == dict.fromkeys(build.KERNELS, 0)
+    assert (sdf.data_ptr(), w.data_ptr()) == planes and int(culled) == 0
+    assert torch.equal(sdf, want_sdf) and torch.equal(w, want_w)
+    assert int((w != vol.w_depth).sum()) > 10000
+    at_cap = vol.w_depth >= 2
+    moved_at_cap = int((sdf[at_cap] != vol.sdf[at_cap]).sum())
+    assert moved_at_cap == 0 if stop else moved_at_cap > 1000
+
+
+def test_k2d_vmap_on_the_cpu_equals_a_loop_over_lanes(replay):
+    """B = 2 lanes under torch.vmap, each with its own array, depth and
+    pose (the intrinsics and axes shared): each lane equal to the op on that
+    lane alone, bit for bit, written into the stacked planes in place."""
+    lanes = [k2d_inputs(replay, frame) for frame in (2, 3)]
+    sdf = torch.stack([v.sdf for v, _a in lanes])
+    w = torch.stack([v.w_depth for v, _a in lanes])
+    depth = torch.stack([a[3] for _v, a in lanes])
+    pose = torch.stack([a[4] for _v, a in lanes])
+    xs, ys, zs, _d, _p, proj, vs, mu = lanes[0][1]
+    fuse = (vs, mu, SETTINGS.scene.max_w, False)
+
+    def step(s, w_, d, p):
+        k_int.integrate_dense(s, w_, xs, ys, zs, d, p, proj, *fuse)
+        return s, w_
+
+    out = torch.vmap(step)(sdf, w, depth, pose)
+    for b, (vol, a) in enumerate(lanes):
+        s1, w1 = vol.sdf.clone(), vol.w_depth.clone()
+        k_int.integrate_dense(s1, w1, *a[:6], *fuse)
+        assert torch.equal(sdf[b], s1) and torch.equal(w[b], w1), b
+        assert torch.equal(out[0][b], s1) and torch.equal(out[1][b], w1), b
+        assert int((w1 != vol.w_depth).sum()) > 10000
+
+
+@pytest.mark.parametrize("color", [False, True], ids=["depth", "colour"])
+def test_dense_frame_fuses_through_k2d_without_colour_only(replay, monkeypatch, color):
+    """integrate_frame_dense takes K2d's op when the settings fuse no
+    colour, and tsdf.integrate_dense's torch ops (colour included) alone
+    when they do; either way the array's tensors are written in place."""
+    calls = []
+
+    def spy(name, fn):
+        def call(*a, **kw):
+            calls.append(name)
+            return fn(*a, **kw)
+
+        return call
+
+    monkeypatch.setattr(k_int, "integrate_dense", spy("k2d", k_int.integrate_dense))
+    monkeypatch.setattr(t_tsdf, "integrate_dense", spy("torch", t_tsdf.integrate_dense))
+    f = replay[0][3]
+    settings = SETTINGS.replace(use_color=color)
+    vol = t_vol.create_dense(SETTINGS.plain, with_color=color, device="cpu")
+    rgb = torch.rand((*IMG, 3), generator=torch.Generator().manual_seed(3)) if color else None
+    out = t_dp.integrate_frame_dense(vol, View(depth=T(f["depth"]), rgb=rgb), T(f["pose"]), T(PROJ), settings)
+    # on the CPU K2d's op runs its plain twin, tsdf.integrate_dense, inside it
+    assert calls == (["torch"] if color else ["k2d", "torch"])
+    assert out.sdf is vol.sdf and out.w_depth is vol.w_depth and int((vol.w_depth > 0).sum()) > 10000
+    if color:
+        assert out.clr is vol.clr and int((vol.w_color > 0).sum()) > 1000
 
 
 def test_raycast_dense_matches_jax(replay):

@@ -92,9 +92,9 @@ def test_cpu_frame_uses_only_plain_versions():
     assert int(diag.num_valid) > 1000
     assert np.isfinite(st.pose.numpy()).all()
     assert build.launch_counts() == {"icp": 0, "icp_weighted": 0, "integrate": 0, "integrate_color": 0,
-                                     "raycast": 0, "raycast_hash": 0, "raycast_dense": 0, "probe_gather": 0,
-                                     "probe_rows": 0, "probe_page_sum": 0, "probe_scale": 0, "probe_gemm": 0,
-                                     "probe_window_sums": 0}
+                                     "integrate_dense": 0, "raycast": 0, "raycast_hash": 0, "raycast_dense": 0,
+                                     "probe_gather": 0, "probe_rows": 0, "probe_page_sum": 0, "probe_scale": 0,
+                                     "probe_gemm": 0, "probe_window_sums": 0}
     assert build.library.cache_info().currsize == 0  # no CUDA library was built or loaded
 
 

@@ -759,7 +759,7 @@ def dense_fused(device):
 def test_k3d_matches_plain_and_the_dense_loop_launches_it(dense_fused, device):
     settings, proj, vol, st, counts = dense_fused
     iters = sum(TrackingParams(n_levels=3).iterations_per_level[:3])
-    assert counts == dict.fromkeys(build.KERNELS, 0) | {"icp": 3 * iters, "raycast_dense": 3}
+    assert counts == dict.fromkeys(build.KERNELS, 0) | {"icp": 3 * iters, "integrate_dense": 3, "raycast_dense": 3}
     sp = settings.scene
     zmin = torch.full(IMG, sp.view_frustum_min, device=device)
     zmax = torch.full(IMG, sp.view_frustum_max, device=device)
@@ -787,6 +787,83 @@ def test_dense_mesh_on_the_card_equals_the_cpu_mesh(dense_fused):
     on_cpu = meshing_engine.mesh_scene_dense(type(vol)(*(None if t is None else t.cpu() for t in vol)), settings)
     assert on_card.n_triangles == on_cpu.n_triangles > 1000
     np.testing.assert_allclose(on_card.triangles, on_cpu.triangles, rtol=0, atol=1e-6)
+
+
+def k2d_case(dense_fused, device, camera):
+    """(the fused array, K2d's arguments after `sdf, w` with the default cap)
+    for a camera: `frames`, frame 4 of the dense loop's trajectory at its
+    true pose; `outside`, a camera 0.8 m in front of the array's z = 0 face
+    looking in, turned so that the frustum's edges cut tiles at a slant;
+    `away`, a camera 0.5 m in front of that face looking away from the
+    array at a wall 1 m off, so that no voxel lies in front of it."""
+    settings, proj, vol, _st, _c = dense_fused
+    if camera == "frames":
+        pose = torch.as_tensor(synth.make_trajectory(4)[3], device=device)
+    else:  # world → camera of a camera at `centre`, turned by `turn`
+        turn, centre = ((0.1, 0.25, 0.05), (0.3, -0.2, -0.8)) if camera == "outside" else ((0, np.pi, 0), (0, 0, -0.5))
+        R = se3.so3_exp(torch.tensor(turn, dtype=torch.float32, device=device))
+        pose = se3.pack_rt(R, -(R @ torch.tensor(centre, dtype=torch.float32, device=device)))
+    depth = torch.ones(IMG, device=device) if camera == "away" else synth.render_depth(pose, proj, IMG)
+    sp = settings.scene
+    axes = tuple(a.reshape(-1) for a in dp.vol_mod.voxel_world_coords(settings.plain, sp.voxel_size, device=device))
+    return vol, (*axes, depth, pose.contiguous(), proj, sp.voxel_size, sp.mu)
+
+
+def on_cpu(*tensors):
+    return tuple(t.cpu() if torch.is_tensor(t) else t for t in tensors)
+
+
+@pytest.mark.parametrize("stop", [False, True], ids=["run-on", "stop-at-max-w"])
+@pytest.mark.parametrize("camera", ["frames", "outside", "away"])
+def test_k2d_matches_plain_bit_for_bit(dense_fused, device, camera, stop):
+    """K2d against its plain twin (run on the CPU, whose division is IEEE's
+    as the kernel's is), torch.equal on both planes, with a cap of 2 that
+    the 3 fused frames reached (with `stop` the voxels at it stay frozen):
+    one launch; the tiles it culls are fewer than all where the frustum
+    meets the array and all of them for the camera looking away, where
+    the map is left as it was; two launches on one input agree."""
+    settings, _proj, vol, _st, _c = dense_fused
+    _vol, args = k2d_case(dense_fused, device, camera)
+    fuse = (2, stop)
+    sdf, w = vol.sdf.clone(), vol.w_depth.clone()
+    culled = torch.zeros((), dtype=torch.int64, device=device)
+    build.reset_launch_counts()
+    integrate.integrate_dense(sdf, w, *args, *fuse, culled)
+    assert build.launch_counts() == dict.fromkeys(build.KERNELS, 0) | {"integrate_dense": 1}
+    ps, pw = (t.to("cpu", copy=True) for t in (vol.sdf, vol.w_depth))
+    integrate.integrate_dense_plain(ps, pw, *on_cpu(*args), *fuse)
+    assert torch.equal(sdf.cpu(), ps) and torch.equal(w.cpu(), pw)
+    n_tiles = integrate.dense_tiles(settings.plain.size)
+    changed = int((pw != vol.w_depth.cpu()).sum()) + int((ps != vol.sdf.cpu()).sum())
+    if camera == "away":
+        assert changed == 0 and int(culled) == n_tiles
+    else:
+        assert changed > 10000 and 0 < int(culled) < n_tiles
+    at_cap = vol.w_depth.cpu() >= 2
+    moved_at_cap = int((ps[at_cap] != vol.sdf.cpu()[at_cap]).sum())
+    if stop or camera == "away":
+        assert moved_at_cap == 0
+    elif camera == "frames":
+        assert moved_at_cap > 1000
+    again_s, again_w = vol.sdf.clone(), vol.w_depth.clone()
+    integrate.integrate_dense(again_s, again_w, *args, *fuse)
+    assert torch.equal(again_s, sdf) and torch.equal(again_w, w)
+
+
+def test_k2d_wrapper_checks_its_inputs(dense_fused, device):
+    _s, _p, vol, _st, _c = dense_fused
+    _vol, args = k2d_case(dense_fused, device, "frames")
+    xs, ys, zs, depth, pose, proj, vs, mu = args
+    good = dict(sdf=vol.sdf, w=vol.w_depth, xs=xs, ys=ys, zs=zs, depth=depth, pose=pose, proj=proj, culled=None)
+    for bad in (dict(sdf=vol.sdf.double()), dict(w=vol.w_depth.float()), dict(sdf=vol.sdf[:-1]),
+                dict(xs=xs[:-1]), dict(zs=ys[:-1]), dict(depth=depth[None]), dict(pose=pose.T),
+                dict(proj=proj[:3]), dict(sdf=vol.sdf.transpose(1, 2)), dict(depth=depth.cpu()),
+                dict(culled=torch.zeros(2, dtype=torch.int64, device=device)),
+                dict(culled=torch.zeros((), dtype=torch.int32, device=device))):
+        a = good | bad
+        with pytest.raises(ValueError):
+            integrate.integrate_dense_cuda(a["sdf"], a["w"], a["xs"], a["ys"], a["zs"], a["depth"], a["pose"],
+                                           a["proj"], vs, mu, 100, False, a["culled"])
 
 
 # ---- lane-indexed launches (torch.vmap, parallel/batch.py) ----------------
@@ -868,6 +945,39 @@ def test_lane_indexed_k2_at_b3(fused, fused_rgb, device, color):
             assert torch.equal(planes[k][b], single[k]) and torch.equal(single[k], plain[k]), (b, k)
             assert not torch.equal(single[k], ref[b][k])
     assert not torch.equal(planes[0][1], planes[0][2])
+
+
+def test_lane_indexed_k2d_at_b3(dense_fused, device):
+    """Three lanes, each its own copy of the array, depth and pose (frame
+    4's, nudged), the axes and intrinsics shared: one launch for the
+    three, each lane equal to its single-lane launch and to the plain twin
+    on the CPU, bit for bit, and one culled counter for all lanes."""
+    _s, _p, vol, _st, _c = dense_fused
+    _vol, (xs, ys, zs, depth, pose, proj, vs, mu) = k2d_case(dense_fused, device, "frames")
+    sdf, w = lanes3(vol.sdf, (1, 1, 1)), lanes3(vol.w_depth, (1, 1, 1))
+    depths, poses = lanes3(depth), perturbed_poses(pose)
+    fuse = (vs, mu, 100, False)
+    ref = [(sdf[b].clone(), w[b].clone()) for b in range(3)]
+    culled = torch.zeros((), dtype=torch.int64, device=device)
+
+    def one(s_, w_, d, p, counter=None):
+        integrate.integrate_dense(s_, w_, xs, ys, zs, d, p, proj, *fuse, counter)
+        return s_, w_
+
+    build.reset_launch_counts()
+    torch.vmap(lambda *a: one(*a, culled))(sdf, w, depths, poses)
+    assert build.launch_counts() == dict.fromkeys(build.KERNELS, 0) | {"integrate_dense": 1}
+    single_culled = torch.zeros_like(culled)
+    for b in range(3):
+        single = tuple(t.clone() for t in ref[b])
+        one(*single, depths[b], poses[b], single_culled)
+        plain = tuple(t.to("cpu", copy=True) for t in ref[b])
+        integrate.integrate_dense_plain(*plain, *on_cpu(xs, ys, zs, depths[b], poses[b], proj), *fuse)
+        for k in range(2):
+            assert torch.equal((sdf, w)[k][b], single[k]) and torch.equal(single[k].cpu(), plain[k]), (b, k)
+            assert not torch.equal(single[k], ref[b][k])
+    assert int(culled) == int(single_culled) > 0
+    assert not torch.equal(sdf[1], sdf[2])
 
 
 @pytest.mark.parametrize("reader", ["k3", "k3h", "k3d"])
@@ -1064,7 +1174,8 @@ def test_ranks_match_the_one_process_batched_step(device, kind, cards):
                 one_set = set(map(tuple, pos[lane][ptr[lane] >= 0].tolist()))
                 assert len(rank_set ^ one_set) <= 4 and len(one_set) > 100, lane
     iters = sum(TrackingParams(n_levels=3).iterations_per_level[:3])
-    per_frame = {"icp": iters, "raycast_dense": 1} if dense else {"icp": iters, "integrate": 1, "raycast": 1}
+    per_frame = ({"icp": iters, "integrate_dense": 1, "raycast_dense": 1} if dense
+                 else {"icp": iters, "integrate": 1, "raycast": 1})
     for r in out:
         assert r["launches"] == dict.fromkeys(build.KERNELS, 0) | {k: v * n for k, v in per_frame.items()}
     assert float(out[0]["mean_valid"][-1]) > 1000
