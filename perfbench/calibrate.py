@@ -2,12 +2,13 @@
 
     python3 -m perfbench.calibrate --workload <cell> --seeds 1,2,3 --mode program|control
 
-`program`: set-up once, then for each seed the cell's frames rendered anew
-and one pass of the program from a fresh map (its graph captured in set-up,
-so no capture here), judged as a run judges its last pass. `control`: for
-each seed the reference itself in bfloat16, run on its own in the program's
-place (perfbench/compare.py free_run), judged the same way. Prints one JSON
-line a seed: the compared numbers. Not run by the benchmark's runs.
+`program`: set-up once, then for each seed the cell's inputs made anew (its
+kind's `frames`) and one pass of the program from a fresh map (its graph
+captured in set-up, so no capture here), judged as a run judges its last
+pass. `control`: for each seed the reference itself in bfloat16, run on its
+own in the program's place over each lane's depth frames
+(perfbench/compare.py free_run), judged the same way. Prints one JSON line
+a seed: the compared numbers. Not run by the benchmark's runs.
 """
 
 from __future__ import annotations
@@ -43,28 +44,29 @@ def main(argv=None) -> int:
     dev = torch.device("cuda:0")
     lanes, n = tr["lanes"], tr["frames"]
     img, proj = tuple(tr["image"]), tr["intrinsics"]
+    kind = registry.kind(cfg["kind"])
     system = None
     for seed in (int(s) for s in args.seeds.split(",")):
         t = time.perf_counter()
-        gt, depths = run.frames_of(tr, seed, dev)
+        gt, inputs = kind.frames(tr, seed, dev)
         if args.mode == "program":
             if system is None:
-                system = run.new_system(cfg, tr, dev)
-                system.run_pass(depths)
+                system = kind.System(cfg, tr, dev)
+                system.run_pass(inputs)
             rec = system.new_record(n)
-            system.run_pass(depths, rec)
+            system.run_pass(inputs, rec)
             outputs = system.outputs()
             poses = rec["poses"][None].cpu().numpy()
-            counters = rec["counters"][None].cpu().numpy() if system.kind == "hash" else None
+            counters = rec["counters"][None].cpu().numpy() if kind.COUNTERS else None
         else:
             outputs, plist = [], []
             for b in range(lanes):
-                p, vmap, maps = compare.free_run(cfg, depths[b], img, proj, dev, torch.bfloat16)
+                p, vmap, maps = compare.free_run(cfg, inputs[b], img, proj, dev, torch.bfloat16)
                 outputs.append((vmap, maps))
                 plist.append(p)
             poses = np.stack(plist, 1)[None]
             counters = None
-        nums, failed = compare.judge(cfg, cfg["kind"], depths, gt, poses, outputs, counters, img, proj, dev)
+        nums, failed = kind.judge(cfg, inputs, gt, poses, outputs, counters, img, proj, dev)
         print(json.dumps({"seed": seed, "mode": args.mode, "failed": failed, "seconds": time.perf_counter() - t}
                          | nums), flush=True)
     return 0

@@ -40,6 +40,7 @@ ICP_OPS_PIXEL = 116  # back-projection, two transforms, projection, the point ta
 ICP_OPS_VALID = 121  # a valid pixel's normal tap, b, A and its 29 products and sums
 INTEGRATE_OPS_VOXEL = 37  # centre, transform, projection, depth tap, η and its gate
 INTEGRATE_OPS_UPDATE = 12  # an updated voxel's running average and quantisation
+INTEGRATE_OPS_DENSE_UPDATE = 8  # K2d's updated voxel: the running average, no quantisation
 RAYCAST_OPS_RAY = 80  # the ray from the pixel and its two depth bounds
 RAYCAST_OPS_READ = 10  # every march step: + 0.5, floor and convert per axis, the sdf ≤ 0 test
 RAYCAST_OPS_DECODE = 2  # a hash voxel's int16 sdf: convert and scale
@@ -365,7 +366,8 @@ class Reference:
 
     def _update(self, old_sdf, old_w, pts, pose, depth):
         """The running-average TSDF update of voxels at world points `pts`
-        (three planes): (new sdf, new w, updated, in-frame, η, depth pixel)."""
+        (three planes): (new sdf, new w, updated, passed the η gate,
+        in-frame, depth pixel)."""
         fx, fy, cx, cy = self.proj
         x, y, z = transform(pose, *pts)
         valid = z > 0
@@ -377,13 +379,12 @@ class Reference:
         pix = vi * self.W + ui
         dm = depth.reshape(-1)[pix]
         eta = dm - z
-        upd = inside & (dm > 0) & (eta >= -self.p.mu)
-        if self.p.stop_at_max_w:
-            upd = upd & (old_w < self.p.max_w)
+        passed = inside & (dm > 0) & (eta >= -self.p.mu)
+        upd = passed & (old_w < self.p.max_w) if self.p.stop_at_max_w else passed
         new_f = torch.clamp(eta / self.p.mu, max=1.0)
         merged = (old_w.to(self.dtype) * old_sdf + new_f) / (old_w + 1).to(self.dtype)
         return (torch.where(upd, merged, old_sdf), torch.where(upd, (old_w + 1).clamp(max=self.p.max_w), old_w),
-                upd, inside, pix)
+                upd, passed, inside, pix)
 
     def integrate(self, depth, pose):
         """Fuse one frame at `pose` (world→camera) into the map."""
@@ -404,7 +405,7 @@ class Reference:
                     for b, loc in zip((bx, by, bz), self.local))
         old_sdf = (self.sdf_q[rows].to(self.dtype) * (1.0 / SDF_SCALE)).to(self.dtype)
         old_w = self.w[rows]
-        sdf, w, upd, inside, pix = self._update(old_sdf, old_w, pts, pose, depth)
+        sdf, w, upd, _passed, inside, pix = self._update(old_sdf, old_w, pts, pose, depth)
         self.sdf_q[rows] = torch.round(sdf.float().clamp(-1.0, 1.0) * SDF_SCALE).to(torch.int32)
         self.w[rows] = w
         if self.counts is not None:
@@ -427,11 +428,26 @@ class Reference:
         ax, ay, az = self._dense_axes()
         X, Y, Z = self.p.dense_size
         slab = max(1, (1 << 24) // (X * Y))
+        tapped = torch.zeros(self.H * self.W, dtype=torch.bool, device=self.dev)
+        n_in = n_pass = n_upd = 0
         for z0 in range(0, Z, slab):
             pts = (ax.reshape(1, 1, X), ay.reshape(1, Y, 1), az[z0:z0 + slab].reshape(-1, 1, 1))
-            sdf, w, _upd, _inside, _pix = self._update(self.sdf[z0:z0 + slab], self.w[z0:z0 + slab], pts, pose, depth)
+            sdf, w, upd, passed, inside, pix = self._update(self.sdf[z0:z0 + slab], self.w[z0:z0 + slab], pts, pose,
+                                                            depth)
             self.sdf[z0:z0 + slab] = sdf.to(self.sdf.dtype)
             self.w[z0:z0 + slab] = w
+            if self.counts is not None:
+                tapped[pix[inside]] = True
+                n_in, n_pass, n_upd = n_in + int(inside.sum()), n_pass + int(passed.sum()), n_upd + int(upd.sum())
+        if self.counts is not None:
+            # K2d's least traffic: each distinct depth pixel an in-frame voxel
+            # taps, sdf and weight read for each voxel past the η gate and
+            # written for each updated, the three axes, the pose's rows and
+            # the intrinsics; every in-frame voxel's centre, transform,
+            # projection, tap and gates, and each updated voxel's average
+            c = self.counts[-1]
+            c["integrate_bytes"] += 4 * int(tapped.sum()) + 8 * (n_pass + n_upd) + 4 * (X + Y + Z) + 48 + 16
+            c["integrate_ops"] += n_in * INTEGRATE_OPS_VOXEL + n_upd * INTEGRATE_OPS_DENSE_UPDATE
 
     # ----- raycast ----------------------------------------------------------
 

@@ -2,11 +2,14 @@
 
     python3 -m perfbench.run --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
-from the root of a checkout, on a machine with the cell's cards. One run:
+from the root of a checkout, on a machine with the cell's cards. A cell's
+configuration names its kind, and the kind's module (perfbench/kinds/,
+found by perfbench/registry.py) makes its inputs, runs its program and
+judges its output; this file names no kind. One run:
 
-1. Set-up (`setup_s`): the imports; the CUDA context; the cell's depth
-   frames rendered on the card from the seed (perfbench/scene.py); the
-   program's live state and a fresh copy; one whole pass of the traffic,
+1. Set-up (`setup_s`): the imports; the CUDA context; the cell's inputs
+   made on the card from the seed (the kind's `frames`); the program's
+   live state and a fresh copy; one whole pass of the traffic,
    which builds the kernel library on a checkout's first run and captures
    the frame step's graph, and two more passes. Every cache that a later
    run reuses lies at a fixed path inside the checkout (`build/kernels/`
@@ -25,7 +28,7 @@ from the root of a checkout, on a machine with the cell's cards. One run:
 3. With `--trace 1`, one more pass under the profiler, read into the cell's
    per-layer metrics (perfbench/metrics/).
 4. The check: the last pass's poses, map, maps and counters against the
-   plain reference (perfbench/compare.py), once the program's state is
+   plain reference (the kind's `judge`), once the program's state is
    freed.
 
 Earlier stderr lines give set-up step by step, the card's clocks, power and
@@ -54,7 +57,7 @@ WARM_PASSES = 2
 # The card's launch latency of a graph's kernel node has two steady states:
 # ~1.2 µs at first and ~1.0 µs once the card switches, at a random moment
 # (0 to 30 s into the load as measured so; the cause is unknown), and it
-# stays there (a hash frame's ~6,200 nodes run 15% faster, a dense frame
+# stays there (a frame of ~6,200 nodes runs 15% faster, one of ~3,000
 # 4%). Before the window, passes run until a graph of NODE_PROBE tiny
 # kernels reads under NODE_US_FAST a node, at most SETTLE_S.
 NODE_PROBE = 2000
@@ -153,28 +156,6 @@ class NodeLatency:
         return min(out)
 
 
-def frames_of(traffic: dict, seed: int, dev):
-    """The cell's true camera poses [B, N, 4, 4] (numpy) and its depth
-    frames [B, N, H, W] rendered on the card from the seed."""
-    import numpy as np
-    import torch
-
-    from perfbench import scene
-
-    lanes, n = traffic["lanes"], traffic["frames"]
-    gt = np.stack([scene.trajectory(n, seed, scale=1.0 - traffic["lane_scale_step"] * b) for b in range(lanes)])
-    depths = torch.stack([scene.render_depths(torch.as_tensor(g, device=dev), traffic["intrinsics"],
-                                              tuple(traffic["image"])) for g in gt])
-    return gt, depths
-
-
-def new_system(cfg: dict, traffic: dict, dev):
-    """The cell's program (perfbench/system.py), before its first pass."""
-    from perfbench.system import System
-
-    return System(cfg, traffic["lanes"], tuple(traffic["image"]), traffic["intrinsics"], dev)
-
-
 class Context:
     """What the metric readers read (perfbench/metrics/)."""
 
@@ -182,12 +163,13 @@ class Context:
         self.__dict__.update(kw)
 
     def roofline(self, kernel: str):
+        """The share (%) of its least time that the cell's kind's `kernel`
+        kernels took in the traced pass; None where there is nothing to read."""
         from perfbench import roofline
-        from perfbench.system import KERNELS
 
-        if not self.counts or self.trace is None:
+        if not self.counts or self.trace is None or kernel not in self.kernels:
             return None
-        device_s = self.trace.seconds_of(KERNELS[kernel]) / self.traced_steps
+        device_s = self.trace.seconds_of(self.kernels[kernel]) / self.traced_steps
         least = roofline.least_per_step(self.counts, kernel)
         if device_s <= 0 or least <= 0:
             return None
@@ -195,12 +177,17 @@ class Context:
 
 
 def run_cell(cell: dict, cfg: dict, traffic: dict, seed: int, seconds: float, trace: bool, device,
-             e2e: list, per_layer: list, readers: dict) -> dict:
-    """One run of a cell (module docstring); returns the result's dict."""
+             e2e: list, per_layer: list, readers: dict, kind=None) -> dict:
+    """One run of a cell (module docstring) by its configuration's kind's
+    module (perfbench/kinds/; by default the one the registry finds);
+    returns the result's dict."""
     import torch
 
-    from perfbench import compare
+    from perfbench import compare, registry
     from perfbench import trace as tracing
+
+    if kind is None:
+        kind = registry.kind(cfg["kind"])
 
     steps = {"imports_s": time.perf_counter() - T_START}
     dev = torch.device(device)
@@ -219,17 +206,17 @@ def run_cell(cell: dict, cfg: dict, traffic: dict, seed: int, seconds: float, tr
     t = time.perf_counter()
     lanes, n = traffic["lanes"], traffic["frames"]
     img, proj = tuple(traffic["image"]), traffic["intrinsics"]
-    gt, depths = frames_of(traffic, seed, dev)
+    gt, inputs = kind.frames(traffic, seed, dev)
     sync()
     steps["frames_s"] = time.perf_counter() - t
 
     t = time.perf_counter()
-    system = new_system(cfg, traffic, dev)
+    system = kind.System(cfg, traffic, dev)
     sync()
     steps["state_s"] = time.perf_counter() - t
 
     t = time.perf_counter()
-    system.run_pass(depths)
+    system.run_pass(inputs)
     sync()
     steps["first_pass_s"] = time.perf_counter() - t
     steps["of_which_kernel_build_s"] = system.build_seconds()
@@ -237,7 +224,7 @@ def run_cell(cell: dict, cfg: dict, traffic: dict, seed: int, seconds: float, tr
     # two more passes, recorded as the window records them
     t = time.perf_counter()
     for _ in range(WARM_PASSES):
-        system.run_pass(depths, system.new_record(n))
+        system.run_pass(inputs, system.new_record(n))
     sync()
     steps["warm_passes_s"] = time.perf_counter() - t
     setup_s = time.perf_counter() - T_START
@@ -252,7 +239,7 @@ def run_cell(cell: dict, cfg: dict, traffic: dict, seed: int, seconds: float, tr
         t = time.perf_counter()
         reads = [node.read_us()]
         while reads[-1] >= NODE_US_FAST and time.perf_counter() - t < SETTLE_S:
-            system.run_pass(depths, system.new_record(n))
+            system.run_pass(inputs, system.new_record(n))
             sync()
             reads.append(node.read_us())
         settle = {"settle_s": time.perf_counter() - t, "settle_passes": len(reads) - 1, "node_us": reads[-1]}
@@ -273,7 +260,7 @@ def run_cell(cell: dict, cfg: dict, traffic: dict, seed: int, seconds: float, tr
     try:
         while True:
             rec = system.new_record(n)
-            issue += system.run_pass(depths, rec)
+            issue += system.run_pass(inputs, rec)
             records.append(rec)
             if cuda:
                 ends.append(torch.cuda.Event(enable_timing=True))
@@ -298,27 +285,26 @@ def run_cell(cell: dict, cfg: dict, traffic: dict, seed: int, seconds: float, tr
     dtrace = None
     if trace:
         rec = system.new_record(n)
-        dtrace = tracing.profile(lambda: system.run_pass(depths, rec), os.environ.get("TMPDIR", str(ROOT)))
+        dtrace = tracing.profile(lambda: system.run_pass(inputs, rec), os.environ.get("TMPDIR", str(ROOT)))
         records.append(rec)
     launches = system.launches_per_replay()
 
     # ----- the check --------------------------------------------------------
     outputs = system.outputs()
     poses = torch.stack([r["poses"] for r in records]).cpu().numpy()
-    counters = torch.stack([r["counters"] for r in records]).cpu().numpy() if system.kind == "hash" else None
-    kind = system.kind
+    counters = torch.stack([r["counters"] for r in records]).cpu().numpy() if kind.COUNTERS else None
     system.close()
     del system
     t = time.perf_counter()
     counts = [] if trace else None
-    nums, failed = compare.judge(cfg, kind, depths, gt, poses, outputs, counters, img, proj, dev, counts=counts)
+    nums, failed = kind.judge(cfg, inputs, gt, poses, outputs, counters, img, proj, dev, counts=counts)
     log(f"reference_s {time.perf_counter() - t}")
     limits = compare.limits_of(cfg)
     ok = compare.verdict(nums, limits)
 
     ctx = Context(lanes=lanes, frames=frames, window_s=window_s, peak_bytes=peak, setup_s=setup_s,
                   issue_ms=1e3 * sum(issue) / len(issue), trace=dtrace, traced_steps=n,
-                  traced_frames=n * lanes, launches_per_replay=launches, counts=counts)
+                  traced_frames=n * lanes, launches_per_replay=launches, counts=counts, kernels=kind.KERNELS)
     metrics = {}
     for m in (per_layer if trace else e2e):
         v = readers[m["name"]](ctx)
@@ -366,9 +352,10 @@ def main(argv=None) -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    kind = registry.kind(cfg["kind"])
     try:
         result = run_cell(cell, cfg, traffic, args.seed, args.seconds, bool(args.trace), "cuda:0", e2e, per_layer,
-                          readers)
+                          readers, kind)
     except CardNotSettled as e:
         log(f"no result: {e}")
         return 4

@@ -113,3 +113,15 @@ def render_depths(poses: torch.Tensor, proj, img_size, t_min: float = 0.2, t_max
         hit = (scene_sdf(p[..., 0], p[..., 1], p[..., 2]) < 5e-3) & (tt < t_max)
         out.append(torch.where(hit, tt / ray_scale, torch.full_like(tt, -1.0)))
     return torch.cat(out)
+
+
+def frames(traffic: dict, seed: int, dev):
+    """A traffic mix's true camera poses [B, N, 4, 4] (numpy) and its depth
+    frames [B, N, H, W] rendered on `dev` from the seed: B = `lanes`
+    sequences of `frames` frames, lane b on the path at scale
+    1 − `lane_scale_step`·b."""
+    lanes, n = traffic["lanes"], traffic["frames"]
+    gt = np.stack([trajectory(n, seed, scale=1.0 - traffic["lane_scale_step"] * b) for b in range(lanes)])
+    depths = torch.stack([render_depths(torch.as_tensor(g, device=dev), traffic["intrinsics"],
+                                        tuple(traffic["image"])) for g in gt])
+    return gt, depths

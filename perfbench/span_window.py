@@ -1,7 +1,7 @@
 """The span window: per-phase device time inside the captured frame, read
 from the port's phase marks (infinitam_tpu_torch/engine/spans.py).
 
-`run(system, depths, seconds, directory)` comes after a traced run's window
+`run(system, inputs, seconds, directory)` comes after a traced run's window
 and profiled pass, once the window's capture check has been made:
 
 (a) Spans go on. Passes run until the graph with marks has been captured
@@ -82,8 +82,9 @@ def profile_events(fn, directory: str) -> list:
         os.unlink(path)
 
 
-def run(system, depths, seconds: float, directory: str):
-    """(a) and (b) on `system` (perfbench/system.py) after a traced run's
+def run(system, inputs, seconds: float, directory: str):
+    """(a) and (b) on `system` (a kind's System, perfbench/kinds/) fed
+    `inputs` (its kind's `frames`) after a traced run's
     profiled pass: (the span window's records, as the window's, and the
     result for analyse()'s readers), or ([], None) for a program without
     spans or a system off the card. Raises run.CardNotSettled where the
@@ -95,7 +96,7 @@ def run(system, depths, seconds: float, directory: str):
     spans = program_spans()
     if spans is None or system.dev.type != "cuda":
         return [], None
-    n = depths.shape[1]
+    n = system.n_frames
 
     def sync():
         torch.cuda.synchronize(system.dev)
@@ -105,7 +106,7 @@ def run(system, depths, seconds: float, directory: str):
     try:
         for _ in range(MAX_CAPTURE_PASSES):
             graphs = system.graphs()
-            system.run_pass(depths, system.new_record(n))
+            system.run_pass(inputs, system.new_record(n))
             sync()
             if system.graphs() == graphs:
                 break
@@ -114,7 +115,7 @@ def run(system, depths, seconds: float, directory: str):
         t = time.perf_counter()
         reads = [node.read_us()]
         while reads[-1] >= bench.NODE_US_FAST and time.perf_counter() - t < bench.SETTLE_S:
-            system.run_pass(depths, system.new_record(n))
+            system.run_pass(inputs, system.new_record(n))
             sync()
             reads.append(node.read_us())
         settle = {"settle_s": time.perf_counter() - t, "settle_passes": len(reads) - 1, "node_us_reads": reads}
@@ -126,7 +127,7 @@ def run(system, depths, seconds: float, directory: str):
         t0 = time.perf_counter()
         while True:
             rec = system.new_record(n)
-            system.run_pass(depths, rec)
+            system.run_pass(inputs, rec)
             records.append(rec)
             if time.perf_counter() - t0 >= seconds:
                 break
@@ -137,7 +138,7 @@ def run(system, depths, seconds: float, directory: str):
         window = spans.summary()
         spans.reset()
         rec = system.new_record(n)
-        events = profile_events(lambda: system.run_pass(depths, rec), directory)
+        events = profile_events(lambda: system.run_pass(inputs, rec), directory)
         records.append(rec)
         traced = spans.summary()
     finally:
@@ -338,14 +339,15 @@ def main(argv=None) -> int:
 
     dev = torch.device("cuda:0")
     n, lanes = traffic["frames"], traffic["lanes"]
-    gt, depths = bench.frames_of(traffic, args.seed, dev)
-    system = bench.new_system(cfg, traffic, dev)
+    kind = registry.kind(cfg["kind"])
+    gt, inputs = kind.frames(traffic, args.seed, dev)
+    system = kind.System(cfg, traffic, dev)
     for _ in range(1 + bench.WARM_PASSES):
-        system.run_pass(depths, system.new_record(n))
+        system.run_pass(inputs, system.new_record(n))
     torch.cuda.synchronize(dev)
     node, t = bench.NodeLatency(dev), time.perf_counter()
     while node.read_us() >= bench.NODE_US_FAST and time.perf_counter() - t < bench.SETTLE_S:
-        system.run_pass(depths, system.new_record(n))
+        system.run_pass(inputs, system.new_record(n))
         torch.cuda.synchronize(dev)
     bench.log(f"settle_s {time.perf_counter() - t}")
 
@@ -353,7 +355,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     while True:
         rec = system.new_record(n)
-        system.run_pass(depths, rec)
+        system.run_pass(inputs, rec)
         records.append(rec)
         if time.perf_counter() - t0 >= args.seconds:
             break
@@ -361,19 +363,18 @@ def main(argv=None) -> int:
     window_fps = len(records) * n * lanes / (time.perf_counter() - t0)
     if system.graphs() != graphs:
         raise RuntimeError("a graph was captured inside the window")
-    span_records, result = run(system, depths, args.seconds, os.environ.get("TMPDIR", str(bench.ROOT)))
+    span_records, result = run(system, inputs, args.seconds, os.environ.get("TMPDIR", str(bench.ROOT)))
     if result is None:
         bench.log("no result: the program has no spans")
         return 3
     records += span_records
     outputs = system.outputs()
     poses = torch.stack([r["poses"] for r in records]).cpu().numpy()
-    counters = torch.stack([r["counters"] for r in records]).cpu().numpy() if system.kind == "hash" else None
-    kind = system.kind
+    counters = torch.stack([r["counters"] for r in records]).cpu().numpy() if kind.COUNTERS else None
     system.close()
     del system
-    nums, failed = compare.judge(cfg, kind, depths, gt, poses, outputs, counters, tuple(traffic["image"]),
-                                 traffic["intrinsics"], dev)
+    nums, failed = kind.judge(cfg, inputs, gt, poses, outputs, counters, tuple(traffic["image"]),
+                              traffic["intrinsics"], dev)
     ctx = bench.Context(lanes=lanes, spans=result)
     metrics = {q: registry.reader(q)(ctx) for q in QUANTITIES}
     bench.log("spans " + json.dumps(spans_line(result, window_fps)))

@@ -13,10 +13,10 @@ IMG = (6, 8)
 PROJ = (8.0, 8.0, 3.5, 2.5)
 
 
-def fresh(kind="hash"):
+def fresh(kind="hash", cfg=None):
     counts = [{k: 0 for k in ("icp_bytes", "icp_ops", "integrate_bytes", "integrate_ops", "raycast_bytes",
                               "raycast_ops")}]
-    return R.Reference(tiny_config(kind), IMG, PROJ, "cpu", counts=counts), counts
+    return R.Reference(cfg or tiny_config(kind), IMG, PROJ, "cpu", counts=counts), counts
 
 
 def test_icp_launch_counts_every_pixel_and_each_distinct_tap():
@@ -65,6 +65,42 @@ def test_integrate_counts_against_a_voxel_by_voxel_count():
     assert n_vis > 0
     assert c["integrate_bytes"] == 20 * n_vis + 65 + 4 * len(pixels) + 8 * n_upd
     assert c["integrate_ops"] == n_vis * S**3 * R.INTEGRATE_OPS_VOXEL + n_upd * R.INTEGRATE_OPS_UPDATE
+
+
+def test_dense_integrate_counts_against_a_voxel_by_voxel_count():
+    cfg = tiny_config("dense")
+    X, Y, Z = 32, 32, 16
+    cfg["settings"]["plain"].update(size=[X, Y, Z], offset=[-16, -16, 40])  # z 0.80-1.10 m, wider than the view
+    ref, counts = fresh(cfg=cfg)
+    depth = torch.full(IMG, 1.01)
+    depth[0, :3] = 0.0  # holes: a voxel that taps one is in frame but not updated
+    t = (0.0037, -0.0021, 0.0013)  # off the voxel planes, so no voxel sits on a gate's edge
+    pose = torch.eye(4)
+    pose[:3, 3] = torch.tensor(t)
+    ref.integrate(depth, pose)
+    c = counts[0]
+    # the same rules, voxel by voxel, over the whole array
+    vs, mu = ref.p.voxel, ref.p.mu
+    H, W = IMG
+    fx, fy, cx, cy = PROJ
+    ox, oy, oz = ref.p.dense_offset
+    pixels, n_in, n_upd = set(), 0, 0
+    for k in range(Z):
+        for j in range(Y):
+            for i in range(X):
+                x, y, z = ((i + ox) * vs + t[0], (j + oy) * vs + t[1], (k + oz) * vs + t[2])
+                u, v = fx * x / z + cx, fy * y / z + cy
+                if not (1 <= u <= W - 2 and 1 <= v <= H - 2):
+                    continue
+                p = int(v + 0.5) * W + int(u + 0.5)
+                pixels.add(p)
+                n_in += 1
+                d = float(depth.reshape(-1)[p])
+                n_upd += d > 0 and d - z >= -mu
+    assert 0 < n_upd < n_in < X * Y * Z
+    assert int((ref.w > 0).sum()) == n_upd
+    assert c["integrate_bytes"] == 4 * len(pixels) + 16 * n_upd + 4 * (X + Y + Z) + 48 + 16
+    assert c["integrate_ops"] == n_in * R.INTEGRATE_OPS_VOXEL + n_upd * R.INTEGRATE_OPS_DENSE_UPDATE
 
 
 def test_raycast_of_an_empty_map_reads_each_ray_once():

@@ -26,7 +26,7 @@ def run_tiny(kind, lanes):
                         readers)
 
 
-@pytest.mark.parametrize("kind,lanes", [("hash", 1), ("dense", 1), ("hash", 2)])
+@pytest.mark.parametrize("kind,lanes", [("hash", 1), ("dense", 1), ("hash", 2), ("dense", 2)])
 def test_sound_run_is_correct(kind, lanes):
     r = run_tiny(kind, lanes)
     assert r["correct"], r["checks"]
@@ -34,7 +34,7 @@ def test_sound_run_is_correct(kind, lanes):
     assert list(r["checks"])[-1] and list(r)[-1] == "checks"
 
 
-@pytest.mark.parametrize("kind,lanes", [("hash", 1), ("dense", 1), ("hash", 2)])
+@pytest.mark.parametrize("kind,lanes", [("hash", 1), ("dense", 1), ("hash", 2), ("dense", 2)])
 def test_state_returned_unchanged(monkeypatch, kind, lanes):
     real = captured.run
 
@@ -48,7 +48,8 @@ def test_state_returned_unchanged(monkeypatch, kind, lanes):
     assert not run_tiny(kind, lanes)["correct"]
 
 
-def test_half_the_batch_left_out(monkeypatch):
+@pytest.mark.parametrize("kind", ["hash", "dense"])
+def test_half_the_batch_left_out(monkeypatch, kind):
     real = System.step
 
     def half(self, depth):
@@ -59,7 +60,7 @@ def test_half_the_batch_left_out(monkeypatch):
         return out
 
     monkeypatch.setattr(System, "step", half)
-    r = run_tiny("hash", 2)
+    r = run_tiny(kind, 2)
     assert not r["correct"]
 
 

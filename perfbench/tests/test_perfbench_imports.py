@@ -1,7 +1,8 @@
 """What the benchmark may import and read: no module under perfbench/ has
 JAX's or the JAX package's top-level name (compared whole, since the port's
-name begins with the JAX package's); only perfbench/system.py imports the
-port; the reference imports nothing but torch; nothing reads the repo's
+name begins with the JAX package's); only perfbench/system.py and the kind
+modules (perfbench/kinds/) import the port; the reference imports nothing
+but torch; nothing reads the repo's
 older measuring scripts or the TPU-era records."""
 
 from __future__ import annotations
@@ -38,7 +39,8 @@ def test_no_jax_by_top_level_name(path):
 def test_only_the_system_module_imports_the_port():
     users = {p.relative_to(BENCH).as_posix() for p in MODULES
              if "infinitam_tpu_torch" in top_level_imports(p) and "tests" not in p.parts}
-    assert users == {"system.py"}
+    kinds = {p.relative_to(BENCH).as_posix() for p in (BENCH / "kinds").glob("*.py")}
+    assert "system.py" in users and users <= {"system.py"} | kinds
     assert top_level_imports(BENCH / "reference.py") <= {"__future__", "math", "typing", "torch"}
 
 

@@ -4,28 +4,23 @@ which the comparison has to reject."""
 
 from __future__ import annotations
 
-import numpy as np
 import pytest
 import torch
 
 from conftest import tiny_config, tiny_traffic
-from perfbench import compare, scene
-from perfbench.system import System
+from perfbench import compare, registry, scene
 
 
 def frames(traffic, seed):
-    img, proj, n = tuple(traffic["image"]), traffic["intrinsics"], traffic["frames"]
-    gt = np.stack([scene.trajectory(n, seed, scale=1.0 - traffic["lane_scale_step"] * b)
-                   for b in range(traffic["lanes"])])
-    depths = torch.stack([scene.render_depths(torch.as_tensor(g), proj, img) for g in gt])
-    return gt, depths, img, proj
+    gt, depths = scene.frames(traffic, seed, "cpu")
+    return gt, depths, tuple(traffic["image"]), traffic["intrinsics"]
 
 
 @pytest.mark.parametrize("kind", ["hash", "dense"])
 def test_port_agrees_with_the_reference(kind):
     cfg, traffic = tiny_config(kind), tiny_traffic(frames=5)
     gt, depths, img, proj = frames(traffic, 2**40 + 17)
-    system = System(cfg, 1, img, proj, "cpu")
+    system = registry.kind(kind).System(cfg, traffic, "cpu")
     rec = system.new_record(traffic["frames"])
     system.run_pass(depths, rec)
     nums, failed = compare.judge(cfg, kind, depths, gt, rec["poses"][None].numpy(), system.outputs(),

@@ -1,6 +1,6 @@
 """The harness finds each piece by name, and a new configuration, traffic
-mix and metric added as files only (in a temporary copy) are taken without
-an edit to any file there. Without a card a run prints no result and exits
+mix, metric and configuration kind added as files only (in a temporary
+copy) are taken without an edit to any file there. Without a card a run prints no result and exits
 non-zero, and so do a checkout that holds only the benchmark and a card
 that never leaves its slow launch latency."""
 
@@ -22,7 +22,8 @@ def test_every_cell_finds_its_pieces():
     bench = registry.load_benchmark()
     for cell in bench["workloads"]:
         cfg = registry.config(bench, cell["config"])
-        assert cfg["kind"] in ("hash", "dense") and "limits" in cfg and "gates" in cfg
+        assert registry.kind_file(cfg["kind"]).parent == registry.BENCH_DIR / "kinds"
+        assert "limits" in cfg and "gates" in cfg
         assert registry.traffic(cell["traffic"])["frames"] > 0
         for group in ("end_to_end", "per_layer"):
             for m in registry.metrics_for(bench, cell["name"], group):
@@ -70,6 +71,90 @@ def test_new_pieces_added_as_files_only(tmp_path):
     r = run.run_cell(cell, cfg, traffic, 7, 0.1, False, "cpu", e2e, [], readers)
     assert r["correct"], r["checks"]
     assert r["metrics"]["frames_done"]["value"] == r["attempted"] > 0
+    assert all(p.read_bytes() == b for p, b in before.items())
+
+
+def test_every_kind_exports_what_the_harness_reads():
+    for path in sorted((registry.BENCH_DIR / "kinds").glob("*.py")):
+        mod = registry.kind(path.stem)
+        assert set(mod.KERNELS) <= {"icp", "integrate", "raycast"} and isinstance(mod.COUNTERS, tuple)
+        assert all(callable(getattr(mod, f)) for f in ("frames", "System", "judge"))
+    with pytest.raises(FileNotFoundError):
+        registry.kind_file("no_such_kind")
+
+
+# A kind added as a file: the hash step fed a second input a frame (a gain
+# drawn from the seed), whose host tally between steps is reset every pass
+# and judged with the map.
+TOY_KIND = '''
+from pathlib import Path
+
+import torch
+
+from perfbench import registry
+
+_hash = registry.kind("hash", Path(__file__).resolve().parents[1])
+KERNELS = _hash.KERNELS
+COUNTERS = _hash.COUNTERS
+
+
+def frames(traffic, seed, dev):
+    gt, depths = _hash.frames(traffic, seed, dev)
+    gains = 0.5 + torch.rand(traffic["frames"], generator=torch.Generator().manual_seed(seed % 2**63))
+    return gt, (depths, gains)
+
+
+class System(_hash.System):
+    def run_pass(self, inputs, record=None):
+        depths, gains = inputs
+        self.reset()
+        self.tally = []
+        issue = []
+        for i in range(self.n_frames):
+            issue.append(self.frame(depths, i, record))
+            self.tally.append(float(gains[i]))
+        return issue
+
+    def outputs(self):
+        return super().outputs(), list(self.tally)
+
+
+def judge(cfg, inputs, gt, pass_poses, outputs, counters, img, proj, dev, counts=None):
+    (depths, gains), (maps, tally) = inputs, outputs
+    nums, failed = _hash.judge(cfg, depths, gt, pass_poses, maps, counters, img, proj, dev, counts=counts)
+    nums["tally_gap"] = abs(sum(tally) - float(gains.sum()))
+    return nums, failed
+'''
+
+
+def test_new_kind_added_as_files_only(tmp_path):
+    root = tmp_path / "checkout"
+    shutil.copytree(registry.BENCH_DIR, root / "perfbench", ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(registry.ROOT / "BENCHMARK.json", root)
+    before = {p: p.read_bytes() for p in (root / "perfbench").rglob("*") if p.is_file()}
+    cfg = tiny_config("hash")
+    cfg["kind"] = "toy"
+    cfg["limits"]["tally_gap"] = 1e-4
+    (root / "perfbench" / "configs" / "tiny_toy.json").write_text(json.dumps(cfg))
+    (root / "perfbench" / "kinds" / "toy.py").write_text(TOY_KIND)
+    (root / "perfbench" / "traffic" / "tiny_desk.json").write_text(json.dumps(tiny_traffic(1, frames=4)))
+    bench = json.loads((root / "BENCHMARK.json").read_text())
+    bench["configs"].append({"name": "tiny_toy", "source": "a test", "file": "perfbench/configs/tiny_toy.json",
+                             "reduced": [], "why": "a test"})
+    bench["workloads"].append({"name": "tiny.toy", "config": "tiny_toy", "traffic": "tiny_desk", "chips": 1,
+                               "why": "a test"})
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+
+    bench = registry.load_benchmark(root)
+    cell = registry.cell(bench, "tiny.toy")
+    cfg = registry.config(bench, cell["config"], root)
+    traffic = registry.traffic(cell["traffic"], root / "perfbench")
+    kind = registry.kind(cfg["kind"], root / "perfbench")
+    e2e = registry.metrics_for(bench, "tiny.toy", "end_to_end")
+    readers = {m["name"]: registry.reader(m["name"], root / "perfbench") for m in e2e}
+    r = run.run_cell(cell, cfg, traffic, 2**33 + 21, 0.1, False, "cpu", e2e, [], readers, kind)
+    assert r["correct"], r["checks"]
+    assert r["checks"]["tally_gap"]["value"] < 1e-4 and r["checks"]["cap_counters"]["value"] == 0
     assert all(p.read_bytes() == b for p, b in before.items())
 
 
