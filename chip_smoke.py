@@ -2047,8 +2047,9 @@ class Smoke:
         counters = {k: int(torch.stack([getattr(d, k) for d in diags]).max()) for k in COUNTERS}
 
         def backlog(eng):
-            return int(((eng.swap_states == 2) & (eng.vol.entry_ptr >= 0)
-                        & (eng.render_state.visible_type == 0)).sum())
+            from infinitam_tpu_torch.engine import swapping
+
+            return int(swapping.eviction_backlog(eng.vol, eng.swap_states, eng.render_state.visible_type))
 
         pending = backlog(engine)
         t0 = time.perf_counter()

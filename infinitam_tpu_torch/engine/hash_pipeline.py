@@ -84,6 +84,21 @@ def novel_cap(settings: Settings) -> int:
     return max(2 * settings.hashing.max_visible_blocks, 4096)
 
 
+def oog_cap(settings: Settings) -> int:
+    """Capacity of a frame's out-of-grid candidates: OOG_CAP, or with
+    swapping on the novel stage's (novel_cap). A swapping map grows past
+    the block grid by design (the eviction frees pool blocks, not grid
+    cells), and a camera that pans across a wall past the grid's edge
+    sends several times OOG_CAP band candidates a frame there at 5 mm.
+    The JAX package keeps OOG_CAP in both modes: the path without swapping
+    stays held to it entry for entry past the cap
+    (tests/test_torch_alloc.py), and the swap path differs from it only
+    past the cap."""
+    if settings.swapping_mode.value == SwappingMode.ENABLED.value:
+        return max(OOG_CAP, novel_cap(settings))
+    return OOG_CAP
+
+
 class FrameDiagnostics(NamedTuple):
     f: torch.Tensor
     num_valid: torch.Tensor
@@ -99,6 +114,15 @@ class FrameDiagnostics(NamedTuple):
     # round placed this frame (lost their bucket's election in every round,
     # or found no free block or excess slot); retried next frame
     n_alloc_unplaced: torch.Tensor
+
+
+# the swap step's own counters, after the hash frame's: blocks evicted and
+# needed-list entries listed this frame, and what the frame's quanta left
+# (swapping.eviction_backlog over all E after the eviction,
+# swapping.list_backlog after the list); the hash step computes none of them
+SWAP_COUNTERS = ("n_swap_evicted", "n_swap_listed", "n_evict_backlog", "n_list_backlog")
+SwapDiagnostics = NamedTuple("SwapDiagnostics", [(k, torch.Tensor)
+                                                 for k in FrameDiagnostics._fields + SWAP_COUNTERS])
 
 
 def _pad_before(x: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
@@ -210,7 +234,8 @@ def _allocate(vol, render_state, depth, pose, proj, settings, only_update_visibl
     oog = (cval & ~in_grid).reshape(-1)
     n_oog = oog.sum(dtype=torch.int32)
     cb_flat = torch.stack([cbx.reshape(-1), cby.reshape(-1), cbz.reshape(-1)], dim=-1)
-    oidx, _ = compact_by_mask(oog, torch.arange(oog.shape[0], **i32), OOG_CAP, fill=-1)
+    ocap = oog_cap(settings)
+    oidx, _ = compact_by_mask(oog, torch.arange(oog.shape[0], **i32), ocap, fill=-1)
     ovalid = oidx >= 0
     ocand = cb_flat[oidx.clamp(0, oog.shape[0] - 1).long()]
     opr = hv.probe(vol, ocand, hp, include_swapped=True)
@@ -224,7 +249,7 @@ def _allocate(vol, render_state, depth, pose, proj, settings, only_update_visibl
     if use_swapping:
         ocode = torch.where(opr.entry_ptr == hv.SWAPPED_PTR, hv.VT_VISIBLE_SWAPPED, hv.VT_VISIBLE)
         oog_vis_code = torch.where(first, torch.where(ofound, ocode, 0)[order], 0)
-    oog_new_idx = torch.full((OOG_CAP,), E, **i32)
+    oog_new_idx = torch.full((ocap,), E, **i32)
 
     n_alloc_overflow = novel_overflow + k_overflow
     n_unplaced = torch.zeros((), **i32)
@@ -234,7 +259,7 @@ def _allocate(vol, render_state, depth, pose, proj, settings, only_update_visibl
         want = kvalid & (packed0 < 0)
         n_want = want.sum(dtype=torch.int32)
         n_alloc_overflow = (
-            n_alloc_overflow + (n_want - settings.max_alloc_blocks).clamp(min=0) + (n_oog - OOG_CAP).clamp(min=0)
+            n_alloc_overflow + (n_want - settings.max_alloc_blocks).clamp(min=0) + (n_oog - ocap).clamp(min=0)
         )
         dummy_vt = torch.zeros((1,), **i32)  # the codes are written below
         ncell, _ = compact_by_mask(want, kcell, settings.max_alloc_blocks, fill=G3)
@@ -390,7 +415,8 @@ def _allocate_scene_from_depth_legacy(
     # the hash stays canonical)
     oog = cand_valid & ~in_grid
     n_oog = oog.sum(dtype=torch.int32)
-    oidx, _ = compact_by_mask(oog, torch.arange(oog.shape[0], **i32), OOG_CAP, fill=-1)
+    ocap = oog_cap(settings)
+    oidx, _ = compact_by_mask(oog, torch.arange(oog.shape[0], **i32), ocap, fill=-1)
     ocand = cand[oidx.clamp(0, cand.shape[0] - 1).long()]
     ovalid = oidx >= 0
     opr = hv.probe(vol, ocand, hp, include_swapped=True)
@@ -405,7 +431,7 @@ def _allocate_scene_from_depth_legacy(
         want_at = torch.where(cand_valid & in_grid & (code < 0), cell, G3)
         want = scatter_drop(torch.zeros((G3 + 1,), dtype=torch.bool, device=dev), want_at, True)[:G3]
         n_want = want.sum(dtype=torch.int32)
-        n_alloc_overflow = (n_want - settings.max_alloc_blocks).clamp(min=0) + (n_oog - OOG_CAP).clamp(min=0)
+        n_alloc_overflow = (n_want - settings.max_alloc_blocks).clamp(min=0) + (n_oog - ocap).clamp(min=0)
         ncell, _ = compact_by_mask(want, torch.arange(G3, **i32), settings.max_alloc_blocks, fill=-1)
         ncell_c = ncell.clamp(0, G3 - 1)
         nblocks = torch.stack([ncell_c // (gy * gz) + ox, (ncell_c // gz) % gy + oy, ncell_c % gz + oz],
@@ -933,7 +959,8 @@ def step_frame_swap(vol, render_state, state: TrackingState, swap_states, view: 
     of 64 up to the exchange quantum: at most 6), as jit compiles one
     program for each; the outputs are copies. The spans' marks as in
     process_frame_hash, with "swap" after the list and the eviction.
-    Returns (vol, render_state, tracking state, swap_states, diag,
+    Returns (vol, render_state, tracking state, swap_states, diag (a
+    SwapDiagnostics: the hash frame's fields, then SWAP_COUNTERS),
     in_meta [Q+1] (needed ids, count), (ev_meta [Qe+1] (evicted ids, count),
     ev_sdf, ev_w, ev_clr, ev_wc))."""
     if not capture:
@@ -974,13 +1001,15 @@ def _frame_swap(vol, render_state, state, swap_states, view, proj, settings, fus
     vol, swap_states, ev_ids, ev_sdf, ev_w, ev_clr, ev_wc, ev_n = swapping.evict_blocks_window(
         vol, swap_states, render_state.visible_type, settings, swapping.evict_quantum(settings),
         render_state.epoch)
+    swap_counts = (ev_n, in_n, swapping.eviction_backlog(vol, swap_states, render_state.visible_type),
+                   swapping.list_backlog(swap_states, render_state.visible_ids))
     spans.phase("swap")
     new_state, n_pool = _prepare_impl(vol, render_state, state, view, pose, tr, proj, settings, proj_rgb,
                                       rgb_to_depth)
     spans.phase("raycast")
 
-    diag = _frame_diag(vol, render_state, pose, proj, tr, settings, n_alloc, n_pool,
-                       tuple(view.depth.shape))
+    diag = SwapDiagnostics(*_frame_diag(vol, render_state, pose, proj, tr, settings, n_alloc, n_pool,
+                                        tuple(view.depth.shape)), *swap_counts)
     in_meta = torch.cat([in_ids, in_n[None]])
     ev_meta = torch.cat([ev_ids, ev_n[None]])
     return vol, render_state, new_state, swap_states, diag, in_meta, (ev_meta, ev_sdf, ev_w, ev_clr, ev_wc)

@@ -100,15 +100,20 @@ class MainEngine:
         self.main_processing = False
 
     def reset_scene(self):
-        """A fresh map (and, with swapping, fresh swap states, host store and
-        exchange)."""
+        """A fresh map (and, with swapping, fresh swap states, and the host
+        store and exchange emptied in place, or made on the first call)."""
         self.vol, self.render_state, self.tracking_state = hp.create_engine_state(self.settings, self.img_size,
                                                                                   device=self.device)
+        cache, exchange = getattr(self, "global_cache", None), getattr(self, "swap_exchange", None)
         self.swap_states = self.global_cache = self.swap_exchange = None
         if self.swapping:
             self.swap_states = sw.create_swap_states(self.settings, device=self.device)
-            self.global_cache = sw.GlobalCache.create(self.settings)
-            self.swap_exchange = sw.SwapExchange(self.settings, self.settings.use_color, device=self.device)
+            if cache is None or exchange is None:
+                cache = sw.GlobalCache.create(self.settings)
+                exchange = sw.SwapExchange(self.settings, self.settings.use_color, device=self.device)
+            cache.reset()
+            exchange.reset()
+            self.global_cache, self.swap_exchange = cache, exchange
 
     # ----- per frame -----------------------------------------------------
     def process_frame(self, raw_depth=None, rgb=None, metric_depth=None, imu_rotation=None, external_pose=None,
@@ -163,12 +168,12 @@ class MainEngine:
         """Drain the pipelined exchange (checkpoint save, shutdown): the
         pending host halves and merges, then one full-scan eviction (the
         frame scans a rotating window), so that the map and the host store
-        hold every processed frame. It reads back to the host."""
+        hold every processed frame (swapping.end_session). It reads back to
+        the host."""
         if not self.swapping:
             return
-        self.vol, self.swap_states = self.swap_exchange.flush(self.vol, self.swap_states, self.global_cache)
-        self.vol, self.swap_states = sw.swap_out(self.vol, self.swap_states, self.render_state, self.global_cache,
-                                                 self.settings)
+        self.vol, self.swap_states = sw.end_session(self.swap_exchange, self.vol, self.swap_states, self.render_state,
+                                                    self.global_cache, self.settings)
 
     def _f32(self, a) -> torch.Tensor:
         """A pose, rotation or intrinsics (numpy or tensor) as float32 on the

@@ -23,8 +23,13 @@ While spans are on (`enable(device)`, one device a process):
   the card every frame the ring holds is a graph replay.
 - Host spans (name, the host's step number, start ns, end ns) on
   time.perf_counter_ns: captured.run's `stage` (the frame's copies into the
-  graph's static inputs) and `replay` (graph.replay()), and `read`
-  (Outputs.read). Each phase call keeps its host issue time, except under
+  graph's static inputs) and `replay` (graph.replay()), `read`
+  (Outputs.read), and the swap exchange's host half
+  (swapping.SwapExchange.after_frame): `swap_wait` (the wait for a frame's
+  copies to land), `swap_scatter` (the evicted blocks into the host
+  store), `swap_gather` (the needed blocks gathered and packed into a
+  slab) and `swap_upload` (the slab's copy to the device). Each phase
+  call keeps its host issue time, except under
   capture; an op-by-op run reads its laps from them (cold_start.py).
 
 While spans are off, `phase`, `step`, `start` and `host` only test a

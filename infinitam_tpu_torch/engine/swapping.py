@@ -35,6 +35,7 @@ import torch
 
 from infinitam_tpu_torch.config import Settings
 from infinitam_tpu_torch.engine import hash_volume as hv
+from infinitam_tpu_torch.engine import spans
 from infinitam_tpu_torch.engine.hash_volume import HashVolume, RenderStateVH
 from infinitam_tpu_torch.ops.hashing import compact_by_mask, scatter_drop
 
@@ -71,6 +72,12 @@ class GlobalCache:
         """reference ITMGlobalCache::SaveToFile."""
         extra = {} if self.stored_clr is None else {"clr": self.stored_clr, "wc": self.stored_wc}
         np.savez_compressed(path, sdf=self.stored_sdf, w=self.stored_w, has=self.has_stored, **extra)
+
+    def reset(self) -> None:
+        """An empty store, in place: only the flags are cleared, since the
+        planes are read only where a flag is set (a new store allocates and
+        fills 1.81 GB at the default table)."""
+        self.has_stored[:] = False
 
     @classmethod
     def load(cls, path: str) -> "GlobalCache":
@@ -404,6 +411,32 @@ def evict_quantum(settings: Settings) -> int:
     return min(64, settings.hashing.n_transfer_blocks)
 
 
+def eviction_backlog(vol: HashVolume, swap_states: torch.Tensor, visible_type: torch.Tensor) -> torch.Tensor:
+    """The entries an eviction may take and none has: resident, device
+    newest (state 2) and not visible, over all E (int32, on the device)."""
+    return ((swap_states == 2) & (vol.entry_ptr >= 0)
+            & (visible_type == hv.VT_NOT_VISIBLE)).sum(dtype=torch.int32)
+
+
+def list_backlog(swap_states: torch.Tensor, visible_ids: torch.Tensor) -> torch.Tensor:
+    """The visible entries still waiting for a needed list (state 1): after
+    a frame's list, those past its quantum (int32, on the device)."""
+    E = swap_states.shape[0]
+    st = swap_states[visible_ids.clamp(0, E - 1).long()]
+    return ((visible_ids >= 0) & (st == 1)).sum(dtype=torch.int32)
+
+
+def end_session(exchange: "SwapExchange", vol: HashVolume, swap_states: torch.Tensor, render_state: RenderStateVH,
+                cache: GlobalCache, settings: Settings):
+    """The end of a session (MainEngine.flush_swap: checkpoint save,
+    shutdown): the exchange drained (SwapExchange.flush), then one full-scan
+    eviction (the frame scans a rotating window) of at most
+    n_transfer_blocks. It reads back to the host. Returns (vol,
+    swap_states)."""
+    vol, swap_states = exchange.flush(vol, swap_states, cache)
+    return swap_out(vol, swap_states, render_state, cache, settings)
+
+
 class SwapExchange:
     """The pipelined host↔device swap exchange of the JAX package (a frame's
     needed list and evicted blocks are read by the host PIPE_DEPTH frames
@@ -427,7 +460,14 @@ class SwapExchange:
     keeps the device tensors until then (so their memory is not handed out
     again). A data slab goes up from a pinned ring too, rewritten only after
     its upload's event. `n_waits` counts the events that had not completed
-    when the host needed them. On the CPU (device="cpu") the copies are
+    when the host needed them; `frame_counts` holds what the last
+    after_frame did (the host halves of the frame PIPE_DEPTH back: blocks
+    evicted into the store, needed-list entries resolved, of them merged
+    with stored data; and the waits of the call). With spans on
+    (engine/spans.py), the host spans `swap_wait` (the wait for a landing),
+    `swap_scatter` (the store's scatter), `swap_gather` (the gather and the
+    slab's packing) and `swap_upload`. `reset()` empties it for a fresh map
+    and keeps the pinned rings. On the CPU (device="cpu") the copies are
     plain and the protocol the same."""
 
     _DQ = 64  # data-slab row quantum
@@ -445,6 +485,7 @@ class SwapExchange:
         self.n_merged = 0  # of them, with stored data merged
         self.n_evicted = 0  # blocks scattered into the store
         self.n_waits = 0  # events not complete when the host needed them
+        self.frame_counts = dict.fromkeys(("evicted", "listed", "merged", "waits"), 0)
         self._slot = self._up_slot = 0
         if self.device.type != "cuda":
             return
@@ -460,6 +501,22 @@ class SwapExchange:
         self._up = [torch.empty(((2 * q if with_color else q) + 1, s3), dtype=torch.int32, pin_memory=True)
                     for _ in range(slots)]
         self._up_done = [None] * slots
+
+    def reset(self) -> None:
+        """The exchange of a fresh map, in place: the copies in flight are
+        waited for and dropped, the counts zeroed; the pinned rings stay."""
+        if self.device.type == "cuda":
+            for _meta, _pack, (_host, event) in self._q:
+                event.synchronize()
+            for event in self._up_done:
+                if event is not None:
+                    event.synchronize()
+            self._up_done = [None] * len(self._up_done)
+        self._q = []
+        self._merge_flips = self._merge_slab = None
+        self.n_listed = self.n_merged = self.n_evicted = self.n_waits = 0
+        self.frame_counts = dict.fromkeys(self.frame_counts, 0)
+        self._slot = self._up_slot = 0
 
     def merge_args(self):
         """(merge_flips, merge_slab) for this frame's step_frame_swap (None
@@ -521,13 +578,18 @@ class SwapExchange:
         landing = self._download((in_meta, *out_pack))
         self._q.append((in_meta, out_pack, landing))
         self._merge_flips = self._merge_slab = None
+        waits0 = self.n_waits
+        self.frame_counts = dict.fromkeys(self.frame_counts, 0)
         if len(self._q) <= self.PIPE_DEPTH:
             return
         meta_dev, _pack, (host, event) = self._q.pop(0)
+        t = spans.start()
         self._wait(event)
+        spans.host("swap_wait", t)
         in_meta_h, ev_meta, sdf, w, clr, wc = host
         n_ev = int(ev_meta[-1])
         if n_ev > 0:
+            t = spans.start()
             ids_np = ev_meta[:n_ev]
             cache.stored_sdf[ids_np] = sdf[:n_ev]
             cache.stored_w[ids_np] = w[:n_ev]
@@ -536,17 +598,25 @@ class SwapExchange:
                 cache.stored_wc[ids_np] = wc[:n_ev]
             cache.has_stored[ids_np] = True
             self.n_evicted += n_ev
+            spans.host("swap_scatter", t)
         n_in = int(in_meta_h[-1])
+        d_eff = 0
         if n_in > 0:
             ids_np = in_meta_h[:-1]
             # the flips are the meta's own device tensor: nothing goes up
             self._merge_flips = meta_dev
+            t = spans.start()
             bs, bw, has, bc, bwc = swap_in_gather(cache, ids_np, self.with_color)
             d_eff = int(has.sum())
             self.n_listed += n_in
-            if d_eff > 0:
-                self._merge_slab = self._upload(self._pack_data_slab(ids_np, bs, bw, has, bc, bwc, d_eff))
+            slab = self._pack_data_slab(ids_np, bs, bw, has, bc, bwc, d_eff) if d_eff > 0 else None
+            spans.host("swap_gather", t)
+            if slab is not None:
+                t = spans.start()
+                self._merge_slab = self._upload(slab)
+                spans.host("swap_upload", t)
                 self.n_merged += d_eff
+        self.frame_counts = {"evicted": n_ev, "listed": n_in, "merged": d_eff, "waits": self.n_waits - waits0}
 
     def _pack_data_slab(self, ids_np, bs, bw, has, bc, bwc, d_eff) -> np.ndarray:
         """The has-data rows as a [D(+D)+1, S³] int32 slab, D = d_eff rounded
